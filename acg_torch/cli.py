@@ -1,0 +1,202 @@
+"""``acg-torch`` command-line program for one device.
+
+The port of the single-device path of ``acg_tpu/cli.py`` (itself the
+counterpart of the reference program cuda/acg-cuda.c): the same
+positional arguments (A [b] [x0], Matrix Market files), the same flags
+for one device, the same pipeline and the same stats block:
+
+  read A -> build the device operator -> b from file / ones /
+  manufactured solution -> warmup solves -> solve -> stats ->
+  (optionally) write the solution.
+
+``--device`` picks where it runs (default ``cuda``; with no card that
+default is an error, never a silent CPU run).
+
+Run: ``python -m acg_torch.cli A.mtx --manufactured-solution -v``
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+
+from acg_torch import __version__
+from acg_torch.config import SolverOptions
+from acg_torch.errors import AcgError, Status
+from acg_torch.io.mtxfile import read_mtx, vector_to_mtx, write_mtx
+from acg_torch.sparse.csr import csr_from_mtx, manufactured_rhs
+from acg_torch.utils.stats import format_solver_stats
+
+
+def make_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="acg-torch",
+        description="Solve a linear system Ax=b using the conjugate "
+                    "gradient (CG) method on one GPU.")
+    p.add_argument("A", help="path to Matrix Market file for the matrix A")
+    p.add_argument("b", nargs="?", default=None,
+                   help="optional Matrix Market file for right-hand side b")
+    p.add_argument("x0", nargs="?", default=None,
+                   help="optional Matrix Market file for initial guess x0")
+    p.add_argument("--binary", action="store_true",
+                   help="read Matrix Market files in binary format")
+    p.add_argument("--seed", type=int, default=0, help="random seed [0]")
+    p.add_argument("--max-iterations", type=int, default=100, metavar="N",
+                   help="maximum number of iterations [100]")
+    p.add_argument("--diff-atol", type=float, default=0.0, metavar="TOL")
+    p.add_argument("--diff-rtol", type=float, default=0.0, metavar="TOL")
+    p.add_argument("--residual-atol", type=float, default=0.0, metavar="TOL")
+    p.add_argument("--residual-rtol", type=float, default=1e-9,
+                   metavar="TOL")
+    p.add_argument("--warmup", type=int, default=1, metavar="N",
+                   help="perform N warmup solves before the timed solve, so "
+                        "tsolve excludes kernel builds and first-touch "
+                        "costs [1]")
+    p.add_argument("--check-every", type=int, default=1, metavar="K",
+                   help="test convergence every K iterations; the host "
+                        "reads the device loop's flag only then [1]")
+    p.add_argument("--format", default="auto",
+                   choices=["auto", "dia", "stencil"],
+                   help="device operator layout [auto]; stencil errors "
+                        "unless the matrix is a verified constant-"
+                        "coefficient grid stencil")
+    p.add_argument("--dtype", default="float64",
+                   choices=["float32", "float64"],
+                   help="value precision [float64]")
+    p.add_argument("--mat-precision", default="auto",
+                   choices=["auto", "same", "bfloat16", "float32", "int8"],
+                   help="operator STORAGE precision (compute stays at "
+                        "--dtype): auto = narrow to bfloat16 only when "
+                        "exact; same = store at --dtype; int8 = force the "
+                        "exact two-value mask tier; bfloat16/float32 = opt "
+                        "into mixed-precision CG [auto]")
+    p.add_argument("--manufactured-solution", action="store_true",
+                   help="use a manufactured solution and right-hand side")
+    p.add_argument("--numfmt", default="%.17g", metavar="FMT",
+                   help="printf-style format for numeric output")
+    p.add_argument("--output-solution", metavar="FILE", default=None,
+                   help="write solution vector to Matrix Market FILE")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where to solve [cuda]; cpu runs the plain PyTorch "
+                        "versions of the kernels")
+    p.add_argument("-v", "--verbose", action="count", default=0)
+    p.add_argument("-q", "--quiet", action="store_true",
+                   help="suppress solution output")
+    p.add_argument("--version", action="version",
+                   version=f"acg-torch {__version__}")
+    return p
+
+
+def _log(args, msg):
+    if args.verbose:
+        print(msg, file=sys.stderr, flush=True)
+
+
+def main(argv=None) -> int:
+    from acg_torch.errors import run_main
+    return run_main(lambda: _main(argv))
+
+
+def _main(argv=None) -> int:
+    args = make_parser().parse_args(argv)
+    try:
+        args.numfmt % 1.0
+    except (TypeError, ValueError) as e:
+        print(f"error: --numfmt: {e}", file=sys.stderr)
+        return 2
+    from acg_torch.utils.backend import resolve_device
+    device = resolve_device(args.device)
+    vdt = np.dtype(args.dtype)
+
+    # 1. read A (ref cuda/acg-cuda.c:1296-1331)
+    _log(args, f"reading matrix {args.A!r}")
+    t0 = time.perf_counter()
+    m = read_mtx(args.A, binary=args.binary or None)
+    A = csr_from_mtx(m, val_dtype=vdt)
+    _log(args, f"matrix: {A.nrows} rows, {A.nnz} nonzeros "
+               f"({time.perf_counter() - t0:.3f} s)")
+
+    # 2. right-hand side: file / manufactured / ones
+    xstar = None
+    if args.manufactured_solution:
+        xstar, b = manufactured_rhs(A, seed=args.seed)
+        _log(args, "using manufactured solution")
+    elif args.b:
+        b = read_mtx(args.b, binary=args.binary or None).vals.astype(vdt)
+        if b.shape[0] != A.nrows:
+            raise AcgError(Status.ERR_INVALID_VALUE,
+                           f"right-hand side has {b.shape[0]} "
+                           f"entries, matrix has {A.nrows} rows")
+    else:
+        b = np.ones(A.nrows, dtype=vdt)
+    x0 = None
+    if args.x0:
+        x0 = read_mtx(args.x0, binary=args.binary or None).vals.astype(vdt)
+        if x0.shape[0] != A.nrows:
+            raise AcgError(Status.ERR_INVALID_VALUE,
+                           f"initial guess has {x0.shape[0]} entries, "
+                           f"matrix has {A.nrows} rows")
+    options = SolverOptions(
+        maxits=args.max_iterations, diffatol=args.diff_atol,
+        diffrtol=args.diff_rtol, residual_atol=args.residual_atol,
+        residual_rtol=args.residual_rtol, warmup=args.warmup,
+        check_every=args.check_every)
+    mat_dtype = {"auto": "auto", "same": None}.get(
+        args.mat_precision, args.mat_precision)
+
+    # 3. operator build + solve (ref cuda/acg-cuda.c:2209-2261)
+    from acg_torch.solvers.cg import build_device_operator, cg
+    t0 = time.perf_counter()
+    dev = build_device_operator(A, dtype=vdt, fmt=args.format,
+                                mat_dtype=mat_dtype, device=device)
+    _log(args, f"operator: {type(dev).__name__} on {device} "
+               f"({time.perf_counter() - t0:.3f} s)")
+    try:
+        for _ in range(args.warmup):
+            # a warmup that does not converge still warmed everything
+            try:
+                cg(dev, b, x0=x0, options=options, fmt=args.format)
+            except AcgError as e:
+                if getattr(e, "result", None) is None:
+                    raise
+        from acg_torch.ops import dia_kernels, stencil
+        dia_kernels.launches = stencil.launches = 0
+        res = cg(dev, b, x0=x0, options=options, fmt=args.format)
+        _log(args, f"kernel launches in the timed solve: dia_spmv "
+                   f"{dia_kernels.launches}, stencil_spmv "
+                   f"{stencil.launches}")
+    except AcgError as e:
+        res = getattr(e, "result", None)
+        print(f"error: {e}", file=sys.stderr)
+        if res is None:
+            return 1
+        # stats for the failed solve, as the reference prints them
+        print(format_solver_stats(res.stats, res, options,
+                                  nunknowns=A.nrows))
+        return 1
+
+    # 4. stats block (ref acgsolver_fwrite, acg/cg.c:665-828)
+    print(format_solver_stats(res.stats, res, options, nunknowns=A.nrows))
+
+    # 5. manufactured-solution error report (ref cuda/acg-cuda.c:2376-2385)
+    if xstar is not None:
+        err = float(np.linalg.norm(res.x - xstar))
+        err0 = float(np.linalg.norm(xstar if x0 is None else xstar - x0))
+        print(f"manufactured solution error: {args.numfmt % err} "
+              f"(initial: {args.numfmt % err0})")
+
+    # 6. solution output (ref cuda/acg-cuda.c:2388-2425)
+    if args.output_solution:
+        write_mtx(args.output_solution, vector_to_mtx(res.x),
+                  numfmt=args.numfmt)
+    elif not args.quiet:
+        for v in res.x:
+            sys.stdout.write((args.numfmt % v) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,159 @@
+"""DIA SpMV with an optional fused dot: the kernel wrapper and its plain
+version.
+
+:func:`dia_spmv` is the port of the two TPU DIA kernels on the classic-CG
+path, ``acg_tpu/ops/pallas_kernels.py`` ``dia_matvec_pallas_2d`` (the
+eager matvec) and ``dia_matvec_pallas_2d_padded`` (the SpMV with p'Ap
+fused in).  On a CUDA tensor it launches the hand-written kernel of
+``acg_torch/csrc/dia_spmv.cu``; on a CPU tensor it runs
+:func:`dia_matvec`, the plain PyTorch version of the same function.
+There is no fallback between the two: a CUDA call that cannot launch
+raises.
+
+Vectors keep the ``DeviceDia`` layout (length ``nrows_padded``, no halo):
+the kernel tests ``0 <= i + off < n`` per band instead of reading the
+TPU kernels' zero halo.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from acg_torch.errors import AcgError, Status
+
+# kernel launches so far (the wrapper adds one per launch, nowhere else)
+launches = 0
+
+THREADS = 256          # acg::kThreads in csrc/common.cuh
+MAX_BLOCKS = 4096      # fixed grid cap: the fused dot's partial count, and
+#                        so its bits, depend on n alone
+
+_BAND_CODES = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2,
+               torch.float64: 3}
+_VEC_CODES = {torch.float32: 2, torch.float64: 3}
+
+_lib = None
+
+
+def grid_blocks(n: int) -> int:
+    """Blocks of a grid-stride SpMV launch over ``n`` rows."""
+    return max(1, min(-(-n // THREADS), MAX_BLOCKS))
+
+
+def _shift(x: torch.Tensor, off: int) -> torch.Tensor:
+    """out[i] = x[i + off] with zero fill."""
+    if off == 0:
+        return x
+    out = torch.zeros_like(x)
+    if abs(off) >= x.shape[0]:
+        return out
+    if off > 0:
+        out[: x.shape[0] - off] = x[off:]
+    else:
+        out[-off:] = x[: x.shape[0] + off]
+    return out
+
+
+def dia_matvec(bands: torch.Tensor, offsets, x: torch.Tensor,
+               scales: torch.Tensor | None = None) -> torch.Tensor:
+    """y[i] = sum_d bands[d, i] * x[i + offsets[d]], the plain PyTorch
+    version (``acg_tpu.ops.dia.dia_matvec``): one shifted multiply-add
+    per band in ascending-offset order, bands upcast to the vector dtype.
+    With ``scales`` the bands are an int8 0/1 mask and the true band is
+    ``scales[d] * mask``."""
+    if scales is None and not bands.dtype.is_floating_point:
+        raise TypeError("bands are a compressed int mask; pass the scales "
+                        "from DeviceDia (or call DeviceDia.matvec)")
+    y = torch.zeros_like(x)
+    for d, off in enumerate(offsets):
+        b = bands[d].to(x.dtype)
+        if scales is not None:
+            b = b * scales[d].to(x.dtype)
+        y = y + b * _shift(x, int(off))
+    return y
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        from acg_torch import _build
+
+        lib = _build.load("dia_spmv")
+        lib.acg_dia_spmv.restype = ctypes.c_int
+        lib.acg_dia_spmv.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p]
+        _lib = lib
+    return _lib
+
+
+def _check(bands, scales, offsets, x):
+    def bad(msg):
+        raise AcgError(Status.ERR_INVALID_VALUE, f"dia_spmv: {msg}")
+
+    if x.dtype not in _VEC_CODES:
+        bad(f"vector dtype {x.dtype} (float32|float64)")
+    if bands.dtype not in _BAND_CODES:
+        bad(f"band dtype {bands.dtype} (bfloat16|int8|float32|float64)")
+    if x.dim() != 1 or bands.dim() != 2 or bands.shape[1] != x.shape[0]:
+        bad(f"shapes bands {tuple(bands.shape)}, x {tuple(x.shape)}: want "
+            "(D, n) and (n,)")
+    if x.shape[0] == 0:
+        bad("empty vector")
+    if offsets.dtype != torch.int64 or offsets.shape != (bands.shape[0],):
+        bad("offsets must be an int64 tensor of length D")
+    if (bands.dtype == torch.int8) != (scales is not None):
+        bad("an int8 band mask needs per-band scales, and only it takes them")
+    if scales is not None and (scales.dtype != x.dtype
+                               or scales.shape != (bands.shape[0],)):
+        bad("scales must be (D,) at the vector dtype")
+    for t in (bands, offsets, x) + ((scales,) if scales is not None else ()):
+        if t.device != x.device:
+            bad("all operands must be on the vector's device")
+        if not t.is_contiguous():
+            bad("operands must be contiguous")
+
+
+def dia_spmv(bands: torch.Tensor, scales: torch.Tensor | None,
+             offsets: torch.Tensor, x: torch.Tensor, with_dot: bool = False):
+    """y = DIA(bands, offsets) @ x, plus the scalar <x, y> when
+    ``with_dot`` (for CG's t = A p that is p'Ap).
+
+    ``bands``: (D, n) bf16, int8 0/1 mask (with ``scales``), f32 or f64;
+    ``scales``: (D,) at the vector dtype or None; ``offsets``: (D,) int64
+    tensor on the vector's device, ascending; ``x``: (n,) f32 or f64.
+    Returns ``y`` or ``(y, dot)`` with ``dot`` a 0-d tensor.  CUDA
+    tensors launch the kernel; CPU tensors take :func:`dia_matvec`."""
+    global launches
+    if x.device.type == "cpu":
+        y = dia_matvec(bands, offsets.tolist(), x, scales)
+        return (y, torch.dot(x, y)) if with_dot else y
+    if x.device.type != "cuda":
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"dia_spmv: no kernel for device {x.device}")
+    _check(bands, scales, offsets, x)
+    lib = _load()
+    n = x.shape[0]
+    nblocks = grid_blocks(n)
+    y = torch.empty_like(x)
+    partials = dot = None
+    if with_dot:
+        partials = torch.empty(nblocks, dtype=x.dtype, device=x.device)
+        dot = torch.empty((), dtype=x.dtype, device=x.device)
+    rc = lib.acg_dia_spmv(
+        bands.data_ptr(), _BAND_CODES[bands.dtype],
+        scales.data_ptr() if scales is not None else None,
+        offsets.data_ptr(), bands.shape[0], x.data_ptr(), y.data_ptr(),
+        _VEC_CODES[x.dtype], n,
+        partials.data_ptr() if with_dot else None, nblocks,
+        dot.data_ptr() if with_dot else None,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"dia_spmv: kernel launch failed (CUDA error {rc})")
+    launches += 1
+    return (y, dot) if with_dot else y

@@ -1,0 +1,405 @@
+"""Matrix-free constant-coefficient stencil operator.
+
+The port of ``acg_tpu/ops/stencil.py``.  A stored matrix that is EXACTLY
+a constant-coefficient nearest-neighbour stencil on a regular grid with
+Dirichlet truncation (the Poisson family) needs no band storage: its
+action is regenerated from (grid, arm offsets, arm digits, coefficients).
+
+- **Recognition** (:func:`recognize_stencil`): per-diagonal coefficient
+  uniformity, grid hypotheses from the offsets, a unique balanced-digit
+  decomposition of every offset, and an exact match of every band's zero
+  pattern against the predicted boundary mask.  Only a verified match
+  engages the tier.
+- **:class:`DeviceStencil`**: the device operator, holding no tensors.
+- **:func:`stencil_spmv`**: the kernel wrapper (``csrc/stencil_spmv.cu``
+  on a CUDA tensor, the plain grid-shift :func:`stencil_matvec` on a CPU
+  tensor), with an optional fused <x, y>.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import itertools
+
+import numpy as np
+import torch
+
+from acg_torch.errors import AcgError, Status
+from acg_torch.ops.dia_kernels import grid_blocks
+
+# a "stencil" with more arms than the densest supported family (27-pt box)
+# is not one
+_MAX_ARMS = 32
+
+# kernel launches so far (the wrapper adds one per launch, nowhere else)
+launches = 0
+
+_VEC_CODES = {torch.float32: 2, torch.float64: 3}
+
+
+# ---------------------------------------------------------------------------
+# recognition
+
+
+@dataclasses.dataclass(frozen=True)
+class StencilSpec:
+    """A verified constant-coefficient stencil: ``grid`` (row-major, last
+    axis fastest), sorted flat diagonal ``offsets``, per-offset per-axis
+    ``digits`` in {-1, 0, 1} (``sum(digits * strides) == offset``), and
+    the per-arm ``coeffs`` (python floats, exact images of the stored
+    band values at the recognition dtype)."""
+
+    grid: tuple
+    offsets: tuple
+    digits: tuple
+    coeffs: tuple
+    nnz: int
+
+    @property
+    def nrows(self) -> int:
+        n = 1
+        for d in self.grid:
+            n *= int(d)
+        return n
+
+    def spec_hash(self) -> str:
+        """Structure hash (grid + arms + coefficient bytes at f64)."""
+        h = hashlib.sha256()
+        h.update(repr((self.grid, self.offsets, self.digits)).encode())
+        h.update(np.asarray(self.coeffs, dtype=np.float64).tobytes())
+        return h.hexdigest()[:16]
+
+
+def _grid_hypotheses(n: int, offsets: tuple) -> list:
+    """Candidate grid shapes implied by the positive diagonal offsets:
+    the inner stride must be 1, outer strides are positive offsets
+    dividing n.  Wrong hypotheses are harmless — the exact pattern
+    verification rejects them."""
+    pos = [int(o) for o in offsets if o > 0]
+    hyps: list = []
+    if not pos:
+        return [(n,)]               # pure-diagonal operator: 1-D grid
+    if pos[0] != 1:
+        return []
+    hyps.append((n,))
+    for a in pos:
+        if a > 1 and n % a == 0:
+            hyps.append((n // a, a))
+            for b in pos:
+                if b > a and b % a == 0 and n % b == 0:
+                    hyps.append((n // b, b // a, a))
+    return hyps
+
+
+def _decompose_offsets(offsets: tuple, grid: tuple):
+    """Per-offset balanced digits in {-1, 0, 1}^k with
+    ``dot(digits, strides) == offset`` — or None when any offset has no
+    (or no unique) decomposition."""
+    k = len(grid)
+    strides = [1] * k
+    for i in range(k - 2, -1, -1):
+        strides[i] = strides[i + 1] * int(grid[i + 1])
+    out = []
+    for off in offsets:
+        sols = [g for g in itertools.product((-1, 0, 1), repeat=k)
+                if sum(gi * si for gi, si in zip(g, strides)) == off]
+        if len(sols) != 1:
+            return None
+        out.append(sols[0])
+    return tuple(out)
+
+
+def _verify_pattern(bands: np.ndarray, n: int, grid: tuple,
+                    digits: tuple, chunk: int = 1 << 20) -> bool:
+    """Every band's zero pattern must EXACTLY equal the predicted
+    Dirichlet boundary mask of its arm (chunked O(D·n) host sweep)."""
+    nrp = bands.shape[1]
+    for s in range(0, nrp, chunk):
+        e = np.arange(s, min(s + chunk, nrp), dtype=np.int64)
+        inb = e < n
+        coords = np.unravel_index(np.minimum(e, max(n - 1, 0)), grid)
+        for d, dg in enumerate(digits):
+            ok = inb.copy()
+            for ax, g in enumerate(dg):
+                if g:
+                    nc = coords[ax] + g
+                    ok &= (nc >= 0) & (nc < grid[ax])
+            if not np.array_equal(bands[d, s: s + len(e)] != 0, ok):
+                return False
+    return True
+
+
+def recognize_stencil(A, dtype=None, offsets=None):
+    """(StencilSpec, "") when ``A`` (a host CsrMatrix or DiaMatrix) is
+    EXACTLY a constant-coefficient nearest-neighbour stencil on a regular
+    grid, else (None, reason).  Coefficients are read from the bands cast
+    to ``dtype``, the vector dtype of the solve."""
+    from acg_torch.ops.dia import DiaMatrix, two_value_scales
+    from acg_torch.sparse.csr import CsrMatrix
+
+    if isinstance(A, DiaMatrix):
+        D = A
+    elif isinstance(A, CsrMatrix):
+        if A.nrows != A.ncols:
+            return None, "matrix is not square"
+        if A.nrows == 0 or A.nnz == 0:
+            return None, "empty matrix"
+        # the arm bound BEFORE materializing bands: an unstructured matrix
+        # has O(nnz) distinct diagonals and its band array would be huge
+        ndiags = (len(offsets) if offsets is not None else
+                  len(np.unique(A.colidx.astype(np.int64) - A._rowids())))
+        if ndiags > _MAX_ARMS:
+            return None, (f"{ndiags} diagonals exceed the "
+                          f"{_MAX_ARMS}-arm stencil family bound")
+        D = DiaMatrix.from_csr(A)
+    else:
+        return None, f"unsupported operator type {type(A).__name__}"
+    if D.nrows != D.ncols:
+        return None, "matrix is not square"
+    if len(D.offsets) > _MAX_ARMS:
+        return None, (f"{len(D.offsets)} diagonals exceed the "
+                      f"{_MAX_ARMS}-arm stencil family bound")
+    vdt = np.dtype(dtype if dtype is not None else D.bands.dtype)
+    cast = np.asarray(D.bands, dtype=vdt)
+    scales = two_value_scales(cast)
+    if scales is None:
+        return None, ("coefficients are not uniform per diagonal "
+                      "(variable-coefficient operator)")
+    n = D.nrows
+    hyps = _grid_hypotheses(n, D.offsets)
+    if not hyps:
+        return None, ("diagonal offsets do not include the unit stride "
+                      "(not a nearest-neighbour grid stencil)")
+    for grid in hyps:
+        digits = _decompose_offsets(D.offsets, grid)
+        if digits is None:
+            continue
+        if _verify_pattern(cast, n, grid, digits):
+            coeffs = tuple(float(s) for s in scales)
+            return (StencilSpec(grid=tuple(int(d) for d in grid),
+                                offsets=tuple(int(o) for o in D.offsets),
+                                digits=digits, coeffs=coeffs,
+                                nnz=int(D.nnz)), "")
+    return None, ("no grid hypothesis reproduces the boundary zero "
+                  "pattern of the stored bands")
+
+
+# ---------------------------------------------------------------------------
+# the plain version: grid shifts
+
+
+def _grid_shift(t: torch.Tensor, axis: int, g: int) -> torch.Tensor:
+    """out[..., j, ...] = t[..., j+g, ...] where in bounds, else 0."""
+    d = t.shape[axis]
+    out = torch.zeros_like(t)
+    if g > 0:
+        out.narrow(axis, 0, d - 1).copy_(t.narrow(axis, 1, d - 1))
+    else:
+        out.narrow(axis, 1, d - 1).copy_(t.narrow(axis, 0, d - 1))
+    return out
+
+
+def stencil_matvec(x: torch.Tensor, grid: tuple, digits: tuple,
+                   coeffs: tuple) -> torch.Tensor:
+    """y = stencil @ x through grid shifts, the plain PyTorch version
+    (``acg_tpu.ops.stencil.stencil_matvec``): the boundary truncation IS
+    the zero fill of each axis shift.  ``x`` is ``(npad,)`` with ``npad
+    >= prod(grid)``; entries past the grid come back exactly 0.  Arms are
+    applied in sorted flat-offset order."""
+    n = 1
+    for d in grid:
+        n *= int(d)
+    npad = x.shape[-1]
+    xg = x[:n].reshape(tuple(grid))
+    y = torch.zeros_like(xg)
+    for dg, c in zip(digits, coeffs):
+        t = xg
+        for ax, g in enumerate(dg):
+            if g:
+                t = _grid_shift(t, ax, g)
+        y = y + torch.tensor(c, dtype=x.dtype) * t
+    y = y.reshape(n)
+    if npad != n:
+        y = torch.cat([y, torch.zeros(npad - n, dtype=x.dtype,
+                                      device=x.device)])
+    return y
+
+
+# ---------------------------------------------------------------------------
+# the kernel wrapper
+
+
+class _CStencil(ctypes.Structure):
+    """The ``StencilArgs`` struct of csrc/stencil_spmv.cu."""
+
+    _fields_ = [("narms", ctypes.c_int32),
+                ("dims", ctypes.c_int32 * 3),
+                ("offsets", ctypes.c_int32 * _MAX_ARMS),
+                ("digits", (ctypes.c_int32 * 3) * _MAX_ARMS),
+                ("coeffs", ctypes.c_double * _MAX_ARMS)]
+
+
+@functools.lru_cache(maxsize=64)
+def _c_spec(spec: StencilSpec) -> _CStencil:
+    """The spec as the kernel's struct, the grid padded with leading unit
+    axes to 3-D (digits padded with leading zeros)."""
+    k = len(spec.grid)
+    a = _CStencil()
+    a.narms = len(spec.offsets)
+    lead = 3 - k
+    for ax, d in enumerate((1,) * lead + tuple(spec.grid)):
+        a.dims[ax] = int(d)
+    for i, (off, dg, c) in enumerate(zip(spec.offsets, spec.digits,
+                                         spec.coeffs)):
+        a.offsets[i] = int(off)
+        for ax, g in enumerate((0,) * lead + tuple(dg)):
+            a.digits[i][ax] = int(g)
+        a.coeffs[i] = float(c)
+    return a
+
+
+_lib = None
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        from acg_torch import _build
+
+        lib = _build.load("stencil_spmv")
+        lib.acg_stencil_spmv.restype = ctypes.c_int
+        lib.acg_stencil_spmv.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p]
+        _lib = lib
+    return _lib
+
+
+def stencil_spmv(spec: StencilSpec, x: torch.Tensor, with_dot: bool = False):
+    """y = stencil @ x, plus the scalar <x, y> when ``with_dot``.
+
+    ``x``: (npad,) f32 or f64 with ``npad >= prod(spec.grid)``; entries
+    past the grid come back exactly 0.  Returns ``y`` or ``(y, dot)`` with
+    ``dot`` a 0-d tensor.  CUDA tensors launch the kernel; CPU tensors
+    take :func:`stencil_matvec`."""
+    global launches
+    if x.device.type == "cpu":
+        y = stencil_matvec(x, spec.grid, spec.digits, spec.coeffs)
+        return (y, torch.dot(x, y)) if with_dot else y
+    if x.device.type != "cuda":
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"stencil_spmv: no kernel for device {x.device}")
+    n, npad = spec.nrows, x.shape[-1]
+    if x.dtype not in _VEC_CODES:
+        raise AcgError(Status.ERR_INVALID_VALUE,
+                       f"stencil_spmv: vector dtype {x.dtype} "
+                       "(float32|float64)")
+    if x.dim() != 1 or not x.is_contiguous() or not 0 < n <= npad:
+        raise AcgError(Status.ERR_INVALID_VALUE,
+                       f"stencil_spmv: x must be a contiguous (npad,) "
+                       f"vector with npad >= {n}, got {tuple(x.shape)}")
+    if npad >= 2**31 or len(spec.grid) > 3 or len(spec.offsets) > _MAX_ARMS:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       "stencil_spmv: the kernel takes npad < 2^31, grids "
+                       f"of at most 3 axes and {_MAX_ARMS} arms")
+    lib = _load()
+    nblocks = grid_blocks(npad)
+    y = torch.empty_like(x)
+    partials = dot = None
+    if with_dot:
+        partials = torch.empty(nblocks, dtype=x.dtype, device=x.device)
+        dot = torch.empty((), dtype=x.dtype, device=x.device)
+    rc = lib.acg_stencil_spmv(
+        ctypes.addressof(_c_spec(spec)), x.data_ptr(), y.data_ptr(),
+        _VEC_CODES[x.dtype], npad, n,
+        partials.data_ptr() if with_dot else None, nblocks,
+        dot.data_ptr() if with_dot else None,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"stencil_spmv: kernel launch failed (CUDA error {rc})")
+    launches += 1
+    return (y, dot) if with_dot else y
+
+
+# ---------------------------------------------------------------------------
+# the device operator
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceStencil:
+    """Matrix-free device operator: the operator IS its spec, so nothing
+    is uploaded and ``operator_stream_bytes() == 0``.  ``device`` is where
+    its vectors live."""
+
+    spec: StencilSpec
+    nrows: int
+    ncols: int
+    nnz: int
+    vec_dtype: str
+    device: torch.device
+
+    @classmethod
+    def from_spec(cls, spec: StencilSpec, dtype=None,
+                  device=None) -> "DeviceStencil":
+        from acg_torch.utils.backend import resolve_device
+
+        vdt = np.dtype(dtype if dtype is not None else np.float64)
+        return cls(spec=spec, nrows=spec.nrows, ncols=spec.nrows,
+                   nnz=spec.nnz, vec_dtype=vdt.name,
+                   device=resolve_device(device))
+
+    @classmethod
+    def from_matrix(cls, A, dtype=None, device=None) -> "DeviceStencil":
+        """Recognize-or-raise: the forced fmt="stencil" entry."""
+        vdt = np.dtype(dtype) if dtype is not None else None
+        spec, why = recognize_stencil(A, dtype=vdt)
+        if spec is None:
+            raise AcgError(Status.ERR_NOT_SUPPORTED,
+                           "format 'stencil' forced but the matrix is "
+                           "not a recognized constant-coefficient "
+                           f"stencil: {why}")
+        return cls.from_spec(
+            spec, dtype=vdt if vdt is not None else _host_dtype(A),
+            device=device)
+
+    @property
+    def nrows_padded(self) -> int:
+        # the same row_align=8 padding as DiaMatrix.from_csr, so padded
+        # right-hand sides fit both tiers
+        return max(-(-self.nrows // 8) * 8, 8)
+
+    @property
+    def mat_itemsize(self) -> int:
+        return 0
+
+    def operator_stream_bytes(self) -> int:
+        return 0
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return stencil_spmv(self.spec, x)
+
+    def matvec_dot(self, x: torch.Tensor):
+        """(A x, <x, A x>) in one pass."""
+        return stencil_spmv(self.spec, x, with_dot=True)
+
+
+def _host_dtype(A) -> np.dtype:
+    vals = getattr(A, "vals", getattr(A, "bands", None))
+    return np.dtype(vals.dtype if vals is not None else np.float64)
+
+
+def try_device_stencil(A, dtype=None, device=None):
+    """(DeviceStencil, "") when ``A`` recognizes, else (None, reason) —
+    the fmt="auto" entry (never raises on a non-stencil)."""
+    vdt = np.dtype(dtype) if dtype is not None else None
+    spec, why = recognize_stencil(A, dtype=vdt)
+    if spec is None:
+        return None, why
+    return (DeviceStencil.from_spec(
+        spec, dtype=vdt if vdt is not None else _host_dtype(A),
+        device=device), "")

@@ -1,0 +1,224 @@
+"""Classic CG on one device.
+
+The port of the main path of ``acg_tpu/solvers/cg.py``: build the device
+operator (:func:`build_device_operator`), run the beta-first classic loop
+(:func:`acg_torch.solvers.loops.cg_while`) with the SpMV and p'Ap fused
+into one kernel pass, and assemble the result as ``_finish`` does there.
+On a CUDA device every operator application is a hand-written kernel
+(``ops/dia_kernels.py``, ``ops/stencil.py``); the BLAS-1 updates are
+ordinary torch ops, as they were XLA's in the JAX package.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from acg_torch.config import SolverOptions
+from acg_torch.errors import AcgError, Status
+from acg_torch.ops.blas1 import ddot, dnrm2
+from acg_torch.ops.dia import DeviceDia, DiaMatrix, dia_efficiency
+from acg_torch.ops.stencil import DeviceStencil, try_device_stencil
+from acg_torch.solvers.base import (SolveResult, SolveStats,
+                                    cg_flops_per_iter, path_names)
+from acg_torch.solvers.loops import (_BREAKDOWN, _CONVERGED, _FAULT,
+                                     cg_while)
+from acg_torch.sparse.csr import CsrMatrix
+from acg_torch.utils.backend import resolve_device
+
+_FORMATS = ("auto", "dia", "stencil", "ell", "sgell")
+
+
+def build_device_operator(A, dtype=None, fmt: str = "auto",
+                          mat_dtype="auto", device=None):
+    """Build the device operator (the upload half of solver init,
+    reference acg/cgcuda.c:138-328).
+
+    ``fmt="auto"`` takes the matrix-free stencil tier when ``A`` is a
+    verified constant-coefficient grid stencil, else DIA when the diagonal
+    fill is dense enough (``dia_efficiency >= 0.25``).  ``fmt="stencil"``
+    recognizes or raises; ``fmt="dia"`` forces stored bands.  A matrix
+    that would need the RCM, sgell or ELL tiers raises ERR_NOT_SUPPORTED:
+    those tiers are not ported yet.  ``mat_dtype`` sets the band storage
+    precision (:meth:`DeviceDia.from_dia`)."""
+    if isinstance(A, (DeviceDia, DeviceStencil)):
+        return A
+    if fmt not in _FORMATS:
+        raise AcgError(Status.ERR_INVALID_VALUE,
+                       f"unknown operator format {fmt!r} "
+                       "(auto|dia|ell|sgell|stencil)")
+    if fmt in ("ell", "sgell"):
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"format {fmt!r}: tier not yet ported")
+    if not isinstance(A, (DiaMatrix, CsrMatrix)):
+        raise AcgError(Status.ERR_INVALID_VALUE,
+                       f"unsupported operator type {type(A).__name__}")
+    dev = resolve_device(device)
+    host_vals = A.bands if isinstance(A, DiaMatrix) else A.vals
+    vdt = np.dtype(dtype) if dtype is not None else np.dtype(host_vals.dtype)
+    if fmt == "stencil":
+        return DeviceStencil.from_matrix(A, dtype=vdt, device=dev)
+    if fmt == "auto":
+        st, _why = try_device_stencil(A, dtype=vdt, device=dev)
+        if st is not None:
+            return st
+    if isinstance(A, CsrMatrix):
+        if fmt == "auto" and dia_efficiency(A) < 0.25:
+            raise AcgError(Status.ERR_NOT_SUPPORTED,
+                           "the matrix has too little diagonal structure "
+                           "for DIA; its RCM+DIA, sgell and ELL tiers: "
+                           "tier not yet ported")
+        A = DiaMatrix.from_csr(A)
+    return DeviceDia.from_dia(A, dtype=vdt, mat_dtype=mat_dtype, device=dev)
+
+
+def _prepare(A, b, x0, dtype, fmt: str, mat_dtype, device):
+    """(operator, b padded on its device, x0 padded on its device)."""
+    op = build_device_operator(A, dtype=dtype, fmt=fmt, mat_dtype=mat_dtype,
+                               device=device)
+    vdt = getattr(torch, op.vec_dtype)
+    nrp = op.nrows_padded
+
+    def to_dev(v):
+        if (isinstance(v, torch.Tensor) and v.shape == (nrp,)
+                and v.dtype == vdt and v.device == op.device):
+            return v
+        v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+        v = np.asarray(v)
+        if v.ndim != 1:
+            raise AcgError(Status.ERR_NOT_SUPPORTED,
+                           "multi-RHS (batched) solves are not ported yet")
+        if v.shape[0] not in (op.nrows, nrp):
+            raise AcgError(Status.ERR_INVALID_VALUE,
+                           f"vector has {v.shape[0]} entries, operator has "
+                           f"{op.nrows} rows")
+        out = torch.zeros(nrp, dtype=vdt)
+        out[: v.shape[0]] = torch.from_numpy(
+            np.ascontiguousarray(v, dtype=np.dtype(op.vec_dtype)))
+        return out.to(op.device)
+
+    b_pad = to_dev(b)
+    x0_pad = (torch.zeros(nrp, dtype=vdt, device=op.device) if x0 is None
+              else to_dev(x0))
+    return op, b_pad, x0_pad
+
+
+def _describe_path(op, fmt: str) -> tuple[str, str, str]:
+    """(operator_format, kernel, note) actually in effect."""
+    tier = "stencil" if isinstance(op, DeviceStencil) else "dia"
+    note = f"format forced: {fmt}" if fmt not in ("auto", "", None) else ""
+    return path_names(tier, op.device.type) + (note,)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _finish(op, x, k: int, rr, flag: int, rr0, options: SolverOptions,
+            tsolve: float, bnrm2, dxx=None, stats=None,
+            path=("", "", ""), hist=None) -> SolveResult:
+    """Assemble the SolveResult and raise the classified errors, as
+    ``acg_tpu.solvers.cg._finish`` does for one right-hand side."""
+    rnrm2 = float(np.sqrt(float(rr)))
+    r0nrm2 = float(np.sqrt(float(rr0)))
+    x_host = x[: op.nrows].cpu().numpy()
+    st = stats if stats is not None else SolveStats()
+    st.nsolves += 1
+    st.ntotaliterations += k
+    st.niterations = k
+    st.nflops += k * cg_flops_per_iter(op.nnz, op.nrows)
+    st.tsolve += tsolve
+    o = options
+    res = SolveResult(
+        x=x_host, converged=(flag == _CONVERGED), niterations=k,
+        bnrm2=float(bnrm2), r0nrm2=r0nrm2, rnrm2=rnrm2,
+        dxnrm2=float(np.sqrt(float(dxx))) if dxx is not None else float("inf"),
+        stats=st,
+        fpexcept=("none" if (np.isfinite(rnrm2)
+                             and np.all(np.isfinite(x_host)))
+                  else "non-finite values in solution or residual"),
+        operator_format=path[0], kernel=path[1], kernel_note=path[2],
+        residual_history=(hist[: k + 1].cpu().numpy().astype(np.float64)
+                          if hist is not None else None))
+    if flag == _FAULT:
+        res.status = Status.ERR_FAULT_DETECTED
+        res.fpexcept = (
+            f"non-finite residual reduction |r|^2 = {rnrm2!r} detected "
+            f"by the on-device guard at iteration {k}"
+            if not np.isfinite(rnrm2) else
+            f"non-finite reduction (p'Ap) detected by the on-device "
+            f"guard at iteration {k} (|r|^2 still finite)")
+        err = AcgError(Status.ERR_FAULT_DETECTED,
+                       f"solve aborted at iteration {k}: {res.fpexcept}")
+        err.result = res
+        raise err
+    if flag == _BREAKDOWN:
+        res.status = Status.ERR_NOT_CONVERGED_INDEFINITE_MATRIX
+        err = AcgError(Status.ERR_NOT_CONVERGED_INDEFINITE_MATRIX)
+        err.result = res
+        raise err
+    no_criteria = (o.diffatol == 0 and o.diffrtol == 0
+                   and o.residual_atol == 0 and o.residual_rtol == 0)
+    if flag != _CONVERGED and not no_criteria:
+        res.status = Status.ERR_NOT_CONVERGED
+        err = AcgError(Status.ERR_NOT_CONVERGED,
+                       f"CG did not converge in {o.maxits} iterations "
+                       f"(|r|/|r0| = {res.relative_residual:.3e})")
+        err.result = res
+        raise err
+    if no_criteria:
+        res.converged = True
+    if res.fpexcept != "none":
+        res.status = Status.ERR_NONFINITE
+    return res
+
+
+def cg(A, b, x0=None, options: SolverOptions = SolverOptions(),
+       dtype=None, fmt: str = "auto", mat_dtype="auto",
+       stats: SolveStats | None = None, device=None) -> SolveResult:
+    """Classic CG on one device (``acg_tpu.solvers.cg.cg`` for one
+    right-hand side).
+
+    ``A`` is a host CsrMatrix or DiaMatrix, or an operator already built
+    by :func:`build_device_operator` (then ``fmt`` only labels the path
+    report).  ``device`` defaults to ``cuda`` and raises when no card is
+    present; ``device="cpu"`` runs the plain PyTorch versions of the
+    kernels.  Raises ``AcgError`` with the partial result attached as
+    ``.result`` on breakdown or non-convergence, as the JAX solver does."""
+    o = options
+    if o.segment_iters or o.monitor_every:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       "segment_iters / monitor_every: not yet ported")
+    op, b_pad, x0_pad = _prepare(A, b, x0, dtype, fmt, mat_dtype, device)
+    vdt = b_pad.dtype
+
+    def scalar(v):
+        return torch.tensor(v, dtype=vdt, device=op.device)
+
+    stop2 = (scalar(o.residual_atol ** 2), scalar(o.residual_rtol ** 2))
+    track_diff = o.diffatol > 0 or o.diffrtol > 0
+    diffstop = o.diffatol ** 2              # diffrtol needs |x0|
+    if o.diffrtol > 0:
+        x0n = float(dnrm2(x0_pad))
+        diffstop = max(diffstop, (o.diffrtol * x0n) ** 2)
+    bnrm2 = float(dnrm2(b_pad))
+
+    def coupled(r, p, beta):
+        torch.addcmul(r, p, beta, out=p)        # p = r + beta p, in place
+        t, ptap = op.matvec_dot(p)
+        return p, t, ptap
+
+    _sync(op.device)
+    t0 = time.perf_counter()
+    x, k, rr, dxx, flag, rr0, hist = cg_while(
+        op.matvec, ddot, b_pad, x0_pad, stop2, diffstop,
+        maxits=o.maxits, track_diff=track_diff, check_every=o.check_every,
+        coupled_step=coupled, guard=o.guard_nonfinite)
+    _sync(op.device)
+    tsolve = time.perf_counter() - t0
+    return _finish(op, x, k, rr, flag, rr0, o, tsolve, bnrm2,
+                   dxx=dxx if track_diff else None, stats=stats,
+                   path=_describe_path(op, fmt), hist=hist)
