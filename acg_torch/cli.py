@@ -9,8 +9,12 @@ for one device, the same pipeline and the same stats block:
   manufactured solution -> warmup solves -> solve -> stats ->
   (optionally) write the solution.
 
-``--device`` picks where it runs (default ``cuda``; with no card that
-default is an error, never a silent CPU run).
+``--solver`` takes the JAX program's choices; ``acg`` (classic CG) and
+``acg-pipelined`` (pipelined CG), with their aliases ``acg-device`` and
+``acg-device-pipelined``, are ported, and every other choice exits 1
+with a "not yet ported" error.  ``--device`` picks where it runs
+(default ``cuda``; with no card that default is an error, never a silent
+CPU run).
 
 Run: ``python -m acg_torch.cli A.mtx --manufactured-solution -v``
 """
@@ -29,6 +33,14 @@ from acg_torch.errors import AcgError, Status
 from acg_torch.io.mtxfile import read_mtx, vector_to_mtx, write_mtx
 from acg_torch.sparse.csr import csr_from_mtx, manufactured_rhs
 from acg_torch.utils.stats import format_solver_stats
+
+
+# the JAX program's --solver choices (acg_tpu/cli.py), and those ported
+_SOLVERS = ("acg", "acg-pipelined", "acg-sstep", "cg-sstep", "acg-device",
+            "acg-device-pipelined", "acg-pipelined-deep",
+            "cg-pipelined-deep", "host", "petsc", "petsc-pipelined")
+_PORTED = {"acg": False, "acg-device": False, "acg-pipelined": True,
+           "acg-device-pipelined": True}        # solver: pipelined?
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -55,9 +67,20 @@ def make_parser() -> argparse.ArgumentParser:
                    help="perform N warmup solves before the timed solve, so "
                         "tsolve excludes kernel builds and first-touch "
                         "costs [1]")
+    p.add_argument("--solver", default="acg", choices=_SOLVERS,
+                   help="solver variant [acg]; acg-device* are aliases of "
+                        "acg*; acg-pipelined runs pipelined CG (one fused "
+                        "reduction per iteration, the whole iteration in "
+                        "one kernel); the other choices are not yet "
+                        "ported")
     p.add_argument("--check-every", type=int, default=1, metavar="K",
                    help="test convergence every K iterations; the host "
                         "reads the device loop's flag only then [1]")
+    p.add_argument("--residual-replacement", type=int, default=0,
+                   metavar="R",
+                   help="pipelined CG: recompute r/w/s/z from their "
+                        "definitions every R iterations, correcting "
+                        "recurrence drift at tight tolerances (0 = off)")
     p.add_argument("--format", default="auto",
                    choices=["auto", "dia", "stencil"],
                    help="device operator layout [auto]; stencil errors "
@@ -107,6 +130,14 @@ def _main(argv=None) -> int:
     except (TypeError, ValueError) as e:
         print(f"error: --numfmt: {e}", file=sys.stderr)
         return 2
+    if args.solver not in _PORTED:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"--solver {args.solver}: not yet ported")
+    pipelined = _PORTED[args.solver]
+    if args.residual_replacement and not pipelined:
+        print("warning: --residual-replacement applies to pipelined "
+              "solvers only (--solver acg-pipelined); ignored",
+              file=sys.stderr)
     from acg_torch.utils.backend import resolve_device
     device = resolve_device(args.device)
     vdt = np.dtype(args.dtype)
@@ -143,12 +174,14 @@ def _main(argv=None) -> int:
         maxits=args.max_iterations, diffatol=args.diff_atol,
         diffrtol=args.diff_rtol, residual_atol=args.residual_atol,
         residual_rtol=args.residual_rtol, warmup=args.warmup,
-        check_every=args.check_every)
+        check_every=args.check_every,
+        replace_every=args.residual_replacement if pipelined else 0)
     mat_dtype = {"auto": "auto", "same": None}.get(
         args.mat_precision, args.mat_precision)
 
     # 3. operator build + solve (ref cuda/acg-cuda.c:2209-2261)
-    from acg_torch.solvers.cg import build_device_operator, cg
+    from acg_torch.solvers.cg import build_device_operator, cg, cg_pipelined
+    solve = cg_pipelined if pipelined else cg
     t0 = time.perf_counter()
     dev = build_device_operator(A, dtype=vdt, fmt=args.format,
                                 mat_dtype=mat_dtype, device=device)
@@ -158,16 +191,19 @@ def _main(argv=None) -> int:
         for _ in range(args.warmup):
             # a warmup that does not converge still warmed everything
             try:
-                cg(dev, b, x0=x0, options=options, fmt=args.format)
+                solve(dev, b, x0=x0, options=options, fmt=args.format)
             except AcgError as e:
                 if getattr(e, "result", None) is None:
                     raise
         from acg_torch.ops import dia_kernels, stencil
         dia_kernels.launches = stencil.launches = 0
-        res = cg(dev, b, x0=x0, options=options, fmt=args.format)
+        dia_kernels.pipe_launches = stencil.pipe_launches = 0
+        res = solve(dev, b, x0=x0, options=options, fmt=args.format)
         _log(args, f"kernel launches in the timed solve: dia_spmv "
                    f"{dia_kernels.launches}, stencil_spmv "
-                   f"{stencil.launches}")
+                   f"{stencil.launches}, cg_pipelined_iter "
+                   f"{dia_kernels.pipe_launches}, cg_pipelined_iter_stencil "
+                   f"{stencil.pipe_launches}")
     except AcgError as e:
         res = getattr(e, "result", None)
         print(f"error: {e}", file=sys.stderr)

@@ -20,11 +20,12 @@ class SolverOptions:
       ``|dx| < diffatol``, ``|dx| < diffrtol*|x0|``,
       ``|b-Ax| < residual_atol``, ``|b-Ax| < residual_rtol*|b-Ax0|``.
 
-    Fields the port's classic loop does not run yet (``replace_every``,
-    ``segment_iters``, ``monitor_every``, ``sstep``, ``pipeline_depth``,
-    ``halo_wire``) are kept and validated so options objects carry over
-    unchanged; :func:`acg_torch.solvers.cg.cg` refuses the ones that
-    would change what it computes.
+    Fields the port's loops do not run yet (``segment_iters``,
+    ``monitor_every``, ``sstep``, ``pipeline_depth``, ``halo_wire``) are
+    kept and validated so options objects carry over unchanged;
+    :func:`acg_torch.solvers.cg.cg` and ``cg_pipelined`` refuse the ones
+    that would change what they compute.  ``replace_every`` is run by
+    ``cg_pipelined`` (classic CG has no recurrence to replace).
     """
 
     maxits: int = 100

@@ -1,14 +1,17 @@
-// Shared pieces of the SpMV kernels: the launch geometry and the
-// deterministic two-pass reduction behind the fused dot.
+// Shared pieces of the SpMV kernels: the launch geometry, the
+// deterministic two-pass reduction behind the fused dots, and the row
+// bodies of the two operator tiers (DIA bands, matrix-free stencil),
+// which the SpMV kernels and the pipelined-iteration kernels share.
 //
-// The TPU kernels sum their per-tile <x, y> partials in grid order into
-// one scalar, because the TPU grid runs in order on one core.  On this
-// card blocks run in any order, so each block writes its own partial and
-// a second one-block kernel adds the partials in a fixed tree order.
+// The TPU kernels sum their per-tile partials in grid order into one
+// scalar, because the TPU grid runs in order on one core.  On this card
+// blocks run in any order, so each block writes its own partial and a
+// second one-block kernel adds the partials in a fixed tree order.
 // There are no float atomics: the same inputs give the same bits on
 // every run.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -16,6 +19,7 @@ namespace acg {
 
 constexpr int kThreads = 256;         // threads per SpMV block (a power of 2)
 constexpr int kReduceThreads = 1024;  // threads of the partial-sum block
+constexpr int kMaxArms = 32;          // stencil arms the kernels take
 
 // Sum v over the block in a fixed tree order; thread 0 writes the total
 // to out[blockIdx.x].  blockDim.x must equal N, a power of 2.
@@ -50,6 +54,165 @@ inline cudaError_t launch_sum_partials(const void* partials, int64_t m,
   sum_partials_kernel<V><<<1, kReduceThreads, 0, s>>>(
       static_cast<const V*>(partials), m, static_cast<V*>(out));
   return cudaGetLastError();
+}
+
+// The two-scalar form (the pipelined iteration's gamma and delta): both
+// sums in the same fixed tree; thread 0 writes out_a[blockIdx.x] and
+// out_b[blockIdx.x].
+template <typename V, int N>
+__device__ __forceinline__ void block_sum2_store(V a, V b,
+                                                 V* __restrict__ out_a,
+                                                 V* __restrict__ out_b) {
+  __shared__ V buf[2][N];
+  buf[0][threadIdx.x] = a;
+  buf[1][threadIdx.x] = b;
+  __syncthreads();
+#pragma unroll
+  for (int s = N / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s) {
+      buf[0][threadIdx.x] += buf[0][threadIdx.x + s];
+      buf[1][threadIdx.x] += buf[1][threadIdx.x + s];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    out_a[blockIdx.x] = buf[0][0];
+    out_b[blockIdx.x] = buf[1][0];
+  }
+}
+
+// One block: out[0] = sum of partials[0..m), out[1] = sum of
+// partials[m..2m), in one launch and one fixed order.
+template <typename V>
+__global__ void __launch_bounds__(kReduceThreads)
+sum_partials2_kernel(const V* __restrict__ partials, int64_t m,
+                     V* __restrict__ out) {
+  V a = V(0), b = V(0);
+  for (int64_t k = threadIdx.x; k < m; k += kReduceThreads) {
+    a += partials[k];
+    b += partials[m + k];
+  }
+  block_sum2_store<V, kReduceThreads>(a, b, out, out + 1);
+}
+
+template <typename V>
+inline cudaError_t launch_sum_partials2(const void* partials, int64_t m,
+                                        void* out, cudaStream_t s) {
+  sum_partials2_kernel<V><<<1, kReduceThreads, 0, s>>>(
+      static_cast<const V*>(partials), m, static_cast<V*>(out));
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// DIA rows: y[i] = sum_d band[d, i] * x[i + off[d]] over 0 <= i + off < n.
+// Bands stay in their narrow storage (bf16, or an int8 0/1 mask with
+// per-band scales) and are widened in registers; bands are summed in
+// ascending-offset order, as on the TPU.
+
+template <typename V>
+__device__ __forceinline__ V band_value(__nv_bfloat16 b) {
+  return static_cast<V>(__bfloat162float(b));
+}
+template <typename V>
+__device__ __forceinline__ V band_value(int8_t b) {
+  return static_cast<V>(b);
+}
+template <typename V>
+__device__ __forceinline__ V band_value(float b) {
+  return static_cast<V>(b);
+}
+template <typename V>
+__device__ __forceinline__ V band_value(double b) {
+  return static_cast<V>(b);
+}
+
+template <typename V, typename B, bool SCALED>
+__device__ __forceinline__ V dia_row(const B* __restrict__ bands,
+                                     const V* __restrict__ scales,
+                                     const int64_t* __restrict__ offsets,
+                                     int64_t ndiags, const V* __restrict__ x,
+                                     int64_t i, int64_t n) {
+  V acc = V(0);
+  for (int64_t d = 0; d < ndiags; ++d) {
+    const int64_t j = i + offsets[d];
+    if (j >= 0 && j < n) {
+      V b = band_value<V>(bands[d * n + i]);
+      if constexpr (SCALED) b *= scales[d];
+      acc += b * x[j];
+    }
+  }
+  return acc;
+}
+
+// ---------------------------------------------------------------------------
+// Stencil rows.  Mirrored field for field by the ctypes Structure in
+// acg_torch/ops/stencil.py (_CStencil); passed by value as a kernel
+// parameter, so it lives in the constant bank.
+
+struct StencilArgs {
+  int32_t narms;
+  int32_t dims[3];              // grid, slowest axis first
+  int32_t offsets[kMaxArms];    // flat offsets, ascending
+  int32_t digits[kMaxArms][3];  // per-arm shift along each axis, in {-1,0,1}
+  double coeffs[kMaxArms];
+};
+
+// Row i < n of the stencil action: each band value is made in registers
+// as coefficient x boundary test from the element's grid coordinates
+// (32-bit: the wrappers admit npad < 2^31); arms in ascending flat-offset
+// order, as on the TPU.
+template <typename V>
+__device__ __forceinline__ V stencil_row(const StencilArgs& a,
+                                         const V* __restrict__ x, int e) {
+  const int c2 = e % a.dims[2];
+  const int r = e / a.dims[2];
+  const int c1 = r % a.dims[1];
+  const int c0 = r / a.dims[1];
+  V acc = V(0);
+  for (int k = 0; k < a.narms; ++k) {
+    const int n0 = c0 + a.digits[k][0];
+    const int n1 = c1 + a.digits[k][1];
+    const int n2 = c2 + a.digits[k][2];
+    if (n0 >= 0 && n0 < a.dims[0] && n1 >= 0 && n1 < a.dims[1] && n2 >= 0 &&
+        n2 < a.dims[2])
+      acc += static_cast<V>(a.coeffs[k]) * x[e + a.offsets[k]];
+  }
+  return acc;
+}
+
+// ---------------------------------------------------------------------------
+// One element of the pipelined-CG iteration (Ghysels/Vanroose), given
+// q = (A w)[i]:
+//
+//   z' = q + beta z;  p' = r + beta p;  s' = w + beta s
+//   x' = x + alpha p';  r' = r - alpha s';  w' = w - alpha z'
+//
+// and this thread's share of gamma = <r', r'> and delta = <w', r'>.
+// z, p, s, x and r are read and written at index i only, so they are
+// updated in place; w is read at neighbour offsets by other threads'
+// q = A w, so w' goes to a separate buffer.
+template <typename V>
+__device__ __forceinline__ void pipe_update(
+    int64_t i, V q, V alpha, V beta, const V* __restrict__ w,
+    V* __restrict__ w_out, V* __restrict__ z, V* __restrict__ r,
+    V* __restrict__ p, V* __restrict__ s, V* __restrict__ x, V& gsum,
+    V& dsum) {
+  const V wi = w[i];
+  const V ri = r[i];
+  const V z2 = q + beta * z[i];
+  const V p2 = ri + beta * p[i];
+  const V s2 = wi + beta * s[i];
+  const V x2 = x[i] + alpha * p2;
+  const V r2 = ri - alpha * s2;
+  const V w2 = wi - alpha * z2;
+  z[i] = z2;
+  p[i] = p2;
+  s[i] = s2;
+  x[i] = x2;
+  r[i] = r2;
+  w_out[i] = w2;
+  gsum += r2 * r2;
+  dsum += w2 * r2;
 }
 
 }  // namespace acg

@@ -20,32 +20,14 @@
 // The TPU layout's permanent zero halo is dropped: it exists there to
 // keep the Mosaic loads aligned and the grid uniform, and here a bounds
 // test per band is cheaper than 2*H*128 zero rows on every vector.
-// Rows are summed in ascending-offset order, as on the TPU.  Staging x
-// tiles in shared memory (cp.async/TMA) is later work.
-#include <cuda_bf16.h>
-
+// Rows are summed in ascending-offset order, as on the TPU (the row body
+// acg::dia_row in common.cuh).  Staging x tiles in shared memory
+// (cp.async/TMA) is later work.
 #include "common.cuh"
 
 namespace {
 
 using acg::kThreads;
-
-template <typename V>
-__device__ __forceinline__ V band_value(__nv_bfloat16 b) {
-  return static_cast<V>(__bfloat162float(b));
-}
-template <typename V>
-__device__ __forceinline__ V band_value(int8_t b) {
-  return static_cast<V>(b);
-}
-template <typename V>
-__device__ __forceinline__ V band_value(float b) {
-  return static_cast<V>(b);
-}
-template <typename V>
-__device__ __forceinline__ V band_value(double b) {
-  return static_cast<V>(b);
-}
 
 template <typename V, typename B, bool SCALED, bool DOT>
 __global__ void __launch_bounds__(kThreads)
@@ -57,15 +39,8 @@ dia_spmv_kernel(const B* __restrict__ bands, const V* __restrict__ scales,
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
        i < n; i += stride) {
-    V acc = V(0);
-    for (int64_t d = 0; d < ndiags; ++d) {
-      const int64_t j = i + offsets[d];
-      if (j >= 0 && j < n) {
-        V b = band_value<V>(bands[d * n + i]);
-        if constexpr (SCALED) b *= scales[d];
-        acc += b * x[j];
-      }
-    }
+    const V acc =
+        acg::dia_row<V, B, SCALED>(bands, scales, offsets, ndiags, x, i, n);
     y[i] = acc;
     if constexpr (DOT) dot += x[i] * acc;
   }

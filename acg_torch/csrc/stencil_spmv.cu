@@ -21,51 +21,29 @@
 // shifted reads of x hit cache lines neighbouring threads also read.
 // Grids of fewer than 3 axes are padded with leading unit axes by the
 // wrapper, so the kernel always works in 3-D.  Arms are summed in
-// ascending flat-offset order, as on the TPU.  Shared-memory staging of
-// x planes is later work.
+// ascending flat-offset order, as on the TPU (the row body
+// acg::stencil_row and the StencilArgs struct are in common.cuh).
+// Shared-memory staging of x planes is later work.
 #include "common.cuh"
 
 namespace {
 
+using acg::kMaxArms;
 using acg::kThreads;
-
-constexpr int kMaxArms = 32;
-
-// Mirrored field for field by the ctypes Structure in
-// acg_torch/ops/stencil.py (_CStencil).
-struct StencilArgs {
-  int32_t narms;
-  int32_t dims[3];              // grid, slowest axis first
-  int32_t offsets[kMaxArms];    // flat offsets, ascending
-  int32_t digits[kMaxArms][3];  // per-arm shift along each axis, in {-1,0,1}
-  double coeffs[kMaxArms];
-};
+using acg::StencilArgs;
 
 template <typename V, bool DOT>
 __global__ void __launch_bounds__(kThreads)
-stencil_spmv_kernel(const StencilArgs a, const V* __restrict__ x,
+stencil_spmv_kernel(const __grid_constant__ StencilArgs a,
+                    const V* __restrict__ x,
                     V* __restrict__ y, V* __restrict__ partials,
                     int64_t npad, int64_t n) {
   V dot = V(0);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
        i < npad; i += stride) {
-    V acc = V(0);
-    if (i < n) {
-      const int e = static_cast<int>(i);
-      const int c2 = e % a.dims[2];
-      const int r = e / a.dims[2];
-      const int c1 = r % a.dims[1];
-      const int c0 = r / a.dims[1];
-      for (int k = 0; k < a.narms; ++k) {
-        const int n0 = c0 + a.digits[k][0];
-        const int n1 = c1 + a.digits[k][1];
-        const int n2 = c2 + a.digits[k][2];
-        if (n0 >= 0 && n0 < a.dims[0] && n1 >= 0 && n1 < a.dims[1] &&
-            n2 >= 0 && n2 < a.dims[2])
-          acc += static_cast<V>(a.coeffs[k]) * x[e + a.offsets[k]];
-      }
-    }
+    const V acc =
+        i < n ? acg::stencil_row<V>(a, x, static_cast<int>(i)) : V(0);
     y[i] = acc;
     if constexpr (DOT) dot += x[i] * acc;
   }

@@ -1,4 +1,5 @@
-"""Level-1 BLAS reductions (reference acg/vector.c:561-620).
+"""Level-1 BLAS reductions (reference acg/vector.c:561-620) and the
+pipelined-CG vector update.
 
 Ordinary torch ops: in the JAX package XLA fused these into the solver
 loop and nothing was hand-written for them.  ``nexclude`` drops that many
@@ -19,3 +20,21 @@ def ddot(x: torch.Tensor, y: torch.Tensor, nexclude: int = 0) -> torch.Tensor:
 def dnrm2(x: torch.Tensor, nexclude: int = 0) -> torch.Tensor:
     """|x|_2 as a 0-d tensor, excluding ``nexclude`` trailing entries."""
     return torch.sqrt(ddot(x, x, nexclude))
+
+
+def pipelined_update(q, w, z, r, p, s, x, alpha, beta):
+    """The pipelined-CG 6-vector update (Ghysels/Vanroose; ref
+    acg/cg-kernels-cuda.cu:187-269) given q = A w, as new tensors:
+
+        z' = q + beta z;  p' = r + beta p;  s' = w + beta s
+        x' = x + alpha p';  r' = r - alpha s';  w' = w - alpha z'
+
+    Returns ``(z', p', s', x', r', w')``, one ``addcmul`` each;
+    ``alpha``/``beta`` are 0-d tensors."""
+    z2 = torch.addcmul(q, beta, z)
+    p2 = torch.addcmul(r, beta, p)
+    s2 = torch.addcmul(w, beta, s)
+    x2 = torch.addcmul(x, alpha, p2)
+    r2 = torch.addcmul(r, alpha, s2, value=-1)
+    w2 = torch.addcmul(w, alpha, z2, value=-1)
+    return z2, p2, s2, x2, r2, w2

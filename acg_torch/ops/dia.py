@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from acg_torch.errors import AcgError, Status
-from acg_torch.ops.dia_kernels import dia_matvec, dia_spmv
+from acg_torch.ops.dia_kernels import cg_pipelined_iter, dia_matvec, dia_spmv
 from acg_torch.sparse.csr import CsrMatrix
 
 __all__ = ["DiaMatrix", "DeviceDia", "dia_efficiency", "dia_matvec",
@@ -237,6 +237,11 @@ class DeviceDia:
         """(A x, <x, A x>) in one pass."""
         return dia_spmv(self.bands, self.scales, self.offsets_t, x,
                         with_dot=True)
+
+    def pipelined_iter(self, w, z, r, p, s, x, alpha, beta, w_out=None):
+        """One pipelined-CG iteration (:func:`cg_pipelined_iter`)."""
+        return cg_pipelined_iter(self.bands, self.scales, self.offsets_t, w,
+                                 z, r, p, s, x, alpha, beta, w_out=w_out)
 
 
 def dia_efficiency(A: CsrMatrix, offsets=None) -> float:

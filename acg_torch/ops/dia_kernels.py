@@ -1,5 +1,4 @@
-"""DIA SpMV with an optional fused dot: the kernel wrapper and its plain
-version.
+"""The DIA kernel wrappers and their plain versions.
 
 :func:`dia_spmv` is the port of the two TPU DIA kernels on the classic-CG
 path, ``acg_tpu/ops/pallas_kernels.py`` ``dia_matvec_pallas_2d`` (the
@@ -7,8 +6,10 @@ eager matvec) and ``dia_matvec_pallas_2d_padded`` (the SpMV with p'Ap
 fused in).  On a CUDA tensor it launches the hand-written kernel of
 ``acg_torch/csrc/dia_spmv.cu``; on a CPU tensor it runs
 :func:`dia_matvec`, the plain PyTorch version of the same function.
-There is no fallback between the two: a CUDA call that cannot launch
-raises.
+:func:`cg_pipelined_iter` is the port of ``cg_pipelined_iter_pallas``
+(one whole pipelined-CG iteration, ``acg_torch/csrc/dia_pipe.cu``), with
+:func:`cg_pipelined_iter_plain` beside it.  There is no fallback between
+a kernel and its plain version: a CUDA call that cannot launch raises.
 
 Vectors keep the ``DeviceDia`` layout (length ``nrows_padded``, no halo):
 the kernel tests ``0 <= i + off < n`` per band instead of reading the
@@ -22,9 +23,12 @@ import ctypes
 import torch
 
 from acg_torch.errors import AcgError, Status
+from acg_torch.ops.blas1 import pipelined_update
 
-# kernel launches so far (the wrapper adds one per launch, nowhere else)
+# kernel launches so far (each wrapper adds one per launch, nowhere else):
+# dia_spmv, and cg_pipelined_iter
 launches = 0
+pipe_launches = 0
 
 THREADS = 256          # acg::kThreads in csrc/common.cuh
 MAX_BLOCKS = 4096      # fixed grid cap: the fused dot's partial count, and
@@ -35,6 +39,7 @@ _BAND_CODES = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2,
 _VEC_CODES = {torch.float32: 2, torch.float64: 3}
 
 _lib = None
+_pipe_lib = None
 
 
 def grid_blocks(n: int) -> int:
@@ -91,9 +96,9 @@ def _load():
     return _lib
 
 
-def _check(bands, scales, offsets, x):
+def _check(bands, scales, offsets, x, name="dia_spmv"):
     def bad(msg):
-        raise AcgError(Status.ERR_INVALID_VALUE, f"dia_spmv: {msg}")
+        raise AcgError(Status.ERR_INVALID_VALUE, f"{name}: {msg}")
 
     if x.dtype not in _VEC_CODES:
         bad(f"vector dtype {x.dtype} (float32|float64)")
@@ -157,3 +162,113 @@ def dia_spmv(bands: torch.Tensor, scales: torch.Tensor | None,
                        f"dia_spmv: kernel launch failed (CUDA error {rc})")
     launches += 1
     return (y, dot) if with_dot else y
+
+
+# ---------------------------------------------------------------------------
+# the pipelined iteration
+
+
+def cg_pipelined_iter_plain(bands, scales, offsets, w, z, r, p, s, x, alpha,
+                            beta):
+    """One pipelined-CG iteration over a DIA operator, the plain PyTorch
+    version: q = DIA @ w (:func:`dia_matvec`), the 6-vector update, then
+    gamma = <r', r'> and delta = <w', r'>.  ``offsets`` is a sequence of
+    ints.  Returns new tensors ``(z', p', s', x', r', w', gamma, delta)``
+    (the contract of ``acg_tpu``'s ``cg_pipelined_iter_pallas``)."""
+    q = dia_matvec(bands, offsets, w, scales)
+    z2, p2, s2, x2, r2, w2 = pipelined_update(q, w, z, r, p, s, x, alpha,
+                                              beta)
+    return z2, p2, s2, x2, r2, w2, torch.dot(r2, r2), torch.dot(w2, r2)
+
+
+def check_pipe_operands(name, w, z, r, p, s, x, alpha, beta, w_out):
+    """The argument checks shared by both pipelined-iteration wrappers:
+    six contiguous (n,) vectors (and ``w_out``) of one float dtype on one
+    device, in pairwise disjoint memory (the kernel updates z, p, s, x
+    and r in place and writes w' while other threads read w), and alpha,
+    beta one-element tensors of that dtype on that device."""
+    def bad(msg):
+        raise AcgError(Status.ERR_INVALID_VALUE, f"{name}: {msg}")
+
+    vecs = (w, z, r, p, s, x, w_out)
+    if w.dtype not in _VEC_CODES:
+        bad(f"vector dtype {w.dtype} (float32|float64)")
+    if w.dim() != 1 or w.shape[0] == 0:
+        bad(f"w must be a non-empty (n,) vector, got {tuple(w.shape)}")
+    for v in vecs:
+        if (v.dtype != w.dtype or v.shape != w.shape or v.device != w.device
+                or not v.is_contiguous()):
+            bad("the vectors must be contiguous (n,) tensors of one dtype "
+                "on one device")
+    for t in (alpha, beta):
+        if t.dtype != w.dtype or t.numel() != 1 or t.device != w.device:
+            bad("alpha and beta must be one-element tensors at the vector "
+                "dtype on the vectors' device")
+    spans = sorted((v.data_ptr(), v.data_ptr() + v.numel() * v.element_size())
+                   for v in vecs)
+    if any(a[1] > b[0] for a, b in zip(spans, spans[1:])):
+        bad("w_out and the six vectors must not share memory (w' cannot "
+            "overwrite w while q = A w still reads it)")
+
+
+def _load_pipe():
+    global _pipe_lib
+    if _pipe_lib is None:
+        from acg_torch import _build
+
+        lib = _build.load("dia_pipe")
+        lib.acg_dia_pipe.restype = ctypes.c_int
+        lib.acg_dia_pipe.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int64] + [ctypes.c_void_p] * 9
+            + [ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+               ctypes.c_void_p, ctypes.c_void_p])
+        _pipe_lib = lib
+    return _pipe_lib
+
+
+def cg_pipelined_iter(bands, scales, offsets, w, z, r, p, s, x, alpha, beta,
+                      w_out=None):
+    """One whole pipelined-CG iteration (``cg_pipelined_iter_pallas``):
+    q = DIA(bands, offsets) @ w, the 6-vector update and (gamma, delta)
+    in one pass.  Returns ``(z', p', s', x', r', w', gamma, delta)``,
+    gamma and delta 0-d tensors.
+
+    Operands as :func:`dia_spmv` (``offsets`` the int64 tensor); ``alpha``
+    and ``beta`` are 0-d tensors at the vector dtype, read by the kernel
+    from device memory.  On a CUDA tensor the kernel updates z, p, s, x
+    and r IN PLACE (the returned tensors are those) and writes w' into
+    ``w_out`` (allocated when None; it must not share memory with w or
+    the other vectors).  CPU tensors take :func:`cg_pipelined_iter_plain`,
+    which returns new tensors."""
+    global pipe_launches
+    if w.device.type == "cpu":
+        return cg_pipelined_iter_plain(bands, scales, offsets.tolist(), w, z,
+                                       r, p, s, x, alpha, beta)
+    if w.device.type != "cuda":
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"cg_pipelined_iter: no kernel for device {w.device}")
+    if w_out is None:
+        w_out = torch.empty_like(w)
+    check_pipe_operands("cg_pipelined_iter", w, z, r, p, s, x, alpha, beta,
+                        w_out)
+    _check(bands, scales, offsets, w, name="cg_pipelined_iter")
+    lib = _load_pipe()
+    n = w.shape[0]
+    nblocks = grid_blocks(n)
+    partials = torch.empty(2 * nblocks, dtype=w.dtype, device=w.device)
+    gd = torch.empty(2, dtype=w.dtype, device=w.device)
+    rc = lib.acg_dia_pipe(
+        bands.data_ptr(), _BAND_CODES[bands.dtype],
+        scales.data_ptr() if scales is not None else None,
+        offsets.data_ptr(), bands.shape[0], alpha.data_ptr(),
+        beta.data_ptr(), w.data_ptr(), w_out.data_ptr(), z.data_ptr(),
+        r.data_ptr(), p.data_ptr(), s.data_ptr(), x.data_ptr(),
+        _VEC_CODES[w.dtype], n, partials.data_ptr(), nblocks, gd.data_ptr(),
+        torch.cuda.current_stream(w.device).cuda_stream)
+    if rc != 0:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"cg_pipelined_iter: kernel launch failed (CUDA error "
+                       f"{rc})")
+    pipe_launches += 1
+    return z, p, s, x, r, w_out, gd[0], gd[1]

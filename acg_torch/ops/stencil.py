@@ -14,6 +14,9 @@ action is regenerated from (grid, arm offsets, arm digits, coefficients).
 - **:func:`stencil_spmv`**: the kernel wrapper (``csrc/stencil_spmv.cu``
   on a CUDA tensor, the plain grid-shift :func:`stencil_matvec` on a CPU
   tensor), with an optional fused <x, y>.
+- **:func:`cg_pipelined_iter_stencil`**: one whole pipelined-CG iteration
+  over the stencil (``csrc/stencil_pipe.cu`` on a CUDA tensor,
+  :func:`cg_pipelined_iter_stencil_plain` on a CPU tensor).
 """
 
 from __future__ import annotations
@@ -28,14 +31,17 @@ import numpy as np
 import torch
 
 from acg_torch.errors import AcgError, Status
-from acg_torch.ops.dia_kernels import grid_blocks
+from acg_torch.ops.blas1 import pipelined_update
+from acg_torch.ops.dia_kernels import check_pipe_operands, grid_blocks
 
 # a "stencil" with more arms than the densest supported family (27-pt box)
 # is not one
 _MAX_ARMS = 32
 
-# kernel launches so far (the wrapper adds one per launch, nowhere else)
+# kernel launches so far (each wrapper adds one per launch, nowhere else):
+# stencil_spmv, and cg_pipelined_iter_stencil
 launches = 0
+pipe_launches = 0
 
 _VEC_CODES = {torch.float32: 2, torch.float64: 3}
 
@@ -233,7 +239,7 @@ def stencil_matvec(x: torch.Tensor, grid: tuple, digits: tuple,
 
 
 class _CStencil(ctypes.Structure):
-    """The ``StencilArgs`` struct of csrc/stencil_spmv.cu."""
+    """The ``acg::StencilArgs`` struct of csrc/common.cuh."""
 
     _fields_ = [("narms", ctypes.c_int32),
                 ("dims", ctypes.c_int32 * 3),
@@ -262,6 +268,7 @@ def _c_spec(spec: StencilSpec) -> _CStencil:
 
 
 _lib = None
+_pipe_lib = None
 
 
 def _load():
@@ -279,6 +286,21 @@ def _load():
     return _lib
 
 
+def _check_spec(name: str, spec: StencilSpec, x: torch.Tensor) -> None:
+    n, npad = spec.nrows, x.shape[-1]
+    if x.dtype not in _VEC_CODES:
+        raise AcgError(Status.ERR_INVALID_VALUE,
+                       f"{name}: vector dtype {x.dtype} (float32|float64)")
+    if x.dim() != 1 or not x.is_contiguous() or not 0 < n <= npad:
+        raise AcgError(Status.ERR_INVALID_VALUE,
+                       f"{name}: x must be a contiguous (npad,) "
+                       f"vector with npad >= {n}, got {tuple(x.shape)}")
+    if npad >= 2**31 or len(spec.grid) > 3 or len(spec.offsets) > _MAX_ARMS:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"{name}: the kernel takes npad < 2^31, grids "
+                       f"of at most 3 axes and {_MAX_ARMS} arms")
+
+
 def stencil_spmv(spec: StencilSpec, x: torch.Tensor, with_dot: bool = False):
     """y = stencil @ x, plus the scalar <x, y> when ``with_dot``.
 
@@ -293,19 +315,8 @@ def stencil_spmv(spec: StencilSpec, x: torch.Tensor, with_dot: bool = False):
     if x.device.type != "cuda":
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        f"stencil_spmv: no kernel for device {x.device}")
+    _check_spec("stencil_spmv", spec, x)
     n, npad = spec.nrows, x.shape[-1]
-    if x.dtype not in _VEC_CODES:
-        raise AcgError(Status.ERR_INVALID_VALUE,
-                       f"stencil_spmv: vector dtype {x.dtype} "
-                       "(float32|float64)")
-    if x.dim() != 1 or not x.is_contiguous() or not 0 < n <= npad:
-        raise AcgError(Status.ERR_INVALID_VALUE,
-                       f"stencil_spmv: x must be a contiguous (npad,) "
-                       f"vector with npad >= {n}, got {tuple(x.shape)}")
-    if npad >= 2**31 or len(spec.grid) > 3 or len(spec.offsets) > _MAX_ARMS:
-        raise AcgError(Status.ERR_NOT_SUPPORTED,
-                       "stencil_spmv: the kernel takes npad < 2^31, grids "
-                       f"of at most 3 axes and {_MAX_ARMS} arms")
     lib = _load()
     nblocks = grid_blocks(npad)
     y = torch.empty_like(x)
@@ -324,6 +335,81 @@ def stencil_spmv(spec: StencilSpec, x: torch.Tensor, with_dot: bool = False):
                        f"stencil_spmv: kernel launch failed (CUDA error {rc})")
     launches += 1
     return (y, dot) if with_dot else y
+
+
+def cg_pipelined_iter_stencil_plain(spec: StencilSpec, w, z, r, p, s, x,
+                                    alpha, beta):
+    """One pipelined-CG iteration over the stencil, the plain PyTorch
+    version: q = stencil @ w (:func:`stencil_matvec`), the 6-vector
+    update, then gamma = <r', r'> and delta = <w', r'>.  Returns new
+    tensors ``(z', p', s', x', r', w', gamma, delta)`` (the contract of
+    ``acg_tpu``'s ``cg_pipelined_iter_stencil``)."""
+    q = stencil_matvec(w, spec.grid, spec.digits, spec.coeffs)
+    z2, p2, s2, x2, r2, w2 = pipelined_update(q, w, z, r, p, s, x, alpha,
+                                              beta)
+    return z2, p2, s2, x2, r2, w2, torch.dot(r2, r2), torch.dot(w2, r2)
+
+
+def _load_pipe():
+    global _pipe_lib
+    if _pipe_lib is None:
+        from acg_torch import _build
+
+        lib = _build.load("stencil_pipe")
+        lib.acg_stencil_pipe.restype = ctypes.c_int
+        lib.acg_stencil_pipe.argtypes = (
+            [ctypes.c_void_p] * 10
+            + [ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+               ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p])
+        _pipe_lib = lib
+    return _pipe_lib
+
+
+def cg_pipelined_iter_stencil(spec: StencilSpec, w, z, r, p, s, x, alpha,
+                              beta, w_out=None):
+    """One whole pipelined-CG iteration over the stencil
+    (``acg_tpu``'s ``cg_pipelined_iter_stencil``): q = stencil @ w, the
+    6-vector update and (gamma, delta) in one pass, with no band operand.
+    Returns ``(z', p', s', x', r', w', gamma, delta)``, gamma and delta
+    0-d tensors.
+
+    Vectors are (npad,) with ``npad >= prod(spec.grid)``, zero past the
+    grid (and so zero there on return); ``alpha``/``beta`` are 0-d
+    tensors at the vector dtype, read by the kernel from device memory.
+    On a CUDA tensor the kernel updates z, p, s, x and r IN PLACE and
+    writes w' into ``w_out`` (allocated when None; it must not share
+    memory with w or the other vectors).  CPU tensors take
+    :func:`cg_pipelined_iter_stencil_plain`, which returns new tensors."""
+    global pipe_launches
+    if w.device.type == "cpu":
+        return cg_pipelined_iter_stencil_plain(spec, w, z, r, p, s, x, alpha,
+                                               beta)
+    if w.device.type != "cuda":
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"cg_pipelined_iter_stencil: no kernel for device "
+                       f"{w.device}")
+    if w_out is None:
+        w_out = torch.empty_like(w)
+    check_pipe_operands("cg_pipelined_iter_stencil", w, z, r, p, s, x, alpha,
+                        beta, w_out)
+    _check_spec("cg_pipelined_iter_stencil", spec, w)
+    lib = _load_pipe()
+    npad = w.shape[0]
+    nblocks = grid_blocks(npad)
+    partials = torch.empty(2 * nblocks, dtype=w.dtype, device=w.device)
+    gd = torch.empty(2, dtype=w.dtype, device=w.device)
+    rc = lib.acg_stencil_pipe(
+        ctypes.addressof(_c_spec(spec)), alpha.data_ptr(), beta.data_ptr(),
+        w.data_ptr(), w_out.data_ptr(), z.data_ptr(), r.data_ptr(),
+        p.data_ptr(), s.data_ptr(), x.data_ptr(), _VEC_CODES[w.dtype], npad,
+        spec.nrows, partials.data_ptr(), nblocks, gd.data_ptr(),
+        torch.cuda.current_stream(w.device).cuda_stream)
+    if rc != 0:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"cg_pipelined_iter_stencil: kernel launch failed "
+                       f"(CUDA error {rc})")
+    pipe_launches += 1
+    return z, p, s, x, r, w_out, gd[0], gd[1]
 
 
 # ---------------------------------------------------------------------------
@@ -386,6 +472,11 @@ class DeviceStencil:
     def matvec_dot(self, x: torch.Tensor):
         """(A x, <x, A x>) in one pass."""
         return stencil_spmv(self.spec, x, with_dot=True)
+
+    def pipelined_iter(self, w, z, r, p, s, x, alpha, beta, w_out=None):
+        """One pipelined-CG iteration (:func:`cg_pipelined_iter_stencil`)."""
+        return cg_pipelined_iter_stencil(self.spec, w, z, r, p, s, x, alpha,
+                                         beta, w_out=w_out)
 
 
 def _host_dtype(A) -> np.dtype:

@@ -79,16 +79,44 @@ class SolveResult:
         return self.rnrm2 / self.r0nrm2 if self.r0nrm2 > 0 else 0.0
 
 
-def path_names(fmt: str, device_type: str) -> tuple[str, str]:
+def path_names(fmt: str, device_type: str,
+               body: str = "fused") -> tuple[str, str]:
     """The one place operator-format / kernel names are minted: the
-    in-loop kernel is the hand-written fused SpMV + p'Ap kernel of the
-    tier on a CUDA device, and the plain PyTorch version on the CPU."""
+    in-loop kernel of the tier on a CUDA device, and the plain PyTorch
+    versions on the CPU.  ``body`` names what runs the loop body on the
+    card: "fused" the SpMV + p'Ap kernel of classic CG
+    (``cuda-stencil-fused``), "pipe" the single-kernel pipelined
+    iteration (``cuda-stencil-pipe``, ``acg_tpu``'s pallas-stpipe2d /
+    pallas-pipe2d), "spmv" the plain SpMV kernel of an open-coded
+    pipelined body (``cuda-stencil-spmv``)."""
     if device_type != "cuda":
         return fmt, "torch-plain"
-    return fmt, f"cuda-{fmt}-fused"
+    return fmt, f"cuda-{fmt}-{body}"
 
 
-def cg_flops_per_iter(nnz: int, nrows: int) -> int:
-    """Flop model per classic CG iteration (ref acg/cgcuda.c:885): SpMV
-    2 flops/nnz, 2 dots and 3 axpys at 2 flops/row each."""
-    return 2 * nnz + 2 * (2 * nrows) + 3 * (2 * nrows)
+def kernel_disengagement_note(pipelined: bool, pipe_engaged: bool,
+                              replace_every: int, forced_fmt: str = "auto",
+                              stencil: bool = False) -> str:
+    """The one place disengagement reasons are worded: why the in-loop
+    kernel differs from the unconstrained auto choice, or "" (the port of
+    ``acg_tpu.solvers.base.kernel_disengagement_note`` for the
+    conditions the port has).  A pipelined solve takes the single-kernel
+    pipelined iteration unless ``replace_every`` disengages it (the
+    kernel has no replacement path)."""
+    notes = []
+    if forced_fmt not in ("auto", "", None):
+        notes.append(f"format forced: {forced_fmt}")
+    if pipelined and not pipe_engaged:
+        tier = "stencil" if stencil else "dia"
+        notes.append(f"{tier} pipe disengaged: replace_every={replace_every}")
+    return "; ".join(notes)
+
+
+def cg_flops_per_iter(nnz: int, nrows: int, pipelined: bool = False) -> int:
+    """Flop model per CG iteration (ref acg/cgcuda.c:885): SpMV 2
+    flops/nnz and 2 dots at 2 flops/row each, plus 3 axpys at 2 flops/row
+    (classic) or the fused 6-vector update at 12 flops/row (pipelined,
+    ref acg/cgcuda.c:1783)."""
+    if not pipelined:
+        return 2 * nnz + 2 * (2 * nrows) + 3 * (2 * nrows)
+    return 2 * nnz + 2 * (2 * nrows) + 12 * nrows

@@ -1,12 +1,15 @@
-"""Classic CG on one device.
+"""Classic and pipelined CG on one device.
 
-The port of the main path of ``acg_tpu/solvers/cg.py``: build the device
+The port of ``acg_tpu/solvers/cg.py`` for one device: build the device
 operator (:func:`build_device_operator`), run the beta-first classic loop
 (:func:`acg_torch.solvers.loops.cg_while`) with the SpMV and p'Ap fused
-into one kernel pass, and assemble the result as ``_finish`` does there.
-On a CUDA device every operator application is a hand-written kernel
-(``ops/dia_kernels.py``, ``ops/stencil.py``); the BLAS-1 updates are
-ordinary torch ops, as they were XLA's in the JAX package.
+into one kernel pass (:func:`cg`), or the pipelined loop
+(:func:`acg_torch.solvers.loops.cg_pipelined_while`) with the whole
+iteration in one kernel pass (:func:`cg_pipelined`), and assemble the
+result as ``_finish`` does there.  On a CUDA device every operator
+application is a hand-written kernel (``ops/dia_kernels.py``,
+``ops/stencil.py``); the BLAS-1 updates of the classic loop are ordinary
+torch ops, as they were XLA's in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,9 +25,10 @@ from acg_torch.ops.blas1 import ddot, dnrm2
 from acg_torch.ops.dia import DeviceDia, DiaMatrix, dia_efficiency
 from acg_torch.ops.stencil import DeviceStencil, try_device_stencil
 from acg_torch.solvers.base import (SolveResult, SolveStats,
-                                    cg_flops_per_iter, path_names)
+                                    cg_flops_per_iter,
+                                    kernel_disengagement_note, path_names)
 from acg_torch.solvers.loops import (_BREAKDOWN, _CONVERGED, _FAULT,
-                                     cg_while)
+                                     cg_pipelined_while, cg_while)
 from acg_torch.sparse.csr import CsrMatrix
 from acg_torch.utils.backend import resolve_device
 
@@ -105,11 +109,18 @@ def _prepare(A, b, x0, dtype, fmt: str, mat_dtype, device):
     return op, b_pad, x0_pad
 
 
-def _describe_path(op, fmt: str) -> tuple[str, str, str]:
-    """(operator_format, kernel, note) actually in effect."""
-    tier = "stencil" if isinstance(op, DeviceStencil) else "dia"
-    note = f"format forced: {fmt}" if fmt not in ("auto", "", None) else ""
-    return path_names(tier, op.device.type) + (note,)
+def _describe_path(op, fmt: str, pipelined: bool = False,
+                   replace_every: int = 0) -> tuple[str, str, str]:
+    """(operator_format, kernel, note) actually in effect.  A pipelined
+    solve runs the single-kernel iteration unless ``replace_every``
+    disengages it."""
+    stencil = isinstance(op, DeviceStencil)
+    engaged = replace_every == 0
+    body = "fused" if not pipelined else "pipe" if engaged else "spmv"
+    note = kernel_disengagement_note(pipelined, engaged, replace_every,
+                                     forced_fmt=fmt, stencil=stencil)
+    return path_names("stencil" if stencil else "dia", op.device.type,
+                      body) + (note,)
 
 
 def _sync(device: torch.device) -> None:
@@ -119,7 +130,8 @@ def _sync(device: torch.device) -> None:
 
 def _finish(op, x, k: int, rr, flag: int, rr0, options: SolverOptions,
             tsolve: float, bnrm2, dxx=None, stats=None,
-            path=("", "", ""), hist=None) -> SolveResult:
+            path=("", "", ""), hist=None,
+            pipelined: bool = False) -> SolveResult:
     """Assemble the SolveResult and raise the classified errors, as
     ``acg_tpu.solvers.cg._finish`` does for one right-hand side."""
     rnrm2 = float(np.sqrt(float(rr)))
@@ -129,7 +141,7 @@ def _finish(op, x, k: int, rr, flag: int, rr0, options: SolverOptions,
     st.nsolves += 1
     st.ntotaliterations += k
     st.niterations = k
-    st.nflops += k * cg_flops_per_iter(op.nnz, op.nrows)
+    st.nflops += k * cg_flops_per_iter(op.nnz, op.nrows, pipelined)
     st.tsolve += tsolve
     o = options
     res = SolveResult(
@@ -149,8 +161,8 @@ def _finish(op, x, k: int, rr, flag: int, rr0, options: SolverOptions,
             f"non-finite residual reduction |r|^2 = {rnrm2!r} detected "
             f"by the on-device guard at iteration {k}"
             if not np.isfinite(rnrm2) else
-            f"non-finite reduction (p'Ap) detected by the on-device "
-            f"guard at iteration {k} (|r|^2 still finite)")
+            f"non-finite reduction (p'Ap / delta) detected by the "
+            f"on-device guard at iteration {k} (|r|^2 still finite)")
         err = AcgError(Status.ERR_FAULT_DETECTED,
                        f"solve aborted at iteration {k}: {res.fpexcept}")
         err.result = res
@@ -222,3 +234,67 @@ def cg(A, b, x0=None, options: SolverOptions = SolverOptions(),
     return _finish(op, x, k, rr, flag, rr0, o, tsolve, bnrm2,
                    dxx=dxx if track_diff else None, stats=stats,
                    path=_describe_path(op, fmt), hist=hist)
+
+
+def _dot2(a1, b1, a2, b2):
+    """The pipelined loop's one reduction point: both scalars of a single
+    conceptual reduction (the reference's one 2-double allreduce,
+    acg/cgcuda.c:1697)."""
+    return torch.dot(a1, b1), torch.dot(a2, b2)
+
+
+def _pipe_step(op):
+    """The loop's ``iter_step`` over the operator's single-kernel
+    pipelined iteration.  The kernel writes w' beside w, so two w buffers
+    alternate: the w a step consumed is the next step's output buffer."""
+    spare = [None]
+
+    def step(z, r, p, w, s, x, alpha, beta):
+        out = op.pipelined_iter(w, z, r, p, s, x, alpha, beta,
+                                w_out=spare[0])
+        spare[0] = w
+        return out
+
+    return step
+
+
+def cg_pipelined(A, b, x0=None, options: SolverOptions = SolverOptions(),
+                 dtype=None, fmt: str = "auto", mat_dtype="auto",
+                 stats: SolveStats | None = None,
+                 device=None) -> SolveResult:
+    """Pipelined CG on one device (``acg_tpu.solvers.cg.cg_pipelined``
+    for one right-hand side): one fused (gamma, delta) reduction per
+    iteration, and on the card the whole iteration in one hand-written
+    kernel (``cuda-stencil-pipe`` / ``cuda-dia-pipe``).
+
+    Arguments and errors as :func:`cg`.  Residual criteria only (the
+    diff criteria raise ERR_NOT_SUPPORTED, as in the JAX package).
+    ``options.replace_every > 0`` runs the open-coded body (the SpMV
+    kernel, torch updates and dots) with residual replacement, and says
+    so in ``kernel_note``."""
+    o = options
+    if o.diffatol > 0 or o.diffrtol > 0:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       "pipelined CG supports residual-based stopping only")
+    if o.segment_iters or o.monitor_every:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       "segment_iters / monitor_every: not yet ported")
+    op, b_pad, x0_pad = _prepare(A, b, x0, dtype, fmt, mat_dtype, device)
+    vdt = b_pad.dtype
+    stop2 = (torch.tensor(o.residual_atol ** 2, dtype=vdt, device=op.device),
+             torch.tensor(o.residual_rtol ** 2, dtype=vdt, device=op.device))
+    bnrm2 = float(dnrm2(b_pad))
+    # exit certification only where an exit can be claimed
+    certify = o.residual_atol > 0 or o.residual_rtol > 0
+    iter_step = _pipe_step(op) if o.replace_every == 0 else None
+    _sync(op.device)
+    t0 = time.perf_counter()
+    x, k, rr, flag, rr0, hist = cg_pipelined_while(
+        op.matvec, _dot2, b_pad, x0_pad, stop2, maxits=o.maxits,
+        check_every=o.check_every, replace_every=o.replace_every,
+        certify=certify, iter_step=iter_step, guard=o.guard_nonfinite)
+    _sync(op.device)
+    tsolve = time.perf_counter() - t0
+    return _finish(op, x, k, rr, flag, rr0, o, tsolve, bnrm2, stats=stats,
+                   path=_describe_path(op, fmt, True, o.replace_every),
+                   hist=hist, pipelined=True)

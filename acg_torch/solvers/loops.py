@@ -1,8 +1,9 @@
-"""The classic CG iteration, parameterized over the operator and the dot.
+"""The CG iterations, parameterized over the operator and the dots.
 
-The port of ``acg_tpu.solvers.loops.cg_while`` for one right-hand side.
-JAX runs the whole solve as one ``lax.while_loop``; here it is a Python
-loop whose state stays on the device: the scalars (``rr``, ``alpha``,
+The port of ``acg_tpu.solvers.loops`` ``cg_while`` (classic) and
+``cg_pipelined_while`` (pipelined) for one right-hand side.  JAX runs
+the whole solve as one ``lax.while_loop``; here it is a Python loop
+whose state stays on the device: the scalars (``rr``, ``alpha``,
 ``beta``, ``p'Ap``, the flag, the iteration count) are 0-d tensors, and
 breakdown and convergence are decided with tensor ops exactly as the
 JAX loop body decides them.  The host reads the flag only at the
@@ -19,6 +20,8 @@ returns at the breakdown.
 from __future__ import annotations
 
 import torch
+
+from acg_torch.ops.blas1 import pipelined_update
 
 _OK, _CONVERGED, _BREAKDOWN, _FAULT = 0, 1, 2, 3
 
@@ -114,3 +117,176 @@ def cg_while(matvec, dot, b, x0, stop2, diffstop: float, maxits: int,
     # check_every > 1 the loop may pass the unobserved convergence point
     flag = torch.where(met(rr), conv_c, flag)
     return x, int(kdev), rr, dxx, int(flag), rr0, hist
+
+
+def cg_pipelined_while(matvec, dot2, b, x0, stop2, maxits: int,
+                       check_every: int = 1, replace_every: int = 0,
+                       certify: bool = True, iter_step=None,
+                       guard: bool = False):
+    """Pipelined CG (Ghysels/Vanroose; ref acg/cgcuda.c:1676-1788) with
+    ONE fused reduction point per iteration: ``dot2(a1, b1, a2, b2)``
+    returns (a1·b1, a2·b2).  The port of
+    ``acg_tpu.solvers.loops.cg_pipelined_while`` for one right-hand side.
+
+    Returns ``(x, k, gamma, flag, gamma0, hist)``: ``k`` and ``flag``
+    ints (flag 0 running, 1 converged, 3 non-finite caught by the guard),
+    ``gamma``/``gamma0`` 0-d tensors (|r|² at exit and at x0), ``hist``
+    the ``(maxits+1,)`` history of the recurred gamma, NaN past ``k``,
+    holding the true residual at certification points.
+
+    ``iter_step(z, r, p, w, s, x, alpha, beta) -> (z', p', s', x', r',
+    w', gamma, delta)``, when given, runs the WHOLE body (q = A w, the
+    6-vector update, both dots) as one kernel; it requires
+    ``replace_every == 0``.  Otherwise the body is open-coded: ``matvec``,
+    :func:`pipelined_update`, ``dot2``, and every ``replace_every``
+    iterations (a host-known schedule) r = b - A x, w = A r, s = A p,
+    z = A s are recomputed from their definitions.
+
+    Restart: a non-positive recurred denominator freezes the step
+    (alpha = beta = 0) and the next one re-derives the directions from
+    r, w, as iteration 0 does.  Indefiniteness is not diagnosed.
+
+    Exit CERTIFICATION (``certify``, static; callers pass it exactly when
+    a criterion is enabled): an exit candidate (the recurred gamma passes
+    the test, possible only at the ``check_every`` points, where the host
+    reads anyway) replaces r, w, s, z from their definitions and decides
+    the exit on the true gamma; a candidate that just replaced is not
+    replaced again.  A loop that ends at ``maxits`` with an uncertified
+    gamma below the threshold is certified after the loop.
+
+    ``guard``: JAX tests (gamma, delta) for finiteness in the loop
+    predicate, every iteration.  Here the host reads the flag only at
+    the check points, so the first non-finite pair FREEZES what the loop
+    returns (a sticky flag; x, gamma, the history and the count stop
+    advancing), and the count is JAX's."""
+    if iter_step is not None and replace_every > 0:
+        raise ValueError("iter_step requires replace_every == 0")
+    dev, dt = b.device, b.dtype
+    zero = torch.zeros((), dtype=dt, device=dev)
+    one = torch.ones((), dtype=dt, device=dev)
+    r = b - matvec(x0)
+    w = matvec(r)
+    gamma0, delta0 = dot2(r, r, w, r)
+    atol2, rtol2 = stop2
+    thresh2 = torch.maximum(atol2, rtol2 * gamma0)
+    # an exactly-zero residual is convergence when a criterion is enabled
+    any_crit = bool(atol2 > 0) or bool(rtol2 > 0)
+
+    def met(g):
+        m = g < thresh2
+        return (m | (g == 0)) if any_crit else m
+
+    def replace_state(x, p):
+        """r, w, s, z recomputed from their definitions."""
+        r = b - matvec(x)
+        w = matvec(r)
+        s = matvec(p)
+        return r, w, s, matvec(s)
+
+    def finite(g, d):
+        return torch.isfinite(g) & torch.isfinite(d)
+
+    def coefficients(gamma, delta, gamma_prev, alpha_prev, fresh):
+        """(alpha, beta, bad) of the next step (ref loops.py:758-767)."""
+        beta = torch.where(fresh, zero, gamma / torch.where(
+            gamma_prev == 0, one, gamma_prev))
+        denom = torch.where(fresh, delta, delta - beta * gamma / torch.where(
+            alpha_prev == 0, one, alpha_prev))
+        # unusable denominator -> restart: freeze this step, re-derive
+        # the directions from r, w on the next one
+        bad = (denom <= 0) | (~fresh & (gamma_prev == 0))
+        alpha = torch.where(bad, zero, gamma / torch.where(bad, one, denom))
+        return alpha, torch.where(bad, zero, beta), bad
+
+    def advance(k, gamma_new, delta_new, gamma, alpha, bad):
+        """Record step k's gamma and form the next step's coefficients.
+        Queued before the host waits on the exit candidate, so the device
+        has them when the next kernel is launched."""
+        hist[k] = gamma_new
+        return coefficients(gamma_new, delta_new, gamma, alpha, bad)
+
+    # separate buffers: the kernel updates z, p, s, x and r in place
+    x = x0.clone()
+    p, s, z = (torch.zeros_like(b) for _ in range(3))
+    gamma, delta = gamma0, delta0
+    fresh = torch.ones((), dtype=torch.bool, device=dev)
+    coef = coefficients(gamma0, delta0, gamma0, zero, fresh)
+    certified = True                       # gamma0 is a true residual
+    hist = torch.full((maxits + 1,), float("nan"), dtype=dt, device=dev)
+    hist[0] = gamma0
+    running = ~met(gamma0)
+    if guard:
+        # what the loop returns, frozen at the first non-finite pair
+        alive = finite(gamma0, delta0)
+        x_keep = x.clone()
+        kdev = torch.zeros((), dtype=torch.int32, device=dev)
+        nan = torch.full((), float("nan"), dtype=dt, device=dev)
+        cert_t = fresh.clone()
+        cert_c = (cert_t.clone(), ~cert_t)  # certified: True, False
+        running = running & alive
+    k = 0
+    running = maxits > 0 and bool(running)
+    while running:
+        live = alive if guard else None
+        alpha, beta, bad = coef
+        just_replaced = False
+        if iter_step is not None:
+            z, p, s, x, r, w, gamma_new, delta_new = iter_step(
+                z, r, p, w, s, x, alpha, beta)
+        else:
+            z, p, s, x, r, w = pipelined_update(matvec(w), w, z, r, p, s, x,
+                                                alpha, beta)
+            if replace_every > 0 and (k + 1) % replace_every == 0:
+                just_replaced = True
+                r, w, s, z = replace_state(x, p)
+            gamma_new, delta_new = dot2(r, r, w, r)
+        k += 1
+        at_check = k % check_every == 0
+        cand_t = met(gamma_new) if certify and at_check else None
+        if not guard:
+            coef = advance(k, gamma_new, delta_new, gamma, alpha, bad)
+        cand = False
+        if cand_t is not None:
+            cand = bool(cand_t & live) if guard else bool(cand_t)
+            if cand and not just_replaced:
+                r, w, s, z = replace_state(x, p)
+                gamma_new, delta_new = dot2(r, r, w, r)
+                if not guard:
+                    coef = advance(k, gamma_new, delta_new, gamma, alpha,
+                                   bad)
+        certified = cand or just_replaced
+        if guard:
+            torch.where(live, x, x_keep, out=x_keep)
+            cert_t = torch.where(live, cert_c[0] if certified else cert_c[1],
+                                 cert_t)
+            gamma_new = torch.where(live, gamma_new, gamma)
+            delta_new = torch.where(live, delta_new, delta)
+            coef = advance(k, torch.where(live, gamma_new, nan), delta_new,
+                           gamma, alpha, bad)
+            kdev += live
+            alive = live & finite(gamma_new, delta_new)
+        gamma, delta = gamma_new, delta_new
+        if k >= maxits:
+            break
+        if at_check:
+            # a certified candidate exits on its true gamma
+            stop = cand and (just_replaced or bool(met(gamma)))
+            running = not stop and (not guard or bool(alive))
+    if guard:
+        x, k = x_keep, int(kdev)
+    if certify:
+        # the maxits door, off the check schedule, can leave an
+        # uncertified gamma below the threshold: certify that one too
+        # (|b - A x|^2; JAX also forms w = A r, which gamma does not use)
+        need = ((met(gamma) & ~cert_t) if guard
+                else not certified and bool(met(gamma)))
+        if bool(need):
+            rt = b - matvec(x)
+            gamma, _ = dot2(rt, rt, rt, rt)
+        hist[k] = gamma
+        flag = _CONVERGED if bool(met(gamma)) else _OK
+    else:
+        flag = _OK                   # no criterion: nothing can be claimed
+    if guard and not bool(finite(gamma, delta)):
+        flag = _FAULT
+    return x, k, gamma, flag, gamma0, hist

@@ -8,12 +8,16 @@ raises and the script exits non-zero:
 
 1. build      compile every kernel in acg_torch/csrc with nvcc (sm_90a),
               one process per source, all at once;
-2. kernels    at the solve's shapes, each kernel in every tier, with and
-              without the fused dot, held against its plain PyTorch
-              version on the card (stated tolerances), its dot checked
-              bit-identical across two runs, and timed with CUDA events
-              beside its memory bound, the plain version and one PyTorch
-              library call computing the same function;
+2. kernels    at the solve's shapes, each kernel in every tier, held
+              against its plain PyTorch version on the card (stated
+              tolerances), its outputs and dots checked bit-identical
+              across two runs, and timed with CUDA events beside its
+              memory bound, the plain version and one PyTorch library
+              call computing the same function: the SpMV kernels with and
+              without the fused dot; the pipelined-iteration kernels
+              with their padding rows checked exactly zero and beside the
+              open-coded body (SpMV kernel, torch updates and dots),
+              as no single library call computes a pipelined iteration;
 3. stencil    classic CG, 256^3 Poisson, f64, fmt="auto" (the matrix-free
               tier), manufactured solution, rtol 1e-8, true residual
               recomputed here with the stencil kernel;
@@ -21,11 +25,18 @@ raises and the script exits non-zero:
               fixed-iteration timing (bench.py's protocol);
 5. dia-f64    variable-coefficient 128^3 operator, f64, fmt="auto" (full
               width f64 bands), rtol 1e-8, true residual recomputed;
-6. cli        ``python -m acg_torch.cli`` on a 48^3 Poisson .mtx;
-7. profile    for the operators of phases 3 and 4: 50 fixed iterations
+6-9.          the same three solves through pipelined CG (phases
+              pipelined-stencil, pipelined-dia-bf16, pipelined-dia-f64),
+              and pipelined-replace: the 256^3 stencil solve with
+              replace_every=50, which runs the open-coded body;
+10. cli       ``python -m acg_torch.cli`` on a 48^3 Poisson .mtx, then
+              again with ``--solver acg-pipelined`` (cli-pipelined);
+11. profile   for the operators of phases 3, 4 and 6: 50 iterations
               under torch.profiler (device time by kernel, device idle
               share of the solve's wall time), and µs/iter with the host
-              reading the loop flag every iteration vs every 16.
+              reading the loop flag every iteration vs every 16, all with
+              a tolerance that is never met (rtol 1e-30), so the loops
+              test for an exit as a solve to a tolerance does.
 
 Every kernel wrapper counts its launches; each solve phase zeroes the
 counts just before the solve and reads them just after; the CLI logs the
@@ -120,7 +131,13 @@ def main() -> int:
     _phase("stencil", lambda: _stencil_solve(grid, ctx))
     _phase("dia-bf16", lambda: _dia_bf16_solve(grid, bench_iters, ctx))
     _phase("dia-f64", lambda: _dia_f64_solve(var_grid, ctx))
+    _phase("pipelined-stencil", lambda: _stencil_solve(grid, ctx, True))
+    _phase("pipelined-dia-bf16",
+           lambda: _dia_bf16_solve(grid, bench_iters, ctx, True))
+    _phase("pipelined-dia-f64", lambda: _dia_f64_solve(var_grid, ctx, True))
+    _phase("pipelined-replace", lambda: _replace_solve(grid, ctx))
     _phase("cli", lambda: _cli_phase(cli_grid))
+    _phase("cli-pipelined", lambda: _cli_phase(cli_grid, "acg-pipelined"))
     _phase("profile", lambda: _profile_phase(ctx))
     lines = _kernel_lines(ctx)
     idle = [k["name"] for k in lines if k["launches"] <= 0]
@@ -230,6 +247,86 @@ def _check_kernel(label, run, plain, x, ctx, nbytes, flops, library):
                          f"{json.dumps(row)}")
 
 
+def _check_pipe(label, run, plain, composed, vecs, ab, n, ctx, nbytes,
+                flops):
+    """Hold one pipelined-iteration configuration against its plain
+    version: the six vectors at ``_tolerances``, gamma and delta relative
+    to |r'|^2 and |w'|·|r'|, padding rows exactly zero, every output
+    bit-identical across two runs; then time the kernel, the plain
+    version and the open-coded body (``composed``)."""
+    import torch
+
+    rtol, atol, dot_rtol = _tolerances(vecs[0].dtype)
+    want = plain(*vecs, *ab)
+    got, again = (run(*[v.clone() for v in vecs], *ab,
+                      w_out=torch.empty_like(vecs[0])) for _ in range(2))
+    torch.cuda.synchronize()
+    errs = [float((g - w).abs().max()) for g, w in zip(got[:6], want[:6])]
+    scales = [float(w.abs().max()) for w in want[:6]]
+    r2, w2 = want[4], want[5]
+    gscale = float(r2 @ r2)
+    dscale = float(torch.linalg.norm(w2) * torch.linalg.norm(r2))
+    row = dict(label, max_abs_err=max(errs), max_abs_plain=max(scales),
+               rtol=rtol, atol=atol,
+               padding_rows=vecs[0].shape[0] - n,
+               padding_zero=all(bool(torch.all(g[n:] == 0))
+                                for g in got[:6]),
+               bits_stable=all(torch.equal(a, b)
+                               for a, b in zip(got, again)),
+               gamma=float(got[6]), gamma_plain=float(want[6]),
+               gamma_abs_err=abs(float(got[6]) - float(want[6])),
+               delta=float(got[7]), delta_plain=float(want[7]),
+               delta_abs_err=abs(float(got[7]) - float(want[7])),
+               dot_rtol=dot_rtol)
+    ok = (all(e <= atol + rtol * sc for e, sc in zip(errs, scales))
+          and row["gamma_abs_err"] <= dot_rtol * gscale
+          and row["delta_abs_err"] <= dot_rtol * dscale
+          and row["padding_zero"] and row["bits_stable"])
+    # timed on a state of its own, updated in place call after call, as
+    # the solver loop does (two w buffers alternate there; one here)
+    state = [v.clone() for v in vecs]
+    w_out = torch.empty_like(vecs[0])
+    row["ms"] = _time_ms(lambda: run(*state, *ab, w_out=w_out), ctx["reps"])
+    row["plain_ms"] = _time_ms(lambda: plain(*vecs, *ab), ctx["reps"])
+    row["composed_ms"] = _time_ms(lambda: composed(*vecs, *ab), ctx["reps"])
+    row["library_ms"] = None     # no single PyTorch call computes it
+    row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, vecs[0].dtype,
+                                              ctx)
+    ctx["rows"].append(row)
+    _emit({"kernel_check": row})
+    if not ok:
+        raise SystemExit(f"error: pipelined kernel disagrees with its plain "
+                         f"version: {json.dumps(row)}")
+
+
+def _pipe_inputs(n, npad, dtype, seed=1):
+    """w, z, r, p, s, x on the card (zero past n) and alpha, beta."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    vecs = []
+    for _ in range(6):
+        v = torch.zeros(npad, dtype=dtype, device="cuda")
+        v[:n] = torch.randn(n, generator=gen, dtype=dtype, device="cuda")
+        vecs.append(v)
+    return vecs, (torch.tensor(0.37, dtype=dtype, device="cuda"),
+                  torch.tensor(1.21, dtype=dtype, device="cuda"))
+
+
+def _composed(matvec):
+    """The open-coded pipelined body: the SpMV kernel, the six torch
+    updates and two torch dots."""
+    import torch
+
+    from acg_torch.ops.blas1 import pipelined_update
+
+    def body(w, z, r, p, s, x, alpha, beta):
+        out = pipelined_update(matvec(w), w, z, r, p, s, x, alpha, beta)
+        return out + (torch.dot(out[4], out[4]), torch.dot(out[5], out[4]))
+
+    return body
+
+
 def _csr_of(dev, dtype):
     """The DIA operator as a torch sparse CSR matrix on the card (for the
     library yardstick only)."""
@@ -258,8 +355,11 @@ def _kernels_phase(G: int, ctx):
     import torch
 
     from acg_torch.ops.dia import DeviceDia
-    from acg_torch.ops.dia_kernels import dia_matvec, dia_spmv
-    from acg_torch.ops.stencil import (recognize_stencil, stencil_matvec,
+    from acg_torch.ops.dia_kernels import (cg_pipelined_iter_plain,
+                                           dia_matvec, dia_spmv)
+    from acg_torch.ops.stencil import (cg_pipelined_iter_stencil,
+                                       cg_pipelined_iter_stencil_plain,
+                                       recognize_stencil, stencil_matvec,
                                        stencil_spmv)
     from acg_torch.sparse.poisson import poisson3d_7pt_dia
 
@@ -299,7 +399,16 @@ def _kernels_phase(G: int, ctx):
                            "with_dot": with_dot},
                           run, plain, x, ctx, nbytes, flops,
                           lambda A=A, x=x: A @ x)
-        del dev
+        # the pipelined iteration: 12 vector streams plus the bands
+        vecs, ab = _pipe_inputs(n, D.nrows_padded, vdt)
+        _check_pipe({"name": "cg_pipelined_iter", "tier": tier},
+                    dev.pipelined_iter,
+                    lambda *a, dev=dev: cg_pipelined_iter_plain(
+                        dev.bands, dev.scales, dev.offsets, *a),
+                    _composed(dev.matvec), vecs, ab, n, ctx,
+                    D_ * n * dev.mat_itemsize + 12 * n * vb,
+                    2 * D_ * n + 16 * n)
+        del dev, vecs
     del csr
     torch.cuda.empty_cache()
     weight = torch.zeros(1, 1, 3, 3, 3, dtype=torch.float64, device="cuda")
@@ -336,6 +445,18 @@ def _kernels_phase(G: int, ctx):
                           run, plain, x, ctx, 2 * n * x.element_size(),
                           2 * len(spec.offsets) * n
                           + (2 * n if with_dot else 0), library)
+        # the pipelined iteration, with 8 padding rows past the grid
+        vecs, ab = _pipe_inputs(n, n + 8, vdt)
+        _check_pipe({"name": "cg_pipelined_iter_stencil",
+                     "tier": f"matrix-free/{str(vdt)[6:]}"},
+                    lambda *a, spec=spec, **k: cg_pipelined_iter_stencil(
+                        spec, *a, **k),
+                    lambda *a, spec=spec: cg_pipelined_iter_stencil_plain(
+                        spec, *a),
+                    _composed(lambda v, spec=spec: stencil_spmv(spec, v)),
+                    vecs, ab, n, ctx, 12 * n * x.element_size(),
+                    2 * len(spec.offsets) * n + 16 * n)
+        del vecs
     return {"grid": [G, G, G], "n": n,
             "configurations": len(ctx["rows"]),
             "launches_while_checking": _counts()}
@@ -349,14 +470,16 @@ def _counts() -> dict:
     from acg_torch.ops import dia_kernels, stencil
 
     return {"dia_spmv": dia_kernels.launches,
-            "stencil_spmv": stencil.launches}
+            "stencil_spmv": stencil.launches,
+            "cg_pipelined_iter": dia_kernels.pipe_launches,
+            "cg_pipelined_iter_stencil": stencil.pipe_launches}
 
 
 def _reset_counts():
     from acg_torch.ops import dia_kernels, stencil
 
-    dia_kernels.launches = 0
-    stencil.launches = 0
+    dia_kernels.launches = dia_kernels.pipe_launches = 0
+    stencil.launches = stencil.pipe_launches = 0
 
 
 def _read_counts(ctx, phase: str) -> dict:
@@ -391,46 +514,81 @@ def _solve_report(res, launches: dict) -> dict:
             "launches_per_iter": {k: v / its for k, v in launches.items()}}
 
 
-def _stencil_solve(G: int, ctx):
+def _solver(pipelined: bool):
+    """(solve function, kernel-name suffix) of classic or pipelined CG."""
+    from acg_torch.solvers.cg import cg, cg_pipelined
+
+    return (cg_pipelined, "pipe") if pipelined else (cg, "fused")
+
+
+def _check_launches(rep, launches, kernel, its, pipelined, where):
+    """The solve went through its kernel: the loop kernel launched (the
+    pipelined one once per iteration)."""
+    n = launches[kernel]
+    if n <= 0 or (pipelined and n != its):
+        raise SystemExit(f"error: {where}: {kernel} launched {n} times in "
+                         f"{its} iterations: {rep}")
+
+
+def _stencil_solve(G: int, ctx, pipelined: bool = False):
     import numpy as np
 
     from acg_torch.config import SolverOptions
-    from acg_torch.solvers.cg import build_device_operator, cg
+    from acg_torch.solvers.cg import build_device_operator
     from acg_torch.sparse.csr import manufactured_rhs
     from acg_torch.sparse.poisson import poisson3d_7pt_dia
 
-    D = poisson3d_7pt_dia(G)
-    xstar, b = manufactured_rhs(D, seed=1)
-    op = build_device_operator(D, dtype=np.float64, fmt="auto")
+    solve, body = _solver(pipelined)
+    phase = "pipelined-stencil" if pipelined else "stencil"
+    if pipelined:
+        op, b, xstar = ctx["stencil_case"]
+    else:
+        D = poisson3d_7pt_dia(G)
+        xstar, b = manufactured_rhs(D, seed=1)
+        op = build_device_operator(D, dtype=np.float64, fmt="auto")
+        ctx["stencil_case"] = (op, b, xstar)
     # warm-up (the CLI's default --warmup 1): first-use costs of the
     # CUDA libraries stay out of the timed solve
-    cg(op, b, options=SolverOptions(maxits=20, residual_rtol=0.0))
+    solve(op, b, options=SolverOptions(maxits=20, residual_rtol=0.0))
     _reset_counts()
-    res = cg(op, b, options=SolverOptions(maxits=20000, residual_rtol=1e-8))
-    launches = _read_counts(ctx, "stencil")
+    res = solve(op, b, options=SolverOptions(maxits=20000,
+                                             residual_rtol=1e-8))
+    launches = _read_counts(ctx, phase)
     rep = _solve_report(res, launches)
     rep["true_relative_residual"] = _true_residual(op, res.x, b)
     rep["error_vs_manufactured"] = float(np.linalg.norm(res.x - xstar))
     ok = ((res.operator_format, res.kernel)
-          == ("stencil", "cuda-stencil-fused") and res.converged
-          and launches["stencil_spmv"] > 0
+          == ("stencil", f"cuda-stencil-{body}") and res.converged
           and rep["true_relative_residual"] <= 1e-7
-          and np.all(np.isfinite(res.x)) and res.x.shape == (D.nrows,))
+          and np.all(np.isfinite(res.x)) and res.x.shape == (op.nrows,))
     if not ok:
-        raise SystemExit(f"error: stencil-tier solve failed: {rep}")
+        raise SystemExit(f"error: {phase} solve failed: {rep}")
+    if pipelined:
+        _check_launches(rep, launches, "cg_pipelined_iter_stencil",
+                        res.niterations, True, phase)
+        # the exit certifier's SpMVs (r = b - A x, w = A r, s = A p,
+        # z = A s) and the prelude's, apart from the loop kernel
+        rep["certification_spmv_launches"] = launches["stencil_spmv"]
+        rep["classic_iterations"] = ctx["classic_iterations"]
+    else:
+        _check_launches(rep, launches, "stencil_spmv", res.niterations,
+                        False, phase)
+        ctx["classic_iterations"] = res.niterations
     ctx["profile_cases"] = ctx.get("profile_cases", []) + [
-        ("stencil-f64", op, b)]
+        (f"{phase}-f64", op, b, solve)]
     return rep
 
 
-def _dia_bf16_solve(G: int, iters: int, ctx):
+def _dia_bf16_solve(G: int, iters: int, ctx, pipelined: bool = False):
     import numpy as np
     import torch
 
     from acg_torch.config import SolverOptions
-    from acg_torch.solvers.cg import build_device_operator, cg
+    from acg_torch.solvers.cg import build_device_operator
     from acg_torch.sparse.poisson import poisson3d_7pt_dia
 
+    solve, body = _solver(pipelined)
+    phase = "pipelined-dia-bf16" if pipelined else "dia-bf16"
     D = poisson3d_7pt_dia(G, dtype=np.float32)
     op = build_device_operator(D, dtype=np.float32, fmt="dia")
     if op.bands.dtype != torch.bfloat16:
@@ -438,47 +596,83 @@ def _dia_bf16_solve(G: int, iters: int, ctx):
     rng = np.random.default_rng(0)
     b = rng.standard_normal(D.nrows).astype(np.float32)
     # residual_rtol=0: every criterion off, the loop runs to maxits
-    cg(op, b, options=SolverOptions(maxits=20, residual_rtol=0.0))
+    solve(op, b, options=SolverOptions(maxits=20, residual_rtol=0.0))
     _reset_counts()
-    res = cg(op, b, options=SolverOptions(maxits=iters, residual_rtol=0.0))
-    launches = _read_counts(ctx, "dia-bf16")
+    res = solve(op, b, options=SolverOptions(maxits=iters,
+                                             residual_rtol=0.0))
+    launches = _read_counts(ctx, phase)
     rep = _solve_report(res, launches)
-    ok = ((res.operator_format, res.kernel) == ("dia", "cuda-dia-fused")
-          and res.niterations == iters and launches["dia_spmv"] > 0
-          and np.all(np.isfinite(res.x)))
+    ok = ((res.operator_format, res.kernel) == ("dia", f"cuda-dia-{body}")
+          and res.niterations == iters and np.all(np.isfinite(res.x)))
     if not ok:
-        raise SystemExit(f"error: DIA bf16 solve failed: {rep}")
-    ctx["profile_cases"] = ctx.get("profile_cases", []) + [
-        ("dia-bf16-f32", op, b)]
+        raise SystemExit(f"error: {phase} solve failed: {rep}")
+    _check_launches(rep, launches,
+                    "cg_pipelined_iter" if pipelined else "dia_spmv", iters,
+                    pipelined, phase)
+    if not pipelined:
+        ctx["profile_cases"] = ctx.get("profile_cases", []) + [
+            ("dia-bf16-f32", op, b, solve)]
     return rep
 
 
-def _dia_f64_solve(G: int, ctx):
+def _dia_f64_solve(G: int, ctx, pipelined: bool = False):
     import numpy as np
     import torch
 
     from acg_torch.config import SolverOptions
-    from acg_torch.solvers.cg import build_device_operator, cg
+    from acg_torch.solvers.cg import build_device_operator
     from acg_torch.sparse.csr import manufactured_rhs
     from acg_torch.sparse.poisson import poisson3d_7pt_varcoef
 
+    solve, body = _solver(pipelined)
+    phase = "pipelined-dia-f64" if pipelined else "dia-f64"
     A = poisson3d_7pt_varcoef(G)
     xstar, b = manufactured_rhs(A, seed=2)
     op = build_device_operator(A, dtype=np.float64, fmt="auto")
     if op.bands.dtype != torch.float64:
         raise SystemExit(f"error: expected f64 bands, got {op.bands.dtype}")
     _reset_counts()
-    res = cg(op, b, options=SolverOptions(maxits=20000, residual_rtol=1e-8))
-    launches = _read_counts(ctx, "dia-f64")
+    res = solve(op, b, options=SolverOptions(maxits=20000,
+                                             residual_rtol=1e-8))
+    launches = _read_counts(ctx, phase)
     rep = _solve_report(res, launches)
     rep["true_relative_residual"] = _true_residual(op, res.x, b)
     rep["error_vs_manufactured"] = float(np.linalg.norm(res.x - xstar))
-    ok = ((res.operator_format, res.kernel) == ("dia", "cuda-dia-fused")
-          and res.converged and launches["dia_spmv"] > 0
-          and rep["true_relative_residual"] <= 1e-7
+    ok = ((res.operator_format, res.kernel) == ("dia", f"cuda-dia-{body}")
+          and res.converged and rep["true_relative_residual"] <= 1e-7
           and np.all(np.isfinite(res.x)))
     if not ok:
-        raise SystemExit(f"error: DIA f64 solve failed: {rep}")
+        raise SystemExit(f"error: {phase} solve failed: {rep}")
+    _check_launches(rep, launches,
+                    "cg_pipelined_iter" if pipelined else "dia_spmv",
+                    res.niterations, pipelined, phase)
+    return rep
+
+
+def _replace_solve(G: int, ctx):
+    """Pipelined CG with residual replacement every 50 iterations: the
+    open-coded body (SpMV kernel, torch updates and dots), said so in
+    the kernel note."""
+    import numpy as np
+
+    from acg_torch.config import SolverOptions
+    from acg_torch.solvers.cg import cg_pipelined
+
+    op, b, xstar = ctx["stencil_case"]
+    _reset_counts()
+    res = cg_pipelined(op, b, options=SolverOptions(
+        maxits=20000, residual_rtol=1e-8, replace_every=50))
+    launches = _read_counts(ctx, "pipelined-replace")
+    rep = _solve_report(res, launches)
+    rep["true_relative_residual"] = _true_residual(op, res.x, b)
+    ok = ((res.operator_format, res.kernel)
+          == ("stencil", "cuda-stencil-spmv")
+          and res.kernel_note == "stencil pipe disengaged: replace_every=50"
+          and res.converged and rep["true_relative_residual"] <= 1e-7
+          and launches["cg_pipelined_iter_stencil"] == 0
+          and launches["stencil_spmv"] >= res.niterations)
+    if not ok:
+        raise SystemExit(f"error: pipelined-replace solve failed: {rep}")
     return rep
 
 
@@ -486,7 +680,7 @@ def _dia_f64_solve(G: int, ctx):
 # phase 6
 
 
-def _cli_phase(G: int):
+def _cli_phase(G: int, solver: str = "acg"):
     from acg_torch.io.mtxfile import MtxFile, write_mtx
     from acg_torch.sparse.poisson import poisson3d_7pt
 
@@ -499,25 +693,33 @@ def _cli_phase(G: int):
                                 rowidx=r, colidx=c, vals=v))
         env = dict(os.environ, PYTHONPATH=str(REPO))
         out = subprocess.run(
-            [sys.executable, "-m", "acg_torch.cli", path,
+            [sys.executable, "-m", "acg_torch.cli", path, "--solver", solver,
              "--manufactured-solution", "--max-iterations", "2000", "-v",
              "-q"], capture_output=True, text=True, env=env, cwd=REPO,
             timeout=600)
     stats = out.stdout
     # -v logs the wrapper counts of the timed solve, zeroed just before it
     counted = re.search(r"kernel launches in the timed solve: "
-                        r"dia_spmv (\d+), stencil_spmv (\d+)", out.stderr)
-    launches = ({"dia_spmv": int(counted[1]),
-                 "stencil_spmv": int(counted[2])} if counted else None)
-    ok = (out.returncode == 0 and "kernel: cuda-stencil-fused" in stats
+                        r"dia_spmv (\d+), stencil_spmv (\d+), "
+                        r"cg_pipelined_iter (\d+), "
+                        r"cg_pipelined_iter_stencil (\d+)", out.stderr)
+    names = ("dia_spmv", "stencil_spmv", "cg_pipelined_iter",
+             "cg_pipelined_iter_stencil")
+    launches = ({k: int(v) for k, v in zip(names, counted.groups())}
+                if counted else None)
+    pipelined = solver == "acg-pipelined"
+    kernel = "cuda-stencil-pipe" if pipelined else "cuda-stencil-fused"
+    loop_kernel = ("cg_pipelined_iter_stencil" if pipelined
+                   else "stencil_spmv")
+    ok = (out.returncode == 0 and f"kernel: {kernel}\n" in stats
           and "floating-point exceptions: none" in stats
-          and launches is not None and launches["stencil_spmv"] > 0)
+          and launches is not None and launches[loop_kernel] > 0)
     if not ok:
         raise SystemExit(f"error: CLI run failed (exit {out.returncode}):\n"
                          f"{out.stdout}\n{out.stderr}")
     its = [ln.split(":")[1].strip() for ln in stats.splitlines()
            if ln.strip().startswith("iterations:")]
-    return {"grid": [G, G, G], "exit": out.returncode,
+    return {"grid": [G, G, G], "solver": solver, "exit": out.returncode,
             "iterations": int(its[0]) if its else None,
             "launches": launches,
             "kernel_line": [ln.strip() for ln in stats.splitlines()
@@ -536,26 +738,44 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _fixed_solve(solve, op, b, its: int, every: int = 1):
+    """A solve of exactly ``its`` iterations that still tests for
+    convergence (rtol 1e-30 is never met), so the host reads the loop's
+    flag every ``every`` iterations as a solve to a tolerance does (with
+    every criterion off the pipelined loop has no exit to test and never
+    reads it)."""
+    from acg_torch.config import SolverOptions
+    from acg_torch.errors import AcgError, Status
+
+    try:
+        res = solve(op, b, options=SolverOptions(
+            maxits=its, residual_rtol=1e-30, check_every=every))
+    except AcgError as e:
+        res = getattr(e, "result", None)
+        if e.status != Status.ERR_NOT_CONVERGED or res is None:
+            raise
+    if res.niterations != its:
+        raise SystemExit(f"error: a {its}-iteration profile solve ran "
+                         f"{res.niterations}")
+    return res
+
+
 def _profile_phase(ctx):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from acg_torch.config import SolverOptions
-    from acg_torch.solvers.cg import cg
-
     out = {}
-    for name, op, b in ctx.get("profile_cases", []):
+    for name, op, b, solve in ctx.get("profile_cases", []):
         # b already padded on the card, so the profiled window holds the
         # loop and not the upload of b
         vdt = getattr(torch, op.vec_dtype)
         b_dev = torch.zeros(op.nrows_padded, dtype=vdt)
         b_dev[: op.nrows] = torch.from_numpy(b.astype(op.vec_dtype))
         b_dev = b_dev.cuda()
-        fixed = SolverOptions(maxits=50, residual_rtol=0.0)
-        cg(op, b_dev, options=fixed)
+        _fixed_solve(solve, op, b_dev, 50)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            res = cg(op, b_dev, options=fixed)
+            res = _fixed_solve(solve, op, b_dev, 50)
         # device-side events only: the CPU ops that launched them carry
         # the same time again
         per_name, copies = {}, 0.0
@@ -573,9 +793,7 @@ def _profile_phase(ctx):
         wall = res.stats.tsolve * 1e6
         rate = {}
         for every in (1, 16):
-            r = cg(op, b_dev, options=SolverOptions(maxits=160,
-                                                    residual_rtol=0.0,
-                                                    check_every=every))
+            r = _fixed_solve(solve, op, b_dev, 160, every)
             rate[f"check_every={every}"] = r.stats.tsolve / 160 * 1e6
         out[name] = {
             "iterations": its,
@@ -603,15 +821,26 @@ def _kernel_lines(ctx) -> list:
                          "acg_tpu/ops/pallas_kernels.py:189",
                          "acg_tpu/ops/pallas_kernels.py:97"),
             "stencil_spmv": ("acg_torch/csrc/stencil_spmv.cu",
-                             "acg_tpu/ops/stencil.py:359", None)}
+                             "acg_tpu/ops/stencil.py:359", None),
+            "cg_pipelined_iter": ("acg_torch/csrc/dia_pipe.cu",
+                                  "acg_tpu/ops/pallas_kernels.py:291",
+                                  None),
+            "cg_pipelined_iter_stencil": ("acg_torch/csrc/stencil_pipe.cu",
+                                          "acg_tpu/ops/stencil.py:504",
+                                          None)}
     # (kernel, phase-2 tier, solve phase)
     paths = (("stencil_spmv", "matrix-free/float64", "stencil"),
              ("dia_spmv", "bf16/f32", "dia-bf16"),
-             ("dia_spmv", "f64/f64", "dia-f64"))
+             ("dia_spmv", "f64/f64", "dia-f64"),
+             ("cg_pipelined_iter_stencil", "matrix-free/float64",
+              "pipelined-stencil"),
+             ("cg_pipelined_iter", "bf16/f32", "pipelined-dia-bf16"),
+             ("cg_pipelined_iter", "f64/f64", "pipelined-dia-f64"))
     out = []
     for kernel, tier, phase in paths:
+        # the SpMV rows of the loop's configuration: with the fused dot
         row = next(r for r in ctx["rows"] if r["name"] == kernel
-                   and r["tier"] == tier and r["with_dot"])
+                   and r["tier"] == tier and r.get("with_dot", True))
         src, repl, also = meta[kernel]
         entry = {"name": f"{kernel}:{tier}", "route": "cuda",
                  "source": src, "replaces": repl,
@@ -620,9 +849,13 @@ def _kernel_lines(ctx) -> list:
                  "ms": row["ms"], "plain_ms": row["plain_ms"],
                  "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                  "library_ms": row["library_ms"],
-                 "config": f"{tier}, with_dot=True, phase {phase}"}
+                 "config": (f"{tier}, with_dot=True, phase {phase}"
+                            if "with_dot" in row
+                            else f"{tier}, phase {phase}")}
         if also:
             entry["also_replaces"] = also
+        if "composed_ms" in row:
+            entry["composed_ms"] = row["composed_ms"]
         out.append(entry)
     return out
 

@@ -3,8 +3,8 @@
 These need an NVIDIA GPU and skip elsewhere.  They cover what
 ``chip_smoke.py`` does not: small and ragged sizes, 1-D/2-D grids and
 the 27-point stencil, offsets that leave the vector, every band tier,
-the wrappers' argument checks and launch counts, and a whole solve on
-the card against the same solve on the CPU.  The JAX package is not
+the wrappers' argument checks and launch counts, and whole classic
+and pipelined solves on the card against the same solves on the CPU.  The JAX package is not
 needed (and not on the machine with the card), so run them without the
 repository's root conftest:
 
@@ -21,7 +21,7 @@ from acg_torch.ops import dia_kernels
 from acg_torch.ops import stencil as st
 from acg_torch.ops.dia import DeviceDia, DiaMatrix
 from acg_torch.ops.dia_kernels import dia_matvec, dia_spmv
-from acg_torch.solvers.cg import cg
+from acg_torch.solvers.cg import cg, cg_pipelined
 from acg_torch.sparse import poisson
 
 pytestmark = pytest.mark.cuda
@@ -138,3 +138,146 @@ def test_cg_on_the_card_matches_cpu(card, fmt):
     assert abs(rg.niterations - rc.niterations) <= 1
     assert np.linalg.norm(rg.x - rc.x) <= 1e-8 * np.linalg.norm(rc.x)
     assert np.linalg.norm(b - A.matvec(rg.x)) <= 1e-9 * np.linalg.norm(b)
+
+
+# ---------------------------------------------------------------------------
+# the pipelined-iteration kernels
+
+
+def _pipe_inputs(n, npad, vdt, card, seed=0):
+    """w, z, r, p, s, x (zero past n) and alpha, beta on the card."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    vecs = []
+    for _ in range(6):
+        v = torch.zeros(npad, dtype=vdt, device=card)
+        v[:n] = torch.randn(n, generator=g, dtype=vdt, device=card)
+        vecs.append(v)
+    return vecs, (torch.tensor(0.37, dtype=vdt, device=card),
+                  torch.tensor(1.21, dtype=vdt, device=card))
+
+
+def _check_pipe(run, plain, vecs, ab, n):
+    """The kernel against its plain version: vectors at _TOL, gamma and
+    delta relative to |r'|^2 and |w'|·|r'|, padding exactly 0, the
+    in-place contract, and the same bits on a second run."""
+    rtol, atol, dot_rtol = _TOL[vecs[0].dtype]
+    want = plain(*vecs, *ab)
+    ins = [v.clone() for v in vecs]
+    got = run(*ins, *ab)
+    again = run(*[v.clone() for v in vecs], *ab)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:6], want[:6]):
+        assert float((g - w).abs().max()) <= atol + rtol * float(
+            w.abs().max())
+        assert torch.all(g[n:] == 0)
+    r2, w2 = want[4], want[5]
+    assert abs(float(got[6]) - float(want[6])) <= dot_rtol * float(r2 @ r2)
+    assert abs(float(got[7]) - float(want[7])) <= dot_rtol * float(
+        torch.linalg.norm(w2) * torch.linalg.norm(r2))
+    # z, p, s, x, r in place; w' in its own buffer
+    w, z, r, p, s, x = ins
+    assert [t.data_ptr() for t in got[:5]] == [t.data_ptr()
+                                               for t in (z, p, s, x, r)]
+    assert got[5].data_ptr() != w.data_ptr()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)                    # no atomics: same bits
+
+
+@pytest.mark.parametrize("vdt", ["float32", "float64"])
+@pytest.mark.parametrize("mat", ["auto", "int8", None, "float32"])
+@pytest.mark.parametrize("n,offsets", [
+    (8, (-3, 0, 5)),
+    (1000, (-300, -1, 0, 1, 999)),
+    (4099, (-2048, -129, -1, 0, 1, 129, 2048, 5000)),
+])
+def test_dia_pipe_matches_plain(card, n, offsets, mat, vdt):
+    D = _random_dia(n, offsets)
+    if mat in ("auto", "int8"):
+        D = DiaMatrix(n, n, D.offsets, np.sign(D.bands) * 0.5, D.nnz)
+    if mat == "int8":
+        D = DiaMatrix(n, n, D.offsets, np.abs(D.bands), D.nnz)
+    dev = DeviceDia.from_dia(D, dtype=vdt, mat_dtype=mat, device=card)
+    vecs, ab = _pipe_inputs(n, n, getattr(torch, vdt), card)
+    before = dia_kernels.pipe_launches
+    _check_pipe(dev.pipelined_iter,
+                lambda *a: dia_kernels.cg_pipelined_iter_plain(
+                    dev.bands, dev.scales, dev.offsets, *a),
+                vecs, ab, n)
+    assert dia_kernels.pipe_launches == before + 2
+
+
+@pytest.mark.parametrize("vdt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("gen", [
+    lambda: poisson.poisson2d_5pt(1, 37),
+    lambda: poisson.poisson2d_5pt(13, 17),
+    lambda: poisson.poisson3d_7pt(5, 6, 7),
+    lambda: poisson.poisson3d_27pt(6),
+])
+def test_stencil_pipe_matches_plain(card, gen, vdt):
+    spec, why = st.recognize_stencil(gen())
+    assert spec is not None, why
+    n = spec.nrows
+    npad = -(-n // 8) * 8 + 8                       # padding past the grid
+    vecs, ab = _pipe_inputs(n, npad, vdt, card)
+    before = st.pipe_launches
+    _check_pipe(lambda *a: st.cg_pipelined_iter_stencil(spec, *a),
+                lambda *a: st.cg_pipelined_iter_stencil_plain(spec, *a),
+                vecs, ab, n)
+    assert st.pipe_launches == before + 2
+
+
+def test_pipe_wrappers_reject_what_the_kernels_do_not_take(card):
+    spec, _ = st.recognize_stencil(poisson.poisson2d_5pt(8))
+    vecs, (a, b) = _pipe_inputs(64, 64, torch.float64, card)
+    w, z, r, p, s, x = vecs
+    with pytest.raises(AcgError):                   # w' would overwrite w
+        st.cg_pipelined_iter_stencil(spec, *vecs, a, b, w_out=w)
+    with pytest.raises(AcgError):                   # w' over z
+        st.cg_pipelined_iter_stencil(spec, *vecs, a, b, w_out=z)
+    with pytest.raises(AcgError):                   # two vectors in one
+        st.cg_pipelined_iter_stencil(spec, w, z, z, p, s, x, a, b)
+    with pytest.raises(AcgError):                   # overlapping views
+        big = torch.zeros(128, dtype=torch.float64, device=card)
+        st.cg_pipelined_iter_stencil(spec, w, big[:64], r, p, s, x, a, b,
+                                     w_out=big[32:96])
+    with pytest.raises(AcgError):                   # alpha on the host
+        st.cg_pipelined_iter_stencil(spec, *vecs, a.cpu(), b)
+    with pytest.raises(AcgError):                   # mixed dtypes
+        st.cg_pipelined_iter_stencil(spec, w, z.float(), r, p, s, x, a, b)
+    with pytest.raises(AcgError):                   # shorter than the grid
+        st.cg_pipelined_iter_stencil(spec, *[v[:32] for v in vecs], a, b)
+    D = _random_dia(64, (-1, 0, 1))
+    dev = DeviceDia.from_dia(D, mat_dtype=None, device=card)
+    with pytest.raises(AcgError):                   # w' would overwrite w
+        dev.pipelined_iter(*vecs, a, b, w_out=w)
+    with pytest.raises(AcgError):                   # int8 mask, no scales
+        dia_kernels.cg_pipelined_iter(dev.bands.to(torch.int8), None,
+                                      dev.offsets_t, *vecs, a, b)
+    with pytest.raises(AcgError):                   # bands of another n
+        dia_kernels.cg_pipelined_iter(dev.bands, None, dev.offsets_t,
+                                      *[v[:32] for v in vecs], a, b)
+
+
+@pytest.mark.parametrize("fmt", ["auto", "dia"])
+def test_cg_pipelined_on_the_card_matches_cpu(card, fmt):
+    A = poisson.poisson3d_7pt(12)
+    rng = np.random.default_rng(3)
+    b = rng.standard_normal(A.nrows)
+    o = SolverOptions(maxits=1000, residual_rtol=1e-10)
+    before = (dia_kernels.pipe_launches, st.pipe_launches)
+    rg = cg_pipelined(A, b, options=o, fmt=fmt)     # default device: cuda
+    launched = (dia_kernels.pipe_launches - before[0],
+                st.pipe_launches - before[1])
+    rc = cg_pipelined(A, b, options=o, fmt=fmt, device="cpu")
+    assert rg.kernel == f"cuda-{rg.operator_format}-pipe"
+    assert rg.operator_format == ("stencil" if fmt == "auto" else "dia")
+    assert launched == ((0, rg.niterations) if fmt == "auto"
+                        else (rg.niterations, 0))
+    assert abs(rg.niterations - rc.niterations) <= 1
+    assert np.linalg.norm(rg.x - rc.x) <= 1e-8 * np.linalg.norm(rc.x)
+    assert np.linalg.norm(b - A.matvec(rg.x)) <= 1e-9 * np.linalg.norm(b)
+    rr = cg_pipelined(A, b, options=SolverOptions(
+        maxits=1000, residual_rtol=1e-10, replace_every=25), fmt=fmt)
+    assert rr.kernel == f"cuda-{rr.operator_format}-spmv"
+    assert "pipe disengaged: replace_every=25" in rr.kernel_note
+    assert abs(rr.niterations - rc.niterations) <= 2

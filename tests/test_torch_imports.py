@@ -53,7 +53,8 @@ def test_import_leaves_jax_out_of_sys_modules():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-@pytest.mark.parametrize("name", ["dia_spmv", "stencil_spmv"])
+@pytest.mark.parametrize("name", ["dia_spmv", "stencil_spmv", "dia_pipe",
+                                  "stencil_pipe"])
 def test_kernel_sources_exist(name):
     from acg_torch import _build
 
