@@ -22,7 +22,8 @@ from pathlib import Path
 
 from acg_torch.errors import AcgError, Status
 
-SOURCES = ("dia_spmv", "stencil_spmv", "dia_pipe", "stencil_pipe")
+SOURCES = ("dia_spmv", "stencil_spmv", "dia_pipe", "stencil_pipe",
+           "dia_spmv_batched", "stencil_spmv_batched")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parent.parent / "build"
              / "acg_torch_kernels")

@@ -12,9 +12,10 @@ for one device, the same pipeline and the same stats block:
 ``--solver`` takes the JAX program's choices; ``acg`` (classic CG) and
 ``acg-pipelined`` (pipelined CG), with their aliases ``acg-device`` and
 ``acg-device-pipelined``, are ported, and every other choice exits 1
-with a "not yet ported" error.  ``--device`` picks where it runs
-(default ``cuda``; with no card that default is an error, never a silent
-CPU run).
+with a "not yet ported" error.  ``--nrhs K`` solves K copies of the
+right-hand side in one batched loop (the multi-RHS kernels).
+``--device`` picks where it runs (default ``cuda``; with no card that
+default is an error, never a silent CPU run).
 
 Run: ``python -m acg_torch.cli A.mtx --manufactured-solution -v``
 """
@@ -56,6 +57,12 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--binary", action="store_true",
                    help="read Matrix Market files in binary format")
     p.add_argument("--seed", type=int, default=0, help="random seed [0]")
+    p.add_argument("--nrhs", type=int, default=1, metavar="K",
+                   help="solve K right-hand sides against the one operator "
+                        "in a single batched loop (the operator is read "
+                        "once per iteration for all K systems); the "
+                        "right-hand side is replicated K times and the "
+                        "first system's solution is written [1]")
     p.add_argument("--max-iterations", type=int, default=100, metavar="N",
                    help="maximum number of iterations [100]")
     p.add_argument("--diff-atol", type=float, default=0.0, metavar="TOL")
@@ -118,6 +125,14 @@ def _log(args, msg):
         print(msg, file=sys.stderr, flush=True)
 
 
+def _first_system(x):
+    """The one representative solution of a --nrhs batch: the systems
+    are copies of one b, and every 1-D consumer (the manufactured-error
+    report, the solution output) takes system 0."""
+    x = np.asarray(x)
+    return x[0] if x.ndim == 2 else x
+
+
 def main(argv=None) -> int:
     from acg_torch.errors import run_main
     return run_main(lambda: _main(argv))
@@ -170,6 +185,13 @@ def _main(argv=None) -> int:
             raise AcgError(Status.ERR_INVALID_VALUE,
                            f"initial guess has {x0.shape[0]} entries, "
                            f"matrix has {A.nrows} rows")
+    if args.nrhs < 1:
+        raise AcgError(Status.ERR_INVALID_VALUE,
+                       f"--nrhs must be >= 1, got {args.nrhs}")
+    if args.nrhs > 1:
+        # the (K, n) batch; K = 1 stays on the 1-D path, and x0 stays 1-D
+        # (the solvers share one guess across the batch)
+        b = np.tile(np.asarray(b)[None, :], (args.nrhs, 1))
     options = SolverOptions(
         maxits=args.max_iterations, diffatol=args.diff_atol,
         diffrtol=args.diff_rtol, residual_atol=args.residual_atol,
@@ -198,12 +220,15 @@ def _main(argv=None) -> int:
         from acg_torch.ops import dia_kernels, stencil
         dia_kernels.launches = stencil.launches = 0
         dia_kernels.pipe_launches = stencil.pipe_launches = 0
+        dia_kernels.batched_launches = stencil.batched_launches = 0
         res = solve(dev, b, x0=x0, options=options, fmt=args.format)
         _log(args, f"kernel launches in the timed solve: dia_spmv "
                    f"{dia_kernels.launches}, stencil_spmv "
                    f"{stencil.launches}, cg_pipelined_iter "
                    f"{dia_kernels.pipe_launches}, cg_pipelined_iter_stencil "
-                   f"{stencil.pipe_launches}")
+                   f"{stencil.pipe_launches}, dia_spmv_batched "
+                   f"{dia_kernels.batched_launches}, stencil_spmv_batched "
+                   f"{stencil.batched_launches}")
     except AcgError as e:
         res = getattr(e, "result", None)
         print(f"error: {e}", file=sys.stderr)
@@ -218,18 +243,23 @@ def _main(argv=None) -> int:
     print(format_solver_stats(res.stats, res, options, nunknowns=A.nrows))
 
     # 5. manufactured-solution error report (ref cuda/acg-cuda.c:2376-2385)
+    x_out = _first_system(res.x)
     if xstar is not None:
-        err = float(np.linalg.norm(res.x - xstar))
+        err = float(np.linalg.norm(x_out - xstar))
         err0 = float(np.linalg.norm(xstar if x0 is None else xstar - x0))
         print(f"manufactured solution error: {args.numfmt % err} "
               f"(initial: {args.numfmt % err0})")
 
-    # 6. solution output (ref cuda/acg-cuda.c:2388-2425)
+    # 6. solution output (ref cuda/acg-cuda.c:2388-2425): Matrix Market
+    # vectors are 1-D, so a batch writes its first system
+    if res.nrhs > 1 and (args.output_solution or not args.quiet):
+        print(f"note: --nrhs {res.nrhs}: writing the first system's "
+              "solution", file=sys.stderr)
     if args.output_solution:
-        write_mtx(args.output_solution, vector_to_mtx(res.x),
+        write_mtx(args.output_solution, vector_to_mtx(x_out),
                   numfmt=args.numfmt)
     elif not args.quiet:
-        for v in res.x:
+        for v in x_out:
             sys.stdout.write((args.numfmt % v) + "\n")
     return 0
 

@@ -56,6 +56,67 @@ inline cudaError_t launch_sum_partials(const void* partials, int64_t m,
   return cudaGetLastError();
 }
 
+// The B-way form of the multi-RHS kernels: the block's nsys per-system
+// partials v[0..nsys) summed one system after another, each in the fixed
+// tree of block_sum_store, through one shared buffer; thread 0 writes
+// out[s * stride + blockIdx.x].  For each system this is exactly
+// block_sum_store.  nsys is the same for every thread of the block, so
+// the barriers inside the branch are reached by all of them.
+template <typename V, int N, int NB>
+__device__ __forceinline__ void block_sum_rows_store(const V (&v)[NB],
+                                                     int nsys,
+                                                     V* __restrict__ out,
+                                                     int64_t stride) {
+  __shared__ V buf[N];
+#pragma unroll
+  for (int s = 0; s < NB; ++s) {
+    if (s < nsys) {
+      buf[threadIdx.x] = v[s];
+      __syncthreads();
+#pragma unroll
+      for (int h = N / 2; h > 0; h >>= 1) {
+        if (threadIdx.x < h) buf[threadIdx.x] += buf[threadIdx.x + h];
+        __syncthreads();
+      }
+      if (threadIdx.x == 0) out[s * stride + blockIdx.x] = buf[0];
+      __syncthreads();
+    }
+  }
+}
+
+// B blocks: block s writes out[s] = sum of partials[s*m .. s*m + m), in
+// exactly the order of sum_partials_kernel (so a system's dot has the
+// bits the one-system kernel gives it).
+template <typename V>
+__global__ void __launch_bounds__(kReduceThreads)
+sum_partials_rows_kernel(const V* __restrict__ partials, int64_t m,
+                         V* __restrict__ out) {
+  const V* row = partials + static_cast<int64_t>(blockIdx.x) * m;
+  V v = V(0);
+  for (int64_t k = threadIdx.x; k < m; k += kReduceThreads) v += row[k];
+  block_sum_store<V, kReduceThreads>(v, out);
+}
+
+template <typename V>
+inline cudaError_t launch_sum_partials_rows(const void* partials, int64_t m,
+                                            int64_t rows, void* out,
+                                            cudaStream_t s) {
+  sum_partials_rows_kernel<V><<<static_cast<unsigned>(rows), kReduceThreads,
+                                0, s>>>(static_cast<const V*>(partials), m,
+                                        static_cast<V*>(out));
+  return cudaGetLastError();
+}
+
+// Systems per launch of a multi-RHS kernel: chunks of at most
+// kMaxChunk systems, each run by the smallest template width NB in
+// {1, 2, 4, 8} that holds it, so the per-system accumulators stay in
+// registers.
+constexpr int kMaxChunk = 8;
+
+inline int chunk_width(int64_t nsys) {
+  return nsys <= 1 ? 1 : nsys <= 2 ? 2 : nsys <= 4 ? 4 : 8;
+}
+
 // The two-scalar form (the pipelined iteration's gamma and delta): both
 // sums in the same fixed tree; thread 0 writes out_a[blockIdx.x] and
 // out_b[blockIdx.x].

@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from acg_torch.errors import AcgError, Status
-from acg_torch.ops.dia_kernels import cg_pipelined_iter, dia_matvec, dia_spmv
+from acg_torch.ops.dia_kernels import (cg_pipelined_iter, dia_matvec,
+                                       dia_spmv, dia_spmv_batched)
 from acg_torch.sparse.csr import CsrMatrix
 
 __all__ = ["DiaMatrix", "DeviceDia", "dia_efficiency", "dia_matvec",
@@ -230,13 +231,19 @@ class DeviceDia:
             nbytes += self.scales.numel() * self.scales.element_size()
         return nbytes
 
+    def _spmv(self, x: torch.Tensor, with_dot: bool):
+        """A (B, n) batch of systems takes the multi-RHS kernel, a 1-D
+        vector the one-system kernel (``acg_tpu``'s dia_matvec_best)."""
+        spmv = dia_spmv_batched if x.dim() == 2 else dia_spmv
+        return spmv(self.bands, self.scales, self.offsets_t, x,
+                    with_dot=with_dot)
+
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        return dia_spmv(self.bands, self.scales, self.offsets_t, x)
+        return self._spmv(x, False)
 
     def matvec_dot(self, x: torch.Tensor):
-        """(A x, <x, A x>) in one pass."""
-        return dia_spmv(self.bands, self.scales, self.offsets_t, x,
-                        with_dot=True)
+        """(A x, <x, A x>) in one pass; per system for a (B, n) batch."""
+        return self._spmv(x, True)
 
     def pipelined_iter(self, w, z, r, p, s, x, alpha, beta, w_out=None):
         """One pipelined-CG iteration (:func:`cg_pipelined_iter`)."""

@@ -8,8 +8,12 @@ fused in).  On a CUDA tensor it launches the hand-written kernel of
 :func:`dia_matvec`, the plain PyTorch version of the same function.
 :func:`cg_pipelined_iter` is the port of ``cg_pipelined_iter_pallas``
 (one whole pipelined-CG iteration, ``acg_torch/csrc/dia_pipe.cu``), with
-:func:`cg_pipelined_iter_plain` beside it.  There is no fallback between
-a kernel and its plain version: a CUDA call that cannot launch raises.
+:func:`cg_pipelined_iter_plain` beside it.  :func:`dia_spmv_batched` is
+the port of ``dia_matvec_pallas_2d_padded_batched`` (B systems against
+one operator, ``acg_torch/csrc/dia_spmv_batched.cu``), whose plain
+version is :func:`dia_matvec` on a ``(B, n)`` tensor.  There is no
+fallback between a kernel and its plain version: a CUDA call that cannot
+launch raises.
 
 Vectors keep the ``DeviceDia`` layout (length ``nrows_padded``, no halo):
 the kernel tests ``0 <= i + off < n`` per band instead of reading the
@@ -23,12 +27,14 @@ import ctypes
 import torch
 
 from acg_torch.errors import AcgError, Status
-from acg_torch.ops.blas1 import pipelined_update
+from acg_torch.ops.blas1 import batched_dot, pipelined_update
 
 # kernel launches so far (each wrapper adds one per launch, nowhere else):
-# dia_spmv, and cg_pipelined_iter
+# dia_spmv, cg_pipelined_iter, and dia_spmv_batched (one per call, which
+# runs ceil(B/8) chunk launches)
 launches = 0
 pipe_launches = 0
+batched_launches = 0
 
 THREADS = 256          # acg::kThreads in csrc/common.cuh
 MAX_BLOCKS = 4096      # fixed grid cap: the fused dot's partial count, and
@@ -40,6 +46,7 @@ _VEC_CODES = {torch.float32: 2, torch.float64: 3}
 
 _lib = None
 _pipe_lib = None
+_batched_lib = None
 
 
 def grid_blocks(n: int) -> int:
@@ -48,16 +55,18 @@ def grid_blocks(n: int) -> int:
 
 
 def _shift(x: torch.Tensor, off: int) -> torch.Tensor:
-    """out[i] = x[i + off] with zero fill."""
+    """out[..., i] = x[..., i + off] with zero fill (along the last
+    axis)."""
     if off == 0:
         return x
+    n = x.shape[-1]
     out = torch.zeros_like(x)
-    if abs(off) >= x.shape[0]:
+    if abs(off) >= n:
         return out
     if off > 0:
-        out[: x.shape[0] - off] = x[off:]
+        out[..., : n - off] = x[..., off:]
     else:
-        out[-off:] = x[: x.shape[0] + off]
+        out[..., -off:] = x[..., : n + off]
     return out
 
 
@@ -67,7 +76,8 @@ def dia_matvec(bands: torch.Tensor, offsets, x: torch.Tensor,
     version (``acg_tpu.ops.dia.dia_matvec``): one shifted multiply-add
     per band in ascending-offset order, bands upcast to the vector dtype.
     With ``scales`` the bands are an int8 0/1 mask and the true band is
-    ``scales[d] * mask``."""
+    ``scales[d] * mask``.  ``x`` may carry leading batch axes (the system
+    axis is last): each row gets exactly the arithmetic of a 1-D ``x``."""
     if scales is None and not bands.dtype.is_floating_point:
         raise TypeError("bands are a compressed int mask; pass the scales "
                         "from DeviceDia (or call DeviceDia.matvec)")
@@ -96,7 +106,7 @@ def _load():
     return _lib
 
 
-def _check(bands, scales, offsets, x, name="dia_spmv"):
+def _check(bands, scales, offsets, x, name="dia_spmv", batched=False):
     def bad(msg):
         raise AcgError(Status.ERR_INVALID_VALUE, f"{name}: {msg}")
 
@@ -104,10 +114,11 @@ def _check(bands, scales, offsets, x, name="dia_spmv"):
         bad(f"vector dtype {x.dtype} (float32|float64)")
     if bands.dtype not in _BAND_CODES:
         bad(f"band dtype {bands.dtype} (bfloat16|int8|float32|float64)")
-    if x.dim() != 1 or bands.dim() != 2 or bands.shape[1] != x.shape[0]:
+    if (x.dim() != (2 if batched else 1) or bands.dim() != 2
+            or bands.shape[1] != x.shape[-1]):
         bad(f"shapes bands {tuple(bands.shape)}, x {tuple(x.shape)}: want "
-            "(D, n) and (n,)")
-    if x.shape[0] == 0:
+            f"(D, n) and {'(B, n)' if batched else '(n,)'}")
+    if x.numel() == 0:
         bad("empty vector")
     if offsets.dtype != torch.int64 or offsets.shape != (bands.shape[0],):
         bad("offsets must be an int64 tensor of length D")
@@ -162,6 +173,72 @@ def dia_spmv(bands: torch.Tensor, scales: torch.Tensor | None,
                        f"dia_spmv: kernel launch failed (CUDA error {rc})")
     launches += 1
     return (y, dot) if with_dot else y
+
+
+# ---------------------------------------------------------------------------
+# the multi-RHS SpMV
+
+
+def _load_batched():
+    global _batched_lib
+    if _batched_lib is None:
+        from acg_torch import _build
+
+        lib = _build.load("dia_spmv_batched")
+        lib.acg_dia_spmv_batched.restype = ctypes.c_int
+        lib.acg_dia_spmv_batched.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p]
+        _batched_lib = lib
+    return _batched_lib
+
+
+def dia_spmv_batched(bands: torch.Tensor, scales: torch.Tensor | None,
+                     offsets: torch.Tensor, X: torch.Tensor,
+                     with_dot: bool = False):
+    """Y = DIA(bands, offsets) @ X for B systems, plus the per-system
+    ``dots[s] = <X[s], Y[s]>`` when ``with_dot`` (for CG's T = A P the
+    p'Ap of every system).
+
+    Operands as :func:`dia_spmv`, with ``X`` a contiguous ``(B, n)``
+    tensor.  Returns ``Y`` (``(B, n)``) or ``(Y, dots)`` with ``dots`` of
+    shape ``(B,)``.  CUDA tensors launch the kernel, which reads the band
+    stream once per chunk of up to 8 systems and gives each system the
+    bits :func:`dia_spmv` gives it; CPU tensors take :func:`dia_matvec`
+    and one ``torch.dot`` per system."""
+    global batched_launches
+    if X.device.type == "cpu":
+        Y = dia_matvec(bands, offsets.tolist(), X, scales)
+        return (Y, batched_dot(X, Y)) if with_dot else Y
+    if X.device.type != "cuda":
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"dia_spmv_batched: no kernel for device {X.device}")
+    _check(bands, scales, offsets, X, name="dia_spmv_batched", batched=True)
+    lib = _load_batched()
+    nsys, n = X.shape
+    nblocks = grid_blocks(n)
+    Y = torch.empty_like(X)
+    partials = dots = None
+    if with_dot:
+        partials = torch.empty((nsys, nblocks), dtype=X.dtype,
+                               device=X.device)
+        dots = torch.empty(nsys, dtype=X.dtype, device=X.device)
+    rc = lib.acg_dia_spmv_batched(
+        bands.data_ptr(), _BAND_CODES[bands.dtype],
+        scales.data_ptr() if scales is not None else None,
+        offsets.data_ptr(), bands.shape[0], X.data_ptr(), Y.data_ptr(),
+        _VEC_CODES[X.dtype], n, nsys,
+        partials.data_ptr() if with_dot else None, nblocks,
+        dots.data_ptr() if with_dot else None,
+        torch.cuda.current_stream(X.device).cuda_stream)
+    if rc != 0:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"dia_spmv_batched: kernel launch failed (CUDA error "
+                       f"{rc})")
+    batched_launches += 1
+    return (Y, dots) if with_dot else Y
 
 
 # ---------------------------------------------------------------------------

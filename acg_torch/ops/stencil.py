@@ -14,6 +14,9 @@ action is regenerated from (grid, arm offsets, arm digits, coefficients).
 - **:func:`stencil_spmv`**: the kernel wrapper (``csrc/stencil_spmv.cu``
   on a CUDA tensor, the plain grid-shift :func:`stencil_matvec` on a CPU
   tensor), with an optional fused <x, y>.
+- **:func:`stencil_spmv_batched`**: the multi-RHS wrapper over B systems
+  (``csrc/stencil_spmv_batched.cu`` on a CUDA tensor, the same
+  :func:`stencil_matvec` on a CPU ``(B, npad)`` tensor).
 - **:func:`cg_pipelined_iter_stencil`**: one whole pipelined-CG iteration
   over the stencil (``csrc/stencil_pipe.cu`` on a CUDA tensor,
   :func:`cg_pipelined_iter_stencil_plain` on a CPU tensor).
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 
 from acg_torch.errors import AcgError, Status
-from acg_torch.ops.blas1 import pipelined_update
+from acg_torch.ops.blas1 import batched_dot, pipelined_update
 from acg_torch.ops.dia_kernels import check_pipe_operands, grid_blocks
 
 # a "stencil" with more arms than the densest supported family (27-pt box)
@@ -39,9 +42,11 @@ from acg_torch.ops.dia_kernels import check_pipe_operands, grid_blocks
 _MAX_ARMS = 32
 
 # kernel launches so far (each wrapper adds one per launch, nowhere else):
-# stencil_spmv, and cg_pipelined_iter_stencil
+# stencil_spmv, cg_pipelined_iter_stencil, and stencil_spmv_batched (one
+# per call, which runs ceil(B/8) chunk launches)
 launches = 0
 pipe_launches = 0
+batched_launches = 0
 
 _VEC_CODES = {torch.float32: 2, torch.float64: 3}
 
@@ -212,25 +217,27 @@ def stencil_matvec(x: torch.Tensor, grid: tuple, digits: tuple,
                    coeffs: tuple) -> torch.Tensor:
     """y = stencil @ x through grid shifts, the plain PyTorch version
     (``acg_tpu.ops.stencil.stencil_matvec``): the boundary truncation IS
-    the zero fill of each axis shift.  ``x`` is ``(npad,)`` with ``npad
-    >= prod(grid)``; entries past the grid come back exactly 0.  Arms are
-    applied in sorted flat-offset order."""
+    the zero fill of each axis shift.  ``x`` is ``(..., npad)`` with
+    ``npad >= prod(grid)`` (leading axes are a batch of systems, each
+    given exactly the arithmetic of a 1-D ``x``); entries past the grid
+    come back exactly 0.  Arms are applied in sorted flat-offset order."""
     n = 1
     for d in grid:
         n *= int(d)
+    lead = tuple(x.shape[:-1])
     npad = x.shape[-1]
-    xg = x[:n].reshape(tuple(grid))
+    xg = x[..., :n].reshape(lead + tuple(grid))
     y = torch.zeros_like(xg)
     for dg, c in zip(digits, coeffs):
         t = xg
         for ax, g in enumerate(dg):
             if g:
-                t = _grid_shift(t, ax, g)
+                t = _grid_shift(t, len(lead) + ax, g)
         y = y + torch.tensor(c, dtype=x.dtype) * t
-    y = y.reshape(n)
+    y = y.reshape(lead + (n,))
     if npad != n:
-        y = torch.cat([y, torch.zeros(npad - n, dtype=x.dtype,
-                                      device=x.device)])
+        y = torch.cat([y, torch.zeros(lead + (npad - n,), dtype=x.dtype,
+                                      device=x.device)], dim=-1)
     return y
 
 
@@ -269,6 +276,7 @@ def _c_spec(spec: StencilSpec) -> _CStencil:
 
 _lib = None
 _pipe_lib = None
+_batched_lib = None
 
 
 def _load():
@@ -286,15 +294,18 @@ def _load():
     return _lib
 
 
-def _check_spec(name: str, spec: StencilSpec, x: torch.Tensor) -> None:
+def _check_spec(name: str, spec: StencilSpec, x: torch.Tensor,
+                batched: bool = False) -> None:
     n, npad = spec.nrows, x.shape[-1]
     if x.dtype not in _VEC_CODES:
         raise AcgError(Status.ERR_INVALID_VALUE,
                        f"{name}: vector dtype {x.dtype} (float32|float64)")
-    if x.dim() != 1 or not x.is_contiguous() or not 0 < n <= npad:
+    shape = "(B, npad) batch" if batched else "(npad,) vector"
+    if (x.dim() != (2 if batched else 1) or not x.is_contiguous()
+            or not 0 < n <= npad or x.numel() == 0):
         raise AcgError(Status.ERR_INVALID_VALUE,
-                       f"{name}: x must be a contiguous (npad,) "
-                       f"vector with npad >= {n}, got {tuple(x.shape)}")
+                       f"{name}: x must be a contiguous {shape} "
+                       f"with npad >= {n}, got {tuple(x.shape)}")
     if npad >= 2**31 or len(spec.grid) > 3 or len(spec.offsets) > _MAX_ARMS:
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        f"{name}: the kernel takes npad < 2^31, grids "
@@ -335,6 +346,65 @@ def stencil_spmv(spec: StencilSpec, x: torch.Tensor, with_dot: bool = False):
                        f"stencil_spmv: kernel launch failed (CUDA error {rc})")
     launches += 1
     return (y, dot) if with_dot else y
+
+
+def _load_batched():
+    global _batched_lib
+    if _batched_lib is None:
+        from acg_torch import _build
+
+        lib = _build.load("stencil_spmv_batched")
+        lib.acg_stencil_spmv_batched.restype = ctypes.c_int
+        lib.acg_stencil_spmv_batched.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
+        _batched_lib = lib
+    return _batched_lib
+
+
+def stencil_spmv_batched(spec: StencilSpec, X: torch.Tensor,
+                         with_dot: bool = False):
+    """Y = stencil @ X for B systems, plus the per-system
+    ``dots[s] = <X[s], Y[s]>`` when ``with_dot``.
+
+    ``X``: contiguous ``(B, npad)`` f32 or f64 with ``npad >=
+    prod(spec.grid)``; entries past the grid come back exactly 0.
+    Returns ``Y`` or ``(Y, dots)`` with ``dots`` of shape ``(B,)``.  CUDA
+    tensors launch the kernel, which derives each element's grid
+    coordinates once for up to 8 systems and gives each system the bits
+    :func:`stencil_spmv` gives it; CPU tensors take
+    :func:`stencil_matvec` and one ``torch.dot`` per system."""
+    global batched_launches
+    if X.device.type == "cpu":
+        Y = stencil_matvec(X, spec.grid, spec.digits, spec.coeffs)
+        return (Y, batched_dot(X, Y)) if with_dot else Y
+    if X.device.type != "cuda":
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"stencil_spmv_batched: no kernel for device "
+                       f"{X.device}")
+    _check_spec("stencil_spmv_batched", spec, X, batched=True)
+    nsys, npad = X.shape
+    lib = _load_batched()
+    nblocks = grid_blocks(npad)
+    Y = torch.empty_like(X)
+    partials = dots = None
+    if with_dot:
+        partials = torch.empty((nsys, nblocks), dtype=X.dtype,
+                               device=X.device)
+        dots = torch.empty(nsys, dtype=X.dtype, device=X.device)
+    rc = lib.acg_stencil_spmv_batched(
+        ctypes.addressof(_c_spec(spec)), X.data_ptr(), Y.data_ptr(),
+        _VEC_CODES[X.dtype], npad, spec.nrows, nsys,
+        partials.data_ptr() if with_dot else None, nblocks,
+        dots.data_ptr() if with_dot else None,
+        torch.cuda.current_stream(X.device).cuda_stream)
+    if rc != 0:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"stencil_spmv_batched: kernel launch failed (CUDA "
+                       f"error {rc})")
+    batched_launches += 1
+    return (Y, dots) if with_dot else Y
 
 
 def cg_pipelined_iter_stencil_plain(spec: StencilSpec, w, z, r, p, s, x,
@@ -466,12 +536,19 @@ class DeviceStencil:
     def operator_stream_bytes(self) -> int:
         return 0
 
+    def _spmv(self, x: torch.Tensor, with_dot: bool):
+        """A (B, npad) batch of systems takes the multi-RHS kernel, a 1-D
+        vector the one-system kernel (``acg_tpu``'s stencil_matvec_any)."""
+        spmv = stencil_spmv_batched if x.dim() == 2 else stencil_spmv
+        return spmv(self.spec, x, with_dot=with_dot)
+
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        return stencil_spmv(self.spec, x)
+        return self._spmv(x, False)
 
     def matvec_dot(self, x: torch.Tensor):
-        """(A x, <x, A x>) in one pass."""
-        return stencil_spmv(self.spec, x, with_dot=True)
+        """(A x, <x, A x>) in one pass; per system for a (B, npad)
+        batch."""
+        return self._spmv(x, True)
 
     def pipelined_iter(self, w, z, r, p, s, x, alpha, beta, w_out=None):
         """One pipelined-CG iteration (:func:`cg_pipelined_iter_stencil`)."""

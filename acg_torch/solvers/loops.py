@@ -1,20 +1,29 @@
 """The CG iterations, parameterized over the operator and the dots.
 
 The port of ``acg_tpu.solvers.loops`` ``cg_while`` (classic) and
-``cg_pipelined_while`` (pipelined) for one right-hand side.  JAX runs
-the whole solve as one ``lax.while_loop``; here it is a Python loop
-whose state stays on the device: the scalars (``rr``, ``alpha``,
-``beta``, ``p'Ap``, the flag, the iteration count) are 0-d tensors, and
-breakdown and convergence are decided with tensor ops exactly as the
-JAX loop body decides them.  The host reads the flag only at the
-``check_every`` points (and at ``maxits``), so between checks nothing
-waits for the device.
+``cg_pipelined_while`` (pipelined).  JAX runs the whole solve as one
+``lax.while_loop``; here it is a Python loop whose state stays on the
+device: the scalars (``rr``, ``alpha``, ``beta``, ``p'Ap``, the flag, the
+iteration count) are 0-d tensors, and breakdown and convergence are
+decided with tensor ops exactly as the JAX loop body decides them.  The
+host reads the flag only at the ``check_every`` points (and at
+``maxits``), so between checks nothing waits for the device.
 
 Between two checks the loop cannot stop, so an iteration that breaks
 down FREEZES the state instead: the flag is sticky, alpha becomes 0 (x
 and r stop moving) and the device iteration count stops advancing.  What
 the host reads at the next check is then exactly what the JAX loop
 returns at the breakdown.
+
+BATCHED mode (``b`` of shape (B, n), B systems against one operator):
+the scalars become (B,) tensors, each system keeps its own flag and
+iteration count and a (B, maxits+1) history, NaN past its own exit, and
+the loop runs until every system has finished.  A finished system
+FREEZES as in the JAX batched loops, at no extra pass over the vectors:
+its alpha (and, pipelined, beta) is 0, so x + 0·p and r - 0·t leave x
+and r bit for bit, its scalars and history are selected per system, and
+its other recurred vectors (JAX keeps them with a (B, n) ``where`` each
+iteration) only take finite values no result reads.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ from acg_torch.ops.blas1 import pipelined_update
 _OK, _CONVERGED, _BREAKDOWN, _FAULT = 0, 1, 2, 3
 
 
-def cg_while(matvec, dot, b, x0, stop2, diffstop: float, maxits: int,
+def cg_while(matvec, dot, b, x0, stop2, diffstop, maxits: int,
              track_diff: bool, check_every: int = 1, coupled_step=None,
              guard: bool = False):
     """Classic CG (ref acg/cg.c:534-637 / acg/cgcuda.c:845-1020).
@@ -35,35 +44,50 @@ def cg_while(matvec, dot, b, x0, stop2, diffstop: float, maxits: int,
     ``k`` the iteration count (int), ``rr``/``dxx``/``rr0`` 0-d tensors
     (|r|², |dx|², |r0|²), ``flag`` an int (0 running, 1 converged, 2
     breakdown, 3 non-finite caught by the guard), ``hist`` the
-    ``(maxits+1,)`` |r_k|² history, NaN past ``k``.
+    ``(maxits+1,)`` |r_k|² history, NaN past ``k``.  Batched (``b`` of
+    shape (B, n); ``dot`` then reduces per system): ``k`` and ``flag``
+    are (B,) int32 tensors, the norms (B,) and ``hist`` (B, maxits+1).
 
     ``stop2`` is the (atol², rtol²) pair of 0-d tensors; the threshold
-    max(atol², rtol²·|r0|²) is formed on the device.  The loop is the
+    max(atol², rtol²·|r0|²) is formed on the device.  ``diffstop`` is a
+    float or, batched, a per-system (B,) tensor.  The loop is the
     BETA-FIRST rotation: p = r + βp opens the iteration and is followed at
     once by t = Ap and p'Ap, so ``coupled_step(r, p, beta) -> (p, t,
     p'Ap)`` can run them as one fused kernel pass.  ``coupled_step=None``
     derives the default from ``matvec``/``dot``.  ``guard`` tests |r|² and
     p'Ap for finiteness at the check points."""
+    batched = b.dim() == 2
+    # a (B,) per-system scalar against (B, n) vectors; identity in 1-D
+    bc = (lambda v: v[:, None]) if batched else (lambda v: v)
     if coupled_step is None:
         def coupled_step(r, p, beta):
-            p = r + beta * p
+            p = r + bc(beta) * p
             t = matvec(p)
             return p, t, dot(p, t)
 
     dev, dt = b.device, b.dtype
     zero = torch.zeros((), dtype=dt, device=dev)
     one = torch.ones((), dtype=dt, device=dev)
+    nan = torch.full((), float("nan"), dtype=dt, device=dev)
     r = b - matvec(x0)
     rr0 = dot(r, r)
     atol2, rtol2 = stop2
     thresh2 = torch.maximum(atol2, rtol2 * rr0)
-    # an exactly-zero residual is convergence under ANY enabled criterion;
-    # with every criterion off (fixed-iteration timing) the loop runs on
-    any_crit = bool(atol2 > 0) or bool(rtol2 > 0) or diffstop > 0
+    ds = torch.as_tensor(diffstop, dtype=dt, device=dev)
+    # an exactly-zero residual is convergence under ANY enabled criterion
+    # (per system when diffrtol gives each its own threshold); with every
+    # criterion off (fixed-iteration timing) the loop runs on
+    crit = (atol2 > 0) | (rtol2 > 0) | (ds > 0)
+    if not bool(crit.any()):
+        crit = None
+    elif bool(crit.all()):
+        crit = True
 
     def met(rr):
         m = rr < thresh2
-        return (m | (rr == 0)) if any_crit else m
+        if crit is None:
+            return m
+        return m | ((rr == 0) if crit is True else crit & (rr == 0))
 
     def code(c):
         return torch.tensor(c, dtype=torch.int32, device=dev)
@@ -73,13 +97,14 @@ def cg_while(matvec, dot, b, x0, stop2, diffstop: float, maxits: int,
     flag = torch.where(met(rr0), conv_c, ok)
     x = x0.clone()
     p = torch.zeros_like(r)
-    rr, beta = rr0, zero
-    dxx = torch.full((), float("inf"), dtype=dt, device=dev)
-    hist = torch.full((maxits + 1,), float("nan"), dtype=dt, device=dev)
-    hist[0] = rr0
-    kdev = torch.zeros((), dtype=torch.int32, device=dev)
+    rr, beta = rr0, torch.zeros_like(rr0)
+    dxx = torch.full_like(rr0, float("inf"))
+    hist = torch.full(rr0.shape + (maxits + 1,), float("nan"), dtype=dt,
+                      device=dev)
+    hist[..., 0] = rr0
+    kdev = torch.zeros(rr0.shape, dtype=torch.int32, device=dev)
     k = 0
-    running = maxits > 0 and int(flag) == _OK
+    running = maxits > 0 and bool((flag == ok).any())
     while running:
         active = flag == ok
         p, t, ptap = coupled_step(r, p, beta)
@@ -89,18 +114,21 @@ def cg_while(matvec, dot, b, x0, stop2, diffstop: float, maxits: int,
         safe = ptap > 0
         alpha = torch.where(safe & active,
                             rr / torch.where(safe, ptap, one), zero)
-        x.addcmul_(p, alpha)
+        x.addcmul_(p, bc(alpha))
         if track_diff:
             dxx = torch.where(active, alpha * alpha * dot(p, p), dxx)
-        r.addcmul_(t, alpha, value=-1)
+        r.addcmul_(t, bc(alpha), value=-1)
         rr_new = dot(r, r)
-        hist[k + 1] = rr_new
+        # a finished system's history stops advancing (NaN past its exit;
+        # a 1-D solve's count ends its history instead)
+        hist[..., k + 1] = (torch.where(active, rr_new, nan) if batched
+                            else rr_new)
         at_check = (k + 1) % check_every == 0
         status = torch.where(indefinite, brk, ok)
         if at_check:
             converged = met(rr_new)
-            if track_diff and diffstop > 0:
-                converged = converged | (dxx < diffstop)
+            if track_diff:
+                converged = converged | ((ds > 0) & (dxx < ds))
             status = torch.where(indefinite, brk,
                                  torch.where(converged, conv_c, ok))
             if guard:
@@ -109,13 +137,19 @@ def cg_while(matvec, dot, b, x0, stop2, diffstop: float, maxits: int,
         flag = torch.where(active, status, flag)
         kdev += active
         beta = rr_new / torch.where(rr == 0, one, rr)
+        if batched:
+            # a finished system's next direction is its frozen r: finite
+            # and fixed, and never used, since its alpha is 0
+            beta = torch.where(flag == ok, beta, zero)
         rr = torch.where(active, rr_new, rr)
         k += 1
         if at_check or k == maxits:
-            running = k < maxits and int(flag) == _OK
+            running = k < maxits and bool((flag == ok).any())
     # tolerance met at exit IS convergence, whatever the flag: with
     # check_every > 1 the loop may pass the unobserved convergence point
     flag = torch.where(met(rr), conv_c, flag)
+    if batched:
+        return x, kdev, rr, dxx, flag, rr0, hist
     return x, int(kdev), rr, dxx, int(flag), rr0, hist
 
 
@@ -158,9 +192,21 @@ def cg_pipelined_while(matvec, dot2, b, x0, stop2, maxits: int,
     predicate, every iteration.  Here the host reads the flag only at
     the check points, so the first non-finite pair FREEZES what the loop
     returns (a sticky flag; x, gamma, the history and the count stop
-    advancing), and the count is JAX's."""
+    advancing), and the count is JAX's.
+
+    A (B, n) ``b`` runs the batched loop (:func:`_cg_pipelined_batched`),
+    which takes the open-coded body only: ``iter_step`` is not
+    batched."""
     if iter_step is not None and replace_every > 0:
         raise ValueError("iter_step requires replace_every == 0")
+    if b.dim() == 2:
+        if iter_step is not None:
+            raise ValueError("iter_step (the single-kernel pipelined "
+                             "iteration) is not batched; callers gate it "
+                             "off for multi-RHS solves")
+        return _cg_pipelined_batched(matvec, dot2, b, x0, stop2, maxits,
+                                     check_every, replace_every, certify,
+                                     guard)
     dev, dt = b.device, b.dtype
     zero = torch.zeros((), dtype=dt, device=dev)
     one = torch.ones((), dtype=dt, device=dev)
@@ -290,3 +336,137 @@ def cg_pipelined_while(matvec, dot2, b, x0, stop2, maxits: int,
     if guard and not bool(finite(gamma, delta)):
         flag = _FAULT
     return x, k, gamma, flag, gamma0, hist
+
+
+def _cg_pipelined_batched(matvec, dot2, b, x0, stop2, maxits: int,
+                          check_every: int, replace_every: int,
+                          certify: bool, guard: bool):
+    """Pipelined CG for B systems against one operator (``b`` and ``x0``
+    of shape (B, n)), the port of ``acg_tpu.solvers.loops``
+    ``cg_pipelined_while`` in batched mode (``:669-922``) through the
+    open-coded body.  ``matvec`` and ``dot2`` act per system.
+
+    Returns ``(x, ksys, gamma, flag, gamma0, hist)``: ``ksys`` and
+    ``flag`` (B,) int32 tensors, ``gamma``/``gamma0`` (B,), ``hist`` the
+    (B, maxits+1) history, NaN past each system's exit.
+
+    Per system: its own restarts; its ``done`` mask, set by the exit test
+    on its certified gamma at the ``check_every`` points (and by a
+    non-finite (gamma, delta) under ``guard``); its count and history
+    stop there.  Certification runs the replacement (four SpMVs) ONCE for
+    the whole batch when any active system is an exit candidate, and
+    blends it into the candidates only; a loop that ends at ``maxits``
+    certifies each system whose gamma passes uncertified, and rewrites
+    its history at its own count.  A finished system is frozen by alpha
+    = beta = 0 (see the module docstring): x, r and w stay bit for bit;
+    under ``guard`` x is also selected per system, since a faulted
+    system's non-finite p would reach x through 0·p.  The host reads at
+    the check points: whether any system is a candidate, then whether
+    all are done."""
+    dev, dt = b.device, b.dtype
+    zero = torch.zeros((), dtype=dt, device=dev)
+    one = torch.ones((), dtype=dt, device=dev)
+    nan = torch.full((), float("nan"), dtype=dt, device=dev)
+    r = b - matvec(x0)
+    w = matvec(r)
+    gamma0, delta0 = dot2(r, r, w, r)
+    atol2, rtol2 = stop2
+    thresh2 = torch.maximum(atol2, rtol2 * gamma0)
+    any_crit = bool(atol2 > 0) or bool(rtol2 > 0)
+
+    def met(g):
+        m = g < thresh2
+        return (m | (g == 0)) if any_crit else m
+
+    def replace_state(x, p):
+        """r, w, s, z recomputed from their definitions."""
+        r = b - matvec(x)
+        w = matvec(r)
+        s = matvec(p)
+        return r, w, s, matvec(s)
+
+    x = x0.clone()
+    p, s, z = (torch.zeros_like(b) for _ in range(3))
+    gamma, delta = gamma0, delta0
+    gamma_prev, alpha_prev = gamma0, torch.zeros_like(gamma0)
+    fresh = torch.ones_like(gamma0, dtype=torch.bool)
+    certified = fresh.clone()              # gamma0 is a true residual
+    hist = torch.full(gamma0.shape + (maxits + 1,), float("nan"), dtype=dt,
+                      device=dev)
+    hist[:, 0] = gamma0
+    # systems converged at x0 are done before the first iteration
+    done = met(gamma0)
+    ksys = torch.zeros(gamma0.shape, dtype=torch.int32, device=dev)
+    k = 0
+    running = maxits > 0 and not bool(done.all())
+    while running:
+        active = ~done
+        beta = torch.where(fresh, zero, gamma / torch.where(
+            gamma_prev == 0, one, gamma_prev))
+        denom = torch.where(fresh, delta, delta - beta * gamma / torch.where(
+            alpha_prev == 0, one, alpha_prev))
+        # unusable denominator -> restart: freeze this step, re-derive the
+        # directions from r, w on the next one
+        bad = (denom <= 0) | (~fresh & (gamma_prev == 0))
+        alpha = torch.where(bad, zero, gamma / torch.where(bad, one, denom))
+        stop = bad | done
+        x_old = x
+        z, p, s, x, r, w = pipelined_update(
+            matvec(w), w, z, r, p, s, x, torch.where(done, zero, alpha),
+            torch.where(stop, zero, beta))
+        just_replaced = replace_every > 0 and (k + 1) % replace_every == 0
+        if just_replaced:
+            r, w, s, z = replace_state(x, p)
+        gamma_new, delta_new = dot2(r, r, w, r)
+        k += 1
+        at_check = k % check_every == 0
+        cand = torch.zeros_like(active)
+        if certify and at_check:
+            cand = met(gamma_new) & active
+            # a just-replaced gamma IS the true residual
+            if not just_replaced and bool(cand.any()):
+                rc, wc, sc, zc = replace_state(x, p)
+                gc, dc = dot2(rc, rc, wc, rc)
+                m = cand[:, None]
+                r, w, s, z = (torch.where(m, new, old) for new, old in
+                              ((rc, r), (wc, w), (sc, s), (zc, z)))
+                gamma_new = torch.where(cand, gc, gamma_new)
+                delta_new = torch.where(cand, dc, delta_new)
+        if guard:
+            x = torch.where(active[:, None], x, x_old)
+        gamma_new = torch.where(active, gamma_new, gamma)
+        delta_new = torch.where(active, delta_new, delta)
+        gamma_prev = torch.where(active, gamma, gamma_prev)
+        alpha_prev = torch.where(active, alpha, alpha_prev)
+        fresh = torch.where(active, bad, fresh)
+        certified = torch.where(active, cand | just_replaced, certified)
+        hist[:, k] = torch.where(active, gamma_new, nan)
+        if at_check:
+            # the exit decision per system, on the (certified) gamma
+            done = done | (active & met(gamma_new))
+        if guard:
+            done = done | (active & ~(torch.isfinite(gamma_new)
+                                      & torch.isfinite(delta_new)))
+        ksys = torch.where(active, k, ksys)
+        gamma, delta = gamma_new, delta_new
+        if k >= maxits:
+            break
+        if at_check:
+            running = not bool(done.all())
+    if certify:
+        # the maxits door, off the check schedule, can leave an
+        # uncertified gamma below the threshold: certify those too
+        need = met(gamma) & ~certified
+        if bool(need.any()):
+            rt = b - matvec(x)
+            g, _ = dot2(rt, rt, rt, rt)
+            gamma = torch.where(need, g, gamma)
+        # each system's last sample is its certified exit value
+        hist[torch.arange(gamma.shape[0], device=dev), ksys.long()] = gamma
+        flag = torch.where(met(gamma), _CONVERGED, _OK).to(torch.int32)
+    else:
+        flag = torch.full(gamma.shape, _OK, dtype=torch.int32, device=dev)
+    if guard:
+        flag = torch.where(torch.isfinite(gamma) & torch.isfinite(delta),
+                           flag, _FAULT).to(torch.int32)
+    return x, ksys, gamma, flag, gamma0, hist

@@ -60,6 +60,13 @@ def format_solver_stats(st: SolveStats, res: SolveResult | None = None,
             "    tolerance for relative difference in solution iterates: "
             f"{o.diffrtol:.17g}")
         lines.append(f"  iterations: {res.niterations}")
+        if res.nrhs > 1:
+            # a multi-RHS batch: the norms below are the worst system's
+            lines.append(f"  right-hand sides (batched): {res.nrhs}")
+            its = ", ".join(str(int(v)) for v in res.iterations_per_system)
+            lines.append(f"  per-system iterations: [{its}]")
+            rn = ", ".join(f"{float(v):.3e}" for v in res.rnrm2_per_system)
+            lines.append(f"  per-system residual 2-norms: [{rn}]")
         lines.append(f"  right-hand side 2-norm: {res.bnrm2:.17g}")
         lines.append(f"  initial guess 2-norm: {res.x0nrm2:.17g}")
         lines.append(f"  initial residual 2-norm: {res.r0nrm2:.17g}")

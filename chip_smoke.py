@@ -31,12 +31,25 @@ raises and the script exits non-zero:
               replace_every=50, which runs the open-coded body;
 10. cli       ``python -m acg_torch.cli`` on a 48^3 Poisson .mtx, then
               again with ``--solver acg-pipelined`` (cli-pipelined);
-11. profile   for the operators of phases 3, 4 and 6: 50 iterations
-              under torch.profiler (device time by kernel, device idle
-              share of the solve's wall time), and µs/iter with the host
-              reading the loop flag every iteration vs every 16, all with
-              a tolerance that is never met (rtol 1e-30), so the loops
-              test for an exit as a solve to a tolerance does.
+11. batched   the multi-RHS path, B = 8 systems against one operator:
+              batched-stencil (classic CG, 256^3 Poisson f64, 8
+              manufactured solutions, rtol 1e-8, per-system counts held
+              equal to 8 one-system solves run here, true residuals
+              recomputed), batched-dia-bf16 (1000 fixed iterations),
+              batched-dia-f64 (varcoef 128^3), batched-pipelined-stencil
+              (cg_pipelined, counts within 1 of classic's), and cli-nrhs
+              (the CLI with --nrhs 4); the kernels phase holds both
+              batched kernels in every tier against their plain versions
+              and, system by system, bit for bit against the one-system
+              kernels (B = 8 and B = 1), and times them beside 8 calls of
+              the one-system kernel;
+12. profile   for the operators of phases 3, 4, 6 and batched-stencil: 50
+              iterations under torch.profiler (device time by kernel,
+              device idle share of the solve's wall time, kernels per
+              iteration), and µs/iter with the host reading the loop flag
+              every iteration vs every 16, all with a tolerance that is
+              never met (rtol 1e-30), so the loops test for an exit as a
+              solve to a tolerance does.
 
 Every kernel wrapper counts its launches; each solve phase zeroes the
 counts just before the solve and reads them just after; the CLI logs the
@@ -95,8 +108,10 @@ def _phase(name: str, fn):
 
 
 def main() -> int:
-    # Poisson edge, varcoef edge, CLI edge, timed reps, bench iterations
+    # Poisson edge, varcoef edge, CLI edge, timed reps, bench iterations,
+    # right-hand sides of the batched phases
     grid, var_grid, cli_grid, reps, bench_iters = 256, 128, 48, 25, 1000
+    nrhs = 8
 
     import torch
 
@@ -127,7 +142,7 @@ def main() -> int:
            "reps": reps, "phase_launches": {}, "rows": []}
 
     _phase("build", _build_phase)
-    _phase("kernels", lambda: _kernels_phase(grid, ctx))
+    _phase("kernels", lambda: _kernels_phase(grid, nrhs, ctx))
     _phase("stencil", lambda: _stencil_solve(grid, ctx))
     _phase("dia-bf16", lambda: _dia_bf16_solve(grid, bench_iters, ctx))
     _phase("dia-f64", lambda: _dia_f64_solve(var_grid, ctx))
@@ -138,6 +153,14 @@ def main() -> int:
     _phase("pipelined-replace", lambda: _replace_solve(grid, ctx))
     _phase("cli", lambda: _cli_phase(cli_grid))
     _phase("cli-pipelined", lambda: _cli_phase(cli_grid, "acg-pipelined"))
+    _phase("batched-stencil", lambda: _batched_stencil(grid, nrhs, ctx))
+    _phase("batched-dia-bf16",
+           lambda: _dia_bf16_solve(grid, bench_iters, ctx, nrhs=nrhs))
+    _phase("batched-dia-f64", lambda: _dia_f64_solve(var_grid, ctx,
+                                                     nrhs=nrhs))
+    _phase("batched-pipelined-stencil",
+           lambda: _batched_stencil(grid, nrhs, ctx, pipelined=True))
+    _phase("cli-nrhs", lambda: _cli_phase(cli_grid, nrhs=4))
     _phase("profile", lambda: _profile_phase(ctx))
     lines = _kernel_lines(ctx)
     idle = [k["name"] for k in lines if k["launches"] <= 0]
@@ -211,9 +234,12 @@ def _tolerances(dtype):
     return 1e-5, 1e-5, 1e-4
 
 
-def _check_kernel(label, run, plain, x, ctx, nbytes, flops, library):
+def _check_kernel(label, run, plain, x, ctx, nbytes, flops, library,
+                  extra=None):
     """Hold one kernel configuration against its plain version, check its
-    dot's bits across two runs, and time all three."""
+    dot's bits across two runs, and time all three.  ``x`` may be a (B, n)
+    batch: its dots are then per system.  ``extra(row) -> bool`` runs
+    further checks and timings into the row before it is judged."""
     import torch
 
     rtol, atol, dot_rtol = _tolerances(x.dtype)
@@ -230,12 +256,16 @@ def _check_kernel(label, run, plain, x, ctx, nbytes, flops, library):
                bits_stable=bool(torch.equal(y1, y2)))
     ok = err <= atol + rtol * scale and row["bits_stable"]
     if with_dot:
-        dscale = float(torch.linalg.norm(x) * torch.linalg.norm(yw))
-        derr = abs(float(d1) - float(dw))
-        row.update(dot=float(d1), dot_plain=float(dw), dot_abs_err=derr,
-                   dot_rtol=dot_rtol,
+        dscale = (torch.linalg.norm(x, dim=-1)
+                  * torch.linalg.norm(yw, dim=-1))
+        derr = (d1 - dw).abs()
+        row.update(dot=d1.tolist(), dot_plain=dw.tolist(),
+                   dot_abs_err=float(derr.max()), dot_rtol=dot_rtol,
                    dot_bits_stable=bool(torch.equal(d1, d2)))
-        ok = ok and derr <= dot_rtol * dscale and row["dot_bits_stable"]
+        ok = (ok and bool(torch.all(derr <= dot_rtol * dscale))
+              and row["dot_bits_stable"])
+    if extra is not None:
+        ok = extra(row) and ok
     row["ms"] = _time_ms(run, ctx["reps"])
     row["plain_ms"] = _time_ms(plain, ctx["reps"])
     row["library_ms"] = _time_ms(library, ctx["reps"])
@@ -351,7 +381,7 @@ def _csr_of(dev, dtype):
         return coo.coalesce().to_sparse_csr()
 
 
-def _kernels_phase(G: int, ctx):
+def _kernels_phase(G: int, nrhs: int, ctx):
     import torch
 
     from acg_torch.ops.dia import DeviceDia
@@ -457,9 +487,148 @@ def _kernels_phase(G: int, ctx):
                     vecs, ab, n, ctx, 12 * n * x.element_size(),
                     2 * len(spec.offsets) * n + 16 * n)
         del vecs
-    return {"grid": [G, G, G], "n": n,
+    del xs
+    torch.cuda.empty_cache()
+    _batched_kernels(D, G, nrhs, ctx)
+    return {"grid": [G, G, G], "n": n, "nrhs": nrhs,
             "configurations": len(ctx["rows"]),
             "launches_while_checking": _counts()}
+
+
+def _per_system_bits(Y, d, X, one):
+    """True when every system's row of the batched output (and its dot,
+    when ``d`` is not None) has exactly the bits of the one-system kernel
+    ``one(x, with_dot)`` on that system."""
+    import torch
+
+    for s in range(X.shape[0]):
+        x = X[s].contiguous()
+        if d is None:
+            if not torch.equal(Y[s], one(x, False)):
+                return False
+        else:
+            y, ds = one(x, True)
+            if not (torch.equal(Y[s], y) and torch.equal(d[s], ds)):
+                return False
+    return True
+
+
+def _batched_kernels(D, G: int, nrhs: int, ctx):
+    """Both multi-RHS kernels in every tier at (nrhs, n): held against
+    their plain versions (``_check_kernel``), each system bit-identical to
+    the one-system kernel at B = nrhs and at B = 1, and timed beside
+    nrhs calls of the one-system kernel and the library call on the same
+    batch (cuSPARSE SpMM for DIA, conv3d with batch N = nrhs for the
+    stencil)."""
+    import torch
+
+    from acg_torch.ops.blas1 import batched_dot
+    from acg_torch.ops.dia import DeviceDia
+    from acg_torch.ops.dia_kernels import (dia_matvec, dia_spmv,
+                                           dia_spmv_batched)
+    from acg_torch.ops.stencil import (recognize_stencil, stencil_matvec,
+                                       stencil_spmv, stencil_spmv_batched)
+
+    n, nrp = D.nrows, D.nrows_padded
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    X64 = torch.randn(nrhs, nrp, generator=gen, device="cuda",
+                      dtype=torch.float64)
+
+    def extras(batched, one, X):
+        """Per-system bits at B = nrhs and B = 1, and nrhs one-system
+        calls timed."""
+        def check(row):
+            out = batched(X)
+            Y, d = out if isinstance(out, tuple) else (out, None)
+            row["per_system_bits_equal_1d"] = _per_system_bits(Y, d, X, one)
+            out1 = batched(X[:1].contiguous())
+            Y1, d1 = out1 if isinstance(out1, tuple) else (out1, None)
+            row["b1_bits_equal_1d"] = _per_system_bits(Y1, d1, X[:1], one)
+            rows = [X[s].contiguous() for s in range(X.shape[0])]
+            row["one_system_calls_ms"] = _time_ms(
+                lambda: [one(x, row["with_dot"]) for x in rows],
+                ctx["reps"])
+            return row["per_system_bits_equal_1d"] and row[
+                "b1_bits_equal_1d"]
+        return check
+
+    tiers = (("bf16/f32", torch.float32, "auto"),
+             ("int8/f32", torch.float32, "int8"),
+             ("f64/f64", torch.float64, None))
+    for tier, vdt, mat in tiers:
+        dev = DeviceDia.from_dia(D, dtype=str(vdt)[6:], mat_dtype=mat)
+        X = X64.to(vdt)
+        A = _csr_of(dev, vdt)
+        Xt = X[:, :n].T.contiguous()          # (n, B) for the SpMM
+        D_, vb = len(dev.offsets), X.element_size()
+
+        def one(x, w, dev=dev):
+            return dia_spmv(dev.bands, dev.scales, dev.offsets_t, x,
+                            with_dot=w)
+
+        for with_dot in (False, True):
+            def run(X=X, dev=dev, w=with_dot):
+                return dia_spmv_batched(dev.bands, dev.scales,
+                                        dev.offsets_t, X, with_dot=w)
+
+            def plain(X=X, dev=dev, w=with_dot):
+                Y = dia_matvec(dev.bands, dev.offsets, X, dev.scales)
+                return (Y, batched_dot(X, Y)) if w else Y
+
+            _check_kernel({"name": "dia_spmv_batched", "tier": tier,
+                           "with_dot": with_dot, "nrhs": nrhs},
+                          run, plain, X, ctx,
+                          D_ * n * dev.mat_itemsize + nrhs * 2 * n * vb,
+                          nrhs * (2 * D_ * n + (2 * n if with_dot else 0)),
+                          lambda A=A, Xt=Xt: torch.sparse.mm(A, Xt),
+                          extra=extras(run, one, X))
+        del dev, X, A, Xt
+        torch.cuda.empty_cache()
+    weight = torch.zeros(1, 1, 3, 3, 3, dtype=torch.float64, device="cuda")
+    weight[0, 0, 1, 1, 1] = 6.0
+    for c in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+              (1, 1, 2)):
+        weight[(0, 0) + c] = -1.0
+    for vdt in (torch.float32, torch.float64):
+        spec, why = recognize_stencil(D, dtype=str(vdt)[6:])
+        if spec is None:
+            raise SystemExit(f"error: the Poisson operator did not "
+                             f"recognize as a stencil: {why}")
+        X = X64.to(vdt)
+        X[:, n:] = 0
+        w = weight.to(vdt)
+
+        def one(x, wd, spec=spec):
+            return stencil_spmv(spec, x, with_dot=wd)
+
+        for with_dot in (False, True):
+            def run(X=X, spec=spec, wd=with_dot):
+                return stencil_spmv_batched(spec, X, with_dot=wd)
+
+            def plain(X=X, spec=spec, wd=with_dot):
+                Y = stencil_matvec(X, spec.grid, spec.digits, spec.coeffs)
+                return (Y, batched_dot(X, Y)) if wd else Y
+
+            def library(X=X, w=w):
+                return torch.nn.functional.conv3d(
+                    X[:, :n].view(nrhs, 1, G, G, G), w, padding=1)
+
+            yp = plain()
+            yp = yp[0] if with_dot else yp
+            lib_err = float((library().reshape(nrhs, n)
+                             - yp[:, :n]).abs().max())
+            del yp
+            _check_kernel({"name": "stencil_spmv_batched",
+                           "tier": f"matrix-free/{str(vdt)[6:]}",
+                           "with_dot": with_dot, "nrhs": nrhs,
+                           "library_max_abs_err": lib_err},
+                          run, plain, X, ctx,
+                          nrhs * 2 * nrp * X.element_size(),
+                          nrhs * (2 * len(spec.offsets) * n
+                                  + (2 * n if with_dot else 0)),
+                          library, extra=extras(run, one, X))
+        del X
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -472,7 +641,9 @@ def _counts() -> dict:
     return {"dia_spmv": dia_kernels.launches,
             "stencil_spmv": stencil.launches,
             "cg_pipelined_iter": dia_kernels.pipe_launches,
-            "cg_pipelined_iter_stencil": stencil.pipe_launches}
+            "cg_pipelined_iter_stencil": stencil.pipe_launches,
+            "dia_spmv_batched": dia_kernels.batched_launches,
+            "stencil_spmv_batched": stencil.batched_launches}
 
 
 def _reset_counts():
@@ -480,6 +651,7 @@ def _reset_counts():
 
     dia_kernels.launches = dia_kernels.pipe_launches = 0
     stencil.launches = stencil.pipe_launches = 0
+    dia_kernels.batched_launches = stencil.batched_launches = 0
 
 
 def _read_counts(ctx, phase: str) -> dict:
@@ -505,13 +677,38 @@ def _true_residual(op, x_host, b_host) -> float:
 
 def _solve_report(res, launches: dict) -> dict:
     its = max(res.niterations, 1)
-    return {"iterations": res.niterations,
-            "tsolve_s": res.stats.tsolve,
-            "us_per_iter": res.stats.tsolve / its * 1e6,
-            "relative_residual": res.relative_residual,
-            "operator_format": res.operator_format, "kernel": res.kernel,
-            "kernel_note": res.kernel_note, "launches": launches,
-            "launches_per_iter": {k: v / its for k, v in launches.items()}}
+    rep = {"iterations": res.niterations,
+           "tsolve_s": res.stats.tsolve,
+           "us_per_iter": res.stats.tsolve / its * 1e6,
+           "relative_residual": res.relative_residual,
+           "operator_format": res.operator_format, "kernel": res.kernel,
+           "kernel_note": res.kernel_note, "launches": launches,
+           "launches_per_iter": {k: v / its for k, v in launches.items()}}
+    if res.nrhs > 1:
+        # a batch: the loop runs to its slowest system; each system counts
+        # only the iterations it was active
+        total = max(int(res.iterations_per_system.sum()), 1)
+        rep.update(nrhs=res.nrhs,
+                   iterations_per_system=res.iterations_per_system.tolist(),
+                   us_per_system_iter=res.stats.tsolve / total * 1e6)
+    return rep
+
+
+def _batched_true_residuals(op, x_host, b_host) -> list:
+    """||b_s - A x_s|| / ||b_s|| of every system, on the card."""
+    return [_true_residual(op, x_host[s], b_host[s])
+            for s in range(b_host.shape[0])]
+
+
+def _check_batched_launches(rep, launches, kernel, its, where):
+    """A batched solve went through the multi-RHS kernel, at least once
+    per iteration, and launched no one-system kernel."""
+    one = [k for k in ("dia_spmv", "stencil_spmv", "cg_pipelined_iter",
+                       "cg_pipelined_iter_stencil") if launches[k]]
+    if launches[kernel] < its or one:
+        raise SystemExit(f"error: {where}: {kernel} launched "
+                         f"{launches[kernel]} times in {its} iterations "
+                         f"(one-system kernels launched: {one}): {rep}")
 
 
 def _solver(pipelined: bool):
@@ -574,12 +771,14 @@ def _stencil_solve(G: int, ctx, pipelined: bool = False):
         _check_launches(rep, launches, "stencil_spmv", res.niterations,
                         False, phase)
         ctx["classic_iterations"] = res.niterations
+    ctx.setdefault("us_per_iter", {})[phase] = rep["us_per_iter"]
     ctx["profile_cases"] = ctx.get("profile_cases", []) + [
         (f"{phase}-f64", op, b, solve)]
     return rep
 
 
-def _dia_bf16_solve(G: int, iters: int, ctx, pipelined: bool = False):
+def _dia_bf16_solve(G: int, iters: int, ctx, pipelined: bool = False,
+                    nrhs: int = 0):
     import numpy as np
     import torch
 
@@ -588,13 +787,16 @@ def _dia_bf16_solve(G: int, iters: int, ctx, pipelined: bool = False):
     from acg_torch.sparse.poisson import poisson3d_7pt_dia
 
     solve, body = _solver(pipelined)
-    phase = "pipelined-dia-bf16" if pipelined else "dia-bf16"
+    phase = ("batched-dia-bf16" if nrhs else
+             "pipelined-dia-bf16" if pipelined else "dia-bf16")
+    body = "batched" if nrhs else body
     D = poisson3d_7pt_dia(G, dtype=np.float32)
     op = build_device_operator(D, dtype=np.float32, fmt="dia")
     if op.bands.dtype != torch.bfloat16:
         raise SystemExit(f"error: expected bf16 bands, got {op.bands.dtype}")
     rng = np.random.default_rng(0)
-    b = rng.standard_normal(D.nrows).astype(np.float32)
+    b = rng.standard_normal((nrhs, D.nrows) if nrhs else D.nrows
+                            ).astype(np.float32)
     # residual_rtol=0: every criterion off, the loop runs to maxits
     solve(op, b, options=SolverOptions(maxits=20, residual_rtol=0.0))
     _reset_counts()
@@ -603,19 +805,28 @@ def _dia_bf16_solve(G: int, iters: int, ctx, pipelined: bool = False):
     launches = _read_counts(ctx, phase)
     rep = _solve_report(res, launches)
     ok = ((res.operator_format, res.kernel) == ("dia", f"cuda-dia-{body}")
-          and res.niterations == iters and np.all(np.isfinite(res.x)))
+          and res.niterations == iters and np.all(np.isfinite(res.x))
+          and res.x.shape == np.shape(b))
+    if nrhs:
+        ok = ok and list(res.iterations_per_system) == [iters] * nrhs
+        rep["us_per_iter_one_system"] = ctx["us_per_iter"]["dia-bf16"]
     if not ok:
         raise SystemExit(f"error: {phase} solve failed: {rep}")
-    _check_launches(rep, launches,
-                    "cg_pipelined_iter" if pipelined else "dia_spmv", iters,
-                    pipelined, phase)
-    if not pipelined:
+    if nrhs:
+        _check_batched_launches(rep, launches, "dia_spmv_batched", iters,
+                                phase)
+    else:
+        _check_launches(rep, launches,
+                        "cg_pipelined_iter" if pipelined else "dia_spmv",
+                        iters, pipelined, phase)
+    ctx.setdefault("us_per_iter", {})[phase] = rep["us_per_iter"]
+    if not pipelined and not nrhs:
         ctx["profile_cases"] = ctx.get("profile_cases", []) + [
             ("dia-bf16-f32", op, b, solve)]
     return rep
 
 
-def _dia_f64_solve(G: int, ctx, pipelined: bool = False):
+def _dia_f64_solve(G: int, ctx, pipelined: bool = False, nrhs: int = 0):
     import numpy as np
     import torch
 
@@ -625,9 +836,16 @@ def _dia_f64_solve(G: int, ctx, pipelined: bool = False):
     from acg_torch.sparse.poisson import poisson3d_7pt_varcoef
 
     solve, body = _solver(pipelined)
-    phase = "pipelined-dia-f64" if pipelined else "dia-f64"
+    phase = ("batched-dia-f64" if nrhs else
+             "pipelined-dia-f64" if pipelined else "dia-f64")
+    body = "batched" if nrhs else body
     A = poisson3d_7pt_varcoef(G)
-    xstar, b = manufactured_rhs(A, seed=2)
+    if nrhs:
+        # seeds 0..nrhs-1; system 2 is the one-system phase's (seed 2)
+        xstar, b = (np.stack(v) for v in zip(
+            *(manufactured_rhs(A, seed=s) for s in range(nrhs))))
+    else:
+        xstar, b = manufactured_rhs(A, seed=2)
     op = build_device_operator(A, dtype=np.float64, fmt="auto")
     if op.bands.dtype != torch.float64:
         raise SystemExit(f"error: expected f64 bands, got {op.bands.dtype}")
@@ -636,16 +854,94 @@ def _dia_f64_solve(G: int, ctx, pipelined: bool = False):
                                              residual_rtol=1e-8))
     launches = _read_counts(ctx, phase)
     rep = _solve_report(res, launches)
-    rep["true_relative_residual"] = _true_residual(op, res.x, b)
+    if nrhs:
+        rep["true_relative_residual"] = _batched_true_residuals(op, res.x, b)
+        rep["one_system_iterations_seed2"] = ctx["iterations"]["dia-f64"]
+    else:
+        rep["true_relative_residual"] = _true_residual(op, res.x, b)
     rep["error_vs_manufactured"] = float(np.linalg.norm(res.x - xstar))
     ok = ((res.operator_format, res.kernel) == ("dia", f"cuda-dia-{body}")
-          and res.converged and rep["true_relative_residual"] <= 1e-7
-          and np.all(np.isfinite(res.x)))
+          and res.converged
+          and max(np.ravel(rep["true_relative_residual"])) <= 1e-7
+          and np.all(np.isfinite(res.x)) and res.x.shape == b.shape)
+    if nrhs:
+        ok = ok and (res.iterations_per_system[2]
+                     == rep["one_system_iterations_seed2"])
     if not ok:
         raise SystemExit(f"error: {phase} solve failed: {rep}")
-    _check_launches(rep, launches,
-                    "cg_pipelined_iter" if pipelined else "dia_spmv",
-                    res.niterations, pipelined, phase)
+    if nrhs:
+        _check_batched_launches(rep, launches, "dia_spmv_batched",
+                                res.niterations, phase)
+    else:
+        _check_launches(rep, launches,
+                        "cg_pipelined_iter" if pipelined else "dia_spmv",
+                        res.niterations, pipelined, phase)
+    ctx.setdefault("iterations", {})[phase] = res.niterations
+    return rep
+
+
+def _batched_stencil(G: int, nrhs: int, ctx, pipelined: bool = False):
+    """Classic (or pipelined) CG on ``nrhs`` 256^3 Poisson systems at once
+    from ``nrhs`` manufactured solutions (seeds 0..nrhs-1), through the
+    batched stencil kernel.  Classic: each system's count must equal its
+    own one-system solve's (run here; the batched kernel gives every
+    system the one-system kernel's bits).  Pipelined: counts within 1 of
+    the classic batch's.  Every exit is certified against the true
+    residual."""
+    import numpy as np
+
+    from acg_torch.config import SolverOptions
+    from acg_torch.solvers.cg import build_device_operator
+    from acg_torch.sparse.csr import manufactured_rhs
+    from acg_torch.sparse.poisson import poisson3d_7pt_dia
+
+    solve, _ = _solver(pipelined)
+    phase = "batched-pipelined-stencil" if pipelined else "batched-stencil"
+    if pipelined:
+        op, b, xstar = ctx["batched_case"]
+    else:
+        D = poisson3d_7pt_dia(G)
+        xstar, b = (np.stack(v) for v in zip(
+            *(manufactured_rhs(D, seed=s) for s in range(nrhs))))
+        op = build_device_operator(D, dtype=np.float64, fmt="auto")
+        ctx["batched_case"] = (op, b, xstar)
+    opts = SolverOptions(maxits=20000, residual_rtol=1e-8)
+    solve(op, b, options=SolverOptions(maxits=20, residual_rtol=0.0))
+    _reset_counts()
+    res = solve(op, b, options=opts)
+    launches = _read_counts(ctx, phase)
+    rep = _solve_report(res, launches)
+    rep["true_relative_residual"] = _batched_true_residuals(op, res.x, b)
+    rep["error_vs_manufactured"] = [float(np.linalg.norm(res.x[s]
+                                                         - xstar[s]))
+                                    for s in range(nrhs)]
+    rep["us_per_iter_one_system"] = ctx["us_per_iter"][
+        "pipelined-stencil" if pipelined else "stencil"]
+    counts = np.asarray(res.iterations_per_system)
+    if pipelined:
+        ref = np.asarray(ctx["batched_counts"])
+        rep["classic_batched_iterations"] = ref.tolist()
+        counts_ok = bool(np.all(np.abs(counts - ref) <= 1))
+    else:
+        one = [solve(op, b[s], options=opts) for s in range(nrhs)]
+        rep["one_system_iterations"] = [r.niterations for r in one]
+        counts_ok = counts.tolist() == rep["one_system_iterations"]
+        ctx["batched_counts"] = counts.tolist()
+    ok = ((res.operator_format, res.kernel)
+          == ("stencil", "cuda-stencil-batched") and res.converged
+          and all(res.converged_per_system) and counts_ok
+          and max(rep["true_relative_residual"]) <= 1e-7
+          and np.all(np.isfinite(res.x)) and res.x.shape == b.shape)
+    if pipelined:
+        ok = ok and res.kernel_note.startswith("stencil pipe disengaged: "
+                                               f"nrhs={nrhs}")
+    if not ok:
+        raise SystemExit(f"error: {phase} solve failed: {rep}")
+    _check_batched_launches(rep, launches, "stencil_spmv_batched",
+                            res.niterations, phase)
+    if not pipelined:
+        ctx["profile_cases"] = ctx.get("profile_cases", []) + [
+            (f"{phase}-f64", op, b, solve)]
     return rep
 
 
@@ -680,7 +976,7 @@ def _replace_solve(G: int, ctx):
 # phase 6
 
 
-def _cli_phase(G: int, solver: str = "acg"):
+def _cli_phase(G: int, solver: str = "acg", nrhs: int = 1):
     from acg_torch.io.mtxfile import MtxFile, write_mtx
     from acg_torch.sparse.poisson import poisson3d_7pt
 
@@ -694,32 +990,37 @@ def _cli_phase(G: int, solver: str = "acg"):
         env = dict(os.environ, PYTHONPATH=str(REPO))
         out = subprocess.run(
             [sys.executable, "-m", "acg_torch.cli", path, "--solver", solver,
-             "--manufactured-solution", "--max-iterations", "2000", "-v",
-             "-q"], capture_output=True, text=True, env=env, cwd=REPO,
-            timeout=600)
+             "--nrhs", str(nrhs), "--manufactured-solution",
+             "--max-iterations", "2000", "-v", "-q"],
+            capture_output=True, text=True, env=env, cwd=REPO, timeout=600)
     stats = out.stdout
     # -v logs the wrapper counts of the timed solve, zeroed just before it
-    counted = re.search(r"kernel launches in the timed solve: "
-                        r"dia_spmv (\d+), stencil_spmv (\d+), "
-                        r"cg_pipelined_iter (\d+), "
-                        r"cg_pipelined_iter_stencil (\d+)", out.stderr)
     names = ("dia_spmv", "stencil_spmv", "cg_pipelined_iter",
-             "cg_pipelined_iter_stencil")
+             "cg_pipelined_iter_stencil", "dia_spmv_batched",
+             "stencil_spmv_batched")
+    counted = re.search("kernel launches in the timed solve: " + ", ".join(
+        rf"{k} (\d+)" for k in names), out.stderr)
     launches = ({k: int(v) for k, v in zip(names, counted.groups())}
                 if counted else None)
     pipelined = solver == "acg-pipelined"
-    kernel = "cuda-stencil-pipe" if pipelined else "cuda-stencil-fused"
-    loop_kernel = ("cg_pipelined_iter_stencil" if pipelined
-                   else "stencil_spmv")
+    if nrhs > 1:
+        kernel, loop_kernel = "cuda-stencil-batched", "stencil_spmv_batched"
+    elif pipelined:
+        kernel, loop_kernel = "cuda-stencil-pipe", "cg_pipelined_iter_stencil"
+    else:
+        kernel, loop_kernel = "cuda-stencil-fused", "stencil_spmv"
     ok = (out.returncode == 0 and f"kernel: {kernel}\n" in stats
           and "floating-point exceptions: none" in stats
           and launches is not None and launches[loop_kernel] > 0)
+    if nrhs > 1:
+        ok = ok and f"right-hand sides (batched): {nrhs}" in stats
     if not ok:
         raise SystemExit(f"error: CLI run failed (exit {out.returncode}):\n"
                          f"{out.stdout}\n{out.stderr}")
     its = [ln.split(":")[1].strip() for ln in stats.splitlines()
            if ln.strip().startswith("iterations:")]
-    return {"grid": [G, G, G], "solver": solver, "exit": out.returncode,
+    return {"grid": [G, G, G], "solver": solver, "nrhs": nrhs,
+            "exit": out.returncode,
             "iterations": int(its[0]) if its else None,
             "launches": launches,
             "kernel_line": [ln.strip() for ln in stats.splitlines()
@@ -769,8 +1070,8 @@ def _profile_phase(ctx):
         # b already padded on the card, so the profiled window holds the
         # loop and not the upload of b
         vdt = getattr(torch, op.vec_dtype)
-        b_dev = torch.zeros(op.nrows_padded, dtype=vdt)
-        b_dev[: op.nrows] = torch.from_numpy(b.astype(op.vec_dtype))
+        b_dev = torch.zeros(b.shape[:-1] + (op.nrows_padded,), dtype=vdt)
+        b_dev[..., : op.nrows] = torch.from_numpy(b.astype(op.vec_dtype))
         b_dev = b_dev.cuda()
         _fixed_solve(solve, op, b_dev, 50)
         with profile(activities=[ProfilerActivity.CPU,
@@ -778,7 +1079,7 @@ def _profile_phase(ctx):
             res = _fixed_solve(solve, op, b_dev, 50)
         # device-side events only: the CPU ops that launched them carry
         # the same time again
-        per_name, copies = {}, 0.0
+        per_name, copies, nkernels = {}, 0.0, 0
         for e in prof.key_averages():
             if not (str(getattr(e, "device_type", "")).endswith("CUDA")
                     and _device_us(e) > 0):
@@ -788,6 +1089,7 @@ def _profile_phase(ctx):
                 continue
             key = e.key[:70]
             per_name[key] = per_name.get(key, 0.0) + _device_us(e)
+            nkernels += e.count
         its = res.niterations
         busy = sum(per_name.values())
         wall = res.stats.tsolve * 1e6
@@ -801,6 +1103,7 @@ def _profile_phase(ctx):
             "kernel_busy_us_per_iter": busy / its,
             "device_idle_share": 1.0 - busy / wall,
             "copies_us_total": copies,
+            "kernel_launches_per_iter": nkernels / its,
             "kernel_us_per_iter": {
                 k: v / its for k, v in sorted(per_name.items(),
                                               key=lambda kv: -kv[1])},
@@ -816,7 +1119,8 @@ def _profile_phase(ctx):
 def _kernel_lines(ctx) -> list:
     """One entry per kernel and tier that a solve phase runs: the launches
     of that phase alone, beside the phase-2 numbers of the configuration
-    its loop runs (fused dot, the phase's band and vector types)."""
+    its loop runs (the phase's band and vector types; the fused dot in
+    classic CG, none in the open-coded pipelined body)."""
     meta = {"dia_spmv": ("acg_torch/csrc/dia_spmv.cu",
                          "acg_tpu/ops/pallas_kernels.py:189",
                          "acg_tpu/ops/pallas_kernels.py:97"),
@@ -827,20 +1131,31 @@ def _kernel_lines(ctx) -> list:
                                   None),
             "cg_pipelined_iter_stencil": ("acg_torch/csrc/stencil_pipe.cu",
                                           "acg_tpu/ops/stencil.py:504",
-                                          None)}
-    # (kernel, phase-2 tier, solve phase)
-    paths = (("stencil_spmv", "matrix-free/float64", "stencil"),
-             ("dia_spmv", "bf16/f32", "dia-bf16"),
-             ("dia_spmv", "f64/f64", "dia-f64"),
+                                          None),
+            "dia_spmv_batched": ("acg_torch/csrc/dia_spmv_batched.cu",
+                                 "acg_tpu/ops/pallas_kernels.py:382",
+                                 "acg_tpu/ops/pallas_kernels.py:431"),
+            "stencil_spmv_batched": ("acg_torch/csrc/stencil_spmv_batched.cu",
+                                     "acg_tpu/ops/stencil.py:423", None)}
+    # (kernel, phase-2 tier, solve phase, with_dot of the loop's calls;
+    # None for the pipelined-iteration kernels, which have no such row key)
+    paths = (("stencil_spmv", "matrix-free/float64", "stencil", True),
+             ("dia_spmv", "bf16/f32", "dia-bf16", True),
+             ("dia_spmv", "f64/f64", "dia-f64", True),
              ("cg_pipelined_iter_stencil", "matrix-free/float64",
-              "pipelined-stencil"),
-             ("cg_pipelined_iter", "bf16/f32", "pipelined-dia-bf16"),
-             ("cg_pipelined_iter", "f64/f64", "pipelined-dia-f64"))
+              "pipelined-stencil", None),
+             ("cg_pipelined_iter", "bf16/f32", "pipelined-dia-bf16", None),
+             ("cg_pipelined_iter", "f64/f64", "pipelined-dia-f64", None),
+             ("stencil_spmv_batched", "matrix-free/float64",
+              "batched-stencil", True),
+             ("dia_spmv_batched", "bf16/f32", "batched-dia-bf16", True),
+             ("dia_spmv_batched", "f64/f64", "batched-dia-f64", True),
+             ("stencil_spmv_batched", "matrix-free/float64",
+              "batched-pipelined-stencil", False))
     out = []
-    for kernel, tier, phase in paths:
-        # the SpMV rows of the loop's configuration: with the fused dot
+    for kernel, tier, phase, with_dot in paths:
         row = next(r for r in ctx["rows"] if r["name"] == kernel
-                   and r["tier"] == tier and r.get("with_dot", True))
+                   and r["tier"] == tier and r.get("with_dot") == with_dot)
         src, repl, also = meta[kernel]
         entry = {"name": f"{kernel}:{tier}", "route": "cuda",
                  "source": src, "replaces": repl,
@@ -849,13 +1164,15 @@ def _kernel_lines(ctx) -> list:
                  "ms": row["ms"], "plain_ms": row["plain_ms"],
                  "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                  "library_ms": row["library_ms"],
-                 "config": (f"{tier}, with_dot=True, phase {phase}"
-                            if "with_dot" in row
-                            else f"{tier}, phase {phase}")}
+                 "config": (f"{tier}, phase {phase}" if with_dot is None
+                            else f"{tier}, with_dot={with_dot}, "
+                                 f"phase {phase}")}
         if also:
             entry["also_replaces"] = also
-        if "composed_ms" in row:
-            entry["composed_ms"] = row["composed_ms"]
+        for key in ("composed_ms", "nrhs", "one_system_calls_ms",
+                    "per_system_bits_equal_1d"):
+            if key in row:
+                entry[key] = row[key]
         out.append(entry)
     return out
 

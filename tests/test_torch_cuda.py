@@ -3,8 +3,10 @@
 These need an NVIDIA GPU and skip elsewhere.  They cover what
 ``chip_smoke.py`` does not: small and ragged sizes, 1-D/2-D grids and
 the 27-point stencil, offsets that leave the vector, every band tier,
-the wrappers' argument checks and launch counts, and whole classic
-and pipelined solves on the card against the same solves on the CPU.  The JAX package is not
+the multi-RHS kernels at B = 1 and B = 9 (past one chunk of 8), the
+wrappers' argument checks and launch counts, and whole classic,
+pipelined and batched solves on the card against the same solves on
+the CPU.  The JAX package is not
 needed (and not on the machine with the card), so run them without the
 repository's root conftest:
 
@@ -281,3 +283,118 @@ def test_cg_pipelined_on_the_card_matches_cpu(card, fmt):
     assert rr.kernel == f"cuda-{rr.operator_format}-spmv"
     assert "pipe disengaged: replace_every=25" in rr.kernel_note
     assert abs(rr.niterations - rc.niterations) <= 2
+
+
+# ---------------------------------------------------------------------------
+# the multi-RHS SpMV kernels
+
+
+def _check_batched(Y, d, X, Yp, one):
+    """The batched kernel against its plain version (``_TOL``, the dots
+    relative to |x_s|·|y_s|), and each system bit-identical to the 1-D
+    kernel ``one(x) -> (y, dot)`` on that system."""
+    rtol, atol, dot_rtol = _TOL[X.dtype]
+    assert float((Y - Yp).abs().max()) <= atol + rtol * float(
+        Yp.abs().max())
+    dp = torch.stack([torch.dot(a, b) for a, b in zip(X, Yp)])
+    scale = torch.linalg.norm(X, dim=1) * torch.linalg.norm(Yp, dim=1)
+    assert torch.all((d - dp).abs() <= dot_rtol * scale)
+    for s in range(X.shape[0]):
+        y, ds = one(X[s].contiguous())
+        assert torch.equal(Y[s], y) and torch.equal(d[s], ds)
+
+
+@pytest.mark.parametrize("nsys", [1, 9])
+@pytest.mark.parametrize("vdt", ["float32", "float64"])
+@pytest.mark.parametrize("mat", ["auto", "int8", None, "float32"])
+@pytest.mark.parametrize("n,offsets", [
+    (1000, (-300, -1, 0, 1, 999)),
+    (4099, (-2048, -129, -1, 0, 1, 129, 2048, 5000)),
+])
+def test_dia_spmv_batched_matches_plain_and_1d(card, n, offsets, mat, vdt,
+                                               nsys):
+    D = _random_dia(n, offsets)
+    if mat in ("auto", "int8"):
+        D = DiaMatrix(n, n, D.offsets, np.sign(D.bands) * 0.5, D.nnz)
+    if mat == "int8":
+        D = DiaMatrix(n, n, D.offsets, np.abs(D.bands), D.nnz)
+    dev = DeviceDia.from_dia(D, dtype=vdt, mat_dtype=mat, device=card)
+    X = torch.randn(nsys, n, dtype=getattr(torch, vdt), device=card)
+    before = dia_kernels.batched_launches
+    Y, d = dia_kernels.dia_spmv_batched(dev.bands, dev.scales,
+                                        dev.offsets_t, X, with_dot=True)
+    assert dia_kernels.batched_launches == before + 1
+    _check_batched(Y, d, X, dia_matvec(dev.bands, dev.offsets, X,
+                                       dev.scales), dev.matvec_dot)
+    assert torch.equal(dev.matvec(X), Y)
+    again = dev.matvec_dot(X)[1]
+    assert torch.equal(again, d)                    # no atomics: same bits
+
+
+@pytest.mark.parametrize("nsys", [1, 9])
+@pytest.mark.parametrize("vdt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("gen", [
+    lambda: poisson.poisson2d_5pt(13, 17),
+    lambda: poisson.poisson3d_7pt(5, 6, 7),
+    lambda: poisson.poisson3d_27pt(6),
+])
+def test_stencil_spmv_batched_matches_plain_and_1d(card, gen, vdt, nsys):
+    spec, why = st.recognize_stencil(gen())
+    assert spec is not None, why
+    n = spec.nrows
+    npad = -(-n // 8) * 8 + 8                       # padding past the grid
+    X = torch.zeros(nsys, npad, dtype=vdt, device=card)
+    X[:, :n] = torch.randn(nsys, n, dtype=vdt, device=card)
+    before = st.batched_launches
+    Y, d = st.stencil_spmv_batched(spec, X, with_dot=True)
+    assert st.batched_launches == before + 1
+    _check_batched(Y, d, X, st.stencil_matvec(X, spec.grid, spec.digits,
+                                              spec.coeffs),
+                   lambda x: st.stencil_spmv(spec, x, with_dot=True))
+    assert torch.all(Y[:, n:] == 0)
+    assert torch.equal(st.stencil_spmv_batched(spec, X), Y)
+
+
+def test_batched_wrappers_reject_what_the_kernels_do_not_take(card):
+    D = _random_dia(64, (-1, 0, 1))
+    dev = DeviceDia.from_dia(D, mat_dtype=None, device=card)
+    X = torch.randn(2, 64, dtype=torch.float64, device=card)
+    with pytest.raises(AcgError):                   # a 1-D vector
+        dia_kernels.dia_spmv_batched(dev.bands, None, dev.offsets_t, X[0])
+    with pytest.raises(AcgError):                   # rows of another n
+        dia_kernels.dia_spmv_batched(dev.bands, None, dev.offsets_t,
+                                     X[:, :32].contiguous())
+    with pytest.raises(AcgError):                   # strided rows
+        dia_kernels.dia_spmv_batched(dev.bands, None, dev.offsets_t,
+                                     torch.randn(2, 128, dtype=torch.float64,
+                                                 device=card)[:, ::2])
+    spec, _ = st.recognize_stencil(poisson.poisson2d_5pt(8))
+    with pytest.raises(AcgError):                   # shorter than the grid
+        st.stencil_spmv_batched(spec, X[:, :32].contiguous())
+    with pytest.raises(AcgError):                   # half precision
+        st.stencil_spmv_batched(spec, X.half())
+
+
+@pytest.mark.parametrize("fmt", ["auto", "dia"])
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_batched_cg_on_the_card_matches_sequential(card, fmt, pipelined):
+    """A (B, n) solve on the card launches the batched kernel and gives
+    each system the iteration count of its own 1-D solve on the card."""
+    A = poisson.poisson3d_7pt(12)
+    rng = np.random.default_rng(3)
+    bb = rng.standard_normal((3, A.nrows))
+    o = SolverOptions(maxits=1000, residual_rtol=1e-10)
+    solve = cg_pipelined if pipelined else cg
+    counters = (dia_kernels, st)
+    before = [m.batched_launches for m in counters]
+    rg = solve(A, bb, options=o, fmt=fmt)
+    launched = [m.batched_launches - b for m, b in zip(counters, before)]
+    assert rg.kernel == f"cuda-{rg.operator_format}-batched"
+    assert rg.operator_format == ("stencil" if fmt == "auto" else "dia")
+    assert launched[fmt == "auto"] >= rg.niterations
+    assert launched[fmt != "auto"] == 0
+    for s in range(3):
+        r1 = solve(A, bb[s], options=o, fmt=fmt)
+        assert rg.iterations_per_system[s] == r1.niterations
+        assert np.linalg.norm(bb[s] - A.matvec(rg.x[s])) <= \
+            1e-9 * np.linalg.norm(bb[s])

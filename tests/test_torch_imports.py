@@ -54,7 +54,8 @@ def test_import_leaves_jax_out_of_sys_modules():
 
 
 @pytest.mark.parametrize("name", ["dia_spmv", "stencil_spmv", "dia_pipe",
-                                  "stencil_pipe"])
+                                  "stencil_pipe", "dia_spmv_batched",
+                                  "stencil_spmv_batched"])
 def test_kernel_sources_exist(name):
     from acg_torch import _build
 

@@ -469,8 +469,9 @@ def test_refusals():
         with pytest.raises(AcgError) as e:
             cg_pipelined(At, b, options=SolverOptions(**bad), device="cpu")
         assert e.value.status == Status.ERR_NOT_SUPPORTED
-    with pytest.raises(AcgError, match="not ported yet"):
-        cg_pipelined(At, np.stack([b, b]), device="cpu")
+    with pytest.raises(AcgError) as e:       # (B, n) runs; (B, C, n) not
+        cg_pipelined(At, np.stack([[b, b]]), device="cpu")
+    assert e.value.status == Status.ERR_INVALID_VALUE
 
 
 def test_maxits_zero_and_not_converged_match_jax():
