@@ -23,7 +23,8 @@ from pathlib import Path
 from acg_torch.errors import AcgError, Status
 
 SOURCES = ("dia_spmv", "stencil_spmv", "dia_pipe", "stencil_pipe",
-           "dia_spmv_batched", "stencil_spmv_batched")
+           "dia_spmv_batched", "stencil_spmv_batched", "ell_spmv",
+           "sgell_spmv")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parent.parent / "build"
              / "acg_torch_kernels")

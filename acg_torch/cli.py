@@ -14,6 +14,9 @@ for one device, the same pipeline and the same stats block:
 ``acg-device-pipelined``, are ported, and every other choice exits 1
 with a "not yet ported" error.  ``--nrhs K`` solves K copies of the
 right-hand side in one batched loop (the multi-RHS kernels).
+``--format`` takes the JAX program's layouts: ``auto`` (the stencil,
+DIA, RCM+DIA, RCM+sgell or ELL tier, as the matrix allows), ``dia``,
+``ell``, ``sgell`` (f32 only) and ``stencil``.
 ``--device`` picks where it runs (default ``cuda``; with no card that
 default is an error, never a silent CPU run).
 
@@ -89,10 +92,12 @@ def make_parser() -> argparse.ArgumentParser:
                         "definitions every R iterations, correcting "
                         "recurrence drift at tight tolerances (0 = off)")
     p.add_argument("--format", default="auto",
-                   choices=["auto", "dia", "stencil"],
-                   help="device operator layout [auto]; stencil errors "
-                        "unless the matrix is a verified constant-"
-                        "coefficient grid stencil")
+                   choices=["auto", "dia", "ell", "sgell", "stencil"],
+                   help="device operator layout [auto]: auto picks the "
+                        "stencil, DIA, RCM+DIA, RCM+sgell or ELL tier; "
+                        "stencil errors unless the matrix is a verified "
+                        "constant-coefficient grid stencil; sgell needs "
+                        "--dtype float32")
     p.add_argument("--dtype", default="float64",
                    choices=["float32", "float64"],
                    help="value precision [float64]")
@@ -205,10 +210,16 @@ def _main(argv=None) -> int:
     from acg_torch.solvers.cg import build_device_operator, cg, cg_pipelined
     solve = cg_pipelined if pipelined else cg
     t0 = time.perf_counter()
+    steps = {}
     dev = build_device_operator(A, dtype=vdt, fmt=args.format,
-                                mat_dtype=mat_dtype, device=device)
-    _log(args, f"operator: {type(dev).__name__} on {device} "
-               f"({time.perf_counter() - t0:.3f} s)")
+                                mat_dtype=mat_dtype, device=device,
+                                timings=steps)
+    inner = getattr(dev, "dev", dev)
+    _log(args, f"operator: {type(inner).__name__}"
+               + (" in an RCM ordering" if inner is not dev else "")
+               + f" on {device} ({time.perf_counter() - t0:.3f} s"
+               + "".join(f"; {k} {v:.3f} s" for k, v in steps.items())
+               + ")")
     try:
         for _ in range(args.warmup):
             # a warmup that does not converge still warmed everything
@@ -217,10 +228,11 @@ def _main(argv=None) -> int:
             except AcgError as e:
                 if getattr(e, "result", None) is None:
                     raise
-        from acg_torch.ops import dia_kernels, stencil
+        from acg_torch.ops import dia_kernels, sgell, spmv, stencil
         dia_kernels.launches = stencil.launches = 0
         dia_kernels.pipe_launches = stencil.pipe_launches = 0
         dia_kernels.batched_launches = stencil.batched_launches = 0
+        spmv.launches = sgell.launches = 0
         res = solve(dev, b, x0=x0, options=options, fmt=args.format)
         _log(args, f"kernel launches in the timed solve: dia_spmv "
                    f"{dia_kernels.launches}, stencil_spmv "
@@ -228,7 +240,8 @@ def _main(argv=None) -> int:
                    f"{dia_kernels.pipe_launches}, cg_pipelined_iter_stencil "
                    f"{stencil.pipe_launches}, dia_spmv_batched "
                    f"{dia_kernels.batched_launches}, stencil_spmv_batched "
-                   f"{stencil.batched_launches}")
+                   f"{stencil.batched_launches}, ell_spmv {spmv.launches}, "
+                   f"sgell_spmv {sgell.launches}")
     except AcgError as e:
         res = getattr(e, "result", None)
         print(f"error: {e}", file=sys.stderr)

@@ -93,8 +93,8 @@ class SolveResult:
         return self.rnrm2 / self.r0nrm2 if self.r0nrm2 > 0 else 0.0
 
 
-def path_names(fmt: str, device_type: str,
-               body: str = "fused") -> tuple[str, str]:
+def path_names(fmt: str, device_type: str, body: str = "fused",
+               rcm: bool = False) -> tuple[str, str]:
     """The one place operator-format / kernel names are minted: the
     in-loop kernel of the tier on a CUDA device, and the plain PyTorch
     versions on the CPU.  ``body`` names what runs the loop body on the
@@ -102,28 +102,35 @@ def path_names(fmt: str, device_type: str,
     (``cuda-stencil-fused``), "pipe" the single-kernel pipelined
     iteration (``cuda-stencil-pipe``, ``acg_tpu``'s pallas-stpipe2d /
     pallas-pipe2d), "spmv" the plain SpMV kernel of an open-coded
-    pipelined body (``cuda-stencil-spmv``), "batched" the multi-RHS SpMV
-    of a (B, n) solve, with the per-system p'Ap fused in classic CG
-    (``cuda-stencil-batched`` / ``cuda-dia-batched``)."""
+    pipelined body (``cuda-stencil-spmv``; ``cuda-ell-spmv`` /
+    ``cuda-sgell-spmv`` in every loop of the unstructured tiers, whose
+    kernels fuse nothing), "batched" the multi-RHS SpMV of a (B, n)
+    solve, with the per-system p'Ap fused in classic CG
+    (``cuda-stencil-batched`` / ``cuda-dia-batched``).  ``rcm``: the
+    operator acts in an RCM ordering (``rcm+dia``, ``rcm+sgell``)."""
+    name = "rcm+" + fmt if rcm else fmt
     if device_type != "cuda":
-        return fmt, "torch-plain"
-    return fmt, f"cuda-{fmt}-{body}"
+        return name, "torch-plain"
+    return name, f"cuda-{fmt}-{body}"
 
 
 def kernel_disengagement_note(pipelined: bool, pipe_engaged: bool,
                               replace_every: int, forced_fmt: str = "auto",
-                              stencil: bool = False, batch: int = 0) -> str:
+                              stencil: bool = False, batch: int = 0,
+                              has_pipe: bool = True) -> str:
     """The one place disengagement reasons are worded: why the in-loop
     kernel differs from the unconstrained auto choice, or "" (the port of
     ``acg_tpu.solvers.base.kernel_disengagement_note`` for the
-    conditions the port has).  A pipelined solve takes the single-kernel
-    pipelined iteration unless a (batch, n) multi-RHS solve (the kernel
-    is not batched) or ``replace_every`` (it has no replacement path)
-    disengages it."""
+    conditions the port has).  A pipelined solve on a tier with a
+    single-kernel pipelined iteration (``has_pipe``: DIA and the stencil)
+    takes it unless a (batch, n) multi-RHS solve (the kernel is not
+    batched) or ``replace_every`` (it has no replacement path) disengages
+    it; the ELL and sgell tiers have none and get no note, as in the JAX
+    package."""
     notes = []
     if forced_fmt not in ("auto", "", None):
         notes.append(f"format forced: {forced_fmt}")
-    if pipelined and not pipe_engaged:
+    if pipelined and has_pipe and not pipe_engaged:
         tier = "stencil" if stencil else "dia"
         why = (f"nrhs={batch} (the single-kernel iteration is not batched)"
                if batch else f"replace_every={replace_every}")

@@ -8,13 +8,19 @@ into one kernel pass (:func:`cg`), or the pipelined loop
 iteration in one kernel pass (:func:`cg_pipelined`), and assemble the
 result as ``_finish`` does there.  On a CUDA device every operator
 application is a hand-written kernel (``ops/dia_kernels.py``,
-``ops/stencil.py``); the BLAS-1 updates of the classic loop are ordinary
-torch ops, as they were XLA's in the JAX package.
+``ops/stencil.py``, ``ops/spmv.py``, ``ops/sgell.py``); the BLAS-1
+updates of the classic loop are ordinary torch ops, as they were XLA's
+in the JAX package.  The unstructured tiers (padded ELL, segmented-gather
+ELL) have no fused kernels: their loops run the SpMV kernel and then the
+dots, as the JAX package's non-fused loops do.  An operator in an RCM
+ordering (:class:`PermutedOperator`) sees b and x0 permuted on entry and
+returns x in the caller's ordering.
 
 A ``b`` of shape (B, n) solves B systems against the one operator in one
 loop (multi-RHS): every operator application goes through the batched
-SpMV kernel, which reads the operator once for all systems, and the
-result carries per-system counts, residuals and histories.
+SpMV kernel, which reads the operator once for all systems (on the ELL
+and sgell tiers, the one-system kernel once per system), and the result
+carries per-system counts, residuals and histories.
 """
 
 from __future__ import annotations
@@ -28,6 +34,9 @@ from acg_torch.config import SolverOptions
 from acg_torch.errors import AcgError, Status
 from acg_torch.ops.blas1 import batched_dot, ddot, dnrm2
 from acg_torch.ops.dia import DeviceDia, DiaMatrix, dia_efficiency
+from acg_torch.ops.sgell import (DeviceSgell, build_device_sgell,
+                                 sgell_require_available)
+from acg_torch.ops.spmv import DeviceEll, pad_vector
 from acg_torch.ops.stencil import DeviceStencil, try_device_stencil
 from acg_torch.solvers.base import (SolveResult, SolveStats,
                                     cg_flops_per_iter, conform_x0_batch,
@@ -35,32 +44,64 @@ from acg_torch.solvers.base import (SolveResult, SolveStats,
 from acg_torch.solvers.loops import (_BREAKDOWN, _CONVERGED, _FAULT, _OK,
                                      cg_pipelined_while, cg_while)
 from acg_torch.sparse.csr import CsrMatrix
+from acg_torch.sparse.ell import EllMatrix
+from acg_torch.sparse.rcm import permute_symmetric, rcm_order
 from acg_torch.utils.backend import resolve_device
+from acg_torch.utils.timing import host_step
 
 _FORMATS = ("auto", "dia", "stencil", "ell", "sgell")
 
 
+class PermutedOperator:
+    """A device operator applied in a permuted row/column ordering
+    (``acg_tpu.solvers.cg.PermutedOperator``).
+
+    ``dev`` acts on vectors in the permuted space; ``perm`` is new_to_old
+    (v_perm = v[perm]).  The solvers permute b and x0 on entry and
+    un-permute the solution on exit, so callers never see the
+    reordering.  Every other attribute is ``dev``'s."""
+
+    def __init__(self, dev, perm: np.ndarray):
+        self.dev = dev
+        self.perm = np.asarray(perm)
+
+    def __getattr__(self, name):
+        return getattr(self.dev, name)
+
+
 def build_device_operator(A, dtype=None, fmt: str = "auto",
-                          mat_dtype="auto", device=None):
+                          mat_dtype="auto", device=None,
+                          timings: dict | None = None):
     """Build the device operator (the upload half of solver init,
-    reference acg/cgcuda.c:138-328).
+    reference acg/cgcuda.c:138-328), with the ladder of
+    ``acg_tpu.solvers.cg.build_device_operator``.
 
     ``fmt="auto"`` takes the matrix-free stencil tier when ``A`` is a
-    verified constant-coefficient grid stencil, else DIA when the diagonal
-    fill is dense enough (``dia_efficiency >= 0.25``).  ``fmt="stencil"``
-    recognizes or raises; ``fmt="dia"`` forces stored bands.  A matrix
-    that would need the RCM, sgell or ELL tiers raises ERR_NOT_SUPPORTED:
-    those tiers are not ported yet.  ``mat_dtype`` sets the band storage
-    precision (:meth:`DeviceDia.from_dia`)."""
-    if isinstance(A, (DeviceDia, DeviceStencil)):
+    verified constant-coefficient grid stencil, else DIA when the
+    diagonal fill is dense enough (``dia_efficiency >= 0.25``).  A CSR
+    matrix with less diagonal structure is reordered by RCM: DIA on the
+    permuted matrix when that recovers a band (``rcm+dia``), else the
+    segmented-gather ELL pack of the permuted matrix when its fill clears
+    ``MIN_FILL`` at f32 vectors (``rcm+sgell``), else padded ELL on the
+    original ordering (``ell``).  The RCM tiers come back as a
+    :class:`PermutedOperator`.  ``fmt="stencil"`` recognizes or raises;
+    ``fmt="dia"`` forces stored bands; ``fmt="ell"`` forces padded ELL
+    and ``fmt="sgell"`` the sgell pack with no fill gate (f32 vectors
+    only, else ERR_NOT_SUPPORTED), both on the given ordering.  A host
+    DiaMatrix always gives DIA (or the stencil), an EllMatrix always ELL.
+    ``mat_dtype`` sets the operator's storage precision.  ``timings``
+    gathers the host seconds of the build's steps (``rcm``, ``permute``,
+    ``dia_check``, ``dia_build``, ``pack``, ``ell_build``, ``upload``)."""
+    if isinstance(A, (DeviceDia, DeviceStencil, DeviceEll, DeviceSgell,
+                      PermutedOperator)):
         return A
     if fmt not in _FORMATS:
         raise AcgError(Status.ERR_INVALID_VALUE,
                        f"unknown operator format {fmt!r} "
                        "(auto|dia|ell|sgell|stencil)")
-    if fmt in ("ell", "sgell"):
-        raise AcgError(Status.ERR_NOT_SUPPORTED,
-                       f"format {fmt!r}: tier not yet ported")
+    if isinstance(A, EllMatrix):
+        return DeviceEll.from_ell(A, dtype=dtype, mat_dtype=mat_dtype,
+                                  device=device, timings=timings)
     if not isinstance(A, (DiaMatrix, CsrMatrix)):
         raise AcgError(Status.ERR_INVALID_VALUE,
                        f"unsupported operator type {type(A).__name__}")
@@ -73,29 +114,77 @@ def build_device_operator(A, dtype=None, fmt: str = "auto",
         st, _why = try_device_stencil(A, dtype=vdt, device=dev)
         if st is not None:
             return st
-    if isinstance(A, CsrMatrix):
-        if fmt == "auto" and dia_efficiency(A) < 0.25:
+    if isinstance(A, DiaMatrix):
+        return DeviceDia.from_dia(A, dtype=vdt, mat_dtype=mat_dtype,
+                                  device=dev)
+    if fmt == "sgell":
+        # a forced tier builds or raises, never falls back; its fill gate
+        # is lifted (auto applies the break-even economics)
+        sgell_require_available(vdt)
+        sg = build_device_sgell(A, dtype=vdt, mat_dtype=mat_dtype,
+                                min_fill=0.0, device=dev, timings=timings)
+        if sg is None:
             raise AcgError(Status.ERR_NOT_SUPPORTED,
-                           "the matrix has too little diagonal structure "
-                           "for DIA; its RCM+DIA, sgell and ELL tiers: "
-                           "tier not yet ported")
-        A = DiaMatrix.from_csr(A)
-    return DeviceDia.from_dia(A, dtype=vdt, mat_dtype=mat_dtype, device=dev)
+                           "format 'sgell' forced but the matrix did not "
+                           "pack (degenerate geometry)")
+        return sg
+
+    def dia(M):
+        with host_step(timings, "dia_build"):
+            return DeviceDia.from_dia(DiaMatrix.from_csr(M), dtype=vdt,
+                                      mat_dtype=mat_dtype, device=dev)
+
+    if fmt == "auto":
+        with host_step(timings, "dia_check"):
+            banded = dia_efficiency(A) >= 0.25
+        if banded:
+            return dia(A)
+        # RCM before giving up on the gather-free form: it often recovers
+        # a band from a scattered ordering, and its locality is what the
+        # sgell pack feeds on (few x segments per 128-row window)
+        with host_step(timings, "rcm"):
+            perm = rcm_order(A)
+        with host_step(timings, "permute"):
+            Ap = permute_symmetric(A, perm)
+        with host_step(timings, "dia_check"):
+            banded = dia_efficiency(Ap) >= 0.25
+        if banded:
+            return PermutedOperator(dia(Ap), perm)
+        sg = build_device_sgell(Ap, dtype=vdt, mat_dtype=mat_dtype,
+                                device=dev, timings=timings)
+        if sg is not None:
+            return PermutedOperator(sg, perm)
+        # the permuted ordering has equal or better locality, so a failed
+        # pack there decides the sgell question for the original ordering
+        # too: padded ELL on the original ordering
+        fmt = "ell"
+    if fmt == "dia":
+        return dia(A)
+    with host_step(timings, "ell_build"):
+        E = EllMatrix.from_csr(A)
+    return DeviceEll.from_ell(E, dtype=vdt, mat_dtype=mat_dtype, device=dev,
+                              timings=timings)
 
 
 def _prepare(A, b, x0, dtype, fmt: str, mat_dtype, device):
-    """(operator, b padded on its device, x0 padded on its device).  A
-    (B, n) ``b`` gives (B, nrows_padded) tensors, each row padded; x0 is
-    then (B, n), or 1-D and shared by every system."""
+    """(operator, b padded on its device, x0 padded on its device, perm).
+    A (B, n) ``b`` gives (B, nrows_padded) tensors, each row padded; x0 is
+    then (B, n), or 1-D and shared by every system.  When the operator is
+    a :class:`PermutedOperator` it is unwrapped, ``perm`` is its
+    new_to_old permutation (else None), and b and x0 are permuted here."""
     op = build_device_operator(A, dtype=dtype, fmt=fmt, mat_dtype=mat_dtype,
                                device=device)
+    perm = None
+    if isinstance(op, PermutedOperator):
+        perm, op = op.perm, op.dev
     vdt = getattr(torch, op.vec_dtype)
     nrp = op.nrows_padded
 
     def to_dev(v):
-        if (isinstance(v, torch.Tensor) and v.dim() in (1, 2)
-                and v.shape[-1] == nrp and v.dtype == vdt
-                and v.device == op.device and v.is_contiguous()):
+        if (perm is None and isinstance(v, torch.Tensor)
+                and v.dim() in (1, 2) and v.shape[-1] == nrp
+                and v.dtype == vdt and v.device == op.device
+                and v.is_contiguous()):
             return v
         v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
         v = np.asarray(v)
@@ -107,35 +196,47 @@ def _prepare(A, b, x0, dtype, fmt: str, mat_dtype, device):
             raise AcgError(Status.ERR_INVALID_VALUE,
                            f"vector has {v.shape[-1]} entries, operator has "
                            f"{op.nrows} rows")
-        out = torch.zeros(v.shape[:-1] + (nrp,), dtype=vdt)
-        out[..., : v.shape[-1]] = torch.from_numpy(
-            np.ascontiguousarray(v, dtype=np.dtype(op.vec_dtype)))
-        return out.to(op.device)
+        if perm is not None:
+            v = v[..., perm]
+        # a C-ordered copy: the solver shares no memory with the caller's
+        # arrays, and a permuted (B, n) batch (numpy may lay v[..., perm]
+        # out column-major) gets the row layout of a 1-D solve
+        return torch.from_numpy(np.array(pad_vector(v, nrp), order="C",
+                                         dtype=np.dtype(op.vec_dtype))
+                                ).to(op.device)
 
     b_pad = to_dev(b)
     x0_pad = torch.zeros_like(b_pad) if x0 is None else to_dev(x0)
     x0_pad = conform_x0_batch(
         x0_pad, tuple(b_pad.shape),
         lambda v: v.expand(b_pad.shape[0], -1).contiguous())
-    return op, b_pad, x0_pad
+    return op, b_pad, x0_pad, perm
 
 
 def _describe_path(op, fmt: str, pipelined: bool = False,
-                   replace_every: int = 0,
-                   batch: int = 0) -> tuple[str, str, str]:
-    """(operator_format, kernel, note) actually in effect.  ``batch`` > 0
-    is a (batch, n) multi-RHS solve, whose loop runs the batched SpMV
-    kernel.  A pipelined solve runs the single-kernel iteration unless a
-    batch or ``replace_every`` disengages it."""
-    stencil = isinstance(op, DeviceStencil)
-    engaged = replace_every == 0 and not batch
-    body = ("batched" if batch else "fused" if not pipelined
-            else "pipe" if engaged else "spmv")
+                   replace_every: int = 0, batch: int = 0,
+                   perm=None) -> tuple[str, str, str]:
+    """(operator_format, kernel, note) actually in effect.  ``perm`` is
+    not None for an operator in an RCM ordering.  ``batch`` > 0 is a
+    (batch, n) multi-RHS solve, whose loop runs the batched SpMV kernel
+    (the ELL and sgell tiers: their one-system kernel once per system).
+    A pipelined solve runs the single-kernel iteration where the tier has
+    one, unless a batch or ``replace_every`` disengages it; the ELL and
+    sgell loops run their SpMV kernel in every body."""
+    tier = ("sgell" if isinstance(op, DeviceSgell)
+            else "ell" if isinstance(op, DeviceEll)
+            else "stencil" if isinstance(op, DeviceStencil) else "dia")
+    has_pipe = hasattr(op, "pipelined_iter")
+    engaged = has_pipe and replace_every == 0 and not batch
+    body = ("spmv" if not has_pipe else "batched" if batch
+            else "fused" if not pipelined else "pipe" if engaged
+            else "spmv")
     note = kernel_disengagement_note(pipelined, engaged, replace_every,
-                                     forced_fmt=fmt, stencil=stencil,
-                                     batch=batch)
-    return path_names("stencil" if stencil else "dia", op.device.type,
-                      body) + (note,)
+                                     forced_fmt=fmt,
+                                     stencil=tier == "stencil", batch=batch,
+                                     has_pipe=has_pipe)
+    return path_names(tier, op.device.type, body,
+                      rcm=perm is not None) + (note,)
 
 
 def _sync(device: torch.device) -> None:
@@ -145,17 +246,21 @@ def _sync(device: torch.device) -> None:
 
 def _finish(op, x, k, rr, flag, rr0, options: SolverOptions,
             tsolve: float, bnrm2, dxx=None, stats=None,
-            path=("", "", ""), hist=None,
-            pipelined: bool = False) -> SolveResult:
+            path=("", "", ""), hist=None, pipelined: bool = False,
+            perm=None) -> SolveResult:
     """Assemble the SolveResult and raise the classified errors, as
     ``acg_tpu.solvers.cg._finish`` does.  A multi-RHS solve (``x`` of
     shape (B, n); ``k``, ``flag`` and the norms per system) is summarized
     by its WORST system by relative residual, which supplies rnrm2,
     r0nrm2 and bnrm2 (one system's pair, never a cross-system mix); a
     fault in any system dominates, then a breakdown in any, then "all
-    converged"; flops count each system's own iterations."""
+    converged"; flops count each system's own iterations.  ``perm``
+    (new_to_old) un-permutes the solution into the caller's ordering."""
     batched = x.dim() == 2
     x_host = x[..., : op.nrows].cpu().numpy()
+    if perm is not None:
+        xp, x_host = x_host, np.empty_like(x_host)
+        x_host[..., perm] = xp
     bnrm2 = np.asarray(bnrm2, dtype=np.float64)
     if batched:
         ksys = k.cpu().numpy().astype(np.int64)
@@ -243,12 +348,17 @@ def cg(A, b, x0=None, options: SolverOptions = SolverOptions(),
        stats: SolveStats | None = None, device=None) -> SolveResult:
     """Classic CG on one device (``acg_tpu.solvers.cg.cg``).
 
-    ``A`` is a host CsrMatrix or DiaMatrix, or an operator already built
-    by :func:`build_device_operator` (then ``fmt`` only labels the path
-    report).  ``b`` of shape (B, n) solves B systems in one loop, each
-    T = A P with its per-system p'Ap from one pass of the batched SpMV
-    kernel (``cuda-stencil-batched`` / ``cuda-dia-batched``); the result
-    then carries per-system counts, residuals and histories.
+    ``A`` is a host CsrMatrix, DiaMatrix or EllMatrix, or an operator
+    already built by :func:`build_device_operator` (then ``fmt`` only
+    labels the path report); ``x`` comes back in ``A``'s ordering, RCM
+    or not.  On the DIA and stencil tiers each iteration's t = A p and
+    p'Ap are one kernel pass (``cuda-dia-fused``, ``cuda-stencil-fused``);
+    on ELL and sgell the SpMV kernel and then the dot (``cuda-ell-spmv``,
+    ``cuda-sgell-spmv``).  ``b`` of shape (B, n) solves B systems in one
+    loop, each T = A P with its per-system p'Ap from one pass of the
+    batched SpMV kernel (``cuda-stencil-batched`` / ``cuda-dia-batched``;
+    ELL and sgell launch their kernel once per system); the result then
+    carries per-system counts, residuals and histories.
     ``device`` defaults to ``cuda`` and raises when no card is present;
     ``device="cpu"`` runs the plain PyTorch versions of the kernels.
     Raises ``AcgError`` with the partial result attached as ``.result``
@@ -257,7 +367,8 @@ def cg(A, b, x0=None, options: SolverOptions = SolverOptions(),
     if o.segment_iters or o.monitor_every:
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        "segment_iters / monitor_every: not yet ported")
-    op, b_pad, x0_pad = _prepare(A, b, x0, dtype, fmt, mat_dtype, device)
+    op, b_pad, x0_pad, perm = _prepare(A, b, x0, dtype, fmt, mat_dtype,
+                                       device)
     vdt = b_pad.dtype
     batch = b_pad.shape[0] if b_pad.dim() == 2 else 0
 
@@ -292,7 +403,8 @@ def cg(A, b, x0=None, options: SolverOptions = SolverOptions(),
     tsolve = time.perf_counter() - t0
     return _finish(op, x, k, rr, flag, rr0, o, tsolve, bnrm2,
                    dxx=dxx if track_diff else None, stats=stats,
-                   path=_describe_path(op, fmt, batch=batch), hist=hist)
+                   path=_describe_path(op, fmt, batch=batch, perm=perm),
+                   hist=hist, perm=perm)
 
 
 def _dot2(a1, b1, a2, b2):
@@ -324,7 +436,9 @@ def cg_pipelined(A, b, x0=None, options: SolverOptions = SolverOptions(),
     """Pipelined CG on one device (``acg_tpu.solvers.cg.cg_pipelined``):
     one fused (gamma, delta) reduction per iteration, and on the card the
     whole iteration in one hand-written kernel (``cuda-stencil-pipe`` /
-    ``cuda-dia-pipe``).
+    ``cuda-dia-pipe``) where the tier has one.  The ELL and sgell tiers
+    have none: their iterations run the open-coded body (the SpMV kernel,
+    torch updates and dots), with no note, as in the JAX package.
 
     Arguments and errors as :func:`cg`.  Residual criteria only (the
     diff criteria raise ERR_NOT_SUPPORTED, as in the JAX package).
@@ -340,7 +454,8 @@ def cg_pipelined(A, b, x0=None, options: SolverOptions = SolverOptions(),
     if o.segment_iters or o.monitor_every:
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        "segment_iters / monitor_every: not yet ported")
-    op, b_pad, x0_pad = _prepare(A, b, x0, dtype, fmt, mat_dtype, device)
+    op, b_pad, x0_pad, perm = _prepare(A, b, x0, dtype, fmt, mat_dtype,
+                                       device)
     vdt = b_pad.dtype
     batch = b_pad.shape[0] if b_pad.dim() == 2 else 0
     stop2 = (torch.tensor(o.residual_atol ** 2, dtype=vdt, device=op.device),
@@ -348,8 +463,8 @@ def cg_pipelined(A, b, x0=None, options: SolverOptions = SolverOptions(),
     bnrm2 = dnrm2(b_pad).cpu().numpy()
     # exit certification only where an exit can be claimed
     certify = o.residual_atol > 0 or o.residual_rtol > 0
-    iter_step = (_pipe_step(op) if o.replace_every == 0 and not batch
-                 else None)
+    iter_step = (_pipe_step(op) if hasattr(op, "pipelined_iter")
+                 and o.replace_every == 0 and not batch else None)
     _sync(op.device)
     t0 = time.perf_counter()
     x, k, rr, flag, rr0, hist = cg_pipelined_while(
@@ -360,5 +475,5 @@ def cg_pipelined(A, b, x0=None, options: SolverOptions = SolverOptions(),
     tsolve = time.perf_counter() - t0
     return _finish(op, x, k, rr, flag, rr0, o, tsolve, bnrm2, stats=stats,
                    path=_describe_path(op, fmt, True, o.replace_every,
-                                       batch),
-                   hist=hist, pipelined=True)
+                                       batch, perm=perm),
+                   hist=hist, pipelined=True, perm=perm)

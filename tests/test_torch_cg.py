@@ -218,15 +218,26 @@ def test_guard_nonfinite_reports_fault():
 
 
 def test_unported_tiers_raise():
+    """Every tier of the fmt="auto" ladder is ported now: a random-graph
+    matrix (no band, no locality for RCM to recover) routes to ELL as in
+    the JAX package, forced ELL runs, and the one refusal left is the JAX
+    package's own: forced sgell at f64 vectors is ERR_NOT_SUPPORTED."""
     A = tpoisson.random_spd(400, degree=6)
+    Aj = jpoisson.random_spd(400, degree=6)
     b = np.ones(A.nrows)
-    with pytest.raises(AcgError, match="not yet ported") as e:
-        cg(A, b, device="cpu")
+    o = dict(maxits=200, residual_rtol=RTOL)
+    rt = cg(A, b, options=SolverOptions(**o), device="cpu")
+    rj = jcg(Aj, b, options=JOptions(**o))
+    assert (rt.operator_format, rj.operator_format) == ("ell", "ell")
+    assert abs(rt.niterations - rj.niterations) <= 1
+    assert _true_rel(A, rt.x, b) < RTOL
+    P = tpoisson.poisson2d_5pt(8)
+    forced = cg(P, np.ones(64), fmt="ell", device="cpu")
+    assert (forced.operator_format, forced.kernel_note) == (
+        "ell", "format forced: ell")
+    with pytest.raises(AcgError, match="vector dtype float64") as e:
+        cg(P, np.ones(64), fmt="sgell", device="cpu")
     assert e.value.status == Status.ERR_NOT_SUPPORTED
-    for fmt in ("ell", "sgell"):
-        with pytest.raises(AcgError, match="not yet ported"):
-            cg(tpoisson.poisson2d_5pt(8), np.ones(64), fmt=fmt,
-               device="cpu")
 
 
 def test_default_device_raises_without_cuda():

@@ -398,3 +398,187 @@ def test_batched_cg_on_the_card_matches_sequential(card, fmt, pipelined):
         assert rg.iterations_per_system[s] == r1.niterations
         assert np.linalg.norm(bb[s] - A.matvec(rg.x[s])) <= \
             1e-9 * np.linalg.norm(bb[s])
+
+
+# ---------------------------------------------------------------------------
+# the unstructured tiers: sgell and padded ELL
+
+
+def _local_csr(n, width, spread, seed=0, empty_tile=None, dtype=np.float32):
+    """A random symmetric-pattern-free local matrix: ``width`` entries per
+    row within ``spread`` of the diagonal, rows of tile ``empty_tile``
+    (1024 rows) left empty."""
+    from acg_torch.sparse.csr import coo_to_csr
+
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), width)
+    cols = np.clip(rows + rng.integers(-spread, spread + 1, n * width), 0,
+                   n - 1)
+    if empty_tile is not None:
+        keep = rows // 1024 != empty_tile
+        rows, cols = rows[keep], cols[keep]
+    uniq = np.unique(rows * np.int64(n) + cols)
+    rows, cols = uniq // n, uniq % n
+    vals = rng.standard_normal(len(rows)).astype(dtype)
+    return coo_to_csr(rows, cols, vals, n, n)
+
+
+@pytest.mark.parametrize("mat", [None, "bfloat16"])
+@pytest.mark.parametrize("n,width,spread,empty", [
+    (1000, 5, 40, None),           # one tile, rows not a multiple of 8
+    (4 * 1024, 6, 500, 2),         # an empty interior tile
+    (5000, 12, 3000, None),        # many segments per sublane
+])
+def test_sgell_spmv_matches_plain(card, n, width, spread, empty, mat):
+    from acg_torch.ops import sgell
+
+    A = _local_csr(n, width, spread, empty_tile=empty)
+    dev = sgell.build_device_sgell(A, mat_dtype=mat, min_fill=0.0,
+                                   device=card)
+    idx = dev.idx
+    assert idx.dtype == torch.int8
+    x = torch.zeros(dev.nrows_padded, device=card)
+    x[:n] = torch.randn(n, device=card)
+    before = sgell.launches
+    y = sgell.sgell_spmv(dev.vals, idx, dev.seg, dev.tile_start, x)
+    assert sgell.launches == before + 1
+    want = sgell.sgell_matvec(dev.vals, idx, dev.seg, dev.tile_start, x)
+    rtol, atol, _ = _TOL[torch.float32]
+    assert float((y - want).abs().max()) <= atol + rtol * float(
+        want.abs().max())
+    # each slot a product then a sum, in slot order: the plain bits
+    assert torch.equal(y, want)
+    assert torch.equal(sgell.sgell_spmv(dev.vals, idx, dev.seg,
+                                        dev.tile_start, x), y)
+    if empty is not None:
+        assert torch.all(y[empty * 1024:(empty + 1) * 1024] == 0)
+    assert torch.all(y[n:] == 0)
+    ref = A.matvec(x[:n].double().cpu().numpy())
+    tol = 1e-5 if mat is None else 2e-2            # bf16 rounds the values
+    assert np.abs(y[:n].cpu().numpy() - ref).max() <= tol * np.abs(
+        ref).max()
+
+
+@pytest.mark.parametrize("vdt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mdt", [torch.bfloat16, torch.float32,
+                                 torch.float64])
+@pytest.mark.parametrize("n,width", [(1001, 1), (999, 2), (1003, 3),
+                                     (777, 7), (2048, 9), (513, 17),
+                                     (3001, 55)])
+def test_ell_spmv_matches_plain(card, n, width, mdt, vdt):
+    from acg_torch.ops import spmv
+
+    g = torch.Generator(device=card).manual_seed(n + width)
+    vals = torch.randn(n, width, generator=g, device=card,
+                       dtype=torch.float64)
+    cols = torch.randint(0, n, (n, width), generator=g, device=card,
+                         dtype=torch.int32)
+    vals[n // 3:n // 2, width // 2:] = 0.0         # padded lanes: column 0
+    cols[n // 3:n // 2, width // 2:] = 0
+    vals = vals.to(mdt)
+    x = torch.randn(n, generator=g, device=card, dtype=torch.float64).to(vdt)
+    before = spmv.launches
+    y = spmv.ell_spmv(vals, cols, x)
+    assert spmv.launches == before + 1
+    want = spmv.ell_matvec(vals, cols, x)
+    rtol, atol, _ = _TOL[vdt]
+    assert float((y - want).abs().max()) <= atol + rtol * float(
+        want.abs().max())
+    assert torch.equal(spmv.ell_spmv(vals, cols, x), y)   # same bits
+
+
+def test_unstructured_wrappers_reject_what_the_kernels_do_not_take(card):
+    from acg_torch.ops import sgell, spmv
+
+    A = _local_csr(2000, 4, 100)
+    dev = sgell.build_device_sgell(A, min_fill=0.0, device=card)
+    x = torch.zeros(dev.nrows_padded, device=card)
+    with pytest.raises(AcgError):                   # f64 vectors
+        sgell.sgell_spmv(dev.vals, dev.idx, dev.seg, dev.tile_start,
+                         x.double())
+    with pytest.raises(AcgError):                   # x of another length
+        sgell.sgell_spmv(dev.vals, dev.idx, dev.seg, dev.tile_start, x[:8])
+    with pytest.raises(AcgError):                   # int64 segments
+        sgell.sgell_spmv(dev.vals, dev.idx, dev.seg.long(), dev.tile_start,
+                         x)
+    with pytest.raises(AcgError):                   # int32 lane indices
+        sgell.sgell_spmv(dev.vals, dev.idx.int(), dev.seg, dev.tile_start,
+                         x)
+    with pytest.raises(AcgError):                   # the pack on the host
+        sgell.sgell_spmv(dev.vals.cpu(), dev.idx, dev.seg, dev.tile_start,
+                         x)
+    vals = torch.randn(64, 3, device=card)
+    cols = torch.zeros(64, 3, dtype=torch.int32, device=card)
+    xv = torch.randn(64, device=card)
+    with pytest.raises(AcgError):                   # int64 columns
+        spmv.ell_spmv(vals, cols.long(), xv)
+    with pytest.raises(AcgError):                   # half precision
+        spmv.ell_spmv(vals, cols, xv.half())
+    with pytest.raises(AcgError):                   # strided values
+        spmv.ell_spmv(torch.randn(64, 6, device=card)[:, ::2], cols, xv)
+    with pytest.raises(AcgError):                   # x of another length
+        spmv.ell_spmv(vals, cols, xv[:32])
+
+
+@pytest.mark.parametrize("tier,dtype", [("rcm+sgell", np.float32),
+                                        ("ell", np.float64),
+                                        ("rcm+dia", np.float64)])
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_unstructured_solves_on_the_card_match_cpu(card, tier, dtype,
+                                                   pipelined):
+    from acg_torch.ops import sgell, spmv
+    from acg_torch.sparse.mesh import fem_delaunay_spd
+    from acg_torch.sparse.rcm import permute_symmetric
+
+    if tier == "rcm+dia":
+        A = poisson.poisson2d_5pt(1, 3000)              # a tridiagonal
+        A = permute_symmetric(A, np.random.default_rng(7).permutation(3000))
+    else:
+        A = fem_delaunay_spd(20000, dim=3, seed=1)
+    rng = np.random.default_rng(3)
+    b = rng.standard_normal(A.nrows)
+    rtol = 1e-5 if dtype == np.float32 else 1e-10
+    o = SolverOptions(maxits=5000, residual_rtol=rtol)
+    solve = cg_pipelined if pipelined else cg
+    counters = (spmv, sgell, dia_kernels)
+    before = [m.launches for m in counters] + [dia_kernels.pipe_launches]
+    rg = solve(A, b, options=o, dtype=dtype)
+    launched = [m.launches for m in counters] + [dia_kernels.pipe_launches]
+    launched = [a - b for a, b in zip(launched, before)]
+    rc = solve(A, b, options=o, dtype=dtype, device="cpu")
+    assert rg.operator_format == rc.operator_format == tier
+    kernel = {"rcm+sgell": "cuda-sgell-spmv", "ell": "cuda-ell-spmv",
+              "rcm+dia": "cuda-dia-pipe" if pipelined
+              else "cuda-dia-fused"}[tier]
+    assert rg.kernel == kernel and rg.kernel_note == ""
+    loop = {"ell": 0, "rcm+sgell": 1}.get(tier)
+    if loop is not None:
+        assert launched[loop] >= rg.niterations
+        assert launched[2] == launched[3] == 0
+    elif pipelined:
+        assert launched[3] == rg.niterations
+    # at f32 the count near rtol moves with the dots' summation order
+    # (cuBLAS on the card, another order on the CPU)
+    assert abs(rg.niterations - rc.niterations) <= (
+        3 if dtype == np.float32 else 1)
+    assert np.linalg.norm(b - A.matvec(rg.x.astype(np.float64))) <= \
+        10 * rtol * np.linalg.norm(b)
+
+
+@pytest.mark.parametrize("tier,dtype", [("rcm+sgell", np.float32),
+                                        ("ell", np.float64)])
+def test_unstructured_batched_counts_equal_one_system(card, tier, dtype):
+    from acg_torch.solvers.cg import build_device_operator
+    from acg_torch.sparse.mesh import fem_delaunay_spd
+
+    A = fem_delaunay_spd(20000, dim=3, seed=1)
+    op = build_device_operator(A, dtype=dtype)
+    bb = np.random.default_rng(3).standard_normal((3, A.nrows))
+    o = SolverOptions(maxits=5000, residual_rtol=1e-5 if dtype == np.float32
+                      else 1e-10)
+    rg = cg(op, bb, options=o)
+    assert rg.operator_format == tier
+    for s in range(3):
+        r1 = cg(op, bb[s], options=o)
+        assert rg.iterations_per_system[s] == r1.niterations
+        np.testing.assert_array_equal(rg.x[s], r1.x)
