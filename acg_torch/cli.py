@@ -232,6 +232,7 @@ def _main(argv=None) -> int:
         dia_kernels.launches = stencil.launches = 0
         dia_kernels.pipe_launches = stencil.pipe_launches = 0
         dia_kernels.batched_launches = stencil.batched_launches = 0
+        dia_kernels.ring_launches = dia_kernels.windows_launches = 0
         spmv.launches = sgell.launches = 0
         res = solve(dev, b, x0=x0, options=options, fmt=args.format)
         _log(args, f"kernel launches in the timed solve: dia_spmv "
@@ -241,7 +242,9 @@ def _main(argv=None) -> int:
                    f"{stencil.pipe_launches}, dia_spmv_batched "
                    f"{dia_kernels.batched_launches}, stencil_spmv_batched "
                    f"{stencil.batched_launches}, ell_spmv {spmv.launches}, "
-                   f"sgell_spmv {sgell.launches}")
+                   f"sgell_spmv {sgell.launches}, dia_spmv_ring "
+                   f"{dia_kernels.ring_launches}, dia_spmv_windows "
+                   f"{dia_kernels.windows_launches}")
     except AcgError as e:
         res = getattr(e, "result", None)
         print(f"error: {e}", file=sys.stderr)

@@ -1,7 +1,8 @@
 // Shared pieces of the SpMV kernels: the launch geometry, the
-// deterministic two-pass reduction behind the fused dots, and the row
+// deterministic two-pass reduction behind the fused dots, the row
 // bodies of the two operator tiers (DIA bands, matrix-free stencil),
-// which the SpMV kernels and the pipelined-iteration kernels share.
+// which the SpMV kernels and the pipelined-iteration kernels share, and
+// the asynchronous x staging of the HBM-tier DIA kernels.
 //
 // The TPU kernels sum their per-tile partials in grid order into one
 // scalar, because the TPU grid runs in order on one core.  On this card
@@ -187,22 +188,178 @@ __device__ __forceinline__ V band_value(double b) {
   return static_cast<V>(b);
 }
 
+// The one DIA row body of row i, templated on where its operands come
+// from: bat(d) returns band d's stored value at row i, xat(d, j)
+// returns x[j] for band d (device memory, or copies of them staged in
+// shared memory by the HBM kernels).  Every DIA kernel sums a row with
+// this arithmetic, so a row has the same bits whichever kernel ran it.
+template <typename V, bool SCALED, typename BAt, typename XAt>
+__device__ __forceinline__ V dia_row_at(const V* __restrict__ scales,
+                                        const int64_t* __restrict__ offsets,
+                                        int64_t ndiags, int64_t i, int64_t n,
+                                        BAt bat, XAt xat) {
+  V acc = V(0);
+  for (int64_t d = 0; d < ndiags; ++d) {
+    const int64_t j = i + offsets[d];
+    if (j >= 0 && j < n) {
+      V b = band_value<V>(bat(d));
+      if constexpr (SCALED) b *= scales[d];
+      acc += b * xat(d, j);
+    }
+  }
+  return acc;
+}
+
+// The same row where every band's column i + off[d] lies inside
+// [0, n): the bounds test is left out and the arithmetic is
+// dia_row_at's, so the row has the same bits.  The HBM kernels take it
+// for the tiles where no band leaves the vector (all but the first and
+// last few), with xat(d) giving x[i + off[d]].
+template <typename V, bool SCALED, typename BAt, typename XAt>
+__device__ __forceinline__ V dia_row_interior(const V* __restrict__ scales,
+                                              int ndiags, BAt bat,
+                                              XAt xat) {
+  V acc = V(0);
+  for (int d = 0; d < ndiags; ++d) {
+    V b = band_value<V>(bat(d));
+    if constexpr (SCALED) b *= scales[d];
+    acc += b * xat(d);
+  }
+  return acc;
+}
+
+// The tiles [0, ntiles) of T rows whose every row i has i + off[d] in
+// [0, n) for every band: full tiles far enough from both ends.  Returns
+// the first and one past the last such tile (empty when a band lies
+// wholly outside the vector).
+__device__ __forceinline__ void interior_tiles(
+    const int64_t* __restrict__ offsets, int64_t ndiags, int64_t n,
+    int64_t tile, int64_t& first, int64_t& last) {
+  int64_t omin = 0, omax = 0;
+  bool live = true;
+  for (int64_t d = 0; d < ndiags; ++d) {
+    const int64_t o = offsets[d];
+    omin = o < omin ? o : omin;
+    omax = o > omax ? o : omax;
+    live = live && o < n && -o < n;
+  }
+  first = (-omin + tile - 1) / tile;      // t * tile + omin >= 0
+  last = (n - omax) / tile;               // (t + 1) * tile + omax <= n
+  if (!live || last < first) first = last = 0;
+}
+
 template <typename V, typename B, bool SCALED>
 __device__ __forceinline__ V dia_row(const B* __restrict__ bands,
                                      const V* __restrict__ scales,
                                      const int64_t* __restrict__ offsets,
                                      int64_t ndiags, const V* __restrict__ x,
                                      int64_t i, int64_t n) {
-  V acc = V(0);
-  for (int64_t d = 0; d < ndiags; ++d) {
-    const int64_t j = i + offsets[d];
-    if (j >= 0 && j < n) {
-      V b = band_value<V>(bands[d * n + i]);
-      if constexpr (SCALED) b *= scales[d];
-      acc += b * x[j];
+  return dia_row_at<V, SCALED>(
+      scales, offsets, ndiags, i, n,
+      [bands, i, n](int64_t d) { return bands[d * n + i]; },
+      [x](int64_t, int64_t j) { return x[j]; });
+}
+
+// ---------------------------------------------------------------------------
+// Asynchronous copies of x into shared memory (cp.async, sm_80 and up).
+// A thread's copies are complete after its cp_async_wait; a
+// __syncthreads() after that makes every thread's copies visible.
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+template <int N>  // 4 or 8 bytes
+__device__ __forceinline__ void cp_async_small(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "n"(N)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>  // wait until at most N of this thread's groups are pending
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage x[a, a + len) into dst[0, len) with the block's threads, as
+// asynchronous copies; elements whose index leaves [0, n) are written 0
+// (the TPU kernels' zero halo).  ``aligned``: &x[a] and dst are 16-byte
+// aligned and len is a whole number of 16-byte chunks, so every chunk
+// inside [0, n) goes as one 16-byte copy and only chunks at the ends of
+// the vector go element by element; else every element is copied alone.
+template <typename V>
+__device__ __forceinline__ void stage_x(V* __restrict__ dst,
+                                        const V* __restrict__ x, int64_t n,
+                                        int64_t a, int len, bool aligned) {
+  constexpr int kVe = 16 / static_cast<int>(sizeof(V));
+  if (aligned) {
+    for (int k = threadIdx.x * kVe; k < len; k += blockDim.x * kVe) {
+      const int64_t j = a + k;
+      if (j >= 0 && j + kVe <= n) {
+        cp_async_16(dst + k, x + j);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kVe; ++e) {
+          if (j + e >= 0 && j + e < n)
+            cp_async_small<sizeof(V)>(dst + k + e, x + j + e);
+          else
+            dst[k + e] = V(0);
+        }
+      }
+    }
+  } else {
+    for (int k = threadIdx.x; k < len; k += blockDim.x) {
+      const int64_t j = a + k;
+      if (j >= 0 && j < n)
+        cp_async_small<sizeof(V)>(dst + k, x + j);
+      else
+        dst[k] = V(0);
     }
   }
-  return acc;
+}
+
+// Stage src[0, valid) into dst[0, valid) (elements of a band's storage
+// type E) with the block's threads: whole 16-byte chunks as cp.async
+// copies when ``aligned`` (src and dst 16-byte aligned), the rest, and
+// everything when not aligned, by ordinary loads and stores.  Nothing is
+// written past ``valid`` (rows past the vector are never computed).
+template <typename E>
+__device__ __forceinline__ void stage_band(E* __restrict__ dst,
+                                           const E* __restrict__ src,
+                                           int valid, bool aligned) {
+  constexpr int kVe = 16 / static_cast<int>(sizeof(E));
+  if (aligned) {
+    for (int k = threadIdx.x * kVe; k < valid; k += blockDim.x * kVe) {
+      if (k + kVe <= valid) {
+        cp_async_16(dst + k, src + k);
+      } else {
+        for (int e = k; e < valid; ++e) dst[e] = src[e];
+      }
+    }
+  } else {
+    for (int k = threadIdx.x; k < valid; k += blockDim.x) dst[k] = src[k];
+  }
+}
+
+// The contiguous run of tiles [t0, t1) that block b of a persistent grid
+// of nb blocks walks (acg_torch/ops/dia_plan.py run_bounds).
+__device__ __forceinline__ void run_bounds(int64_t ntiles, int64_t& t0,
+                                           int64_t& t1) {
+  const int64_t b = blockIdx.x, nb = gridDim.x;
+  t0 = b * ntiles / nb;
+  t1 = (b + 1) * ntiles / nb;
 }
 
 // ---------------------------------------------------------------------------

@@ -5,8 +5,11 @@ A matrix with D distinct nonzero diagonals multiplies as
 aligned so ``bands[d, i] = A[i, i + offset[d]]``; entries whose column
 falls outside [0, n) are 0.  The port of ``acg_tpu/ops/dia.py``: the
 same host matrix, the same storage tiers chosen in the same order, and
-an operator whose ``matvec`` runs the hand-written kernel on the card
-(:func:`acg_torch.ops.dia_kernels.dia_spmv`).
+an operator whose ``matvec`` runs a hand-written kernel on the card:
+:func:`acg_torch.ops.dia_kernels.dia_spmv` while x fits the card's L2,
+past it the shared-memory ring or clustered-window kernel
+(``dia_spmv_ring``, ``dia_spmv_windows``) by the plan of
+:mod:`acg_torch.ops.dia_plan`, made once per operator.
 """
 
 from __future__ import annotations
@@ -18,7 +21,10 @@ import torch
 
 from acg_torch.errors import AcgError, Status
 from acg_torch.ops.dia_kernels import (cg_pipelined_iter, dia_matvec,
-                                       dia_spmv, dia_spmv_batched)
+                                       dia_spmv, dia_spmv_batched,
+                                       dia_spmv_ring, dia_spmv_windows)
+from acg_torch.ops.dia_plan import (Budgets, HbmPlan, device_budgets,
+                                    fused_plan_for, make_plan)
 from acg_torch.sparse.csr import CsrMatrix
 
 __all__ = ["DiaMatrix", "DeviceDia", "dia_efficiency", "dia_matvec",
@@ -138,7 +144,10 @@ class DeviceDia:
     ``bands`` may be stored narrower than ``vec_dtype`` (bf16, or an int8
     0/1 mask with ``scales``); all arithmetic runs at ``vec_dtype``.
     ``offsets`` is the python tuple, ``offsets_t`` the same values as an
-    int64 tensor beside the bands (the kernel reads them on the card)."""
+    int64 tensor beside the bands (the kernel reads them on the card).
+    ``plan`` is the HBM-tier launch geometry of a one-vector SpMV, or
+    None for the resident kernel (:func:`acg_torch.ops.dia_plan.
+    fused_plan_for` on the device's budgets, made once here)."""
 
     bands: torch.Tensor
     scales: torch.Tensor | None
@@ -148,30 +157,45 @@ class DeviceDia:
     ncols: int
     nnz: int
     vec_dtype: str
+    plan: HbmPlan | None = None
 
     @classmethod
     def from_bands(cls, bands: torch.Tensor, scales, offsets, nrows: int,
-                   ncols: int, nnz: int, vec_dtype) -> "DeviceDia":
+                   ncols: int, nnz: int, vec_dtype,
+                   budgets: Budgets | None = None) -> "DeviceDia":
+        """``budgets`` None plans by the bands' device
+        (:func:`~acg_torch.ops.dia_plan.device_budgets`: resident on the
+        CPU); given budgets plan as on a card with those budgets (the
+        CPU then runs the planned kernel's plain version)."""
         offsets = tuple(int(o) for o in offsets)
         vdt = torch_dtype(vec_dtype)
+        dev = bands.device
+        if budgets is None:
+            budgets = device_budgets(dev)
+        n = bands.shape[1]
+        kind, tile = fused_plan_for(n, offsets, vdt, bands.dtype, budgets)
+        plan = (None if kind == "resident" else
+                make_plan(kind, tile, n, offsets, vdt, bands.dtype, budgets,
+                          device=dev))
         return cls(bands=bands.contiguous(),
                    scales=(None if scales is None
-                           else scales.to(device=bands.device, dtype=vdt)),
+                           else scales.to(device=dev, dtype=vdt)),
                    offsets=offsets,
                    offsets_t=torch.tensor(offsets, dtype=torch.int64,
-                                          device=bands.device),
+                                          device=dev),
                    nrows=int(nrows), ncols=int(ncols), nnz=int(nnz),
-                   vec_dtype=str(vdt).removeprefix("torch."))
+                   vec_dtype=str(vdt).removeprefix("torch."), plan=plan)
 
     @classmethod
     def from_dia(cls, D: DiaMatrix, dtype=None, mat_dtype="auto",
-                 device=None) -> "DeviceDia":
+                 device=None, budgets: Budgets | None = None) -> "DeviceDia":
         """Tier order under ``mat_dtype="auto"`` (``acg_tpu/ops/dia.py``
         ``DeviceDia.from_dia``): lossless bf16 first, then the exact
         two-value int8 mask with per-band scales, then full width.
         ``mat_dtype="int8"`` forces the mask tier (an error when the bands
         are not two-valued, never a lossy truncation); any other concrete
-        dtype is a narrowing the caller opted into."""
+        dtype is a narrowing the caller opted into.  ``budgets`` as in
+        :meth:`from_bands`."""
         from acg_torch.utils.backend import resolve_device
 
         dev = resolve_device(device)
@@ -182,7 +206,8 @@ class DeviceDia:
 
         def make(bands_host: torch.Tensor, scales=None):
             return cls.from_bands(bands_host.to(dev), scales, D.offsets,
-                                  D.nrows, D.ncols, D.nnz, vdt.name)
+                                  D.nrows, D.ncols, D.nnz, vdt.name,
+                                  budgets=budgets)
 
         def int8_tier():
             sc = two_value_scales(cast)
@@ -231,11 +256,25 @@ class DeviceDia:
             nbytes += self.scales.numel() * self.scales.element_size()
         return nbytes
 
+    @property
+    def kind(self) -> str:
+        """The one-vector SpMV kernel's plan: "resident", "hbm-ring" or
+        "hbm" (``acg_tpu``'s fused-plan kinds)."""
+        return "resident" if self.plan is None else self.plan.kind
+
     def _spmv(self, x: torch.Tensor, with_dot: bool):
         """A (B, n) batch of systems takes the multi-RHS kernel, a 1-D
-        vector the one-system kernel (``acg_tpu``'s dia_matvec_best)."""
-        spmv = dia_spmv_batched if x.dim() == 2 else dia_spmv
-        return spmv(self.bands, self.scales, self.offsets_t, x,
+        vector the kernel of the operator's plan (``acg_tpu``'s
+        dia_matvec_best and fused plan)."""
+        if x.dim() == 2:
+            return dia_spmv_batched(self.bands, self.scales, self.offsets_t,
+                                    x, with_dot=with_dot)
+        if self.plan is None:
+            return dia_spmv(self.bands, self.scales, self.offsets_t, x,
+                            with_dot=with_dot)
+        spmv = dia_spmv_ring if self.plan.kind == "hbm-ring" else \
+            dia_spmv_windows
+        return spmv(self.bands, self.scales, self.offsets_t, x, self.plan,
                     with_dot=with_dot)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,14 @@ fused in).  On a CUDA tensor it launches the hand-written kernel of
 :func:`cg_pipelined_iter_plain` beside it.  :func:`dia_spmv_batched` is
 the port of ``dia_matvec_pallas_2d_padded_batched`` (B systems against
 one operator, ``acg_torch/csrc/dia_spmv_batched.cu``), whose plain
-version is :func:`dia_matvec` on a ``(B, n)`` tensor.  There is no
+version is :func:`dia_matvec` on a ``(B, n)`` tensor.
+:func:`dia_spmv_ring` and :func:`dia_spmv_windows` are the ports of
+``dia_matvec_pallas_hbm2d_ring`` and ``dia_matvec_pallas_hbm2d`` (the
+SpMV for x past the on-chip store, x staged through shared memory:
+``acg_torch/csrc/dia_hbm_ring.cu``, ``acg_torch/csrc/dia_hbm_windows.cu``),
+with :func:`dia_matvec_ring_plain` and :func:`dia_matvec_windows_plain`
+beside them, which read x only through the kernels' geometry
+(``acg_torch/ops/dia_plan.py``).  There is no
 fallback between a kernel and its plain version: a CUDA call that cannot
 launch raises.
 
@@ -28,13 +35,17 @@ import torch
 
 from acg_torch.errors import AcgError, Status
 from acg_torch.ops.blas1 import batched_dot, pipelined_update
+from acg_torch.ops.dia_plan import run_bounds
 
 # kernel launches so far (each wrapper adds one per launch, nowhere else):
-# dia_spmv, cg_pipelined_iter, and dia_spmv_batched (one per call, which
-# runs ceil(B/8) chunk launches)
+# dia_spmv, cg_pipelined_iter, dia_spmv_batched (one per call, which
+# runs ceil(B/8) chunk launches), dia_spmv_ring and dia_spmv_windows
 launches = 0
 pipe_launches = 0
 batched_launches = 0
+# the HBM tier: dia_spmv_ring and dia_spmv_windows
+ring_launches = 0
+windows_launches = 0
 
 THREADS = 256          # acg::kThreads in csrc/common.cuh
 MAX_BLOCKS = 4096      # fixed grid cap: the fused dot's partial count, and
@@ -47,6 +58,8 @@ _VEC_CODES = {torch.float32: 2, torch.float64: 3}
 _lib = None
 _pipe_lib = None
 _batched_lib = None
+_ring_lib = None
+_windows_lib = None
 
 
 def grid_blocks(n: int) -> int:
@@ -349,3 +362,267 @@ def cg_pipelined_iter(bands, scales, offsets, w, z, r, p, s, x, alpha, beta,
                        f"{rc})")
     pipe_launches += 1
     return z, p, s, x, r, w_out, gd[0], gd[1]
+
+
+# ---------------------------------------------------------------------------
+# the HBM tier: x staged through shared memory (a ring, or windows)
+
+
+def _check_plan(plan, kind: str, x: torch.Tensor, name: str):
+    if plan is None or plan.kind != kind:
+        raise AcgError(Status.ERR_INVALID_VALUE,
+                       f"{name}: needs a plan of kind {kind!r} "
+                       "(acg_torch.ops.dia_plan.make_plan)")
+    if plan.ntiles != -(-x.shape[-1] // plan.tile):
+        raise AcgError(Status.ERR_INVALID_VALUE,
+                       f"{name}: the plan is for {plan.ntiles} tiles of "
+                       f"{plan.tile}, the vector has {x.shape[-1]} rows")
+
+
+def _tile_rows(plan, t: torch.Tensor, n: int):
+    """(rows of tiles ``t``, the same clamped to the vector): (k, T)."""
+    rows = t[:, None] * plan.tile + torch.arange(plan.tile, device=t.device)
+    return rows, rows.clamp(max=n - 1)
+
+
+def _band(bands, scales, d: int, rows, dtype):
+    """Band d at ``rows``, at the vector dtype, as :func:`dia_matvec`
+    makes it."""
+    b = bands[d][rows].to(dtype)
+    if scales is not None:
+        b = b * scales[d].to(dtype)
+    return b
+
+
+def dia_matvec_ring_plain(bands: torch.Tensor, offsets, x: torch.Tensor,
+                          scales: torch.Tensor | None, plan):
+    """y = DIA(bands, offsets) @ x read through the ring kernel's
+    geometry, the plain PyTorch version of :func:`dia_spmv_ring`: every
+    block of the persistent grid walks its run of tiles
+    (``dia_plan.run_bounds``) with a ring of ``hi - lo + 2`` x tiles,
+    filled in the kernel's order (the span first, then before each tile
+    the next tile the run needs, into slot ``tile mod slots``; tiles
+    outside the vector zero) and read by the kernel's slot arithmetic.
+    The blocks advance together, one tile each per step.  A row sums its
+    bands as :func:`dia_matvec` does, so y has its bits."""
+    n, T, nt, nb = x.shape[-1], plan.tile, plan.ntiles, plan.nblocks
+    slots, lo = plan.hi - plan.lo + 2, plan.lo
+    ring_len = slots * T
+    dev, dt = x.device, x.dtype
+    zero = torch.zeros((), dtype=dt, device=dev)
+    xt = torch.zeros(nt * T, dtype=dt, device=dev)
+    xt[:n] = x
+    xt = xt.view(nt, T)
+    t0, t1 = run_bounds(torch.arange(nb, device=dev), nb, nt)
+    ring = torch.zeros(nb, slots, T, dtype=dt, device=dev)
+
+    def fetch(jt, active):
+        who = active.nonzero().squeeze(1)
+        jt = jt[who]
+        inside = ((jt >= 0) & (jt < nt))[:, None]
+        ring[who, torch.remainder(jt, slots)] = torch.where(
+            inside, xt[jt.clamp(0, nt - 1)], zero)
+
+    for k in range(slots - 1):
+        fetch(t0 + lo + k, t0 < t1)
+    y = torch.zeros(nt * T, dtype=dt, device=dev)
+    offs = [int(o) for o in offsets]
+    for step in range(int((t1 - t0).max())):
+        t = t0 + step
+        fetch(t + 1 + plan.hi, t + 1 < t1)
+        who = (t < t1).nonzero().squeeze(1)
+        ta = t[who]
+        rows, rc = _tile_rows(plan, ta, n)
+        flat = ring[who].reshape(len(who), ring_len)
+        base = ((ta + lo) * T)[:, None]
+        s0 = (torch.remainder(ta + lo, slots) * T)[:, None]
+        acc = torch.zeros(rows.shape, dtype=dt, device=dev)
+        for d, off in enumerate(offs):
+            j = rows + off
+            valid = (j >= 0) & (j < n)
+            p = s0 + (j - base)
+            p = torch.where(p >= ring_len, p - ring_len, p)
+            xd = torch.where(valid, flat.gather(1, p.clamp(0, ring_len - 1)),
+                             zero)
+            acc = acc + _band(bands, scales, d, rc, dt) * xd
+        y.view(nt, T)[ta] = acc
+    return y[:n]
+
+
+def _window_table(plan):
+    """The windows plan's table as ((lo, length) per cluster, cluster per
+    band)."""
+    tab = plan.table.tolist()
+    c = plan.nclusters
+    return ([(tab[3 * k], tab[3 * k + 1]) for k in range(c)], tab[3 * c:])
+
+
+def dia_matvec_windows_plain(bands: torch.Tensor, offsets, x: torch.Tensor,
+                             scales: torch.Tensor | None, plan,
+                             chunk: int = 1024):
+    """y = DIA(bands, offsets) @ x read through the windows kernel's
+    geometry, the plain PyTorch version of :func:`dia_spmv_windows`: each
+    tile's rows are built from its clusters' windows alone, each window
+    the zero-filled slice of x the kernel stages (starting at the
+    cluster's lowest offset less the kernel's 16-byte alignment shift,
+    for x's own address), and each band a static slice of its cluster's
+    window.  Tiles go ``chunk`` at a time.  A row sums its bands as
+    :func:`dia_matvec` does, so y has its bits."""
+    n, T, nt = x.shape[-1], plan.tile, plan.ntiles
+    dev, dt = x.device, x.dtype
+    zero = torch.zeros((), dtype=dt, device=dev)
+    ve = 16 // x.element_size()
+    mis = x.data_ptr() % 16 // x.element_size()
+    clusters, member = _window_table(plan)
+    shifts = [(lo + mis) % ve for lo, _ in clusters]
+    offs = [int(o) for o in offsets]
+    y = torch.zeros(nt * T, dtype=dt, device=dev)
+    for c0 in range(0, nt, chunk):
+        ts = torch.arange(c0, min(nt, c0 + chunk), device=dev)
+        wins = []
+        for (lo, length), sh in zip(clusters, shifts):
+            idx = ((ts * T + lo - sh)[:, None]
+                   + torch.arange(length, device=dev))
+            valid = (idx >= 0) & (idx < n)
+            wins.append(torch.where(valid, x[idx.clamp(0, n - 1)], zero))
+        rows, rc = _tile_rows(plan, ts, n)
+        acc = torch.zeros(rows.shape, dtype=dt, device=dev)
+        for d, off in enumerate(offs):
+            c = member[d]
+            if c < 0:
+                xd = torch.zeros(rows.shape, dtype=dt, device=dev)
+            else:
+                p = off - clusters[c][0] + shifts[c]
+                xd = wins[c][:, p: p + T]
+            acc = acc + _band(bands, scales, d, rc, dt) * xd
+        y.view(nt, T)[ts] = acc
+    return y[:n]
+
+
+def _load_ring():
+    global _ring_lib
+    if _ring_lib is None:
+        from acg_torch import _build
+
+        lib = _build.load("dia_hbm_ring")
+        lib.acg_dia_spmv_ring.restype = ctypes.c_int
+        lib.acg_dia_spmv_ring.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        _ring_lib = lib
+    return _ring_lib
+
+
+def _load_windows():
+    global _windows_lib
+    if _windows_lib is None:
+        from acg_torch import _build
+
+        lib = _build.load("dia_hbm_windows")
+        lib.acg_dia_spmv_windows.restype = ctypes.c_int
+        lib.acg_dia_spmv_windows.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p]
+        _windows_lib = lib
+    return _windows_lib
+
+
+def _dot_buffers(x, nblocks: int, with_dot: bool):
+    if not with_dot:
+        return None, None
+    return (torch.empty(nblocks, dtype=x.dtype, device=x.device),
+            torch.empty((), dtype=x.dtype, device=x.device))
+
+
+def dia_spmv_ring(bands: torch.Tensor, scales: torch.Tensor | None,
+                  offsets: torch.Tensor, x: torch.Tensor, plan,
+                  with_dot: bool = False):
+    """:func:`dia_spmv` with x streamed once through a shared-memory ring
+    (``dia_matvec_pallas_hbm2d_ring``), by the geometry of ``plan`` (an
+    ``HbmPlan`` of kind "hbm-ring", ``dia_plan.make_plan``).  Operands,
+    results and bits of y as :func:`dia_spmv`; the dot sums per-block
+    partials in a fixed order.  CUDA tensors launch the kernel
+    (``acg_torch/csrc/dia_hbm_ring.cu``); CPU tensors take
+    :func:`dia_matvec_ring_plain`."""
+    global ring_launches
+    _check_plan(plan, "hbm-ring", x, "dia_spmv_ring")
+    if x.device.type == "cpu":
+        y = dia_matvec_ring_plain(bands, offsets.tolist(), x, scales, plan)
+        return (y, torch.dot(x, y)) if with_dot else y
+    if x.device.type != "cuda":
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"dia_spmv_ring: no kernel for device {x.device}")
+    _check(bands, scales, offsets, x, name="dia_spmv_ring")
+    lib = _load_ring()
+    y = torch.empty_like(x)
+    partials, dot = _dot_buffers(x, plan.nblocks, with_dot)
+    rc = lib.acg_dia_spmv_ring(
+        bands.data_ptr(), _BAND_CODES[bands.dtype],
+        scales.data_ptr() if scales is not None else None,
+        offsets.data_ptr(), bands.shape[0], x.data_ptr(), y.data_ptr(),
+        _VEC_CODES[x.dtype], x.shape[0], plan.tile, plan.lo,
+        plan.hi - plan.lo + 2, plan.ntiles, int(x.data_ptr() % 16 == 0),
+        plan.smem, plan.nblocks,
+        partials.data_ptr() if with_dot else None,
+        dot.data_ptr() if with_dot else None,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"dia_spmv_ring: kernel launch failed (CUDA error "
+                       f"{rc})")
+    ring_launches += 1
+    return (y, dot) if with_dot else y
+
+
+def dia_spmv_windows(bands: torch.Tensor, scales: torch.Tensor | None,
+                     offsets: torch.Tensor, x: torch.Tensor, plan,
+                     with_dot: bool = False):
+    """:func:`dia_spmv` with x staged through one shared-memory window
+    per offset cluster (``dia_matvec_pallas_hbm2d``), by the geometry of
+    ``plan`` (an ``HbmPlan`` of kind "hbm", ``dia_plan.make_plan``, its
+    table on x's device).  Operands, results and bits of y as
+    :func:`dia_spmv`; the dot sums per-block partials in a fixed order.
+    CUDA tensors launch the kernel (``acg_torch/csrc/dia_hbm_windows.cu``);
+    CPU tensors take :func:`dia_matvec_windows_plain`."""
+    global windows_launches
+    _check_plan(plan, "hbm", x, "dia_spmv_windows")
+    if x.device.type == "cpu":
+        y = dia_matvec_windows_plain(bands, offsets.tolist(), x, scales,
+                                     plan)
+        return (y, torch.dot(x, y)) if with_dot else y
+    if x.device.type != "cuda":
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"dia_spmv_windows: no kernel for device {x.device}")
+    _check(bands, scales, offsets, x, name="dia_spmv_windows")
+    if (plan.table.device != x.device or plan.table.dtype != torch.int64
+            or plan.table.numel() != 3 * plan.nclusters + bands.shape[0]):
+        raise AcgError(Status.ERR_INVALID_VALUE,
+                       "dia_spmv_windows: the plan's table must be an int64 "
+                       "tensor on the vector's device, 3 per cluster and "
+                       "one per band")
+    lib = _load_windows()
+    y = torch.empty_like(x)
+    partials, dot = _dot_buffers(x, plan.nblocks, with_dot)
+    rc = lib.acg_dia_spmv_windows(
+        bands.data_ptr(), _BAND_CODES[bands.dtype],
+        scales.data_ptr() if scales is not None else None,
+        offsets.data_ptr(), bands.shape[0], x.data_ptr(), y.data_ptr(),
+        _VEC_CODES[x.dtype], x.shape[0], plan.tile, plan.table.data_ptr(),
+        plan.nclusters, plan.buflen, plan.ntiles,
+        x.data_ptr() % 16 // x.element_size(), plan.smem, plan.nblocks,
+        partials.data_ptr() if with_dot else None,
+        dot.data_ptr() if with_dot else None,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"dia_spmv_windows: kernel launch failed (CUDA error "
+                       f"{rc})")
+    windows_launches += 1
+    return (y, dot) if with_dot else y

@@ -106,8 +106,12 @@ def path_names(fmt: str, device_type: str, body: str = "fused",
     ``cuda-sgell-spmv`` in every loop of the unstructured tiers, whose
     kernels fuse nothing), "batched" the multi-RHS SpMV of a (B, n)
     solve, with the per-system p'Ap fused in classic CG
-    (``cuda-stencil-batched`` / ``cuda-dia-batched``).  ``rcm``: the
-    operator acts in an RCM ordering (``rcm+dia``, ``rcm+sgell``)."""
+    (``cuda-stencil-batched`` / ``cuda-dia-batched``), "hbm-ring" and
+    "hbm" the DIA SpMV kernels for x past the card's L2, x staged through
+    a shared-memory ring or clustered windows (``cuda-dia-hbm-ring``,
+    ``cuda-dia-hbm``; ``acg_tpu``'s pallas-hbm-ring and pallas-hbm).
+    ``rcm``: the operator acts in an RCM ordering (``rcm+dia``,
+    ``rcm+sgell``)."""
     name = "rcm+" + fmt if rcm else fmt
     if device_type != "cuda":
         return name, "torch-plain"

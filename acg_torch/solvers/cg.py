@@ -222,7 +222,10 @@ def _describe_path(op, fmt: str, pipelined: bool = False,
     (the ELL and sgell tiers: their one-system kernel once per system).
     A pipelined solve runs the single-kernel iteration where the tier has
     one, unless a batch or ``replace_every`` disengages it; the ELL and
-    sgell loops run their SpMV kernel in every body."""
+    sgell loops run their SpMV kernel in every body.  On the DIA tier
+    a loop whose SpMV is a one-vector kernel names the kernel of the
+    operator's plan: ``cuda-dia-hbm-ring`` / ``cuda-dia-hbm`` for x past
+    the card's L2."""
     tier = ("sgell" if isinstance(op, DeviceSgell)
             else "ell" if isinstance(op, DeviceEll)
             else "stencil" if isinstance(op, DeviceStencil) else "dia")
@@ -231,6 +234,9 @@ def _describe_path(op, fmt: str, pipelined: bool = False,
     body = ("spmv" if not has_pipe else "batched" if batch
             else "fused" if not pipelined else "pipe" if engaged
             else "spmv")
+    if tier == "dia" and body in ("fused", "spmv") and op.kind != "resident":
+        # the SpMV of the loop body runs the kernel of the operator's plan
+        body = op.kind
     note = kernel_disengagement_note(pipelined, engaged, replace_every,
                                      forced_fmt=fmt,
                                      stencil=tier == "stencil", batch=batch,

@@ -14,6 +14,13 @@ raises and the script exits non-zero:
               built once for every later phase (f32: RCM + sgell; f64:
               ELL), with the host seconds of mesh generation, RCM,
               permutation, pack / ELL build and upload;
+   p3d-464    set-up of the north star: 7-point Poisson on 464^3
+              (99,897,344 unknowns) in band form through fmt="dia" (bf16
+              bands, f32 vectors), planned past the card's L2 onto the
+              clustered-window kernel;
+   p2d-10k    set-up of the 5-point 2-D Poisson on 10,000^2 (10^8
+              unknowns) built directly in band form, fmt="dia", planned
+              onto the shared-memory ring kernel;
 2. kernels    at the solve's shapes, each kernel in every tier, held
               against its plain PyTorch version on the card (stated
               tolerances), its outputs and dots checked bit-identical
@@ -27,12 +34,21 @@ raises and the script exits non-zero:
               sgell_spmv and ell_spmv on the fem3d-1m operators (ELL also
               at f32) and, with bf16 values, on a randomly permuted 64^3
               Poisson operator, beside cuSPARSE CSR x on the same matrix
-              in the same ordering;
+              in the same ordering; the HBM tier: dia_spmv_windows at
+              256^3 (bf16/f32, int8/f32, f64/f64) and 464^3 (bf16 bands,
+              f32 and f64 vectors), dia_spmv_ring on 10,000^2 (bf16/f32,
+              f64/f64), each with y bit-equal to dia_spmv and timed beside
+              dia_spmv and cuSPARSE CSR x on the same operator, and
+              dia_spmv at bench.py's 128^3 (its resident path);
 3. stencil    classic CG, 256^3 Poisson, f64, fmt="auto" (the matrix-free
               tier), manufactured solution, rtol 1e-8, true residual
               recomputed here with the stencil kernel;
 4. dia-bf16   256^3 Poisson, f32 vectors, bf16 bands, fmt="dia",
-              fixed-iteration timing (bench.py's protocol);
+              fixed-iteration timing (bench.py's protocol): x (67 MB)
+              is past the card's L2, so the loop and the eager matvecs
+              run the windows kernel (cuda-dia-hbm); dia-bf16-128 is the
+              same at 128^3 (x 8.4 MB), where dia_spmv runs
+              (cuda-dia-fused);
 5. dia-f64    variable-coefficient 128^3 operator, f64, fmt="auto" (full
               width f64 bands), rtol 1e-8, true residual recomputed;
 6-9.          the same three solves through pipelined CG (phases
@@ -64,8 +80,19 @@ raises and the script exits non-zero:
               solutions, counts equal to the one-system solves run
               there); cli-fem (the CLI on a 50,000-point mesh .mtx at f32
               and f64);
-13. profile   for the operators of phases 3, 4, 6, batched-stencil,
-              fem-sgell and fem-ell: 50
+13. the 100M-DOF path
+              dia-100m: classic CG on the 464^3 operator from b = A x*
+              (x* = default_rng(464) normal), rtol 1e-4, maxits 1500
+              (scripts/check_100m_convergence.py): cuda-dia-hbm, the
+              windows kernel once per SpMV, the true residual certified
+              in float64 with the plain dia_matvec on the card (< 3e-4),
+              us/iter beside the iteration's bound; dia-100m-f64: the
+              same bf16 bands with f64 vectors to rtol 1e-8 (< 1e-7);
+              p2d-ring: 200 fixed iterations on 10,000^2 through the ring
+              kernel (cuda-dia-hbm-ring), the true residual held to the
+              recurrence's within f32 rounding drift;
+14. profile   for the operators of phases 3, 4, 6, batched-stencil,
+              fem-sgell, fem-ell and dia-100m: 50
               iterations under torch.profiler (device time by kernel,
               device idle share of the solve's wall time, kernels per
               iteration), and µs/iter with the host reading the loop flag
@@ -84,6 +111,7 @@ or of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -135,6 +163,10 @@ def main() -> int:
     # right-hand sides of the batched phases
     grid, var_grid, cli_grid, reps, bench_iters = 256, 128, 48, 25, 1000
     nrhs = 8
+    # the HBM tier: bench.py's resident DIA edge, the 100M-DOF north star
+    # (464^3 = 99,897,344 unknowns), the 2-D ring edge (10^8 unknowns),
+    # fixed iterations of the 2-D run
+    bench_grid, big_grid, p2d_edge, p2d_iters = 128, 464, 10_000, 200
     # the unstructured configuration fem3d-1m (3-D Delaunay mesh points),
     # the CLI's mesh, the scrambled tridiagonal's rows, the batched
     # right-hand sides on the sgell tier
@@ -171,8 +203,12 @@ def main() -> int:
 
     _phase("build", _build_phase)
     _phase("fem3d-1m", lambda: _fem_setup(fem_points, ctx))
+    _phase("p3d-464", lambda: _p3d_big_setup(big_grid, ctx))
+    _phase("p2d-10k", lambda: _p2d_setup(p2d_edge, ctx))
     _phase("kernels", lambda: _kernels_phase(grid, nrhs, ctx))
     _phase("stencil", lambda: _stencil_solve(grid, ctx))
+    _phase("dia-bf16-128",
+           lambda: _dia_bf16_solve(bench_grid, bench_iters, ctx))
     _phase("dia-bf16", lambda: _dia_bf16_solve(grid, bench_iters, ctx))
     _phase("dia-f64", lambda: _dia_f64_solve(var_grid, ctx))
     _phase("pipelined-stencil", lambda: _stencil_solve(grid, ctx, True))
@@ -197,6 +233,9 @@ def main() -> int:
     _phase("rcm-dia", lambda: _rcm_dia_phase(tridiag_rows, ctx))
     _phase("batched-fem-sgell", lambda: _batched_fem(fem_nrhs, ctx))
     _phase("cli-fem", lambda: _cli_fem_phase(cli_fem_points))
+    _phase("dia-100m", lambda: _dia_100m_solve(ctx, "float32"))
+    _phase("dia-100m-f64", lambda: _dia_100m_solve(ctx, "float64"))
+    _phase("p2d-ring", lambda: _p2d_ring_solve(p2d_iters, ctx))
     _phase("profile", lambda: _profile_phase(ctx))
     lines = _kernel_lines(ctx)
     idle = [k["name"] for k in lines if k["launches"] <= 0]
@@ -271,12 +310,14 @@ def _tolerances(dtype):
 
 
 def _check_kernel(label, run, plain, x, ctx, nbytes, flops, library,
-                  extra=None, tol=None):
+                  extra=None, tol=None, plain_reps=None):
     """Hold one kernel configuration against its plain version, check its
     dot's bits across two runs, and time all three.  ``x`` may be a (B, n)
     batch: its dots are then per system.  ``extra(row) -> bool`` runs
     further checks and timings into the row before it is judged.  ``tol``
-    is (rtol, atol, dot_rtol), by default ``_tolerances``."""
+    is (rtol, atol, dot_rtol), by default ``_tolerances``.  The plain
+    version is timed over ``plain_reps`` runs (by default as many as the
+    kernel)."""
     import torch
 
     rtol, atol, dot_rtol = tol if tol is not None else _tolerances(x.dtype)
@@ -304,7 +345,7 @@ def _check_kernel(label, run, plain, x, ctx, nbytes, flops, library,
     if extra is not None:
         ok = extra(row) and ok
     row["ms"] = _time_ms(run, ctx["reps"])
-    row["plain_ms"] = _time_ms(plain, ctx["reps"])
+    row["plain_ms"] = _time_ms(plain, plain_reps or ctx["reps"])
     row["library_ms"] = _time_ms(library, ctx["reps"])
     row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, x.dtype, ctx)
     ctx["rows"].append(row)
@@ -395,27 +436,32 @@ def _composed(matvec):
 
 
 def _csr_of(dev, dtype):
-    """The DIA operator as a torch sparse CSR matrix on the card (for the
-    library yardstick only)."""
+    """The DIA operator as a torch sparse CSR matrix on its device, built
+    straight from the bands (rows in order, each row's entries in
+    ascending column order, zeros dropped; for the library yardstick
+    only)."""
     import torch
 
     n = dev.nrows
-    rows, cols, vals = [], [], []
+    D_ = len(dev.offsets)
+    vals = torch.empty((n, D_), dtype=dtype, device=dev.device)
+    cols = torch.empty((n, D_), dtype=torch.int64, device=dev.device)
     i = torch.arange(n, device=dev.device)
     for d, off in enumerate(dev.offsets):
         band = dev.bands[d, :n].to(dtype)
         if dev.scales is not None:
             band = band * dev.scales[d].to(dtype)
-        keep = band != 0
-        rows.append(i[keep])
-        cols.append(i[keep] + off)
-        vals.append(band[keep])
+        vals[:, d] = band
+        cols[:, d] = i + off
+    del i
+    keep = vals != 0
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=dev.device)
+    crow[1:] = torch.cumsum(keep.sum(1), 0)
+    cols, vals = cols[keep], vals[keep]
+    del keep
     with warnings.catch_warnings():      # sparse tensors warn they are beta
         warnings.simplefilter("ignore")
-        coo = torch.sparse_coo_tensor(torch.stack([torch.cat(rows),
-                                                   torch.cat(cols)]),
-                                      torch.cat(vals), (n, n))
-        return coo.coalesce().to_sparse_csr()
+        return torch.sparse_csr_tensor(crow, cols, vals, size=(n, n))
 
 
 def _kernels_phase(G: int, nrhs: int, ctx):
@@ -472,7 +518,9 @@ def _kernels_phase(G: int, nrhs: int, ctx):
                     dev.pipelined_iter,
                     lambda *a, dev=dev: cg_pipelined_iter_plain(
                         dev.bands, dev.scales, dev.offsets, *a),
-                    _composed(dev.matvec), vecs, ab, n, ctx,
+                    _composed(lambda v, dev=dev: dia_spmv(
+                        dev.bands, dev.scales, dev.offsets_t, v)),
+                    vecs, ab, n, ctx,
                     D_ * n * dev.mat_itemsize + 12 * n * vb,
                     2 * D_ * n + 16 * n)
         del dev, vecs
@@ -528,6 +576,7 @@ def _kernels_phase(G: int, nrhs: int, ctx):
     torch.cuda.empty_cache()
     _batched_kernels(D, G, nrhs, ctx)
     _unstructured_kernels(ctx)
+    _hbm_kernels(D, ctx)
     return {"grid": [G, G, G], "n": n, "nrhs": nrhs,
             "configurations": len(ctx["rows"]),
             "launches_while_checking": _counts()}
@@ -682,7 +731,9 @@ def _counts() -> dict:
             "cg_pipelined_iter_stencil": stencil.pipe_launches,
             "dia_spmv_batched": dia_kernels.batched_launches,
             "stencil_spmv_batched": stencil.batched_launches,
-            "ell_spmv": spmv.launches, "sgell_spmv": sgell.launches}
+            "ell_spmv": spmv.launches, "sgell_spmv": sgell.launches,
+            "dia_spmv_ring": dia_kernels.ring_launches,
+            "dia_spmv_windows": dia_kernels.windows_launches}
 
 
 def _reset_counts():
@@ -691,6 +742,7 @@ def _reset_counts():
     dia_kernels.launches = dia_kernels.pipe_launches = 0
     stencil.launches = stencil.pipe_launches = 0
     dia_kernels.batched_launches = stencil.batched_launches = 0
+    dia_kernels.ring_launches = dia_kernels.windows_launches = 0
     spmv.launches = sgell.launches = 0
 
 
@@ -744,7 +796,8 @@ def _check_batched_launches(rep, launches, kernel, its, where):
     """A batched solve went through the multi-RHS kernel, at least once
     per iteration, and launched no one-system kernel."""
     one = [k for k in ("dia_spmv", "stencil_spmv", "cg_pipelined_iter",
-                       "cg_pipelined_iter_stencil") if launches[k]]
+                       "cg_pipelined_iter_stencil", "dia_spmv_ring",
+                       "dia_spmv_windows") if launches[k]]
     if launches[kernel] < its or one:
         raise SystemExit(f"error: {where}: {kernel} launched "
                          f"{launches[kernel]} times in {its} iterations "
@@ -758,13 +811,39 @@ def _solver(pipelined: bool):
     return (cg_pipelined, "pipe") if pipelined else (cg, "fused")
 
 
-def _check_launches(rep, launches, kernel, its, pipelined, where):
+_DIA_ONE_VECTOR = {"resident": "dia_spmv", "hbm-ring": "dia_spmv_ring",
+                   "hbm": "dia_spmv_windows"}
+
+
+def _dia_names(op, pipelined: bool):
+    """(loop body of the kernel name, loop kernel, eager kernel) of a DIA
+    solve: the one-vector SpMV kernel of the operator's plan takes the
+    eager matvecs (initial residual, certification), and the classic
+    loop too."""
+    eager = _DIA_ONE_VECTOR[op.kind]
+    if pipelined:
+        return "pipe", "cg_pipelined_iter", eager
+    body = "fused" if op.kind == "resident" else op.kind
+    return body, eager, eager
+
+
+def _check_launches(rep, launches, kernel, its, pipelined, where,
+                    eager=None):
     """The solve went through its kernel: the loop kernel launched (the
-    pipelined one once per iteration)."""
+    pipelined one once per iteration).  ``eager``: the one-vector DIA
+    kernel the operator's plan gives its matvecs, which must have run
+    (classic: once per iteration and once for the initial residual),
+    and no other one-vector DIA kernel."""
     n = launches[kernel]
-    if n <= 0 or (pipelined and n != its):
+    bad = n <= 0 or (pipelined and n != its)
+    if eager is not None:
+        others = [k for k in _DIA_ONE_VECTOR.values()
+                  if k != eager and launches[k]]
+        bad = bad or bool(others) or launches[eager] <= 0 or (
+            not pipelined and launches[eager] != its + 1)
+    if bad:
         raise SystemExit(f"error: {where}: {kernel} launched {n} times in "
-                         f"{its} iterations: {rep}")
+                         f"{its} iterations (eager kernel {eager}): {rep}")
 
 
 def _stencil_solve(G: int, ctx, pipelined: bool = False):
@@ -826,14 +905,17 @@ def _dia_bf16_solve(G: int, iters: int, ctx, pipelined: bool = False,
     from acg_torch.solvers.cg import build_device_operator
     from acg_torch.sparse.poisson import poisson3d_7pt_dia
 
-    solve, body = _solver(pipelined)
+    solve, _ = _solver(pipelined)
     phase = ("batched-dia-bf16" if nrhs else
              "pipelined-dia-bf16" if pipelined else "dia-bf16")
-    body = "batched" if nrhs else body
+    if G != 256:
+        phase += f"-{G}"
     D = poisson3d_7pt_dia(G, dtype=np.float32)
     op = build_device_operator(D, dtype=np.float32, fmt="dia")
     if op.bands.dtype != torch.bfloat16:
         raise SystemExit(f"error: expected bf16 bands, got {op.bands.dtype}")
+    body, loop_kernel, eager = _dia_names(op, pipelined)
+    body = "batched" if nrhs else body
     rng = np.random.default_rng(0)
     b = rng.standard_normal((nrhs, D.nrows) if nrhs else D.nrows
                             ).astype(np.float32)
@@ -844,6 +926,7 @@ def _dia_bf16_solve(G: int, iters: int, ctx, pipelined: bool = False,
                                              residual_rtol=0.0))
     launches = _read_counts(ctx, phase)
     rep = _solve_report(res, launches)
+    rep["plan"] = op.kind
     ok = ((res.operator_format, res.kernel) == ("dia", f"cuda-dia-{body}")
           and res.niterations == iters and np.all(np.isfinite(res.x))
           and res.x.shape == np.shape(b))
@@ -856,11 +939,26 @@ def _dia_bf16_solve(G: int, iters: int, ctx, pipelined: bool = False,
         _check_batched_launches(rep, launches, "dia_spmv_batched", iters,
                                 phase)
     else:
-        _check_launches(rep, launches,
-                        "cg_pipelined_iter" if pipelined else "dia_spmv",
-                        iters, pipelined, phase)
+        _check_launches(rep, launches, loop_kernel, iters, pipelined, phase,
+                        eager=eager)
+    if op.plan is not None and not pipelined and not nrhs:
+        # the route change, measured: the same solve with the operator
+        # planned resident (dia_spmv), as before the HBM tier existed
+        resident = dataclasses.replace(op, plan=None)
+        solve(resident, b, options=SolverOptions(maxits=20,
+                                                 residual_rtol=0.0))
+        before = dict(_counts())
+        res_r = solve(resident, b, options=SolverOptions(maxits=iters,
+                                                         residual_rtol=0.0))
+        rep["us_per_iter_resident_plan"] = (res_r.stats.tsolve
+                                            / res_r.niterations * 1e6)
+        rep["resident_plan_kernel"] = res_r.kernel
+        if (res_r.kernel != "cuda-dia-fused"
+                or _counts()["dia_spmv"] - before["dia_spmv"] != iters + 1):
+            raise SystemExit(f"error: {phase}: the resident-plan solve did "
+                             f"not run dia_spmv: {res_r.kernel}")
     ctx.setdefault("us_per_iter", {})[phase] = rep["us_per_iter"]
-    if not pipelined and not nrhs:
+    if not pipelined and not nrhs and G == 256:
         ctx["profile_cases"] = ctx.get("profile_cases", []) + [
             ("dia-bf16-f32", op, b, solve)]
     return rep
@@ -875,10 +973,9 @@ def _dia_f64_solve(G: int, ctx, pipelined: bool = False, nrhs: int = 0):
     from acg_torch.sparse.csr import manufactured_rhs
     from acg_torch.sparse.poisson import poisson3d_7pt_varcoef
 
-    solve, body = _solver(pipelined)
+    solve, _ = _solver(pipelined)
     phase = ("batched-dia-f64" if nrhs else
              "pipelined-dia-f64" if pipelined else "dia-f64")
-    body = "batched" if nrhs else body
     A = poisson3d_7pt_varcoef(G)
     if nrhs:
         # seeds 0..nrhs-1; system 2 is the one-system phase's (seed 2)
@@ -889,6 +986,8 @@ def _dia_f64_solve(G: int, ctx, pipelined: bool = False, nrhs: int = 0):
     op = build_device_operator(A, dtype=np.float64, fmt="auto")
     if op.bands.dtype != torch.float64:
         raise SystemExit(f"error: expected f64 bands, got {op.bands.dtype}")
+    body, loop_kernel, eager = _dia_names(op, pipelined)
+    body = "batched" if nrhs else body
     _reset_counts()
     res = solve(op, b, options=SolverOptions(maxits=20000,
                                              residual_rtol=1e-8))
@@ -913,9 +1012,8 @@ def _dia_f64_solve(G: int, ctx, pipelined: bool = False, nrhs: int = 0):
         _check_batched_launches(rep, launches, "dia_spmv_batched",
                                 res.niterations, phase)
     else:
-        _check_launches(rep, launches,
-                        "cg_pipelined_iter" if pipelined else "dia_spmv",
-                        res.niterations, pipelined, phase)
+        _check_launches(rep, launches, loop_kernel, res.niterations,
+                        pipelined, phase, eager=eager)
     ctx.setdefault("iterations", {})[phase] = res.niterations
     return rep
 
@@ -1066,7 +1164,8 @@ def _cli_launches(stderr: str):
     just before it), or None when the line is missing."""
     names = ("dia_spmv", "stencil_spmv", "cg_pipelined_iter",
              "cg_pipelined_iter_stencil", "dia_spmv_batched",
-             "stencil_spmv_batched", "ell_spmv", "sgell_spmv")
+             "stencil_spmv_batched", "ell_spmv", "sgell_spmv",
+             "dia_spmv_ring", "dia_spmv_windows")
     counted = re.search("kernel launches in the timed solve: " + ", ".join(
         rf"{k} (\d+)" for k in names), stderr)
     return ({k: int(v) for k, v in zip(names, counted.groups())}
@@ -1385,7 +1484,8 @@ def _rcm_dia_phase(n: int, ctx):
            "host_seconds": {"generation": gen_s, **steps},
            "bands": list(op.offsets)}
     for pipelined in (False, True):
-        solve, body = _solver(pipelined)
+        solve, _ = _solver(pipelined)
+        body, loop_kernel, eager = _dia_names(op, pipelined)
         phase = "rcm-dia" + ("-pipelined" if pipelined else "")
         _reset_counts()
         res = solve(op, b, options=SolverOptions(maxits=20000,
@@ -1401,9 +1501,8 @@ def _rcm_dia_phase(n: int, ctx):
               and res.x.shape == (n,))
         if not ok:
             raise SystemExit(f"error: {phase} solve failed: {rep}")
-        _check_launches(rep, launches,
-                        "cg_pipelined_iter" if pipelined else "dia_spmv",
-                        res.niterations, pipelined, phase)
+        _check_launches(rep, launches, loop_kernel, res.niterations,
+                        pipelined, phase, eager=eager)
         out["pipelined" if pipelined else "classic"] = rep
     return out
 
@@ -1492,6 +1591,349 @@ def _cli_fem_phase(points: int):
                               if ln.startswith("operator:")],
                           "launches": launches}
     return out
+
+
+# ---------------------------------------------------------------------------
+# the HBM tier: x past the card's L2, the ring and clustered-window kernels
+
+
+def _hbm_check(dev, tier, x, ctx):
+    """The planned HBM kernel of ``dev`` (its ``plan``: ring or windows)
+    with the fused dot, held against its plain version, y bit-equal to
+    ``dia_spmv`` on the same operator, the dot's bits stable; timed
+    beside the bound, the plain version, ``dia_spmv`` and cuSPARSE CSR x
+    on the same matrix."""
+    import torch
+
+    from acg_torch.ops.dia_kernels import (dia_matvec_ring_plain,
+                                           dia_matvec_windows_plain,
+                                           dia_spmv, dia_spmv_ring,
+                                           dia_spmv_windows)
+
+    plan = dev.plan
+    ring = plan.kind == "hbm-ring"
+    name = "dia_spmv_ring" if ring else "dia_spmv_windows"
+    spmv = dia_spmv_ring if ring else dia_spmv_windows
+    plain_y = dia_matvec_ring_plain if ring else dia_matvec_windows_plain
+    n, D_, vb = dev.nrows, len(dev.offsets), x.element_size()
+
+    def run():
+        return spmv(dev.bands, dev.scales, dev.offsets_t, x, plan,
+                    with_dot=True)
+
+    def plain():
+        y = plain_y(dev.bands, dev.offsets, x, dev.scales, plan)
+        return y, torch.dot(x, y)
+
+    def resident():
+        return dia_spmv(dev.bands, dev.scales, dev.offsets_t, x,
+                        with_dot=True)
+
+    def extra(row):
+        row["bits_equal_dia_spmv"] = bool(torch.equal(run()[0],
+                                                      resident()[0]))
+        row["dia_spmv_ms"] = _time_ms(resident, ctx["reps"])
+        return row["bits_equal_dia_spmv"]
+
+    A = _csr_of(dev, x.dtype)
+    nbytes = (D_ * dev.nrows_padded * dev.mat_itemsize
+              + 2 * dev.nrows_padded * vb)
+    label = {"name": name, "tier": tier, "with_dot": True, "n": n,
+             "plan": {"tile": plan.tile, "nblocks": plan.nblocks,
+                      "smem": plan.smem, "ntiles": plan.ntiles,
+                      **({"span": [plan.lo, plan.hi]} if ring else
+                         {"clusters": plan.nclusters,
+                          "buflen": plan.buflen})}}
+    # the plain versions walk the tiles from Python (the ring one step of
+    # the persistent grid at a time): five timed runs
+    _check_kernel(label, run, plain, x, ctx, nbytes, 2 * D_ * n + 2 * n,
+                  lambda: A @ x[:n], extra=extra, plain_reps=5)
+    del A
+    torch.cuda.empty_cache()
+
+
+def _hbm_kernels(D, ctx):
+    """Both HBM kernels at the shapes their paths give them: the windows
+    kernel at 256^3 (the bands/vectors tiers bf16/f32, int8/f32,
+    f64/f64) and on the 464^3 operator (bf16/f32, and bf16 bands with
+    f64 vectors); the ring on the 10,000^2 2-D operator (bf16/f32, and
+    f64/f64).  ``dia_spmv`` keeps its resident path at 128^3, whose
+    bf16/f32 row is checked here too."""
+    import numpy as np
+    import torch
+
+    from acg_torch.ops.dia import DeviceDia
+    from acg_torch.ops.dia_kernels import dia_matvec, dia_spmv
+    from acg_torch.sparse.poisson import poisson3d_7pt_dia
+
+    # dia_spmv on bench.py's 128^3, the resident path of dia-bf16-128
+    D128 = poisson3d_7pt_dia(128, dtype=np.float32)
+    dev = DeviceDia.from_dia(D128, dtype="float32")
+    if dev.kind != "resident":
+        raise SystemExit(f"error: 128^3 f32 planned {dev.kind}")
+    x = _padded_x(D128.nrows, dev.nrows_padded, torch.float32, 8)
+    A = _csr_of(dev, torch.float32)
+    n = dev.nrows
+    _check_kernel({"name": "dia_spmv", "tier": "bf16/f32 128^3",
+                   "with_dot": True},
+                  lambda: dia_spmv(dev.bands, dev.scales, dev.offsets_t, x,
+                                   with_dot=True),
+                  lambda: (lambda y: (y, torch.dot(x, y)))(
+                      dia_matvec(dev.bands, dev.offsets, x, dev.scales)),
+                  x, ctx, 7 * n * dev.mat_itemsize + 2 * n * 4,
+                  2 * 7 * n + 2 * n, lambda: A @ x)
+    del dev, x, A, D128
+    for tier, vdt, mat in (("bf16/f32", "float32", "auto"),
+                           ("int8/f32", "float32", "int8"),
+                           ("f64/f64", "float64", None)):
+        dev = DeviceDia.from_dia(D, dtype=vdt, mat_dtype=mat)
+        if dev.kind != "hbm":
+            raise SystemExit(f"error: 256^3 {tier} planned {dev.kind}")
+        x = _padded_x(D.nrows, dev.nrows_padded, getattr(torch, vdt), 9)
+        _hbm_check(dev, f"{tier} 256^3", x, ctx)
+        del dev, x
+    big = ctx["p464"]["op"]
+    for vdt in (torch.float32, torch.float64):
+        dev = (big if vdt == torch.float32 else _with_vectors(big,
+                                                              "float64"))
+        if dev.kind != "hbm":
+            raise SystemExit(f"error: 464^3 {vdt} planned {dev.kind}")
+        x = _padded_x(dev.nrows, dev.nrows_padded, vdt, 10)
+        _hbm_check(dev, f"bf16/f{x.element_size() * 8} 464^3", x, ctx)
+        del dev, x
+    p2d = ctx["p2d"]["op"]
+    for tier, dev in (("bf16/f32", p2d),
+                      ("f64/f64", DeviceDia.from_dia(ctx["p2d"]["D"],
+                                                     dtype="float64",
+                                                     mat_dtype=None))):
+        if dev.kind != "hbm-ring":
+            raise SystemExit(f"error: 10,000^2 {tier} planned {dev.kind}")
+        x = _padded_x(dev.nrows, dev.nrows_padded,
+                      getattr(torch, dev.vec_dtype), 11)
+        _hbm_check(dev, f"{tier} 10000^2", x, ctx)
+        del dev, x
+    del ctx["p2d"]["D"]
+    torch.cuda.empty_cache()
+
+
+def _with_vectors(op, vec_dtype):
+    """The same band storage on the card, with vectors of ``vec_dtype``
+    (planned anew for them)."""
+    from acg_torch.ops.dia import DeviceDia
+
+    return DeviceDia.from_bands(op.bands, op.scales, op.offsets, op.nrows,
+                                op.ncols, op.nnz, vec_dtype)
+
+
+def _p3d_big_setup(G: int, ctx):
+    """The north-star operator, 7-point Poisson on G^3 (464^3 =
+    99,897,344 unknowns, the JAX package's p3d-464-100M configuration),
+    built directly in band form and through ``build_device_operator(
+    fmt="dia")``: bf16 bands (exact), f32 vectors, planned past the L2
+    onto the windows kernel.  Kept on the card for the kernels, dia-100m
+    and profile phases; the host bands are freed."""
+    import numpy as np
+    import torch
+
+    from acg_torch.solvers.cg import build_device_operator
+    from acg_torch.sparse.poisson import poisson3d_7pt_dia
+
+    t0 = time.perf_counter()
+    D = poisson3d_7pt_dia(G, dtype=np.float32)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op = build_device_operator(D, dtype=np.float32, fmt="dia")
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    if op.bands.dtype != torch.bfloat16 or op.kind != "hbm":
+        raise SystemExit(f"error: {G}^3 stored {op.bands.dtype} planned "
+                         f"{op.kind}, expected bf16 on the windows kernel")
+    ctx["p464"] = {"op": op, "setup_seconds": gen_s + up_s}
+    del D
+    return {"grid": [G, G, G], "n": op.nrows, "nnz": op.nnz,
+            "offsets": list(op.offsets), "plan": op.kind,
+            "tile": op.plan.tile, "clusters": op.plan.nclusters,
+            "nblocks": op.plan.nblocks, "smem_bytes": op.plan.smem,
+            "host_seconds": {"bands": gen_s, "check_cast_upload": up_s}}
+
+
+def _poisson2d_dia(nx: int):
+    """The 5-point 2-D Poisson operator on an nx x nx grid (diagonal 4,
+    neighbours -1, Dirichlet), built directly in band form: offsets -nx,
+    -1, 0, 1, nx.  Equal to ``DiaMatrix.from_csr(poisson2d_5pt(nx))``
+    without its 5 n entries of COO/CSR churn on the host."""
+    import numpy as np
+
+    from acg_torch.ops.dia import DiaMatrix
+
+    n = nx * nx
+    nrp = -(-n // 8) * 8
+    col = np.arange(n) % nx
+    bands = np.zeros((5, nrp), dtype=np.float32)
+    bands[0, nx:n] = -1.0
+    bands[1, :n] = np.where(col > 0, -1.0, 0.0)
+    bands[2, :n] = 4.0
+    bands[3, :n] = np.where(col < nx - 1, -1.0, 0.0)
+    bands[4, : n - nx] = -1.0
+    del col
+    return DiaMatrix(n, n, (-nx, -1, 0, 1, nx), bands,
+                     int(np.count_nonzero(bands)))
+
+
+def _p2d_setup(nx: int, ctx):
+    """The 2-D 5-point Poisson at nx^2 = 10^8 unknowns (the JAX
+    package's p2d family at the 100M-DOF scale) in band form, through
+    ``build_device_operator(fmt="dia")``: bf16 bands, f32 vectors,
+    planned onto the ring kernel.  The host bands are kept for the f64
+    kernel row, then freed."""
+    import numpy as np
+    import torch
+
+    from acg_torch.solvers.cg import build_device_operator
+
+    t0 = time.perf_counter()
+    D = _poisson2d_dia(nx)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op = build_device_operator(D, dtype=np.float32, fmt="dia")
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    if op.bands.dtype != torch.bfloat16 or op.kind != "hbm-ring":
+        raise SystemExit(f"error: {nx}^2 stored {op.bands.dtype} planned "
+                         f"{op.kind}, expected bf16 on the ring kernel")
+    ctx["p2d"] = {"op": op, "D": D}
+    return {"grid": [nx, nx], "n": op.nrows, "nnz": op.nnz,
+            "plan": op.kind, "tile": op.plan.tile,
+            "span": [op.plan.lo, op.plan.hi], "nblocks": op.plan.nblocks,
+            "smem_bytes": op.plan.smem,
+            "host_seconds": {"bands": gen_s, "check_cast_upload": up_s}}
+
+
+def _iteration_bound_us(op, ctx) -> float:
+    """The least time of one classic-CG iteration on the card: the SpMV's
+    bytes (bands at their storage width, x read and y written once) and
+    ten vector passes (the updates and dots), over the memory rate."""
+    import torch
+
+    vb = torch.empty((), dtype=getattr(torch, op.vec_dtype)).element_size()
+    n = op.nrows_padded
+    nbytes = len(op.offsets) * n * op.mat_itemsize + 2 * n * vb
+    return (nbytes + 10 * n * vb) / ctx["mem_bw"] * 1e6
+
+
+def _dia_100m_solve(ctx, vec_dtype: str):
+    """Classic CG on the 464^3 operator (scripts/check_100m_convergence.py
+    on the card): b = A x* for x* = default_rng(464).standard_normal(n),
+    rtol 1e-4 at f32 vectors (maxits 1500) and 1e-8 at f64 vectors with
+    the same bf16 bands (maxits 40 x the f32 count: four more decades,
+    at the slower rate of the smooth components that a rough x* leaves
+    for last).  The loop and the
+    initial residual go through the windows kernel, once per SpMV; the
+    true residual is certified with the plain ``dia_matvec`` on the card
+    in float64 (< 3e-4, the script's bar, at f32; < 1e-7 at f64)."""
+    import numpy as np
+    import torch
+
+    from acg_torch.config import SolverOptions
+    from acg_torch.ops.dia_kernels import dia_matvec
+    from acg_torch.solvers.cg import cg
+
+    big = ctx["p464"]
+    op32 = big["op"]
+    f64 = vec_dtype == "float64"
+    phase = "dia-100m-f64" if f64 else "dia-100m"
+    op = _with_vectors(op32, "float64") if f64 else op32
+    n = op.nrows_padded
+    xstar = torch.from_numpy(np.random.default_rng(464).standard_normal(
+        n)).cuda()
+    b64 = dia_matvec(op.bands, op.offsets, xstar, op.scales)
+    del xstar
+    b = b64.to(getattr(torch, vec_dtype))
+    rtol = 1e-8 if f64 else 1e-4
+    maxits = 40 * ctx["iterations"]["dia-100m"] if f64 else 1500
+    cg(op, b, options=SolverOptions(maxits=20, residual_rtol=0.0))
+    _reset_counts()
+    res = cg(op, b, options=SolverOptions(maxits=maxits,
+                                          residual_rtol=rtol))
+    launches = _read_counts(ctx, phase)
+    rep = _solve_report(res, launches)
+    x = torch.from_numpy(res.x).cuda().double()
+    r = b64 - dia_matvec(op.bands, op.offsets, x, op.scales)
+    cert = float(torch.linalg.norm(r) / torch.linalg.norm(b64))
+    del x, r
+    bound = _iteration_bound_us(op, ctx)
+    rep.update(rtol=rtol, maxits=maxits, true_relative_residual=cert,
+               plan=op.kind, iteration_bound_us=bound,
+               us_per_iter_over_bound=rep["us_per_iter"] / bound,
+               host_setup_seconds=big["setup_seconds"])
+    its = res.niterations
+    ok = ((res.operator_format, res.kernel) == ("dia", "cuda-dia-hbm")
+          and res.converged and cert < (1e-7 if f64 else 3e-4)
+          and res.x.shape == (op.nrows,) and np.all(np.isfinite(res.x)))
+    if not ok:
+        raise SystemExit(f"error: {phase} solve failed: {rep}")
+    _check_launches(rep, launches, "dia_spmv_windows", its, False, phase,
+                    eager="dia_spmv_windows")
+    ctx.setdefault("iterations", {})[phase] = its
+    ctx.setdefault("us_per_iter", {})[phase] = rep["us_per_iter"]
+    if not f64:
+        ctx["profile_cases"] = ctx.get("profile_cases", []) + [
+            ("dia-100m-f32", op, b.cpu().numpy(), cg)]
+    del op, b, b64
+    torch.cuda.empty_cache()
+    return rep
+
+
+def _p2d_ring_solve(iters: int, ctx):
+    """Classic CG on the 10^8-unknown 2-D operator for ``iters`` fixed
+    iterations (every criterion off, the bench protocol), from b = A x*
+    for x* = default_rng(10_000).standard_normal(n): the loop runs the
+    ring kernel.  The true residual ||b - A x|| (float64, plain
+    ``dia_matvec`` on the card) must agree with the recurrence's ||r||
+    to within the rounding drift of f32 CG, iters * 2^-24 * (8 ||x|| +
+    ||b||) (8 bounds ||A|| for the 5-point operator with diagonal 4)."""
+    import numpy as np
+    import torch
+
+    from acg_torch.config import SolverOptions
+    from acg_torch.ops.dia_kernels import dia_matvec
+    from acg_torch.solvers.cg import cg
+
+    op = ctx["p2d"]["op"]
+    n = op.nrows_padded
+    xstar = torch.from_numpy(np.random.default_rng(10_000).standard_normal(
+        n)).cuda()
+    b64 = dia_matvec(op.bands, op.offsets, xstar, op.scales)
+    del xstar
+    b = b64.float()
+    cg(op, b, options=SolverOptions(maxits=20, residual_rtol=0.0))
+    _reset_counts()
+    res = cg(op, b, options=SolverOptions(maxits=iters, residual_rtol=0.0))
+    launches = _read_counts(ctx, "p2d-ring")
+    rep = _solve_report(res, launches)
+    x = torch.from_numpy(res.x).cuda().double()
+    true = float(torch.linalg.norm(b64 - dia_matvec(op.bands, op.offsets,
+                                                    x, op.scales)))
+    drift = iters * 2.0 ** -24 * (8 * float(torch.linalg.norm(x))
+                                  + float(torch.linalg.norm(b64)))
+    del x
+    bound = _iteration_bound_us(op, ctx)
+    rep.update(true_residual=true, recurrence_residual=res.rnrm2,
+               residual_gap=abs(true - res.rnrm2), drift_allowed=drift,
+               relative_residual_bnorm=true / float(torch.linalg.norm(b64)),
+               plan=op.kind, iteration_bound_us=bound,
+               us_per_iter_over_bound=rep["us_per_iter"] / bound)
+    ok = ((res.operator_format, res.kernel) == ("dia", "cuda-dia-hbm-ring")
+          and res.niterations == iters and np.all(np.isfinite(res.x))
+          and abs(true - res.rnrm2) <= drift
+          and true < float(torch.linalg.norm(b64)))
+    if not ok:
+        raise SystemExit(f"error: p2d-ring solve failed: {rep}")
+    _check_launches(rep, launches, "dia_spmv_ring", iters, False,
+                    "p2d-ring", eager="dia_spmv_ring")
+    del ctx["p2d"], op, b, b64
+    torch.cuda.empty_cache()
+    return rep
 
 
 # ---------------------------------------------------------------------------
@@ -1607,12 +2049,20 @@ def _kernel_lines(ctx) -> list:
             "ell_spmv": ("acg_torch/csrc/ell_spmv.cu",
                          "acg_tpu/ops/pallas_spmv.py:51", None),
             "sgell_spmv": ("acg_torch/csrc/sgell_spmv.cu",
-                           "acg_tpu/ops/sgell.py:284", None)}
+                           "acg_tpu/ops/sgell.py:284", None),
+            "dia_spmv_ring": ("acg_torch/csrc/dia_hbm_ring.cu",
+                              "acg_tpu/ops/pallas_kernels.py:767", None),
+            "dia_spmv_windows": ("acg_torch/csrc/dia_hbm_windows.cu",
+                                 "acg_tpu/ops/pallas_kernels.py:600",
+                                 None)}
     # (kernel, phase-2 tier, solve phase, with_dot of the loop's calls;
     # None for the pipelined-iteration and unstructured kernels, which have
     # no such row key)
     paths = (("stencil_spmv", "matrix-free/float64", "stencil", True),
-             ("dia_spmv", "bf16/f32", "dia-bf16", True),
+             ("dia_spmv", "bf16/f32 128^3", "dia-bf16-128", True),
+             ("dia_spmv_windows", "bf16/f32 256^3", "dia-bf16", True),
+             ("dia_spmv_windows", "bf16/f32 256^3", "pipelined-dia-bf16",
+              True),
              ("dia_spmv", "f64/f64", "dia-f64", True),
              ("cg_pipelined_iter_stencil", "matrix-free/float64",
               "pipelined-stencil", None),
@@ -1630,7 +2080,10 @@ def _kernel_lines(ctx) -> list:
              ("sgell_spmv", "f32/f32 fem3d-1m", "pipelined-fem-sgell", None),
              ("sgell_spmv", "f32/f32 fem3d-1m", "batched-fem-sgell", None),
              ("ell_spmv", "f64/f64 fem3d-1m", "fem-ell", None),
-             ("ell_spmv", "f64/f64 fem3d-1m", "pipelined-fem-ell", None))
+             ("ell_spmv", "f64/f64 fem3d-1m", "pipelined-fem-ell", None),
+             ("dia_spmv_windows", "bf16/f32 464^3", "dia-100m", True),
+             ("dia_spmv_windows", "bf16/f64 464^3", "dia-100m-f64", True),
+             ("dia_spmv_ring", "bf16/f32 10000^2", "p2d-ring", True))
     out = []
     for kernel, tier, phase, with_dot in paths:
         row = next(r for r in ctx["rows"] if r["name"] == kernel
@@ -1650,7 +2103,8 @@ def _kernel_lines(ctx) -> list:
             entry["also_replaces"] = also
         for key in ("composed_ms", "nrhs", "one_system_calls_ms",
                     "per_system_bits_equal_1d", "S", "fill", "width",
-                    "bits_equal_plain"):
+                    "bits_equal_plain", "dia_spmv_ms", "bits_equal_dia_spmv",
+                    "plan"):
             if key in row:
                 entry[key] = row[key]
         out.append(entry)

@@ -4,6 +4,9 @@ These need an NVIDIA GPU and skip elsewhere.  They cover what
 ``chip_smoke.py`` does not: small and ragged sizes, 1-D/2-D grids and
 the 27-point stencil, offsets that leave the vector, every band tier,
 the multi-RHS kernels at B = 1 and B = 9 (past one chunk of 8), the
+shared-memory ring and clustered-window kernels of the HBM tier (every
+band tier, ragged n, spans of several tiles, offsets past the vector,
+x off a 16-byte boundary; y bit-equal to dia_spmv), the
 wrappers' argument checks and launch counts, and whole classic,
 pipelined and batched solves on the card against the same solves on
 the CPU.  The JAX package is not
@@ -12,6 +15,8 @@ repository's root conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -582,3 +587,111 @@ def test_unstructured_batched_counts_equal_one_system(card, tier, dtype):
         r1 = cg(op, bb[s], options=o)
         assert rg.iterations_per_system[s] == r1.niterations
         np.testing.assert_array_equal(rg.x[s], r1.x)
+
+
+# ---------------------------------------------------------------------------
+# the HBM tier: the shared-memory ring and clustered-window kernels
+
+
+def _hbm_plan(kind, tile, dev, card):
+    """A plan of ``kind`` at ``tile`` on the card's own budgets."""
+    from acg_torch.ops import dia_plan
+
+    return dia_plan.make_plan(kind, tile, dev.nrows_padded, dev.offsets,
+                              getattr(torch, dev.vec_dtype), dev.bands.dtype,
+                              dia_plan.device_budgets(card), device=card)
+
+
+@pytest.mark.parametrize("kind", ["hbm-ring", "hbm"])
+@pytest.mark.parametrize("vdt", ["float32", "float64"])
+@pytest.mark.parametrize("mat", ["auto", "int8", None, "float32"])
+@pytest.mark.parametrize("n,offsets,tile", [
+    (8, (-3, 0, 5), 256),                           # one ragged tile
+    (1000, (-300, -1, 0, 1, 999), 256),             # |off| ~ n
+    (4099, (-2048, -129, -1, 0, 1, 129, 2048, 5000), 256),  # |off| >= n
+    (20_001, (-3001, -3, -1, 0, 1, 3, 3001), 512),  # span > 2 tiles, and
+    #                                                 windows off 16 bytes
+    (100_003, (-7000, -333, 0, 333, 7000), 1024),
+])
+def test_hbm_kernels_match_plain(card, n, offsets, tile, mat, vdt, kind):
+    D = _random_dia(n, offsets)
+    if mat in ("auto", "int8"):
+        D = DiaMatrix(n, n, D.offsets, np.sign(D.bands) * 0.5, D.nnz)
+    if mat == "int8":
+        D = DiaMatrix(n, n, D.offsets, np.abs(D.bands), D.nnz)
+    dev = DeviceDia.from_dia(D, dtype=vdt, mat_dtype=mat, device=card)
+    plan = _hbm_plan(kind, tile, dev, card)
+    spmv, plain, counter = (
+        (dia_kernels.dia_spmv_ring, dia_kernels.dia_matvec_ring_plain,
+         "ring_launches") if kind == "hbm-ring" else
+        (dia_kernels.dia_spmv_windows, dia_kernels.dia_matvec_windows_plain,
+         "windows_launches"))
+    # x twice: 16-byte aligned, and one element past a 16-byte boundary
+    buf = torch.randn(dev.nrows_padded + 1, dtype=getattr(torch, vdt),
+                      device=card)
+    for x in (buf[:-1].clone(), buf[1:]):
+        before = getattr(dia_kernels, counter)
+        got = spmv(dev.bands, dev.scales, dev.offsets_t, x, plan,
+                   with_dot=True)
+        assert getattr(dia_kernels, counter) == before + 1
+        y = plain(dev.bands, dev.offsets, x, dev.scales, plan)
+        _check(got, (y, torch.dot(x, y)), x, x.dtype)
+        # dia_spmv's bits: one row body whichever way x arrives
+        assert torch.equal(got[0], dia_spmv(dev.bands, dev.scales,
+                                            dev.offsets_t, x))
+        assert torch.equal(spmv(dev.bands, dev.scales, dev.offsets_t, x,
+                                plan), got[0])
+        again = spmv(dev.bands, dev.scales, dev.offsets_t, x, plan,
+                     with_dot=True)
+        assert torch.equal(again[1], got[1])        # no atomics: same bits
+
+
+def test_hbm_wrappers_reject_what_the_kernels_do_not_take(card):
+    D = _random_dia(5000, (-1000, 0, 1000))
+    dev = DeviceDia.from_dia(D, mat_dtype=None, device=card)
+    x = torch.randn(5000, dtype=torch.float64, device=card)
+    plan = _hbm_plan("hbm", 256, dev, card)
+    with pytest.raises(AcgError):                   # the table on the CPU
+        dia_kernels.dia_spmv_windows(
+            dev.bands, None, dev.offsets_t, x,
+            dataclasses.replace(plan, table=plan.table.cpu()))
+    with pytest.raises(AcgError):                   # a ring plan
+        dia_kernels.dia_spmv_windows(dev.bands, None, dev.offsets_t, x,
+                                     _hbm_plan("hbm-ring", 256, dev, card))
+    with pytest.raises(AcgError):                   # strided vector
+        dia_kernels.dia_spmv_ring(
+            dev.bands, None, dev.offsets_t,
+            torch.randn(10_000, dtype=torch.float64, device=card)[::2],
+            _hbm_plan("hbm-ring", 256, dev, card))
+
+
+@pytest.mark.parametrize("kind", ["hbm-ring", "hbm"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_cg_through_the_hbm_kernels_matches_cpu(card, kind, dtype):
+    """A solve whose operator leaves a (pretended) small L2: the loop and
+    the eager matvecs go through the planned kernel, once per SpMV."""
+    from acg_torch.ops import dia_plan
+
+    D = poisson.poisson3d_7pt_dia(24)
+    real = dia_plan.device_budgets(card)
+    small = dataclasses.replace(real, l2_bytes=1024)
+    dev = DeviceDia.from_dia(D, dtype=dtype, device=card, budgets=small)
+    assert dev.kind == "hbm-ring"
+    if kind == "hbm":
+        dev = dataclasses.replace(dev, plan=_hbm_plan("hbm", 512, dev, card))
+    host = DeviceDia.from_dia(D, dtype=dtype, device="cpu", budgets=small)
+    rng = np.random.default_rng(6)
+    b = D.matvec(rng.standard_normal(D.nrows))
+    rtol = 1e-5 if dtype == np.float32 else 1e-10
+    o = SolverOptions(maxits=1000, residual_rtol=rtol)
+    counter = "ring_launches" if kind == "hbm-ring" else "windows_launches"
+    before = getattr(dia_kernels, counter), dia_kernels.launches
+    rg = cg(dev, b, options=o)
+    assert (getattr(dia_kernels, counter) - before[0]
+            == rg.niterations + 1)
+    assert dia_kernels.launches == before[1]
+    rc = cg(host, b, options=o, device="cpu")
+    assert rg.kernel == f"cuda-dia-{kind}" and rc.kernel == "torch-plain"
+    assert abs(rg.niterations - rc.niterations) <= 1
+    x = rg.x.astype(np.float64)
+    assert np.linalg.norm(b - D.matvec(x)) <= 10 * rtol * np.linalg.norm(b)

@@ -57,7 +57,8 @@ def test_import_leaves_jax_out_of_sys_modules():
 @pytest.mark.parametrize("name", ["dia_spmv", "stencil_spmv", "dia_pipe",
                                   "stencil_pipe", "dia_spmv_batched",
                                   "stencil_spmv_batched", "ell_spmv",
-                                  "sgell_spmv"])
+                                  "sgell_spmv", "dia_hbm_ring",
+                                  "dia_hbm_windows"])
 def test_kernel_sources_exist(name):
     from acg_torch import _build
 
