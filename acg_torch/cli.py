@@ -18,7 +18,13 @@ right-hand side in one batched loop (the multi-RHS kernels).
 DIA, RCM+DIA, RCM+sgell or ELL tier, as the matrix allows), ``dia``,
 ``ell``, ``sgell`` (f32 only) and ``stencil``.
 ``--device`` picks where it runs (default ``cuda``; with no card that
-default is an error, never a silent CPU run).
+default is an error, never a silent CPU run).  ``--nparts P`` (P > 1)
+runs distributed classic CG over P shards (``acg_torch.solvers.cg_dist``),
+partitioned by ``--partition-method`` (auto|chunk|rb) with the halo of
+``--halo`` (ppermute|allgather|rdma, or from ``--comm``); on CUDA the
+shards take the visible cards, one each (one card and P > 1 exit 1 with
+ERR_MESH, as the JAX program does on one chip), and with ``--device cpu``
+they share the CPU.
 
 Run: ``python -m acg_torch.cli A.mtx --manufactured-solution -v``
 """
@@ -60,6 +66,19 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--binary", action="store_true",
                    help="read Matrix Market files in binary format")
     p.add_argument("--seed", type=int, default=0, help="random seed [0]")
+    p.add_argument("--partition-method", default="auto",
+                   choices=["auto", "chunk", "rb", "bfs", "kway",
+                            "multilevel"],
+                   help="graph partitioner for --nparts > 1 [auto]: auto "
+                        "takes exact grid blocks for a stencil, chunk "
+                        "(contiguous row slabs) for other banded "
+                        "matrices, rb (recursive bisection + refinement) "
+                        "otherwise; bfs, kway and multilevel are not yet "
+                        "ported")
+    p.add_argument("--nparts", type=int, default=1,
+                   help="number of row shards [1]; > 1 runs distributed "
+                        "classic CG, one shard per visible card (or on "
+                        "the CPU with --device cpu)")
     p.add_argument("--nrhs", type=int, default=1, metavar="K",
                    help="solve K right-hand sides against the one operator "
                         "in a single batched loop (the operator is read "
@@ -91,6 +110,18 @@ def make_parser() -> argparse.ArgumentParser:
                    help="pipelined CG: recompute r/w/s/z from their "
                         "definitions every R iterations, correcting "
                         "recurrence drift at tight tolerances (0 = off)")
+    p.add_argument("--comm", default=None,
+                   choices=["none", "mpi", "nccl", "nvshmem", "rccl",
+                            "rocshmem"],
+                   help="reference compatibility: mpi/nccl/rccl select "
+                        "--halo ppermute, nvshmem/rocshmem (device-"
+                        "initiated) --halo rdma, unless --halo is given")
+    p.add_argument("--halo", default=None,
+                   choices=["ppermute", "allgather", "rdma"],
+                   help="halo exchange of --nparts > 1 [ppermute]: "
+                        "edge-coloured neighbour copies, one gather of "
+                        "every part's border values, or the device-"
+                        "initiated put+signal kernel (CUDA only)")
     p.add_argument("--format", default="auto",
                    choices=["auto", "dia", "ell", "sgell", "stencil"],
                    help="device operator layout [auto]: auto picks the "
@@ -130,6 +161,15 @@ def _log(args, msg):
         print(msg, file=sys.stderr, flush=True)
 
 
+def resolve_halo(comm: str | None, halo: str | None) -> str:
+    """The halo of the reference's --comm spelling: an explicit --halo
+    wins; nvshmem/rocshmem (device-initiated) mean rdma, every other
+    backend ppermute (``acg_tpu/cli.py`` ``resolve_halo``)."""
+    if halo is not None:
+        return halo
+    return "rdma" if comm in ("nvshmem", "rocshmem") else "ppermute"
+
+
 def _first_system(x):
     """The one representative solution of a --nrhs batch: the systems
     are copies of one b, and every 1-D consumer (the manufactured-error
@@ -154,6 +194,16 @@ def _main(argv=None) -> int:
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        f"--solver {args.solver}: not yet ported")
     pipelined = _PORTED[args.solver]
+    if args.nparts < 1:
+        raise AcgError(Status.ERR_INVALID_VALUE,
+                       f"--nparts must be >= 1, got {args.nparts}")
+    dist = args.nparts > 1
+    if dist and (pipelined or args.nrhs > 1):
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       "--nparts > 1 with "
+                       + ("--solver " + args.solver if pipelined
+                          else "--nrhs > 1")
+                       + ": not yet ported (distributed classic CG is)")
     if args.residual_replacement and not pipelined:
         print("warning: --residual-replacement applies to pipelined "
               "solvers only (--solver acg-pipelined); ignored",
@@ -211,13 +261,26 @@ def _main(argv=None) -> int:
     solve = cg_pipelined if pipelined else cg
     t0 = time.perf_counter()
     steps = {}
-    dev = build_device_operator(A, dtype=vdt, fmt=args.format,
-                                mat_dtype=mat_dtype, device=device,
-                                timings=steps)
-    inner = getattr(dev, "dev", dev)
-    _log(args, f"operator: {type(inner).__name__}"
-               + (" in an RCM ordering" if inner is not dev else "")
-               + f" on {device} ({time.perf_counter() - t0:.3f} s"
+    if dist:
+        from acg_torch.solvers.cg_dist import build_sharded, cg_dist
+        solve = cg_dist
+        dev = build_sharded(
+            A, nparts=args.nparts,
+            devices=None if device.type == "cuda" else [device] * args.nparts,
+            dtype=vdt, method=resolve_halo(args.comm, args.halo),
+            partition_method=args.partition_method, seed=args.seed,
+            mat_dtype=mat_dtype, fmt=args.format, timings=steps)
+        what = (f"{args.nparts} shards ({dev.local_fmt}, halo "
+                f"{dev.method.value}, {dev.halo.nrounds} rounds)")
+    else:
+        dev = build_device_operator(A, dtype=vdt, fmt=args.format,
+                                    mat_dtype=mat_dtype, device=device,
+                                    timings=steps)
+        inner = getattr(dev, "dev", dev)
+        what = (type(inner).__name__
+                + (" in an RCM ordering" if inner is not dev else ""))
+    _log(args, f"operator: {what} on {device} "
+               f"({time.perf_counter() - t0:.3f} s"
                + "".join(f"; {k} {v:.3f} s" for k, v in steps.items())
                + ")")
     try:
@@ -229,6 +292,8 @@ def _main(argv=None) -> int:
                 if getattr(e, "result", None) is None:
                     raise
         from acg_torch.ops import dia_kernels, sgell, spmv, stencil
+        from acg_torch.parallel import rdma_halo
+        rdma_halo.launches = 0
         dia_kernels.launches = stencil.launches = 0
         dia_kernels.pipe_launches = stencil.pipe_launches = 0
         dia_kernels.batched_launches = stencil.batched_launches = 0
@@ -244,7 +309,8 @@ def _main(argv=None) -> int:
                    f"{stencil.batched_launches}, ell_spmv {spmv.launches}, "
                    f"sgell_spmv {sgell.launches}, dia_spmv_ring "
                    f"{dia_kernels.ring_launches}, dia_spmv_windows "
-                   f"{dia_kernels.windows_launches}")
+                   f"{dia_kernels.windows_launches}, rdma_exchange "
+                   f"{rdma_halo.launches}")
     except AcgError as e:
         res = getattr(e, "result", None)
         print(f"error: {e}", file=sys.stderr)
@@ -252,11 +318,13 @@ def _main(argv=None) -> int:
             return 1
         # stats for the failed solve, as the reference prints them
         print(format_solver_stats(res.stats, res, options,
-                                  nunknowns=A.nrows))
+                                  nunknowns=A.nrows,
+                                  nprocs=args.nparts))
         return 1
 
     # 4. stats block (ref acgsolver_fwrite, acg/cg.c:665-828)
-    print(format_solver_stats(res.stats, res, options, nunknowns=A.nrows))
+    print(format_solver_stats(res.stats, res, options, nunknowns=A.nrows,
+                                  nprocs=args.nparts))
 
     # 5. manufactured-solution error report (ref cuda/acg-cuda.c:2376-2385)
     x_out = _first_system(res.x)

@@ -9,6 +9,17 @@ a float64 tensor is float64 on every device.
 from __future__ import annotations
 
 import dataclasses
+import enum
+
+
+class HaloMethod(str, enum.Enum):
+    """Halo-exchange transports of the distributed solver (the
+    reference's comm backends, ref acg/comm.h:84-92)."""
+
+    PPERMUTE = "ppermute"   # edge-coloured rounds of neighbour copies
+    ALLGATHER = "allgather"  # every part's packed border values, once
+    RDMA = "rdma"           # device-initiated put+signal kernel (the
+    #                         NVSHMEM analog; CUDA devices only)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,10 @@
 """Build the port's operators from another implementation's arrays.
 
 The JAX package's ``DeviceDia`` / ``DeviceStencil`` reduce to numpy
-arrays plus static fields; these constructors take exactly those, so a
-test can apply literally the same operator in both packages.  bfloat16
+arrays plus static fields, and its ``PartitionedSystem`` to numpy arrays
+per part; these constructors take exactly those, so a test can apply
+literally the same operator, or solve on literally the same shards, in
+both packages.  bfloat16
 arrays arrive as ``ml_dtypes.bfloat16`` numpy arrays, which
 ``torch.from_numpy`` refuses: they cross as their raw ``uint16`` bits,
 re-viewed as ``torch.bfloat16`` (no ``ml_dtypes`` needed).
@@ -15,6 +17,8 @@ import torch
 
 from acg_torch.ops.dia import DeviceDia
 from acg_torch.ops.stencil import DeviceStencil, StencilSpec
+from acg_torch.partition.graph import LocalPartition, PartitionedSystem
+from acg_torch.sparse.csr import CsrMatrix
 from acg_torch.utils.backend import resolve_device
 
 
@@ -52,3 +56,37 @@ def device_stencil_from_fields(grid, offsets, digits, coeffs, nrows: int,
         raise ValueError(f"grid {spec.grid} has {spec.nrows} rows, "
                          f"not {nrows}")
     return DeviceStencil.from_spec(spec, dtype=vec_dtype, device=device)
+
+
+def partitioned_system_from_arrays(nrows: int, part, parts,
+                                   rcm_localized: bool = False
+                                   ) -> PartitionedSystem:
+    """A ``PartitionedSystem`` from the JAX package's fields as numpy
+    arrays: the global ``part`` vector and, per part, a mapping with
+    ``owned_global``, ``ninterior``, ``ghost_global``, ``ghost_owner``,
+    ``A_local`` and ``A_iface`` as (rowptr, colidx, vals) triples (nown ×
+    nown and nown × max(nghost, 1)), ``neighbors``, ``send_counts``,
+    ``send_idx`` and ``recv_counts``, in part order."""
+    def arr(a, dtype=None):
+        return np.array(a, dtype=dtype, copy=True)
+
+    out = []
+    for i, d in enumerate(parts):
+        own = arr(d["owned_global"], np.int64)
+        gho = arr(d["ghost_global"], np.int64)
+        nown, nghost = len(own), len(gho)
+        csr = [CsrMatrix(nown, ncols, arr(rp, np.int64), arr(ci),
+                         arr(vv))
+               for (rp, ci, vv), ncols in ((d["A_local"], nown),
+                                           (d["A_iface"], max(nghost, 1)))]
+        out.append(LocalPartition(
+            part=i, owned_global=own, ninterior=int(d["ninterior"]),
+            ghost_global=gho, ghost_owner=arr(d["ghost_owner"]),
+            A_local=csr[0], A_iface=csr[1],
+            neighbors=arr(d["neighbors"], np.int32),
+            send_counts=arr(d["send_counts"], np.int64),
+            send_idx=arr(d["send_idx"], np.int64),
+            recv_counts=arr(d["recv_counts"], np.int64)))
+    part = arr(part, np.int32)
+    return PartitionedSystem(nrows=int(nrows), nparts=len(out), part=part,
+                             parts=out, rcm_localized=rcm_localized)

@@ -36,6 +36,7 @@ import torch
 from acg_torch.errors import AcgError, Status
 from acg_torch.ops.blas1 import batched_dot, pipelined_update
 from acg_torch.ops.dia_plan import run_bounds
+from acg_torch.utils.backend import kernel_device
 
 # kernel launches so far (each wrapper adds one per launch, nowhere else):
 # dia_spmv, cg_pipelined_iter, dia_spmv_batched (one per call, which
@@ -173,14 +174,15 @@ def dia_spmv(bands: torch.Tensor, scales: torch.Tensor | None,
     if with_dot:
         partials = torch.empty(nblocks, dtype=x.dtype, device=x.device)
         dot = torch.empty((), dtype=x.dtype, device=x.device)
-    rc = lib.acg_dia_spmv(
-        bands.data_ptr(), _BAND_CODES[bands.dtype],
-        scales.data_ptr() if scales is not None else None,
-        offsets.data_ptr(), bands.shape[0], x.data_ptr(), y.data_ptr(),
-        _VEC_CODES[x.dtype], n,
-        partials.data_ptr() if with_dot else None, nblocks,
-        dot.data_ptr() if with_dot else None,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with kernel_device(x):
+        rc = lib.acg_dia_spmv(
+            bands.data_ptr(), _BAND_CODES[bands.dtype],
+            scales.data_ptr() if scales is not None else None,
+            offsets.data_ptr(), bands.shape[0], x.data_ptr(), y.data_ptr(),
+            _VEC_CODES[x.dtype], n,
+            partials.data_ptr() if with_dot else None, nblocks,
+            dot.data_ptr() if with_dot else None,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        f"dia_spmv: kernel launch failed (CUDA error {rc})")
@@ -238,14 +240,15 @@ def dia_spmv_batched(bands: torch.Tensor, scales: torch.Tensor | None,
         partials = torch.empty((nsys, nblocks), dtype=X.dtype,
                                device=X.device)
         dots = torch.empty(nsys, dtype=X.dtype, device=X.device)
-    rc = lib.acg_dia_spmv_batched(
-        bands.data_ptr(), _BAND_CODES[bands.dtype],
-        scales.data_ptr() if scales is not None else None,
-        offsets.data_ptr(), bands.shape[0], X.data_ptr(), Y.data_ptr(),
-        _VEC_CODES[X.dtype], n, nsys,
-        partials.data_ptr() if with_dot else None, nblocks,
-        dots.data_ptr() if with_dot else None,
-        torch.cuda.current_stream(X.device).cuda_stream)
+    with kernel_device(X):
+        rc = lib.acg_dia_spmv_batched(
+            bands.data_ptr(), _BAND_CODES[bands.dtype],
+            scales.data_ptr() if scales is not None else None,
+            offsets.data_ptr(), bands.shape[0], X.data_ptr(), Y.data_ptr(),
+            _VEC_CODES[X.dtype], n, nsys,
+            partials.data_ptr() if with_dot else None, nblocks,
+            dots.data_ptr() if with_dot else None,
+            torch.cuda.current_stream(X.device).cuda_stream)
     if rc != 0:
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        f"dia_spmv_batched: kernel launch failed (CUDA error "
@@ -348,14 +351,16 @@ def cg_pipelined_iter(bands, scales, offsets, w, z, r, p, s, x, alpha, beta,
     nblocks = grid_blocks(n)
     partials = torch.empty(2 * nblocks, dtype=w.dtype, device=w.device)
     gd = torch.empty(2, dtype=w.dtype, device=w.device)
-    rc = lib.acg_dia_pipe(
-        bands.data_ptr(), _BAND_CODES[bands.dtype],
-        scales.data_ptr() if scales is not None else None,
-        offsets.data_ptr(), bands.shape[0], alpha.data_ptr(),
-        beta.data_ptr(), w.data_ptr(), w_out.data_ptr(), z.data_ptr(),
-        r.data_ptr(), p.data_ptr(), s.data_ptr(), x.data_ptr(),
-        _VEC_CODES[w.dtype], n, partials.data_ptr(), nblocks, gd.data_ptr(),
-        torch.cuda.current_stream(w.device).cuda_stream)
+    with kernel_device(w):
+        rc = lib.acg_dia_pipe(
+            bands.data_ptr(), _BAND_CODES[bands.dtype],
+            scales.data_ptr() if scales is not None else None,
+            offsets.data_ptr(), bands.shape[0], alpha.data_ptr(),
+            beta.data_ptr(), w.data_ptr(), w_out.data_ptr(), z.data_ptr(),
+            r.data_ptr(), p.data_ptr(), s.data_ptr(), x.data_ptr(),
+            _VEC_CODES[w.dtype], n, partials.data_ptr(), nblocks,
+            gd.data_ptr(),
+            torch.cuda.current_stream(w.device).cuda_stream)
     if rc != 0:
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        f"cg_pipelined_iter: kernel launch failed (CUDA error "
@@ -563,16 +568,17 @@ def dia_spmv_ring(bands: torch.Tensor, scales: torch.Tensor | None,
     lib = _load_ring()
     y = torch.empty_like(x)
     partials, dot = _dot_buffers(x, plan.nblocks, with_dot)
-    rc = lib.acg_dia_spmv_ring(
-        bands.data_ptr(), _BAND_CODES[bands.dtype],
-        scales.data_ptr() if scales is not None else None,
-        offsets.data_ptr(), bands.shape[0], x.data_ptr(), y.data_ptr(),
-        _VEC_CODES[x.dtype], x.shape[0], plan.tile, plan.lo,
-        plan.hi - plan.lo + 2, plan.ntiles, int(x.data_ptr() % 16 == 0),
-        plan.smem, plan.nblocks,
-        partials.data_ptr() if with_dot else None,
-        dot.data_ptr() if with_dot else None,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with kernel_device(x):
+        rc = lib.acg_dia_spmv_ring(
+            bands.data_ptr(), _BAND_CODES[bands.dtype],
+            scales.data_ptr() if scales is not None else None,
+            offsets.data_ptr(), bands.shape[0], x.data_ptr(), y.data_ptr(),
+            _VEC_CODES[x.dtype], x.shape[0], plan.tile, plan.lo,
+            plan.hi - plan.lo + 2, plan.ntiles, int(x.data_ptr() % 16 == 0),
+            plan.smem, plan.nblocks,
+            partials.data_ptr() if with_dot else None,
+            dot.data_ptr() if with_dot else None,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        f"dia_spmv_ring: kernel launch failed (CUDA error "
@@ -610,16 +616,17 @@ def dia_spmv_windows(bands: torch.Tensor, scales: torch.Tensor | None,
     lib = _load_windows()
     y = torch.empty_like(x)
     partials, dot = _dot_buffers(x, plan.nblocks, with_dot)
-    rc = lib.acg_dia_spmv_windows(
-        bands.data_ptr(), _BAND_CODES[bands.dtype],
-        scales.data_ptr() if scales is not None else None,
-        offsets.data_ptr(), bands.shape[0], x.data_ptr(), y.data_ptr(),
-        _VEC_CODES[x.dtype], x.shape[0], plan.tile, plan.table.data_ptr(),
-        plan.nclusters, plan.buflen, plan.ntiles,
-        x.data_ptr() % 16 // x.element_size(), plan.smem, plan.nblocks,
-        partials.data_ptr() if with_dot else None,
-        dot.data_ptr() if with_dot else None,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with kernel_device(x):
+        rc = lib.acg_dia_spmv_windows(
+            bands.data_ptr(), _BAND_CODES[bands.dtype],
+            scales.data_ptr() if scales is not None else None,
+            offsets.data_ptr(), bands.shape[0], x.data_ptr(), y.data_ptr(),
+            _VEC_CODES[x.dtype], x.shape[0], plan.tile, plan.table.data_ptr(),
+            plan.nclusters, plan.buflen, plan.ntiles,
+            x.data_ptr() % 16 // x.element_size(), plan.smem, plan.nblocks,
+            partials.data_ptr() if with_dot else None,
+            dot.data_ptr() if with_dot else None,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        f"dia_spmv_windows: kernel launch failed (CUDA error "

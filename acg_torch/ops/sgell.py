@@ -43,6 +43,7 @@ import torch
 from acg_torch.errors import AcgError, Status
 from acg_torch.ops.blas1 import batched_dot
 from acg_torch.ops.dia import resolve_mat_dtype, torch_dtype
+from acg_torch.utils.backend import kernel_device
 from acg_torch.utils.timing import host_step
 
 LANES = 128
@@ -243,11 +244,12 @@ def sgell_spmv(vals: torch.Tensor, idx: torch.Tensor, seg: torch.Tensor,
     _check(vals, idx, seg, tile_start, x)
     lib = _load()
     y = torch.empty_like(x)
-    rc = lib.acg_sgell_spmv(
-        vals.data_ptr(), _VAL_CODES[vals.dtype], idx.data_ptr(),
-        seg.data_ptr(), tile_start.data_ptr(),
-        x.data_ptr(), y.data_ptr(), tile_start.numel() - 1,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with kernel_device(x):
+        rc = lib.acg_sgell_spmv(
+            vals.data_ptr(), _VAL_CODES[vals.dtype], idx.data_ptr(),
+            seg.data_ptr(), tile_start.data_ptr(),
+            x.data_ptr(), y.data_ptr(), tile_start.numel() - 1,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        f"sgell_spmv: kernel launch failed (CUDA error {rc})")
@@ -347,15 +349,24 @@ def build_device_sgell(A, dtype=None, mat_dtype="auto",
         return None
     mdt = resolve_mat_dtype(packed["vals"], mat_dtype, vdt)
     with host_step(timings, "upload"):
-        def up(a, dt=None):
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            return (t if dt is None else t.to(dt)).to(dev)
+        return device_sgell_from_pack(packed, A.nrows, A.ncols, A.nnz, vdt,
+                                      mdt, dev)
 
-        return DeviceSgell(
-            vals=up(packed["vals"], mdt),
-            idx=up(packed["idx"].astype(np.int8)),
-            seg=up(packed["seg"]),
-            tile_start=up(tile_starts(packed["first"])),
-            S=packed["S"], ntiles=packed["ntiles"], nrows=int(A.nrows),
-            ncols=int(A.ncols), nnz=int(A.nnz),
-            vec_dtype=str(torch_dtype(vdt)).removeprefix("torch."))
+
+def device_sgell_from_pack(packed: dict, nrows: int, ncols: int, nnz: int,
+                           vec_dtype, mat_dtype: torch.dtype,
+                           device: torch.device) -> DeviceSgell:
+    """Upload a :func:`pack_sgell` result, its values stored at
+    ``mat_dtype``."""
+    def up(a, dt=None):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return (t if dt is None else t.to(dt)).to(device)
+
+    return DeviceSgell(
+        vals=up(packed["vals"], mat_dtype),
+        idx=up(packed["idx"].astype(np.int8)),
+        seg=up(packed["seg"]),
+        tile_start=up(tile_starts(packed["first"])),
+        S=packed["S"], ntiles=packed["ntiles"], nrows=int(nrows),
+        ncols=int(ncols), nnz=int(nnz),
+        vec_dtype=str(torch_dtype(vec_dtype)).removeprefix("torch."))

@@ -27,6 +27,7 @@ import torch
 from acg_torch.errors import AcgError, Status
 from acg_torch.ops.blas1 import batched_dot
 from acg_torch.ops.dia import resolve_mat_dtype, torch_dtype
+from acg_torch.utils.backend import kernel_device
 from acg_torch.utils.timing import host_step
 
 # kernel launches so far (the wrapper adds one per launch, nowhere else)
@@ -84,11 +85,10 @@ def _check(vals, colidx, x):
     if colidx.dtype != torch.int32:
         bad(f"column dtype {colidx.dtype} (int32)")
     if (vals.dim() != 2 or colidx.shape != vals.shape or x.dim() != 1
-            or x.shape[0] != vals.shape[0] or vals.shape[1] == 0
-            or x.numel() == 0):
+            or vals.shape[0] == 0 or vals.shape[1] == 0 or x.numel() == 0):
         bad(f"shapes vals {tuple(vals.shape)}, colidx "
             f"{tuple(colidx.shape)}, x {tuple(x.shape)}: want (n, W), "
-            "(n, W) and (n,) with W, n > 0")
+            "(n, W) and (m,) with n, W, m > 0")
     for t in (vals, colidx, x):
         if t.device != x.device:
             bad("all operands must be on the vector's device")
@@ -98,13 +98,19 @@ def _check(vals, colidx, x):
 
 def ell_spmv(vals: torch.Tensor, colidx: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
-    """y = ELL(vals, colidx) @ x for one system.
+    """y = ELL(vals, colidx) @ x for one system: y has n entries.
 
-    ``vals``: (n, W) bf16, f32 or f64; ``colidx``: (n, W) int32, padding
-    lanes pointing at column 0 with value 0; ``x``: (n,) f32 or f64.
-    CUDA tensors launch the kernel (a group of ``group_size(W)`` threads
-    per row, its partial sums added in a fixed tree, so the bits are the
-    same on every run); CPU tensors take :func:`ell_matvec`."""
+    ``vals``: (n, W) bf16, f32 or f64; ``colidx``: (n, W) int32 in [0, m),
+    padding lanes pointing at column 0 with value 0; ``x``: (m,) f32 or
+    f64 of any length m > 0, so the operator may be rectangular (the
+    distributed solver's interface operator, owned rows × ghost slots).
+    ``colidx < m`` is the caller's contract: the wrapper does not check
+    the columns on each call, the builders of the operators do once
+    (:meth:`DeviceEll.from_ell`, the distributed interface operator).
+    A column out of range reads outside ``x``.  CUDA tensors launch the kernel (a
+    group of ``group_size(W)`` threads per row, its partial sums added in
+    a fixed tree, so the bits are the same on every run); CPU tensors
+    take :func:`ell_matvec`."""
     global launches
     if x.device.type == "cpu":
         return ell_matvec(vals, colidx, x)
@@ -114,11 +120,12 @@ def ell_spmv(vals: torch.Tensor, colidx: torch.Tensor,
     _check(vals, colidx, x)
     lib = _load()
     n, width = vals.shape
-    y = torch.empty_like(x)
-    rc = lib.acg_ell_spmv(
-        vals.data_ptr(), _VAL_CODES[vals.dtype], colidx.data_ptr(),
-        x.data_ptr(), y.data_ptr(), _VEC_CODES[x.dtype], n, width,
-        group_size(width), torch.cuda.current_stream(x.device).cuda_stream)
+    y = torch.empty(n, dtype=x.dtype, device=x.device)
+    with kernel_device(x):
+        rc = lib.acg_ell_spmv(
+            vals.data_ptr(), _VAL_CODES[vals.dtype], colidx.data_ptr(),
+            x.data_ptr(), y.data_ptr(), _VEC_CODES[x.dtype], n, width,
+            group_size(width), torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        f"ell_spmv: kernel launch failed (CUDA error {rc})")
@@ -152,6 +159,10 @@ class DeviceEll:
         from acg_torch.utils.backend import resolve_device
 
         dev = resolve_device(device)
+        if E.colidx.size and (E.colidx.min() < 0
+                              or E.colidx.max() >= E.ncols):
+            raise AcgError(Status.ERR_INDEX_OUT_OF_BOUNDS,
+                           f"ELL columns outside [0, {E.ncols})")
         vdt = np.dtype(dtype if dtype is not None else E.vals.dtype)
         mdt = resolve_mat_dtype(E.vals, mat_dtype, vdt)
         host = E.vals if E.vals.dtype == vdt else E.vals.astype(vdt)

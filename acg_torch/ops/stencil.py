@@ -36,6 +36,7 @@ import torch
 from acg_torch.errors import AcgError, Status
 from acg_torch.ops.blas1 import batched_dot, pipelined_update
 from acg_torch.ops.dia_kernels import check_pipe_operands, grid_blocks
+from acg_torch.utils.backend import kernel_device
 
 # a "stencil" with more arms than the densest supported family (27-pt box)
 # is not one
@@ -335,12 +336,13 @@ def stencil_spmv(spec: StencilSpec, x: torch.Tensor, with_dot: bool = False):
     if with_dot:
         partials = torch.empty(nblocks, dtype=x.dtype, device=x.device)
         dot = torch.empty((), dtype=x.dtype, device=x.device)
-    rc = lib.acg_stencil_spmv(
-        ctypes.addressof(_c_spec(spec)), x.data_ptr(), y.data_ptr(),
-        _VEC_CODES[x.dtype], npad, n,
-        partials.data_ptr() if with_dot else None, nblocks,
-        dot.data_ptr() if with_dot else None,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with kernel_device(x):
+        rc = lib.acg_stencil_spmv(
+            ctypes.addressof(_c_spec(spec)), x.data_ptr(), y.data_ptr(),
+            _VEC_CODES[x.dtype], npad, n,
+            partials.data_ptr() if with_dot else None, nblocks,
+            dot.data_ptr() if with_dot else None,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        f"stencil_spmv: kernel launch failed (CUDA error {rc})")
@@ -393,12 +395,13 @@ def stencil_spmv_batched(spec: StencilSpec, X: torch.Tensor,
         partials = torch.empty((nsys, nblocks), dtype=X.dtype,
                                device=X.device)
         dots = torch.empty(nsys, dtype=X.dtype, device=X.device)
-    rc = lib.acg_stencil_spmv_batched(
-        ctypes.addressof(_c_spec(spec)), X.data_ptr(), Y.data_ptr(),
-        _VEC_CODES[X.dtype], npad, spec.nrows, nsys,
-        partials.data_ptr() if with_dot else None, nblocks,
-        dots.data_ptr() if with_dot else None,
-        torch.cuda.current_stream(X.device).cuda_stream)
+    with kernel_device(X):
+        rc = lib.acg_stencil_spmv_batched(
+            ctypes.addressof(_c_spec(spec)), X.data_ptr(), Y.data_ptr(),
+            _VEC_CODES[X.dtype], npad, spec.nrows, nsys,
+            partials.data_ptr() if with_dot else None, nblocks,
+            dots.data_ptr() if with_dot else None,
+            torch.cuda.current_stream(X.device).cuda_stream)
     if rc != 0:
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        f"stencil_spmv_batched: kernel launch failed (CUDA "
@@ -468,12 +471,14 @@ def cg_pipelined_iter_stencil(spec: StencilSpec, w, z, r, p, s, x, alpha,
     nblocks = grid_blocks(npad)
     partials = torch.empty(2 * nblocks, dtype=w.dtype, device=w.device)
     gd = torch.empty(2, dtype=w.dtype, device=w.device)
-    rc = lib.acg_stencil_pipe(
-        ctypes.addressof(_c_spec(spec)), alpha.data_ptr(), beta.data_ptr(),
-        w.data_ptr(), w_out.data_ptr(), z.data_ptr(), r.data_ptr(),
-        p.data_ptr(), s.data_ptr(), x.data_ptr(), _VEC_CODES[w.dtype], npad,
-        spec.nrows, partials.data_ptr(), nblocks, gd.data_ptr(),
-        torch.cuda.current_stream(w.device).cuda_stream)
+    with kernel_device(w):
+        rc = lib.acg_stencil_pipe(
+            ctypes.addressof(_c_spec(spec)), alpha.data_ptr(), beta.data_ptr(),
+            w.data_ptr(), w_out.data_ptr(), z.data_ptr(), r.data_ptr(),
+            p.data_ptr(), s.data_ptr(), x.data_ptr(), _VEC_CODES[w.dtype],
+            npad,
+            spec.nrows, partials.data_ptr(), nblocks, gd.data_ptr(),
+            torch.cuda.current_stream(w.device).cuda_stream)
     if rc != 0:
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        f"cg_pipelined_iter_stencil: kernel launch failed "

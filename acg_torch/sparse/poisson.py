@@ -161,6 +161,25 @@ def poisson3d_7pt_dia(nx: int, ny: int | None = None, nz: int | None = None,
     return DiaMatrix(n, n, offs, bands, nnz)
 
 
+def grid_partition_vector(shape, grid) -> np.ndarray:
+    """Part id of every gridpoint (row-major) for a block partition of a
+    structured grid into ``grid`` blocks per axis: the exact structured
+    analog of METIS partitioning.  ``grid`` has the same length as
+    ``shape``."""
+    shape = tuple(shape)
+    grid = tuple(grid)
+    if len(shape) != len(grid):
+        raise ValueError(f"grid {grid} and shape {shape} differ in rank")
+    coords = np.unravel_index(np.arange(int(np.prod(shape))), shape)
+    part = np.zeros(int(np.prod(shape)), dtype=np.int32)
+    mult = 1
+    for c, s, g in zip(coords[::-1], shape[::-1], grid[::-1]):
+        blk = np.minimum((c * g) // s, g - 1)
+        part += (blk * mult).astype(np.int32)
+        mult *= g
+    return part
+
+
 def random_spd(n: int, degree: int = 8, dtype=np.float64,
                seed: int = 0) -> CsrMatrix:
     """Random-graph SPD matrix: a diagonally-dominant operator over a

@@ -8,6 +8,8 @@ to the device it names.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from acg_torch.errors import AcgError, Status
@@ -27,3 +29,15 @@ def resolve_device(device=None) -> torch.device:
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        f"device {str(dev)!r} is not supported (cuda|cpu)")
     return dev
+
+
+def kernel_device(t: torch.Tensor):
+    """The context in which a hand-written kernel for ``t`` launches:
+    ``t``'s card made current.  The CUDA runtime launches a kernel loaded
+    through ctypes on the current device, and the handle of a default
+    stream (0) names no device, so a shard's kernel on another card would
+    otherwise run on the current one, through peer access and unordered
+    with the shard's own stream."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)

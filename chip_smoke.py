@@ -21,6 +21,12 @@ raises and the script exits non-zero:
    p2d-10k    set-up of the 5-point 2-D Poisson on 10,000^2 (10^8
               unknowns) built directly in band form, fmt="dia", planned
               onto the shared-memory ring kernel;
+   dist-setup set-up of the distributed cell: 256^3 f64 Poisson as a
+              host CSR, partition_graph into 4 grid blocks,
+              partition_system, build_sharded onto ["cuda:0"] * 4 (the
+              stencil a shard, the border-row interface ELL, the
+              put+signal halo state) and the same shards as bf16 DIA
+              bands at f32, host seconds of every step;
 2. kernels    at the solve's shapes, each kernel in every tier, held
               against its plain PyTorch version on the card (stated
               tolerances), its outputs and dots checked bit-identical
@@ -39,7 +45,14 @@ raises and the script exits non-zero:
               f32 and f64 vectors), dia_spmv_ring on 10,000^2 (bf16/f32,
               f64/f64), each with y bit-equal to dia_spmv and timed beside
               dia_spmv and cuSPARSE CSR x on the same operator, and
-              dia_spmv at bench.py's 128^3 (its resident path);
+              dia_spmv at bench.py's 128^3 (its resident path); the
+              distributed path's kernels at its shapes: stencil_spmv on
+              a 256x128x128 shard, ell_spmv on a shard's interface
+              operator (border rows x ghost slots), dia_spmv on a shard's
+              bf16 bands, and rdma_exchange on the 4-shard tables (bit
+              for bit against its plain version, ghosts bit for bit
+              against halo_ppermute and halo_allgather, timed beside one
+              Tensor.copy_ per slot and beside the three whole halos);
 3. stencil    classic CG, 256^3 Poisson, f64, fmt="auto" (the matrix-free
               tier), manufactured solution, rtol 1e-8, true residual
               recomputed here with the stencil kernel;
@@ -91,8 +104,19 @@ raises and the script exits non-zero:
               p2d-ring: 200 fixed iterations on 10,000^2 through the ring
               kernel (cuda-dia-hbm-ring), the true residual held to the
               recurrence's within f32 rounding drift;
-14. profile   for the operators of phases 3, 4, 6, batched-stencil,
-              fem-sgell, fem-ell and dia-100m: 50
+14. distributed
+              cg_dist with 4 shards on the one card: dist-stencil,
+              dist-stencil-allgather, dist-stencil-rdma (the stencil
+              phase's solve: its count within 1, certified through the
+              distributed operator within 10 x rtol, the same bits
+              from the three halos, rdma_exchange once per exchange and
+              only under rdma; on two or more cards the same shards
+              spread over them), dist-dia-bf16 (1000 fixed iterations
+              on the bf16 DIA shards), dist-fem (fem3d-1m in 4 rb
+              parts: rcm+sgell at f32, ELL at f64, certified from the
+              host CSR);
+15. profile   for the operators of phases 3, 4, 6, batched-stencil,
+              fem-sgell, fem-ell, dia-100m and dist-stencil-rdma: 50
               iterations under torch.profiler (device time by kernel,
               device idle share of the solve's wall time, kernels per
               iteration), and µs/iter with the host reading the loop flag
@@ -172,6 +196,8 @@ def main() -> int:
     # right-hand sides on the sgell tier
     fem_points, cli_fem_points, tridiag_rows, fem_nrhs = (
         1_000_000, 50_000, 1_000_000, 4)
+    # the distributed path: shards of the 256^3 cell on the one card
+    nparts = 4
 
     import torch
 
@@ -205,6 +231,7 @@ def main() -> int:
     _phase("fem3d-1m", lambda: _fem_setup(fem_points, ctx))
     _phase("p3d-464", lambda: _p3d_big_setup(big_grid, ctx))
     _phase("p2d-10k", lambda: _p2d_setup(p2d_edge, ctx))
+    _phase("dist-setup", lambda: _dist_setup(grid, nparts, ctx))
     _phase("kernels", lambda: _kernels_phase(grid, nrhs, ctx))
     _phase("stencil", lambda: _stencil_solve(grid, ctx))
     _phase("dia-bf16-128",
@@ -233,6 +260,12 @@ def main() -> int:
     _phase("rcm-dia", lambda: _rcm_dia_phase(tridiag_rows, ctx))
     _phase("batched-fem-sgell", lambda: _batched_fem(fem_nrhs, ctx))
     _phase("cli-fem", lambda: _cli_fem_phase(cli_fem_points))
+    _phase("dist-stencil", lambda: _dist_stencil_solve(ctx, "ppermute"))
+    _phase("dist-stencil-allgather",
+           lambda: _dist_stencil_solve(ctx, "allgather"))
+    _phase("dist-stencil-rdma", lambda: _dist_stencil_solve(ctx, "rdma"))
+    _phase("dist-dia-bf16", lambda: _dist_dia_solve(bench_iters, ctx))
+    _phase("dist-fem", lambda: _dist_fem_phase(nparts, ctx))
     _phase("dia-100m", lambda: _dia_100m_solve(ctx, "float32"))
     _phase("dia-100m-f64", lambda: _dia_100m_solve(ctx, "float64"))
     _phase("p2d-ring", lambda: _p2d_ring_solve(p2d_iters, ctx))
@@ -577,6 +610,7 @@ def _kernels_phase(G: int, nrhs: int, ctx):
     _batched_kernels(D, G, nrhs, ctx)
     _unstructured_kernels(ctx)
     _hbm_kernels(D, ctx)
+    _dist_kernels(ctx)
     return {"grid": [G, G, G], "n": n, "nrhs": nrhs,
             "configurations": len(ctx["rows"]),
             "launches_while_checking": _counts()}
@@ -724,6 +758,7 @@ def _batched_kernels(D, G: int, nrhs: int, ctx):
 
 def _counts() -> dict:
     from acg_torch.ops import dia_kernels, sgell, spmv, stencil
+    from acg_torch.parallel import rdma_halo
 
     return {"dia_spmv": dia_kernels.launches,
             "stencil_spmv": stencil.launches,
@@ -733,12 +768,15 @@ def _counts() -> dict:
             "stencil_spmv_batched": stencil.batched_launches,
             "ell_spmv": spmv.launches, "sgell_spmv": sgell.launches,
             "dia_spmv_ring": dia_kernels.ring_launches,
-            "dia_spmv_windows": dia_kernels.windows_launches}
+            "dia_spmv_windows": dia_kernels.windows_launches,
+            "rdma_exchange": rdma_halo.launches}
 
 
 def _reset_counts():
     from acg_torch.ops import dia_kernels, sgell, spmv, stencil
+    from acg_torch.parallel import rdma_halo
 
+    rdma_halo.launches = 0
     dia_kernels.launches = dia_kernels.pipe_launches = 0
     stencil.launches = stencil.pipe_launches = 0
     dia_kernels.batched_launches = stencil.batched_launches = 0
@@ -890,6 +928,7 @@ def _stencil_solve(G: int, ctx, pipelined: bool = False):
         _check_launches(rep, launches, "stencil_spmv", res.niterations,
                         False, phase)
         ctx["classic_iterations"] = res.niterations
+        ctx["stencil_error"] = rep["error_vs_manufactured"]
     ctx.setdefault("us_per_iter", {})[phase] = rep["us_per_iter"]
     ctx["profile_cases"] = ctx.get("profile_cases", []) + [
         (f"{phase}-f64", op, b, solve)]
@@ -961,6 +1000,11 @@ def _dia_bf16_solve(G: int, iters: int, ctx, pipelined: bool = False,
     if not pipelined and not nrhs and G == 256:
         ctx["profile_cases"] = ctx.get("profile_cases", []) + [
             ("dia-bf16-f32", op, b, solve)]
+        # what dist-dia-bf16 is held against: the same b, the same
+        # iterations, on one operator
+        rep["host_true_relative_residual"] = _poisson7_residual(G, res.x, b)
+        rep["recurrence_relative_residual"] = res.rnrm2 / res.bnrm2
+        ctx["dia_bf16_ref"] = rep
     return rep
 
 
@@ -1937,6 +1981,475 @@ def _p2d_ring_solve(iters: int, ctx):
 
 
 # ---------------------------------------------------------------------------
+# the distributed path: cg_dist over 4 shards sharing the one card
+
+
+def _csr_from_dia(D):
+    """The host CSR of a DIA matrix: rows in order, each row's entries in
+    ascending column order (the offsets are sorted), zeros dropped; for
+    7-point Poisson exactly ``poisson3d_7pt``'s matrix, made without its
+    COO sort of 116 M entries."""
+    import numpy as np
+
+    from acg_torch.sparse.csr import CsrMatrix
+
+    n = D.nrows
+    bands = D.bands[:, :n]
+    keep = (bands != 0).T                       # (n, D): row-major entries
+    rowptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(keep.sum(1), out=rowptr[1:])
+    cols = (np.arange(n, dtype=np.int64)[:, None]
+            + np.asarray(D.offsets, dtype=np.int64)[None, :])
+    colidx = cols[keep].astype(np.int32)
+    del cols
+    return CsrMatrix(n, n, rowptr, colidx, bands.T[keep])
+
+
+def _dist_setup(G: int, nparts: int, ctx):
+    """The distributed cell: 7-point Poisson G^3 (f64) as a host CSR,
+    partitioned into ``nparts`` by ``partition_graph`` (auto: grid blocks),
+    split by ``partition_system`` (band order) and built onto
+    ``["cuda:0"] * nparts`` by ``build_sharded`` (auto: the matrix-free
+    stencil a shard, the interface ELL over ghost slots, the put+signal
+    halo state), host seconds of every step.  The same partitioned system
+    is built again at f32 vectors with bf16 DIA bands (fmt="dia") for
+    dist-dia-bf16."""
+    import numpy as np
+    import torch
+
+    from acg_torch.parallel.sharded import ShardedSystem
+    from acg_torch.partition.graph import partition_system
+    from acg_torch.partition.partitioner import partition_graph
+    from acg_torch.solvers.cg_dist import build_sharded
+    from acg_torch.sparse.poisson import poisson3d_7pt_dia
+
+    steps = {}
+    t0 = time.perf_counter()
+    A = _csr_from_dia(poisson3d_7pt_dia(G))
+    steps["csr"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    part = partition_graph(A, nparts)
+    steps["partition"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ps = partition_system(A, part, local_order="band")
+    steps["partition_system"] = time.perf_counter() - t0
+    del A
+    devices = ["cuda:0"] * nparts
+    t0 = time.perf_counter()
+    ss = build_sharded(ps, devices=devices, dtype=np.float64, method="rdma",
+                       timings=steps)
+    torch.cuda.synchronize()
+    steps["build_sharded"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ss_dia = ShardedSystem.build(ps, "dia", ss.local_ops[0].spec.offsets,
+                                 devices=devices, dtype=np.float32,
+                                 method="rdma", forced=True)
+    torch.cuda.synchronize()
+    dia_s = time.perf_counter() - t0
+    if ss.local_fmt != "stencil" or ss_dia.local_ops[0].bands.dtype != \
+            torch.bfloat16:
+        raise SystemExit(f"error: dist-setup built {ss.local_fmt} shards "
+                         f"and {ss_dia.local_ops[0].bands.dtype} bands, "
+                         "expected the stencil and bf16")
+    ctx["dist"] = {"ss": ss, "ss_dia": ss_dia, "ps": ps, "grid": G}
+    host = sum(v for k, v in steps.items() if k != "build_sharded")
+    return {"grid": [G] * 3, "nparts": nparts, "n": ps.nrows,
+            "devices": [str(d) for d in ss.devices],
+            "blocks": [op.spec.grid for op in ss.local_ops],
+            "local_tier": ss.local_fmt, "rounds": ss.halo.nrounds,
+            "max_message": ss.halo.max_msg,
+            "values_per_exchange": ss.halo.total_send_values,
+            "ghosts_per_shard": [p.nghost for p in ps.parts],
+            "iface_width": [int(iv.shape[1]) for iv, _, _ in ss.iface],
+            "iface_rows": [int(rows.numel()) for _, _, rows in ss.iface],
+            "iface_values": str(ss.iface[0][0].dtype)[6:],
+            "rdma_chunks_per_slot": ss.rdma.C,
+            "host_seconds": steps, "host_seconds_total": host,
+            "dia_bf16_build_seconds": dia_s,
+            "host_setup_within_120s": host <= 120.0}
+
+
+def _dist_kernels(ctx):
+    """The kernels of the distributed path at its shapes, against their
+    plain versions: stencil_spmv on one shard's sub-grid (with the dot;
+    beside conv3d), ell_spmv on one shard's interface operator (border
+    rows x ghost slots; beside cuSPARSE CSR on the same matrix), dia_spmv on
+    one shard's bf16 bands at f32 (with the dot), and rdma_exchange on the
+    4-shard halo tables: delivered blocks bit-equal to the plain version,
+    ghosts bit-equal to halo_ppermute and halo_allgather, timed beside
+    the same slots moved by one Tensor.copy_ each and beside the three
+    whole halos."""
+    import torch
+
+    from acg_torch.ops.dia_kernels import dia_matvec, dia_spmv
+    from acg_torch.ops.stencil import stencil_matvec, stencil_spmv
+    from acg_torch.parallel import rdma_halo
+    from acg_torch.parallel.halo import halo_allgather, halo_ppermute
+
+    ss, ss_dia = ctx["dist"]["ss"], ctx["dist"]["ss_dia"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    # the stencil of shard 0, f64
+    op = ss.local_ops[0]
+    spec, n = op.spec, op.nrows
+    x = torch.zeros(op.nrows_padded, dtype=torch.float64, device="cuda")
+    x[:n] = torch.randn(n, generator=gen, dtype=torch.float64, device="cuda")
+    w = torch.zeros(1, 1, 3, 3, 3, dtype=torch.float64, device="cuda")
+    w[0, 0, 1, 1, 1] = 6.0
+    for c in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+              (1, 1, 2)):
+        w[(0, 0) + c] = -1.0
+
+    def plain_st():
+        y = stencil_matvec(x, spec.grid, spec.digits, spec.coeffs)
+        return y, torch.dot(x, y)
+
+    _check_kernel({"name": "stencil_spmv",
+                   "tier": "matrix-free/float64 256^3/4 shard",
+                   "with_dot": True, "grid": list(spec.grid)},
+                  lambda: stencil_spmv(spec, x, with_dot=True), plain_st,
+                  x, ctx, 2 * n * 8, 2 * len(spec.offsets) * n + 2 * n,
+                  lambda: torch.nn.functional.conv3d(
+                      x[:n].view(1, 1, *spec.grid), w, padding=1))
+    # the interface operator of shard 0: its border rows over its ghost
+    # slots
+    _iface_check(ss, 0, "bf16/f64 interface 256^3/4", ctx)
+    # shard 0's DIA bands, bf16 at f32 vectors, with the dot
+    dop = ss_dia.local_ops[0]
+    xf = torch.randn(dop.nrows_padded, generator=gen, device="cuda")
+
+    def plain_dia():
+        y = dia_matvec(dop.bands, dop.offsets, xf, dop.scales)
+        return y, torch.dot(xf, y)
+
+    D_, nd = len(dop.offsets), dop.nrows_padded
+    csr32 = _csr_of(dop, torch.float32)
+    _check_kernel({"name": "dia_spmv", "tier": "bf16/f32 256^3/4 shard",
+                   "with_dot": True, "plan": dop.kind},
+                  lambda: dia_spmv(dop.bands, dop.scales, dop.offsets_t, xf,
+                                   with_dot=True), plain_dia, xf, ctx,
+                  D_ * nd * 2 + 2 * nd * 4, 2 * D_ * nd + 2 * nd,
+                  lambda: csr32 @ xf)
+    del csr32
+    # the put+signal exchange on the 4-shard tables
+    st, state = ss.tables, ss.rdma
+    P, R, S = len(ss.local_ops), state.R, state.S
+    xs = [torch.randn(o.nrows_padded, generator=gen, dtype=torch.float64,
+                      device="cuda") for o in ss.local_ops]
+    for xi, idx, buf in zip(xs, st.send_full, state.send):
+        torch.index_select(xi, 0, idx, out=buf.view(-1))
+    send = [b.clone() for b in state.send]
+    got = [o.clone() for o in
+           rdma_halo.rdma_exchange(state.send, st.partner, state)]
+    want = rdma_halo.rdma_exchange_plain(send, st.partner)
+    torch.cuda.synchronize()
+    state.check()
+    bits = all(torch.equal(a, b) for a, b in zip(got, want))
+    g_rdma = rdma_halo.halo_rdma(xs, st, state)
+    g_pp, g_ag = halo_ppermute(xs, st), halo_allgather(xs, st)
+    halo_bits = all(torch.equal(a, b) and torch.equal(a, c)
+                    for a, b, c in zip(g_rdma, g_pp, g_ag))
+    pairs = [(p, r, int(st.partner[p, r]) if st.partner[p, r] >= 0 else p)
+             for p in range(P) for r in range(R)]
+
+    def copies():
+        for p, r, q in pairs:
+            state.out[p][r].copy_(state.send[q][r])
+
+    word = state.send[0].element_size()
+    row = {"name": "rdma_exchange", "tier": "f64 256^3/4", "with_dot": None,
+           "P": P, "R": R, "S": S, "chunks_per_slot": state.C,
+           "max_abs_err": max(float((a - b).abs().max())
+                              for a, b in zip(got, want)),
+           "bits_equal_plain": bits,
+           "ghosts_bit_equal_ppermute_allgather": halo_bits,
+           "ms": _time_ms(lambda: rdma_halo.rdma_exchange(
+               state.send, st.partner, state), ctx["reps"]),
+           "plain_ms": _time_ms(lambda: rdma_halo.rdma_exchange_plain(
+               send, st.partner), ctx["reps"]),
+           "library_ms": _time_ms(copies, ctx["reps"]),
+           "library": "one Tensor.copy_ (cudaMemcpyAsync) per slot",
+           "halo_ms": {
+               "rdma": _time_ms(lambda: rdma_halo.halo_rdma(xs, st, state),
+                                ctx["reps"]),
+               "ppermute": _time_ms(lambda: halo_ppermute(xs, st),
+                                    ctx["reps"]),
+               "allgather": _time_ms(lambda: halo_allgather(xs, st),
+                                     ctx["reps"])}}
+    # read every send word and write every delivered word once
+    row["bound_ms"], row["bound_by"] = _bound(2 * P * R * S * word, 0,
+                                              torch.float64, ctx)
+    ctx["rows"].append(row)
+    _emit({"kernel_check": row})
+    if not (bits and halo_bits):
+        raise SystemExit(f"error: rdma_exchange disagrees: {row}")
+
+
+def _iface_check(ss, i: int, tier: str, ctx):
+    """``ell_spmv`` on shard ``i``'s interface operator (its border rows
+    over its ghost slots: a rectangle) against its plain version on the
+    same card tensors, timed beside cuSPARSE CSR on the same rows."""
+    import torch
+
+    from acg_torch.ops.spmv import ell_matvec, ell_spmv
+    from acg_torch.parallel.sharded import border_rows
+
+    p = ss.ps.parts[i]
+    ivals, icols, _ = ss.iface[i]
+    vdt = getattr(torch, ss.vec_dtype)
+    m = p.nghost
+    gh = _padded_x(m, m, vdt, 8 + i).to(ivals.device)
+    lib = _torch_csr(border_rows(p.A_iface)[1], vdt)
+    rows, width = ivals.shape
+    word = gh.element_size()
+    _check_kernel({"name": "ell_spmv", "tier": tier, "with_dot": None,
+                   "shard": i, "rows": rows, "ghosts": m, "width": width,
+                   "values": str(ivals.dtype)[6:]},
+                  lambda: ell_spmv(ivals, icols, gh),
+                  lambda: ell_matvec(ivals, icols, gh), gh, ctx,
+                  rows * width * (ivals.element_size() + 4) + m * word
+                  + rows * word, 2 * p.A_iface.nnz, lambda: lib @ gh)
+
+
+def _poisson7_residual(G: int, x, b) -> float:
+    """||b - A x|| / ||b|| in float64 on the host for the 7-point Poisson
+    matrix of a G^3 grid (6 on the diagonal, -1 to each grid neighbour),
+    by slicing the grid: independent of every operator of the port."""
+    import numpy as np
+
+    u = np.asarray(x, dtype=np.float64).reshape(G, G, G)
+    y = 6.0 * u
+    y[1:] -= u[:-1]
+    y[:-1] -= u[1:]
+    y[:, 1:] -= u[:, :-1]
+    y[:, :-1] -= u[:, 1:]
+    y[:, :, 1:] -= u[:, :, :-1]
+    y[:, :, :-1] -= u[:, :, 1:]
+    bb = np.asarray(b, dtype=np.float64)
+    return float(np.linalg.norm(bb - y.reshape(-1)) / np.linalg.norm(bb))
+
+
+def _dist_stencil_solve(ctx, method: str):
+    """Classic cg_dist on the 256^3/4 stencil shards through one halo, to
+    the stencil phase's rtol from its right-hand side: the count within 1
+    of the single-device count; the residual certified in float64 on the
+    host from the grid itself (no operator of the port) within 10 x rtol;
+    the error against the manufactured solution within 2 x the
+    single-device phase's; x bit-identical and the count equal across the
+    three halos; the local and interface kernels launched once a shard
+    per SpMV, rdma_exchange once per halo exchange (the initial residual
+    and one per iteration; the certification runs on the host) and only
+    under --halo rdma.  The counts are read before the certification."""
+    import numpy as np
+    import torch
+
+    from acg_torch.config import SolverOptions
+    from acg_torch.solvers.cg_dist import cg_dist
+
+    phase = "dist-stencil" + ("" if method == "ppermute" else f"-{method}")
+    ss = ctx["dist"]["ss"].with_halo(method)
+    _, b, xstar = ctx["stencil_case"]
+    rtol = 1e-8
+    cg_dist(ss, b, options=SolverOptions(maxits=20, residual_rtol=0.0))
+    _reset_counts()
+    res = cg_dist(ss, b, options=SolverOptions(maxits=20000,
+                                               residual_rtol=rtol))
+    launches = _read_counts(ctx, phase)
+    cert = _poisson7_residual(ctx["dist"]["grid"], res.x, b)
+    rep = _solve_report(res, launches)
+    its, P = res.niterations, ss.nparts
+    single = ctx["classic_iterations"]
+    err = float(np.linalg.norm(res.x - xstar))
+    rep.update(certified_relative_residual=cert, rtol=rtol,
+               certified_by="float64 7-point product on the host",
+               single_device_iterations=single,
+               single_device_us_per_iter=ctx["us_per_iter"]["stencil"],
+               error_vs_manufactured=err,
+               single_device_error_vs_manufactured=ctx["stencil_error"])
+    spmvs = its + 1
+    want = {"stencil_spmv": P * spmvs, "ell_spmv": P * spmvs,
+            "rdma_exchange": spmvs if method == "rdma" else 0}
+    others = {k: v for k, v in launches.items() if k not in want and v}
+    ok = ((res.operator_format, res.kernel)
+          == ("stencil", f"cuda-stencil-fused+{method}") and res.converged
+          and abs(its - single) <= 1 and cert <= 10 * rtol
+          and err <= 2 * ctx["stencil_error"]
+          and all(launches[k] == v for k, v in want.items()) and not others
+          and np.all(np.isfinite(res.x)) and res.x.shape == b.shape)
+    first = ctx["dist"].setdefault("stencil_x", (method, its, res.x))
+    rep["same_as"] = first[0]
+    rep["bit_identical_x"] = bool(np.array_equal(res.x, first[2]))
+    ok = ok and rep["bit_identical_x"] and its == first[1]
+    if method == "rdma":
+        n_dev = torch.cuda.device_count()
+        if n_dev < 2:
+            rep["multi_gpu"] = "not run: 1 device"
+        else:
+            # the same shards on distinct cards: the puts cross NVLink
+            # through peer-mapped addresses
+            from acg_torch.parallel.sharded import ShardedSystem
+
+            multi = ShardedSystem.build(
+                ctx["dist"]["ps"], "stencil", ss.local_ops[0].spec,
+                devices=[f"cuda:{i % n_dev}" for i in range(P)],
+                dtype=np.float64, method="rdma")
+            rm = cg_dist(multi, b, options=SolverOptions(
+                maxits=20000, residual_rtol=rtol))
+            rep["multi_gpu"] = {
+                "devices": [str(d) for d in multi.devices],
+                "iterations": rm.niterations,
+                "us_per_iter": rm.stats.tsolve / max(rm.niterations, 1)
+                * 1e6,
+                "bit_identical_x": bool(np.array_equal(rm.x, res.x))}
+            ok = ok and rm.niterations == its and \
+                rep["multi_gpu"]["bit_identical_x"]
+        ctx["profile_cases"] = ctx.get("profile_cases", []) + [
+            ("dist-stencil-rdma-f64", ss, b, cg_dist)]
+    ctx.setdefault("us_per_iter", {})[phase] = rep["us_per_iter"]
+    if not ok:
+        raise SystemExit(f"error: {phase} solve failed: {rep}")
+    return rep
+
+
+def _dist_dia_solve(iters: int, ctx):
+    """cg_dist on the 256^3/4 shards as bf16 DIA bands at f32 vectors
+    (fmt="dia"), rdma halo, ``iters`` fixed iterations from dia-bf16's
+    right-hand side: each iteration one fused dia_spmv a shard (the JAX
+    package's per-shard fused coupled step with the interface correction
+    in p'Ap), rdma_exchange once per exchange.  Held against the
+    single-device dia-bf16 phase after the same iterations on the same b:
+    the recurrence residual within 5 % (a wrong <p, A_iface ghosts> term
+    changes every step length, and the residual after 1000 steps by
+    orders of magnitude) and the true residual, in float64 on the host
+    from the grid, within 2 x."""
+    import numpy as np
+
+    from acg_torch.config import SolverOptions
+    from acg_torch.solvers.cg_dist import cg_dist
+
+    phase = "dist-dia-bf16"
+    ss = ctx["dist"]["ss_dia"]
+    b = np.random.default_rng(0).standard_normal(ss.nrows).astype(
+        np.float32)
+    cg_dist(ss, b, options=SolverOptions(maxits=20, residual_rtol=0.0))
+    _reset_counts()
+    res = cg_dist(ss, b, options=SolverOptions(maxits=iters,
+                                               residual_rtol=0.0))
+    launches = _read_counts(ctx, phase)
+    rep = _solve_report(res, launches)
+    P = ss.nparts
+    ref = ctx["dia_bf16_ref"]
+    rec = res.rnrm2 / res.bnrm2
+    true = _poisson7_residual(ctx["dist"]["grid"], res.x, b)
+    rep.update(plan=ss.local_ops[0].kind,
+               single_device_us_per_iter=ref["us_per_iter"],
+               host_true_relative_residual=true,
+               single_device_host_true_relative_residual=ref[
+                   "host_true_relative_residual"],
+               recurrence_relative_residual=rec,
+               single_device_recurrence_relative_residual=ref[
+                   "recurrence_relative_residual"])
+    want = {"dia_spmv": P * (iters + 1), "ell_spmv": P * (iters + 1),
+            "rdma_exchange": iters + 1}
+    others = {k: v for k, v in launches.items() if k not in want and v}
+    ok = ((res.operator_format, res.kernel) == ("dia", "cuda-dia-fused+rdma")
+          and res.kernel_note == "format forced: dia"
+          and res.niterations == iters and np.all(np.isfinite(res.x))
+          and all(launches[k] == v for k, v in want.items()) and not others
+          and abs(rec / ref["recurrence_relative_residual"] - 1) <= 0.05
+          and true <= 2 * ref["host_true_relative_residual"])
+    ctx.setdefault("us_per_iter", {})[phase] = rep["us_per_iter"]
+    if not ok:
+        raise SystemExit(f"error: {phase} solve failed: {rep}")
+    return rep
+
+
+def _dist_fem_phase(nparts: int, ctx):
+    """cg_dist on fem3d-1m's matrix in ``nparts`` rb parts (recursive
+    bisection + refinement) with the rdma halo: f32 through the per-part
+    RCM and the sgell packs (fmt="auto" resolves rcm+sgell), rtol 1e-6;
+    f64 on padded-ELL shards of the same partition (fmt="ell": what auto
+    resolves at f64, without its rejected RCM pass), rtol 1e-8.  Host
+    seconds of the partition, the split and each shard build; the
+    certified residual from the host CSR in float64.  On the shard with
+    the most ghosts of each build, the local kernel (sgell_spmv, or
+    ell_spmv on the ELL shard) and the interface ell_spmv are held against
+    their plain versions on the same card tensors."""
+    import numpy as np
+    import torch
+
+    from acg_torch.config import SolverOptions
+    from acg_torch.partition.graph import partition_system
+    from acg_torch.partition.partitioner import partition_graph
+    from acg_torch.solvers.cg_dist import build_sharded, cg_dist
+
+    fem = ctx["fem"]
+    A, b = fem["A"], fem["b"]
+    steps = {}
+    t0 = time.perf_counter()
+    part = partition_graph(A, nparts, method="rb")
+    steps["partition"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ps = partition_system(A, part, local_order="band")
+    steps["partition_system"] = time.perf_counter() - t0
+    devices = ["cuda:0"] * nparts
+    out = {"points": A.nrows, "nparts": nparts,
+           "part_sizes": np.bincount(part).tolist(),
+           "ghosts_per_shard": [p.nghost for p in ps.parts]}
+    for label, vdt, fmt, tier, rtol in (
+            ("f32", np.float32, "auto", "sgell", 1e-6),
+            ("f64", np.float64, "ell", "ell", 1e-8)):
+        phase = f"dist-fem-{tier}"
+        bsteps = {}
+        t0 = time.perf_counter()
+        ss = build_sharded(ps, devices=devices, dtype=vdt, method="rdma",
+                           fmt=fmt,
+                           timings=bsteps)
+        torch.cuda.synchronize()
+        bsteps["total"] = time.perf_counter() - t0
+        bv = b.astype(vdt)
+        cg_dist(ss, bv, options=SolverOptions(maxits=20, residual_rtol=0.0))
+        _reset_counts()
+        res = cg_dist(ss, bv, options=SolverOptions(maxits=20000,
+                                                    residual_rtol=rtol))
+        launches = _read_counts(ctx, phase)
+        rep = _solve_report(res, launches)
+        kern = f"{tier}_spmv"
+        spmvs = res.niterations + 1
+        rep.update(rtol=rtol, build_seconds=bsteps,
+                   partition_plus_build_seconds=(
+                       steps["partition"] + steps["partition_system"]
+                       + bsteps["total"]),
+                   true_relative_residual=_host_true_residual(A, res.x, b),
+                   single_device_iterations=ctx["iterations"][f"fem-{tier}"])
+        # the interface product is ELL on every shard; on the ELL tier the
+        # local SpMV is ell_spmv too
+        want = {kern: nparts * spmvs, "rdma_exchange": spmvs}
+        want["ell_spmv"] = nparts * spmvs * (2 if tier == "ell" else 1)
+        others = {k: v for k, v in launches.items() if k not in want and v}
+        fmt_name = "rcm+sgell" if tier == "sgell" else "ell"
+        ok = ((res.operator_format, res.kernel)
+              == (fmt_name, f"cuda-{tier}-spmv+rdma") and res.converged
+              and rep["true_relative_residual"] <= 10 * rtol
+              and all(launches[k] == v for k, v in want.items())
+              and not others and np.all(np.isfinite(res.x)))
+        ctx.setdefault("us_per_iter", {})[phase] = rep["us_per_iter"]
+        out[phase] = rep
+        if not ok:
+            raise SystemExit(f"error: {phase} solve failed: {rep}")
+        # the kernels at this build's shapes, after the counted run
+        i = int(np.argmax([p.nghost for p in ss.ps.parts]))
+        check = _sgell_check if tier == "sgell" else _ell_check
+        check(ss.local_ops[i], ss.ps.parts[i].A_local,
+              f"{label}/{label} fem3d-1m/{nparts} shard", ctx)
+        _iface_check(ss, i, f"{label} interface fem3d-1m/{nparts}", ctx)
+        rep["kernels_checked_on_shard"] = i
+        del ss
+        torch.cuda.empty_cache()
+    out["host_seconds"] = steps
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7
 
 
@@ -1977,11 +2490,14 @@ def _profile_phase(ctx):
     out = {}
     for name, op, b, solve in ctx.get("profile_cases", []):
         # b already padded on the card, so the profiled window holds the
-        # loop and not the upload of b
-        vdt = getattr(torch, op.vec_dtype)
-        b_dev = torch.zeros(b.shape[:-1] + (op.nrows_padded,), dtype=vdt)
-        b_dev[..., : op.nrows] = torch.from_numpy(b.astype(op.vec_dtype))
-        b_dev = b_dev.cuda()
+        # loop and not the upload of b (a distributed solve scatters its
+        # host b to the shards before its clock starts)
+        b_dev = b
+        if hasattr(op, "nrows_padded"):
+            vdt = getattr(torch, op.vec_dtype)
+            b_dev = torch.zeros(b.shape[:-1] + (op.nrows_padded,), dtype=vdt)
+            b_dev[..., : op.nrows] = torch.from_numpy(b.astype(op.vec_dtype))
+            b_dev = b_dev.cuda()
         _fixed_solve(solve, op, b_dev, 50)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2054,7 +2570,9 @@ def _kernel_lines(ctx) -> list:
                               "acg_tpu/ops/pallas_kernels.py:767", None),
             "dia_spmv_windows": ("acg_torch/csrc/dia_hbm_windows.cu",
                                  "acg_tpu/ops/pallas_kernels.py:600",
-                                 None)}
+                                 None),
+            "rdma_exchange": ("acg_torch/csrc/rdma_halo.cu",
+                              "acg_tpu/parallel/rdma_halo.py:79", None)}
     # (kernel, phase-2 tier, solve phase, with_dot of the loop's calls;
     # None for the pipelined-iteration and unstructured kernels, which have
     # no such row key)
@@ -2083,7 +2601,19 @@ def _kernel_lines(ctx) -> list:
              ("ell_spmv", "f64/f64 fem3d-1m", "pipelined-fem-ell", None),
              ("dia_spmv_windows", "bf16/f32 464^3", "dia-100m", True),
              ("dia_spmv_windows", "bf16/f64 464^3", "dia-100m-f64", True),
-             ("dia_spmv_ring", "bf16/f32 10000^2", "p2d-ring", True))
+             ("dia_spmv_ring", "bf16/f32 10000^2", "p2d-ring", True),
+             ("stencil_spmv", "matrix-free/float64 256^3/4 shard",
+              "dist-stencil-rdma", True),
+             ("ell_spmv", "bf16/f64 interface 256^3/4",
+              "dist-stencil-rdma", None),
+             ("rdma_exchange", "f64 256^3/4", "dist-stencil-rdma", None),
+             ("dia_spmv", "bf16/f32 256^3/4 shard", "dist-dia-bf16", True),
+             ("sgell_spmv", "f32/f32 fem3d-1m/4 shard", "dist-fem-sgell",
+              None),
+             ("ell_spmv", "f32 interface fem3d-1m/4", "dist-fem-sgell",
+              None),
+             ("ell_spmv", "f64/f64 fem3d-1m/4 shard", "dist-fem-ell", None),
+             ("ell_spmv", "f64 interface fem3d-1m/4", "dist-fem-ell", None))
     out = []
     for kernel, tier, phase, with_dot in paths:
         row = next(r for r in ctx["rows"] if r["name"] == kernel
@@ -2104,9 +2634,17 @@ def _kernel_lines(ctx) -> list:
         for key in ("composed_ms", "nrhs", "one_system_calls_ms",
                     "per_system_bits_equal_1d", "S", "fill", "width",
                     "bits_equal_plain", "dia_spmv_ms", "bits_equal_dia_spmv",
-                    "plan"):
+                    "plan", "P", "R", "S", "chunks_per_slot",
+                    "ghosts_bit_equal_ppermute_allgather", "halo_ms",
+                    "library", "grid", "rows", "ghosts"):
             if key in row:
                 entry[key] = row[key]
+        # one counter a kernel: two configurations of it in one phase
+        # (dist-fem-ell's local and interface ELL) show the same count
+        twins = [f"{k}:{t}" for k, t, ph, _ in paths
+                 if k == kernel and ph == phase and t != tier]
+        if twins:
+            entry["launches_shared_with"] = twins
         out.append(entry)
     return out
 

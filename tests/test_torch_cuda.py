@@ -28,6 +28,7 @@ from acg_torch.ops import dia_kernels
 from acg_torch.ops import stencil as st
 from acg_torch.ops.dia import DeviceDia, DiaMatrix
 from acg_torch.ops.dia_kernels import dia_matvec, dia_spmv
+from acg_torch.parallel.mesh import make_mesh
 from acg_torch.solvers.cg import cg, cg_pipelined
 from acg_torch.sparse import poisson
 
@@ -521,8 +522,9 @@ def test_unstructured_wrappers_reject_what_the_kernels_do_not_take(card):
         spmv.ell_spmv(vals, cols, xv.half())
     with pytest.raises(AcgError):                   # strided values
         spmv.ell_spmv(torch.randn(64, 6, device=card)[:, ::2], cols, xv)
-    with pytest.raises(AcgError):                   # x of another length
-        spmv.ell_spmv(vals, cols, xv[:32])
+    # x may have any length (a rectangular operator), but not none
+    with pytest.raises(AcgError):                   # an empty x
+        spmv.ell_spmv(vals, cols, xv[:0])
 
 
 @pytest.mark.parametrize("tier,dtype", [("rcm+sgell", np.float32),
@@ -695,3 +697,199 @@ def test_cg_through_the_hbm_kernels_matches_cpu(card, kind, dtype):
     assert abs(rg.niterations - rc.niterations) <= 1
     x = rg.x.astype(np.float64)
     assert np.linalg.norm(b - D.matvec(x)) <= 10 * rtol * np.linalg.norm(b)
+
+
+# ---------------------------------------------------------------------------
+# the distributed slice: the put+signal halo kernel, the rectangular ELL
+# product, and distributed classic CG with shards sharing the card
+
+
+def _partner_table(P, R, seed):
+    """A symmetric (P, R) partner table: each round a random matching,
+    some shards left without a partner (-1)."""
+    rng = np.random.default_rng(seed)
+    partner = np.full((P, R), -1, dtype=np.int32)
+    for r in range(R):
+        perm = rng.permutation(P)
+        for a, b in zip(perm[0::2], perm[1::2]):
+            if rng.random() < 0.8:
+                partner[a, r], partner[b, r] = b, a
+    return partner
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("P,R,S", [(2, 1, 1), (2, 3, 5000), (4, 2, 32768),
+                                   (8, 5, 777), (8, 7, 9000)])
+def test_rdma_exchange_matches_plain(card, P, R, S, dtype):
+    from acg_torch.parallel import rdma_halo
+
+    partner = _partner_table(P, R, seed=P * 100 + R)
+    state = rdma_halo.RdmaState(partner, S, dtype, make_mesh(P, [card] * P))
+    gen = torch.Generator(device=card).manual_seed(S)
+    for rep in range(3):        # parities 0, 1, 0: the buffers alternate
+        send = [torch.randn((R, S), dtype=dtype, device=card, generator=gen)
+                for _ in range(P)]
+        before = rdma_halo.launches
+        got = [o.clone() for o in
+               rdma_halo.rdma_exchange(send, partner, state)]
+        torch.cuda.synchronize()
+        assert rdma_halo.launches == before + 1
+        want = rdma_halo.rdma_exchange_plain(send, partner)
+        for p in range(P):
+            assert torch.equal(got[p], want[p]), (rep, p)
+            for r in range(R):           # no partner: its own slot back
+                if partner[p, r] < 0:
+                    assert torch.equal(got[p][r], send[p][r])
+        # every flag and epoch advanced once per exchange
+        for fl, ep in zip(state.flags, state.epoch):
+            assert torch.all(fl == rep + 1) and torch.all(ep == rep + 1)
+
+
+def test_rdma_rejects_what_the_kernel_does_not_take(card):
+    from acg_torch.parallel import rdma_halo
+
+    partner = np.full((8, 200), -1, dtype=np.int32)
+    two = make_mesh(2, [card] * 2)
+    with pytest.raises(AcgError):           # bf16: not 4- or 8-byte words
+        rdma_halo.RdmaState(partner[:2, :1], 16, torch.bfloat16, two)
+    with pytest.raises(AcgError):           # "cuda" without its index
+        rdma_halo.RdmaState(partner[:2, :1], 16, torch.float32,
+                            [torch.device("cuda")] * 2)
+    # 1600 blocks cannot all be resident: refused before any launch
+    with pytest.raises(AcgError, match="resident"):
+        rdma_halo.RdmaState(partner, 16, torch.float32,
+                            make_mesh(8, [card] * 8))
+    ok = rdma_halo.RdmaState(partner[:2, :1], 16, torch.float32, two)
+    with pytest.raises(AcgError):           # another partner table
+        rdma_halo.rdma_exchange([torch.zeros((1, 16), device=card)] * 2,
+                                partner[:2, :1] + 1, ok)
+    with pytest.raises(AcgError):           # another message shape
+        rdma_halo.rdma_exchange([torch.zeros((1, 8), device=card)] * 2,
+                                partner[:2, :1], ok)
+
+
+def test_rdma_wait_times_out_instead_of_hanging(card, monkeypatch):
+    """A grid whose partner never launches (as after a failed launch on
+    another card) gives up at the state's timeout: the error word is set,
+    check() raises, and the spoilt state refuses the next exchange."""
+    from acg_torch.parallel import rdma_halo
+
+    monkeypatch.setattr(rdma_halo, "TIMEOUT_S", 0.05)
+    partner = np.array([[1], [0]], dtype=np.int32)
+    state = rdma_halo.RdmaState(partner, 64, torch.float32,
+                                make_mesh(2, [card] * 2))
+    # launch shard 0's blocks alone: shard 1 never puts
+    dev, _, shards, local, part = state.launch_tables[0]
+    state.launch_tables = [(dev, 1, shards, local[:1], part)]
+    send = [torch.ones((1, 64), device=card) for _ in range(2)]
+    rdma_halo.rdma_exchange(send, partner, state)
+    torch.cuda.synchronize()
+    assert int(state.err[0].item()) == 1 and int(state.err[1].item()) == 0
+    assert int(state.epoch[0][0].item()) == 0
+    with pytest.raises(AcgError, match="did not arrive"):
+        state.check()
+    before = rdma_halo.launches
+    with pytest.raises(AcgError, match="spoilt"):
+        rdma_halo.rdma_exchange(send, partner, state)
+    assert rdma_halo.launches == before
+
+
+@pytest.mark.parametrize("vdt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m,width", [(1, 1, 1), (300, 7, 5),
+                                       (5000, 123, 33)])
+def test_ell_spmv_rectangle_matches_plain(card, n, m, width, vdt):
+    """The interface operator's shape (n rows over m ghost slots): with
+    small-integer values every sum is exact in any order, so y must equal
+    the plain version bit for bit; with random values, within _TOL."""
+    from acg_torch.ops import spmv
+
+    rng = np.random.default_rng(n + m)
+    cols = torch.from_numpy(rng.integers(0, m, (n, width)).astype(np.int32))
+    for exact in (True, False):
+        if exact:
+            vals = torch.from_numpy(rng.integers(-8, 9, (n, width)))
+            x = torch.from_numpy(rng.integers(-8, 9, m))
+        else:
+            vals = torch.from_numpy(rng.standard_normal((n, width)))
+            x = torch.from_numpy(rng.standard_normal(m))
+        vals, x = vals.to(vdt).to(card), x.to(vdt).to(card)
+        before = spmv.launches
+        y = spmv.ell_spmv(vals, cols.to(card), x)
+        assert spmv.launches == before + 1 and y.shape == (n,)
+        want = spmv.ell_matvec(vals, cols.to(card), x)
+        if exact:
+            assert torch.equal(y, want)
+        else:
+            rtol, atol, _ = _TOL[vdt]
+            assert float((y - want).abs().max()) <= atol + rtol * float(
+                want.abs().max())
+
+
+@pytest.mark.parametrize("fmt,dtype", [("auto", np.float64),
+                                       ("dia", np.float32),
+                                       ("ell", np.float64)])
+def test_cg_dist_rdma_equals_ppermute_on_the_card(card, fmt, dtype):
+    """Four shards on the one card: the put+signal halo gives the
+    ppermute halo's x bit for bit, launching once per exchange; the CPU
+    solve agrees within the tolerances of one device."""
+    from acg_torch.parallel import rdma_halo
+    from acg_torch.solvers.cg_dist import build_sharded, cg_dist
+
+    A = poisson.poisson3d_7pt(12)
+    rng = np.random.default_rng(4)
+    b = A.matvec(rng.standard_normal(A.nrows)).astype(dtype)
+    rtol = 1e-5 if dtype == np.float32 else 1e-10
+    o = SolverOptions(maxits=1000, residual_rtol=rtol)
+    ss = build_sharded(A, nparts=4, devices=[card] * 4, dtype=dtype,
+                       fmt=fmt)
+    out = {}
+    for m in ("ppermute", "allgather", "rdma"):
+        before = rdma_halo.launches
+        out[m] = cg_dist(ss.with_halo(m), b, options=o)
+        n = rdma_halo.launches - before
+        assert n == (out[m].niterations + 1 if m == "rdma" else 0)
+        assert out[m].kernel.startswith("cuda-") and \
+            out[m].kernel.endswith("+" + m)
+    for m in ("allgather", "rdma"):
+        assert out[m].niterations == out["ppermute"].niterations
+        assert np.array_equal(out[m].x, out["ppermute"].x)
+    host = cg_dist(A, b, options=o, nparts=4, devices=["cpu"] * 4,
+                   dtype=dtype, fmt=fmt)
+    assert abs(host.niterations - out["rdma"].niterations) <= (
+        1 if dtype == np.float32 else 0)
+    x = out["rdma"].x.astype(np.float64)
+    assert np.linalg.norm(b - A.matvec(x)) <= 10 * rtol * np.linalg.norm(b)
+
+
+def test_rdma_and_cg_dist_across_cards(card):
+    """Shards spread over the visible cards: the puts go through
+    peer-mapped addresses; the delivery equals the plain version, and a
+    solve gives the one-card layout's bits."""
+    from acg_torch.parallel import rdma_halo
+    from acg_torch.solvers.cg_dist import build_sharded, cg_dist
+
+    n_dev = torch.cuda.device_count()
+    if n_dev < 2:
+        pytest.skip("needs two or more cards")
+    devs = [torch.device("cuda", i % n_dev) for i in range(4)]
+    partner = _partner_table(4, 3, seed=11)
+    state = rdma_halo.RdmaState(partner, 5000, torch.float64, devs)
+    gen = np.random.default_rng(12)
+    for _ in range(3):
+        send = [torch.from_numpy(gen.standard_normal((3, 5000))).to(d)
+                for d in devs]
+        got = [o.clone() for o in
+               rdma_halo.rdma_exchange(send, partner, state)]
+        for d in dict.fromkeys(devs):
+            torch.cuda.synchronize(d)
+        want = rdma_halo.rdma_exchange_plain(send, partner)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    A = poisson.poisson3d_7pt(12)
+    b = A.matvec(np.random.default_rng(4).standard_normal(A.nrows))
+    o = SolverOptions(maxits=1000, residual_rtol=1e-10)
+    one = cg_dist(A, b, options=o, nparts=4, devices=[card] * 4,
+                  method="rdma")
+    for m in ("rdma", "ppermute", "allgather"):
+        many = cg_dist(A, b, options=o, nparts=4, devices=devs, method=m)
+        assert many.niterations == one.niterations, m
+        assert np.array_equal(many.x, one.x), m
