@@ -52,9 +52,9 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library for ``csrc/<name>.cu`` lives, keyed by a hash of
-    that source, the shared header and the compiler flags."""
+    that source, the shared headers and the compiler flags."""
     h = hashlib.sha256()
-    for p in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for p in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

@@ -5,7 +5,7 @@ The port of ``acg_tpu/ops/sgell.py``: the host pack (:func:`pack_sgell`,
 (:class:`DeviceSgell`); the tier gates; and the TPU kernel
 ``sgell_matvec_pallas``, whose counterpart here is :func:`sgell_spmv`
 (``acg_torch/csrc/sgell_spmv.cu`` on a CUDA tensor, the plain PyTorch
-:func:`sgell_matvec` on a CPU tensor; a CUDA call that cannot launch
+``sliced_matvec`` on a CPU tensor; a CUDA call that cannot launch
 raises).
 
 The layout, as the JAX package packs it:
@@ -25,16 +25,19 @@ Efficiency is ``nnz / (S * 1024)``, the **fill**: high for a matrix whose
 uniformly random sparsity, where ``build_device_sgell`` declines the tier
 below :data:`MIN_FILL`.
 
-On the card the TPU's slot-ordered grid becomes one block per tile that
-walks the tile's slots, whose range it reads from ``tile_start`` (made
-once at build time from ``first``); each row is summed in registers in
-slot order and written once.  Lane indices are stored as int8 (all are
-below 128), a quarter of the int32 stream.
+The pack is the TPU's layout, and the fill is what the TPU kernel
+streams.  The card's kernel streams only the stored entries:
+:func:`slice_pack` cuts the pack once, at upload, into the sliced layout
+of ``ops/sliced.py``, whose rows keep their slot order, and only that
+layout stays on the device.  The operator keeps the pack on the host
+(lane indices as int8, a quarter of the int32 stream), where the plain
+:func:`sgell_matvec` anchors parity with the JAX package.
+The kernel sums each row over it in that order, a product then a sum,
+so its y has the bits of :func:`sgell_matvec` on the pack.
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import numpy as np
@@ -42,8 +45,8 @@ import torch
 
 from acg_torch.errors import AcgError, Status
 from acg_torch.ops.blas1 import batched_dot
+from acg_torch.ops import sliced
 from acg_torch.ops.dia import resolve_mat_dtype, torch_dtype
-from acg_torch.utils.backend import kernel_device
 from acg_torch.utils.timing import host_step
 
 LANES = 128
@@ -56,9 +59,7 @@ MIN_FILL = 0.02
 # kernel launches so far (the wrapper adds one per launch, nowhere else)
 launches = 0
 
-THREADS = 256                # acg::kThreads in csrc/common.cuh
-
-_VAL_CODES = {torch.bfloat16: 0, torch.float32: 2}
+_VAL_DTYPES = (torch.bfloat16, torch.float32)
 
 _lib = None
 
@@ -181,78 +182,58 @@ def sgell_matvec(vals: torch.Tensor, idx: torch.Tensor, seg: torch.Tensor,
     return y.view(-1)
 
 
+def slice_pack(vals: torch.Tensor, idx: torch.Tensor, seg: torch.Tensor,
+               tile_start: torch.Tensor,
+               sigma: int = sliced.SIGMA) -> sliced.SlicedEll:
+    """The sliced layout of a device pack (``vals`` (S*8, 128), ``idx``
+    (S*8, 128), ``seg`` (S, 8), ``tile_start``): row ``t * 1024 + s * 128
+    + l`` of slot k takes column ``seg[k, s] * 128 + idx[k, s, l]``, each
+    row's entries in slot order.  Slot positions holding no entry (value
+    0) are dropped: one added ±0 to a row sum that is never -0 (sums start
+    at +0, and +0 + -0 is +0), so for finite x the product keeps every bit
+    of :func:`sgell_matvec` on the pack."""
+    dev = vals.device
+    ntiles = tile_start.numel() - 1
+    tile = torch.repeat_interleave(
+        torch.arange(ntiles, device=dev),
+        (tile_start[1:] - tile_start[:-1]).long())
+    keep = torch.nonzero(vals.reshape(-1) != 0).squeeze(1)
+    slot, e = keep // TILE, keep % TILE
+    cols = (seg.reshape(-1)[slot * SUBL + e // LANES].long() * LANES
+            + idx.reshape(-1)[keep].long())
+    n = ntiles * TILE
+    return sliced.slice_entries(tile[slot] * TILE + e, cols,
+                                vals.reshape(-1)[keep], n, n, sigma)
+
+
 def _load():
     global _lib
     if _lib is None:
         from acg_torch import _build
 
         lib = _build.load("sgell_spmv")
-        lib.acg_sgell_spmv.restype = ctypes.c_int
-        lib.acg_sgell_spmv.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_void_p]
+        lib.acg_sgell_spmv.restype, lib.acg_sgell_spmv.argtypes = (
+            sliced.c_signature())
         _lib = lib
     return _lib
 
 
-def _check(vals, idx, seg, tile_start, x):
-    def bad(msg):
-        raise AcgError(Status.ERR_INVALID_VALUE, f"sgell_spmv: {msg}")
-
-    if x.dtype != torch.float32:
-        bad(f"vector dtype {x.dtype} (float32 only, as the JAX tier)")
-    if vals.dtype not in _VAL_CODES:
-        bad(f"value dtype {vals.dtype} (bfloat16|float32)")
-    if idx.dtype != torch.int8:
-        bad(f"lane index dtype {idx.dtype} (int8)")
-    if seg.dtype != torch.int32 or tile_start.dtype != torch.int32:
-        bad("seg and tile_start must be int32")
-    S = seg.shape[0] if seg.dim() == 2 else -1
-    ntiles = tile_start.numel() - 1
-    if (seg.dim() != 2 or seg.shape[1] != SUBL or S < 1
-            or vals.shape != (S * SUBL, LANES) or idx.shape != vals.shape
-            or tile_start.dim() != 1 or ntiles < 1 or x.dim() != 1
-            or x.shape[0] != ntiles * TILE):
-        bad(f"shapes vals {tuple(vals.shape)}, idx {tuple(idx.shape)}, "
-            f"seg {tuple(seg.shape)}, tile_start {tuple(tile_start.shape)}"
-            f", x {tuple(x.shape)}: want (S*8, 128) twice, (S, 8), "
-            "(ntiles+1,) and (ntiles*1024,)")
-    for t in (vals, idx, seg, tile_start, x):
-        if t.device != x.device:
-            bad("all operands must be on the vector's device")
-        if not t.is_contiguous():
-            bad("operands must be contiguous")
-
-
-def sgell_spmv(vals: torch.Tensor, idx: torch.Tensor, seg: torch.Tensor,
-               tile_start: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """y = SGELL @ x for one system.
-
-    ``vals``: (S*8, 128) f32 or bf16; ``idx``: (S*8, 128) int8 lane
-    indices; ``seg``: (S, 8) int32; ``tile_start``: (ntiles + 1,)
-    int32 (:func:`tile_starts`); ``x``: (ntiles * 1024,) f32.  CUDA
-    tensors launch the kernel (one block per tile, each row summed in slot
-    order, no atomics: the bits of :func:`sgell_matvec`); CPU tensors take
-    :func:`sgell_matvec`."""
+def sgell_spmv(op: sliced.SlicedEll, x: torch.Tensor) -> torch.Tensor:
+    """y = A x for one system, ``op`` the sliced layout of an sgell pack
+    (:func:`slice_pack`), ``x`` (ncols,) f32, values f32 or bf16.  CUDA
+    tensors launch the kernel of ``csrc/sgell_spmv.cu`` (a warp a slice, a
+    thread a row, each row a product then a sum per entry in slot order,
+    no atomics: the bits of :func:`sgell_matvec` on the pack); CPU tensors
+    take :func:`~acg_torch.ops.sliced.sliced_matvec`."""
     global launches
     if x.device.type == "cpu":
-        return sgell_matvec(vals, idx, seg, tile_start, x)
+        return sliced.sliced_matvec(op, x)
     if x.device.type != "cuda":
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        f"sgell_spmv: no kernel for device {x.device}")
-    _check(vals, idx, seg, tile_start, x)
-    lib = _load()
-    y = torch.empty_like(x)
-    with kernel_device(x):
-        rc = lib.acg_sgell_spmv(
-            vals.data_ptr(), _VAL_CODES[vals.dtype], idx.data_ptr(),
-            seg.data_ptr(), tile_start.data_ptr(),
-            x.data_ptr(), y.data_ptr(), tile_start.numel() - 1,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise AcgError(Status.ERR_NOT_SUPPORTED,
-                       f"sgell_spmv: kernel launch failed (CUDA error {rc})")
+    sliced.check_operands("sgell_spmv", op, x, (torch.float32,),
+                          _VAL_DTYPES)
+    y = sliced.launch("sgell_spmv", _load().acg_sgell_spmv, op, x)
     launches += 1
     return y
 
@@ -260,16 +241,18 @@ def sgell_spmv(vals: torch.Tensor, idx: torch.Tensor, seg: torch.Tensor,
 @dataclasses.dataclass(frozen=True)
 class DeviceSgell:
     """Device-resident segmented-gather ELL operator
-    (``acg_tpu.ops.sgell.DeviceSgell``): the JAX package's values, lane
-    indices (stored as int8) and segments, with ``tile_start``, the slot
-    range of each tile, in place of its per-slot ``tile`` and ``first``
-    (made from them on the host; no device code reads them).  Built by
+    (``acg_tpu.ops.sgell.DeviceSgell``): ``sliced``, the layout the
+    kernel reads (:func:`slice_pack`), on the device; and on the host the
+    pack it was cut from, the JAX package's values, lane indices (stored
+    as int8) and segments, with ``tile_start``, the slot range of each
+    tile, in place of its per-slot ``tile`` and ``first``.  Built by
     :func:`build_device_sgell`."""
 
     vals: torch.Tensor
     idx: torch.Tensor
     seg: torch.Tensor
     tile_start: torch.Tensor
+    sliced: sliced.SlicedEll
     S: int
     ntiles: int
     nrows: int
@@ -279,7 +262,7 @@ class DeviceSgell:
 
     @property
     def device(self) -> torch.device:
-        return self.vals.device
+        return self.sliced.device
 
     @property
     def nrows_padded(self) -> int:
@@ -294,9 +277,14 @@ class DeviceSgell:
         return self.nnz / (self.S * TILE)
 
     def operator_stream_bytes(self) -> int:
-        """Bytes of the operator stream per SpMV: the packed values and
-        lane indices at their storage widths, the segment ids and the tile
-        table, each read once."""
+        """Bytes of the operator stream per SpMV: the sliced layout's."""
+        return self.sliced.stream_bytes()
+
+    def padded_bytes(self) -> int:
+        """Bytes of the pack as the TPU kernel streams it (the JAX
+        package's ``operator_stream_bytes``, with int8 lane indices): the
+        values and lane indices of every slot, the segment ids and the
+        tile table."""
         return sum(a.numel() * a.element_size()
                    for a in (self.vals, self.idx, self.seg, self.tile_start))
 
@@ -305,7 +293,7 @@ class DeviceSgell:
         as the JAX package's ``vmap`` does."""
         if x.dim() == 2:
             return torch.stack([self.matvec(xi) for xi in x])
-        return sgell_spmv(self.vals, self.idx, self.seg, self.tile_start, x)
+        return sgell_spmv(self.sliced, x)
 
     def matvec_dot(self, x: torch.Tensor):
         """(A x, <x, A x>), per system for a (B, n) batch: the SpMV, then
@@ -335,8 +323,8 @@ def build_device_sgell(A, dtype=None, mat_dtype="auto",
                        timings: dict | None = None) -> DeviceSgell | None:
     """Pack a CsrMatrix and upload the operator, or None when the tier
     does not apply (vector dtype unsupported, fill below ``min_fill``).
-    ``timings`` gathers the host seconds of steps ``"pack"`` and
-    ``"upload"``."""
+    ``timings`` gathers the host seconds of steps ``"pack"``,
+    ``"upload"`` and ``"slice"``."""
     from acg_torch.utils.backend import resolve_device
 
     dev = resolve_device(device)
@@ -348,25 +336,30 @@ def build_device_sgell(A, dtype=None, mat_dtype="auto",
     if packed["vals"] is None:
         return None
     mdt = resolve_mat_dtype(packed["vals"], mat_dtype, vdt)
-    with host_step(timings, "upload"):
-        return device_sgell_from_pack(packed, A.nrows, A.ncols, A.nnz, vdt,
-                                      mdt, dev)
+    return device_sgell_from_pack(packed, A.nrows, A.ncols, A.nnz, vdt, mdt,
+                                  dev, timings=timings)
 
 
 def device_sgell_from_pack(packed: dict, nrows: int, ncols: int, nnz: int,
                            vec_dtype, mat_dtype: torch.dtype,
-                           device: torch.device) -> DeviceSgell:
+                           device: torch.device,
+                           timings: dict | None = None) -> DeviceSgell:
     """Upload a :func:`pack_sgell` result, its values stored at
-    ``mat_dtype``."""
-    def up(a, dt=None):
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        return (t if dt is None else t.to(dt)).to(device)
-
+    ``mat_dtype``, and slice it on the device (:func:`slice_pack`); the
+    pack itself stays on the host.  ``timings`` gathers the host seconds
+    of steps ``"upload"`` and ``"slice"``."""
+    vals = torch.from_numpy(np.ascontiguousarray(packed["vals"])).to(
+        mat_dtype)
+    idx = torch.from_numpy(packed["idx"].astype(np.int8))
+    seg = torch.from_numpy(np.ascontiguousarray(packed["seg"]))
+    tile_start = torch.from_numpy(tile_starts(packed["first"]))
+    with host_step(timings, "upload"):
+        on_dev = [a.to(device) for a in (vals, idx, seg, tile_start)]
+    with host_step(timings, "slice"):
+        op = slice_pack(*on_dev)
+    del on_dev
     return DeviceSgell(
-        vals=up(packed["vals"], mat_dtype),
-        idx=up(packed["idx"].astype(np.int8)),
-        seg=up(packed["seg"]),
-        tile_start=up(tile_starts(packed["first"])),
+        vals=vals, idx=idx, seg=seg, tile_start=tile_start, sliced=op,
         S=packed["S"], ntiles=packed["ntiles"], nrows=int(nrows),
         ncols=int(ncols), nnz=int(nnz),
         vec_dtype=str(torch_dtype(vec_dtype)).removeprefix("torch."))

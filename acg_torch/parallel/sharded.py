@@ -15,9 +15,10 @@ global order.  Per shard:
   segmented-gather ELL of the RCM-relabelled parts at f32, else padded
   ELL (:func:`resolve_local_fmt`);
 - the interface operator ``A_iface`` (owned rows × ghost slots) is
-  padded ELL over the shard's border rows only (those with an interface
-  entry), applied by the rectangular ``ell_spmv`` and added into those
-  rows; its columns are checked against the ghost count here, once.  The
+  the sliced layout (``ops/sliced.py``) of the padded ELL over the
+  shard's border rows only (those with an interface entry), applied by
+  the rectangular ``ell_spmv`` and added into those rows; its columns
+  are checked against the ghost count when it is sliced, once.  The
   JAX package's uniform SPMD layout keeps a zero interface row for every
   owned row, which on one card streams the whole shard a second time per
   SpMV for a surface's worth of entries;
@@ -43,6 +44,7 @@ from acg_torch.ops.dia import (DeviceDia, DiaMatrix, lossless_cast,
 from acg_torch.ops.sgell import (MIN_FILL, TILE, device_sgell_from_pack,
                                  pack_csr, sgell_require_available,
                                  sgell_supported)
+from acg_torch.ops.sliced import slice_ell
 from acg_torch.ops.spmv import DeviceEll, ell_spmv
 from acg_torch.ops.stencil import DeviceStencil, recognize_stencil
 from acg_torch.parallel.halo import (HaloTables, ShardTables,
@@ -259,7 +261,7 @@ class ShardedSystem:
     ps: PartitionedSystem
     local_fmt: str                  # "stencil" | "dia" | "sgell" | "ell"
     local_ops: tuple                # per shard: a single-device operator
-    iface: tuple                    # per shard: (vals, cols, rows) or None
+    iface: tuple                    # per shard: (SlicedEll, rows) or None
     halo: HaloTables
     tables: ShardTables
     method: HaloMethod
@@ -286,7 +288,10 @@ class ShardedSystem:
         stencil spec, the DIA offsets, the sgell packs, or None for ELL).
         ``forced`` records that a caller forced the format (the solve
         report's note).  ``timings`` gathers the host seconds of
-        ``halo_tables`` and ``shards`` (build and upload)."""
+        ``halo_tables`` and ``shards`` (build and upload), and of the
+        parts of ``shards`` spent uploading (``upload``: the sgell and
+        ELL shards) and slicing (``slice``: those and the interface
+        operators) on the devices."""
         vdt = np.dtype(dtype if dtype is not None else np.float64)
         method = HaloMethod(method)
         if fmt not in ("stencil", "dia", "sgell", "ell") or (
@@ -303,9 +308,9 @@ class ShardedSystem:
             st = shard_tables(tables, ps, devs)
         with host_step(timings, "shards"):
             ops, mdt = _local_operators(ps, devs, fmt, vdt, mat_dtype,
-                                        extra)
+                                        extra, timings)
             iface = _iface_operators(ps, devs, vdt, mat_dtype,
-                                     mdt if fmt == "ell" else None)
+                                     mdt if fmt == "ell" else None, timings)
         ss = cls(devices=devs, ps=ps, local_fmt=fmt, local_ops=tuple(ops),
                  iface=tuple(iface), halo=tables, tables=st,
                  method=HaloMethod.PPERMUTE,
@@ -378,8 +383,8 @@ class ShardedSystem:
         for a shard without ghosts."""
         if self.iface[i] is None:
             return None
-        vals, cols, rows = self.iface[i]
-        t = ell_spmv(vals, cols, ghosts)
+        op, rows = self.iface[i]
+        t = ell_spmv(op, ghosts)
         y.index_add_(0, rows, t)        # rows are distinct: one add each
         return rows, t
 
@@ -395,9 +400,10 @@ class ShardedSystem:
         return out
 
 
-def _local_operators(ps, devs, fmt, vdt, mat_dtype, extra):
+def _local_operators(ps, devs, fmt, vdt, mat_dtype, extra, timings=None):
     """(per-shard local operators, their storage dtype); ``extra`` as
-    :meth:`ShardedSystem.build` takes it."""
+    :meth:`ShardedSystem.build` takes it; ``timings`` gathers the seconds
+    of the sgell and ELL shards' steps ``"upload"`` and ``"slice"``."""
     tdt = torch_dtype(vdt)
     if fmt == "stencil":
         return [DeviceStencil.from_spec(extra, dtype=vdt, device=d)
@@ -406,7 +412,7 @@ def _local_operators(ps, devs, fmt, vdt, mat_dtype, extra):
         vstack = np.concatenate([pk["vals"].reshape(-1) for pk in extra])
         mdt = resolve_mat_dtype(vstack, mat_dtype, vdt)
         return [device_sgell_from_pack(pk, p.nown, p.nown, p.A_local.nnz,
-                                       vdt, mdt, d)
+                                       vdt, mdt, d, timings=timings)
                 for pk, p, d in zip(extra, ps.parts, devs)], mdt
     if fmt == "dia":
         offs = np.asarray(extra, dtype=np.int64)
@@ -452,7 +458,7 @@ def _local_operators(ps, devs, fmt, vdt, mat_dtype, extra):
         + [p.A_iface.vals for p in ps.parts]), mat_dtype, vdt)
     return [DeviceEll.from_ell(E, dtype=vdt,
                                mat_dtype=None if mdt == tdt else mdt,
-                               device=d)
+                               device=d, timings=timings)
             for E, d in zip(Es, devs)], mdt
 
 
@@ -469,12 +475,15 @@ def border_rows(A_iface):
                            A_iface.colidx, A_iface.vals)
 
 
-def _iface_operators(ps, devs, vdt, mat_dtype, mdt=None) -> list:
-    """Per shard (vals, cols, rows) of the padded-ELL interface operator
-    over its ghost slots, cut to its border rows (``rows``, int64), or
-    None for a shard without ghosts.  Values narrow by their own lossless
-    test (``mdt`` forces the local tier's choice); every column is
-    checked below the shard's ghost count here, once."""
+def _iface_operators(ps, devs, vdt, mat_dtype, mdt=None,
+                     timings=None) -> list:
+    """Per shard (op, rows): the interface operator over its ghost slots,
+    cut to its border rows (``rows``, int64), as the sliced layout of its
+    padded ELL (``op``), or None for a shard without ghosts.  Values
+    narrow by their own lossless test (``mdt`` forces the local tier's
+    choice); slicing checks every column below the shard's ghost count,
+    once (ERR_INDEX_OUT_OF_BOUNDS); ``timings`` gathers the seconds of
+    step ``"slice"``."""
     if mdt is None:
         allv = np.concatenate([p.A_iface.vals for p in ps.parts]) \
             if ps.parts else np.empty(0)
@@ -486,14 +495,11 @@ def _iface_operators(ps, devs, vdt, mat_dtype, mdt=None) -> list:
             continue
         rows, B = border_rows(p.A_iface)
         E = EllMatrix.from_csr(B, row_align=1)
-        if E.colidx.size and (E.colidx.min() < 0
-                              or E.colidx.max() >= p.nghost):
-            raise AcgError(Status.ERR_INDEX_OUT_OF_BOUNDS,
-                           f"part {p.part}: interface columns outside its "
-                           f"{p.nghost} ghost slots")
         vals = torch.from_numpy(np.ascontiguousarray(
             E.vals.astype(vdt))).to(mdt).to(d)
         cols = torch.from_numpy(np.ascontiguousarray(
             E.colidx, dtype=np.int32)).to(d)
-        out.append((vals, cols, torch.from_numpy(rows).to(d)))
+        with host_step(timings, "slice"):
+            op = slice_ell(vals, cols, p.nghost)
+        out.append((op, torch.from_numpy(rows).to(d)))
     return out

@@ -91,7 +91,8 @@ def build_device_operator(A, dtype=None, fmt: str = "auto",
     DiaMatrix always gives DIA (or the stencil), an EllMatrix always ELL.
     ``mat_dtype`` sets the operator's storage precision.  ``timings``
     gathers the host seconds of the build's steps (``rcm``, ``permute``,
-    ``dia_check``, ``dia_build``, ``pack``, ``ell_build``, ``upload``)."""
+    ``dia_check``, ``dia_build``, ``pack``, ``ell_build``, ``upload``,
+    ``slice``)."""
     if isinstance(A, (DeviceDia, DeviceStencil, DeviceEll, DeviceSgell,
                       PermutedOperator)):
         return A

@@ -13,7 +13,9 @@ raises and the script exits non-zero:
               and its operators through build_device_operator(fmt="auto"),
               built once for every later phase (f32: RCM + sgell; f64:
               ELL), with the host seconds of mesh generation, RCM,
-              permutation, pack / ELL build and upload;
+              permutation, pack / ELL build, upload and slice (the
+              sliced layout the kernels read, cut on the card), and
+              what each layout streams against the stored entries;
    p3d-464    set-up of the north star: 7-point Poisson on 464^3
               (99,897,344 unknowns) in band form through fmt="dia" (bf16
               bands, f32 vectors), planned past the card's L2 onto the
@@ -37,14 +39,19 @@ raises and the script exits non-zero:
               with their padding rows checked exactly zero and beside the
               open-coded body (SpMV kernel, torch updates and dots),
               as no single library call computes a pipelined iteration;
-              sgell_spmv and ell_spmv on the fem3d-1m operators (ELL also
-              at f32) and, with bf16 values, on a randomly permuted 64^3
-              Poisson operator, beside cuSPARSE CSR x on the same matrix
-              in the same ordering; the HBM tier: dia_spmv_windows at
-              256^3 (bf16/f32, int8/f32, f64/f64) and 464^3 (bf16 bands,
-              f32 and f64 vectors), dia_spmv_ring on 10,000^2 (bf16/f32,
-              f64/f64), each with y bit-equal to dia_spmv and timed beside
-              dia_spmv and cuSPARSE CSR x on the same operator, and
+              sgell_spmv and ell_spmv on the sliced layouts of the
+              fem3d-1m operators (ELL also at f32, and at f32 on the RCM
+              ordering sgell runs on) and, with bf16 values, of a randomly
+              permuted 64^3 Poisson operator, sgell bit for bit against
+              sgell_matvec on the pack, ELL against ell_matvec on the
+              rectangle and bit for bit against sliced_matvec, each beside
+              cuSPARSE CSR x on the same matrix in the same ordering and
+              a bound counting the stored entries; the HBM tier:
+              dia_spmv_windows at 256^3 (bf16/f32, int8/f32, f64/f64)
+              and 464^3 (bf16 bands, f32 and f64 vectors),
+              dia_spmv_ring on 10,000^2 (bf16/f32, f64/f64), each with y
+              bit-equal to dia_spmv and timed beside dia_spmv and
+              cuSPARSE CSR x on the same operator, and
               dia_spmv at bench.py's 128^3 (its resident path); the
               distributed path's kernels at its shapes: stencil_spmv on
               a 256x128x128 shard, ell_spmv on a shard's interface
@@ -1227,7 +1234,8 @@ def _fem_setup(points: int, ctx):
     operators through ``build_device_operator(fmt="auto")``, built once
     for every later phase: f32 (RCM, then the sgell pack of the permuted
     matrix) and f64 (RCM, then padded ELL on the original ordering).  The
-    host seconds of each step are reported."""
+    host seconds of each step, and the card memory each operator holds
+    once built, are reported."""
     import numpy as np
     import torch
 
@@ -1240,14 +1248,16 @@ def _fem_setup(points: int, ctx):
     t0 = time.perf_counter()
     A = fem_delaunay_spd(points, dim=3, seed=0, shuffle=True)
     gen_s = time.perf_counter() - t0
-    steps, ops = {}, {}
+    steps, ops, held = {}, {}, {}
     for label, vdt in (("f32", np.float32), ("f64", np.float64)):
         steps[label] = {}
+        before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         ops[label] = build_device_operator(A, dtype=vdt, fmt="auto",
                                            timings=steps[label])
         torch.cuda.synchronize()
         steps[label]["total"] = time.perf_counter() - t0
+        held[label] = torch.cuda.memory_allocated() - before
     op32, op64 = ops["f32"], ops["f64"]
     if not (isinstance(op32, PermutedOperator)
             and isinstance(op32.dev, DeviceSgell)
@@ -1264,15 +1274,41 @@ def _fem_setup(points: int, ctx):
             "max_row_entries": int(A.rowlens.max()),
             "host_seconds": {"mesh_generation": gen_s, **steps},
             "setup_seconds": gen_s + sum(v["total"] for v in steps.values()),
+            "device_bytes_held": held,
             "sgell": {"S": sg.S, "ntiles": sg.ntiles, "fill": sg.fill,
                       "slots_per_tile": {"mean": float(per_tile.mean()),
                                          "max": int(per_tile.max())},
                       "values": str(sg.vals.dtype)[6:],
                       "lane_indices": str(sg.idx.dtype)[6:],
-                      "operator_bytes": sg.operator_stream_bytes()},
+                      "padded_bytes": sg.padded_bytes(),
+                      "sliced": _layout(sg.sliced, 4, "sgell_spmv")},
             "ell": {"nrows_padded": op64.nrows_padded, "width": op64.width,
                     "values": str(op64.vals.dtype)[6:],
-                    "operator_bytes": op64.operator_stream_bytes()}}
+                    "padded_bytes": op64.padded_bytes(),
+                    "sliced": _layout(op64.sliced, 8, "ell_spmv")}}
+
+
+def _layout(op, vec_bytes: int, kernel: str) -> dict:
+    """What a sliced operator streams (values, columns, slice offsets and
+    row order) against the work's bytes: stored entries x (value + 4)
+    plus x and y at ``vec_bytes`` an entry; with the unroll the library
+    of ``kernel`` was built with."""
+    from acg_torch.ops import sliced
+
+    work = _work_bytes(op, vec_bytes)
+    return {"stored_entries": op.nnz, "layout_fill": op.fill,
+            "sigma": op.sigma,
+            "unroll": sliced.unroll(kernel), "slices": op.nslices,
+            "stream_bytes": op.stream_bytes(), "work_bytes": work,
+            "stream_over_entries": op.stream_bytes()
+            / (op.nnz * (op.vals.element_size() + 4))}
+
+
+def _work_bytes(op, vec_bytes: int) -> int:
+    """The least bytes a sliced product moves: each stored value and int32
+    column once, x (ncols) read once and y (nrows) written once."""
+    return (op.nnz * (op.vals.element_size() + 4)
+            + (op.ncols + op.nrows) * vec_bytes)
 
 
 def _torch_csr(A, dtype):
@@ -1301,76 +1337,92 @@ def _padded_x(n, npad, dtype, seed):
 
 
 def _sgell_check(dev, A, tier, ctx):
-    """``sgell_spmv`` on ``dev`` against its plain version (1e-5 of
-    max|y|, bits reported), timed beside cuSPARSE CSR x on ``A``, the same
-    matrix in the same ordering."""
+    """``sgell_spmv`` on ``dev``'s sliced layout against its plain version
+    on the pack (uploaded from the host for this check),
+    ``sgell_matvec``: bit for bit (and so within 1e-5 of max|y|), timed
+    beside cuSPARSE CSR x on ``A``, the same matrix in the same ordering.
+    The bound counts the stored entries, not the pack."""
     import torch
 
     from acg_torch.ops.sgell import sgell_matvec, sgell_spmv
+    from acg_torch.ops.sliced import sliced_matvec
 
-    n = dev.nrows
+    n, op = dev.nrows, dev.sliced
     x = _padded_x(n, dev.nrows_padded, torch.float32, 5)
     Acsr = _torch_csr(A, torch.float32)
+    pack = [a.to(x.device) for a in (dev.vals, dev.idx, dev.seg,
+                                     dev.tile_start)]
 
     def run():
-        return sgell_spmv(dev.vals, dev.idx, dev.seg, dev.tile_start, x)
+        return sgell_spmv(op, x)
 
     def plain():
-        return sgell_matvec(dev.vals, dev.idx, dev.seg, dev.tile_start, x)
+        return sgell_matvec(*pack, x)
 
     def bits(row):
-        row["bits_equal_plain"] = bool(torch.equal(run(), plain()))
-        row["library_max_abs_err"] = float(
-            (Acsr @ x[:n] - run()[:n]).abs().max())
-        return True
+        y = run()
+        row["bits_equal_plain"] = bool(torch.equal(y, plain()))
+        row["bits_equal_sliced_matvec"] = bool(torch.equal(
+            y, sliced_matvec(op, x)))
+        row["library_max_abs_err"] = float((Acsr @ x[:n] - y[:n]).abs().max())
+        return row["bits_equal_plain"] and row["bits_equal_sliced_matvec"]
 
     _check_kernel({"name": "sgell_spmv", "tier": tier, "S": dev.S,
                    "fill": dev.fill, "values": str(dev.vals.dtype)[6:],
-                   "lane_indices": str(dev.idx.dtype)[6:]},
-                  run, plain, x, ctx,
-                  dev.operator_stream_bytes() + 2 * dev.nrows_padded * 4,
-                  2 * dev.nnz, lambda: Acsr @ x[:n], extra=bits,
-                  tol=(1e-5, 0.0, None))
+                   "padded_bytes": dev.padded_bytes(),
+                   **_layout(op, 4, "sgell_spmv")},
+                  run, plain, x, ctx, _work_bytes(op, 4), 2 * op.nnz,
+                  lambda: Acsr @ x[:n], extra=bits, tol=(1e-5, 0.0, None))
 
 
 def _ell_check(dev, A, tier, ctx):
-    """``ell_spmv`` on ``dev`` against its plain version (1e-5 of max|y|
-    at f32, 1e-13 at f64), timed beside cuSPARSE CSR x on ``A``."""
+    """``ell_spmv`` on ``dev``'s sliced layout against its plain version
+    on the rectangle (uploaded from the host for this check),
+    ``ell_matvec`` (1e-5 of max|y| at f32, 1e-13 at f64), and bit for bit
+    against ``sliced_matvec`` (each row summed in lane order), timed
+    beside cuSPARSE CSR x on ``A``."""
     import torch
 
+    from acg_torch.ops.sliced import sliced_matvec
     from acg_torch.ops.spmv import ell_matvec, ell_spmv
 
     vdt = getattr(torch, dev.vec_dtype)
-    n = dev.nrows
+    n, op = dev.nrows, dev.sliced
     x = _padded_x(n, dev.nrows_padded, vdt, 6)
     Acsr = _torch_csr(A, vdt)
+    vals, cols = dev.vals.to(x.device), dev.colidx.to(x.device)
 
     def run():
-        return ell_spmv(dev.vals, dev.colidx, x)
+        return ell_spmv(op, x)
 
     def plain():
-        return ell_matvec(dev.vals, dev.colidx, x)
+        return ell_matvec(vals, cols, x)
 
-    def lib_err(row):
-        row["library_max_abs_err"] = float(
-            (Acsr @ x[:n] - run()[:n]).abs().max())
-        return True
+    def bits(row):
+        y = run()
+        row["bits_equal_sliced_matvec"] = bool(torch.equal(
+            y, sliced_matvec(op, x)))
+        row["library_max_abs_err"] = float((Acsr @ x[:n] - y[:n]).abs().max())
+        return row["bits_equal_sliced_matvec"]
 
+    word = x.element_size()
     _check_kernel({"name": "ell_spmv", "tier": tier, "width": dev.width,
-                   "values": str(dev.vals.dtype)[6:]},
-                  run, plain, x, ctx,
-                  dev.vals.numel() * (dev.mat_itemsize + 4)
-                  + 2 * dev.nrows_padded * x.element_size(),
-                  2 * dev.nnz, lambda: Acsr @ x[:n], extra=lib_err,
+                   "values": str(dev.vals.dtype)[6:],
+                   "padded_bytes": dev.padded_bytes(),
+                   **_layout(op, word, "ell_spmv")},
+                  run, plain, x, ctx, _work_bytes(op, word), 2 * op.nnz,
+                  lambda: Acsr @ x[:n], extra=bits,
                   tol=(1e-5 if vdt == torch.float32 else 1e-13, 0.0, None))
 
 
 def _unstructured_kernels(ctx):
     """The two unstructured kernels: sgell_spmv on the fem3d-1m f32
-    operator (RCM ordering), ell_spmv on the fem3d-1m f64 operator and on
-    an f32 ELL build of the same matrix, and the bf16-value tiers of both
-    on a randomly permuted 64^3 Poisson operator (values bf16-exact, so
-    ``mat_dtype="auto"`` stores them as bf16)."""
+    operator (RCM ordering), ell_spmv on the fem3d-1m f64 operator, on
+    an f32 ELL build of the same matrix and on an f32 ELL build of the
+    RCM-ordered matrix that sgell_spmv runs on (the fill gate's question:
+    is sgell slower than ELL on the same matrix?), and the bf16-value
+    tiers of both on a randomly permuted 64^3 Poisson operator (values
+    bf16-exact, so ``mat_dtype="auto"`` stores them as bf16)."""
     import numpy as np
     import torch
 
@@ -1380,12 +1432,14 @@ def _unstructured_kernels(ctx):
 
     fem = ctx["fem"]
     A, op32, op64 = fem["A"], fem["op32"], fem["op64"]
-    _sgell_check(op32.dev, permute_symmetric(A, op32.perm),
-                 "f32/f32 fem3d-1m", ctx)
+    Ap = permute_symmetric(A, op32.perm)
+    _sgell_check(op32.dev, Ap, "f32/f32 fem3d-1m", ctx)
     _ell_check(op64, A, "f64/f64 fem3d-1m", ctx)
     ell32 = build_device_operator(A, dtype=np.float32, fmt="ell")
     _ell_check(ell32, A, "f32/f32 fem3d-1m", ctx)
-    del ell32
+    ell32 = build_device_operator(Ap, dtype=np.float32, fmt="ell")
+    _ell_check(ell32, Ap, "f32/f32 fem3d-1m RCM", ctx)
+    del ell32, Ap
     P = poisson3d_7pt(64)
     P = permute_symmetric(P, np.random.default_rng(0).permutation(P.nrows))
     for vdt, fmt in ((np.float32, "sgell"), (np.float32, "ell"),
@@ -2060,9 +2114,10 @@ def _dist_setup(G: int, nparts: int, ctx):
             "max_message": ss.halo.max_msg,
             "values_per_exchange": ss.halo.total_send_values,
             "ghosts_per_shard": [p.nghost for p in ps.parts],
-            "iface_width": [int(iv.shape[1]) for iv, _, _ in ss.iface],
-            "iface_rows": [int(rows.numel()) for _, _, rows in ss.iface],
-            "iface_values": str(ss.iface[0][0].dtype)[6:],
+            "iface_rows": [int(rows.numel()) for _, rows in ss.iface],
+            "iface_entries": [op.nnz for op, _ in ss.iface],
+            "iface_fill": [op.fill for op, _ in ss.iface],
+            "iface_values": str(ss.iface[0][0].vals.dtype)[6:],
             "rdma_chunks_per_slot": ss.rdma.C,
             "host_seconds": steps, "host_seconds_total": host,
             "dia_bf16_build_seconds": dia_s,
@@ -2186,28 +2241,45 @@ def _dist_kernels(ctx):
 
 def _iface_check(ss, i: int, tier: str, ctx):
     """``ell_spmv`` on shard ``i``'s interface operator (its border rows
-    over its ghost slots: a rectangle) against its plain version on the
-    same card tensors, timed beside cuSPARSE CSR on the same rows."""
+    over its ghost slots: a rectangle, sliced) against its plain version
+    on the same rows' ELL rectangle on the card (``_ell_check``'s
+    tolerances) and bit for bit against ``sliced_matvec``, timed beside
+    cuSPARSE CSR on the same rows."""
+    import numpy as np
     import torch
 
+    from acg_torch.ops.sliced import sliced_matvec
     from acg_torch.ops.spmv import ell_matvec, ell_spmv
     from acg_torch.parallel.sharded import border_rows
+    from acg_torch.sparse.ell import EllMatrix
 
     p = ss.ps.parts[i]
-    ivals, icols, _ = ss.iface[i]
+    op, _ = ss.iface[i]
     vdt = getattr(torch, ss.vec_dtype)
     m = p.nghost
-    gh = _padded_x(m, m, vdt, 8 + i).to(ivals.device)
-    lib = _torch_csr(border_rows(p.A_iface)[1], vdt)
-    rows, width = ivals.shape
+    gh = _padded_x(m, m, vdt, 8 + i).to(op.device)
+    B = border_rows(p.A_iface)[1]
+    lib = _torch_csr(B, vdt)
+    E = EllMatrix.from_csr(B, row_align=1)
+    ivals = torch.from_numpy(E.vals.astype(np.dtype(ss.vec_dtype))).to(
+        op.vals.dtype).to(op.device)
+    icols = torch.from_numpy(E.colidx.astype(np.int32)).to(op.device)
+
+    def bits(row):
+        row["bits_equal_sliced_matvec"] = bool(torch.equal(
+            ell_spmv(op, gh), sliced_matvec(op, gh)))
+        return row["bits_equal_sliced_matvec"]
+
     word = gh.element_size()
     _check_kernel({"name": "ell_spmv", "tier": tier, "with_dot": None,
-                   "shard": i, "rows": rows, "ghosts": m, "width": width,
-                   "values": str(ivals.dtype)[6:]},
-                  lambda: ell_spmv(ivals, icols, gh),
+                   "shard": i, "rows": op.nrows, "ghosts": m,
+                   "width": E.width, "values": str(op.vals.dtype)[6:],
+                   **_layout(op, word, "ell_spmv")},
+                  lambda: ell_spmv(op, gh),
                   lambda: ell_matvec(ivals, icols, gh), gh, ctx,
-                  rows * width * (ivals.element_size() + 4) + m * word
-                  + rows * word, 2 * p.A_iface.nnz, lambda: lib @ gh)
+                  _work_bytes(op, word), 2 * op.nnz, lambda: lib @ gh,
+                  extra=bits,
+                  tol=(1e-5 if vdt == torch.float32 else 1e-13, 0.0, None))
 
 
 def _poisson7_residual(G: int, x, b) -> float:
@@ -2633,7 +2705,11 @@ def _kernel_lines(ctx) -> list:
             entry["also_replaces"] = also
         for key in ("composed_ms", "nrhs", "one_system_calls_ms",
                     "per_system_bits_equal_1d", "S", "fill", "width",
-                    "bits_equal_plain", "dia_spmv_ms", "bits_equal_dia_spmv",
+                    "bits_equal_plain", "bits_equal_sliced_matvec",
+                    "stored_entries", "layout_fill", "sigma", "unroll",
+                    "stream_bytes", "work_bytes", "stream_over_entries",
+                    "padded_bytes",
+                    "dia_spmv_ms", "bits_equal_dia_spmv",
                     "plan", "P", "R", "S", "chunks_per_slot",
                     "ghosts_bit_equal_ppermute_allgather", "halo_ms",
                     "library", "grid", "rows", "ghosts"):

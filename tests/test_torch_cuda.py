@@ -429,33 +429,38 @@ def _local_csr(n, width, spread, seed=0, empty_tile=None, dtype=np.float32):
     return coo_to_csr(rows, cols, vals, n, n)
 
 
+@pytest.mark.parametrize("sigma", [1, 1024])
 @pytest.mark.parametrize("mat", [None, "bfloat16"])
 @pytest.mark.parametrize("n,width,spread,empty", [
     (1000, 5, 40, None),           # one tile, rows not a multiple of 8
     (4 * 1024, 6, 500, 2),         # an empty interior tile
     (5000, 12, 3000, None),        # many segments per sublane
 ])
-def test_sgell_spmv_matches_plain(card, n, width, spread, empty, mat):
-    from acg_torch.ops import sgell
+def test_sgell_spmv_matches_plain(card, n, width, spread, empty, mat, sigma):
+    from acg_torch.ops import sgell, sliced
 
     A = _local_csr(n, width, spread, empty_tile=empty)
     dev = sgell.build_device_sgell(A, mat_dtype=mat, min_fill=0.0,
                                    device=card)
-    idx = dev.idx
-    assert idx.dtype == torch.int8
+    assert dev.idx.dtype == torch.int8
+    # only the sliced layout lives on the card; the pack stays on the host
+    assert dev.vals.device.type == "cpu" and dev.sliced.device.type == "cuda"
+    pack = [a.to(card) for a in (dev.vals, dev.idx, dev.seg, dev.tile_start)]
+    op = sgell.slice_pack(*pack, sigma=sigma)
+    assert op.device == pack[0].device and op.nnz == dev.nnz
     x = torch.zeros(dev.nrows_padded, device=card)
     x[:n] = torch.randn(n, device=card)
     before = sgell.launches
-    y = sgell.sgell_spmv(dev.vals, idx, dev.seg, dev.tile_start, x)
+    y = sgell.sgell_spmv(op, x)
     assert sgell.launches == before + 1
-    want = sgell.sgell_matvec(dev.vals, idx, dev.seg, dev.tile_start, x)
+    want = sgell.sgell_matvec(*pack, x)
     rtol, atol, _ = _TOL[torch.float32]
     assert float((y - want).abs().max()) <= atol + rtol * float(
         want.abs().max())
-    # each slot a product then a sum, in slot order: the plain bits
+    # each entry a product then a sum, in slot order: the pack's plain bits
     assert torch.equal(y, want)
-    assert torch.equal(sgell.sgell_spmv(dev.vals, idx, dev.seg,
-                                        dev.tile_start, x), y)
+    assert torch.equal(y, sliced.sliced_matvec(op, x))
+    assert torch.equal(sgell.sgell_spmv(op, x), y)
     if empty is not None:
         assert torch.all(y[empty * 1024:(empty + 1) * 1024] == 0)
     assert torch.all(y[n:] == 0)
@@ -465,14 +470,15 @@ def test_sgell_spmv_matches_plain(card, n, width, spread, empty, mat):
         ref).max()
 
 
+@pytest.mark.parametrize("sigma", [1, 1024])
 @pytest.mark.parametrize("vdt", [torch.float32, torch.float64])
 @pytest.mark.parametrize("mdt", [torch.bfloat16, torch.float32,
                                  torch.float64])
 @pytest.mark.parametrize("n,width", [(1001, 1), (999, 2), (1003, 3),
                                      (777, 7), (2048, 9), (513, 17),
-                                     (3001, 55)])
-def test_ell_spmv_matches_plain(card, n, width, mdt, vdt):
-    from acg_torch.ops import spmv
+                                     (3001, 55), (4097, 64)])
+def test_ell_spmv_matches_plain(card, n, width, mdt, vdt, sigma):
+    from acg_torch.ops import sliced, spmv
 
     g = torch.Generator(device=card).manual_seed(n + width)
     vals = torch.randn(n, width, generator=g, device=card,
@@ -481,50 +487,77 @@ def test_ell_spmv_matches_plain(card, n, width, mdt, vdt):
                          dtype=torch.int32)
     vals[n // 3:n // 2, width // 2:] = 0.0         # padded lanes: column 0
     cols[n // 3:n // 2, width // 2:] = 0
+    vals[n // 2:n // 2 + 40] = 0.0                 # a run of empty rows
+    cols[n // 2:n // 2 + 40] = 0
     vals = vals.to(mdt)
+    op = sliced.slice_ell(vals, cols, n, sigma=sigma)
     x = torch.randn(n, generator=g, device=card, dtype=torch.float64).to(vdt)
     before = spmv.launches
-    y = spmv.ell_spmv(vals, cols, x)
+    y = spmv.ell_spmv(op, x)
     assert spmv.launches == before + 1
     want = spmv.ell_matvec(vals, cols, x)
     rtol, atol, _ = _TOL[vdt]
     assert float((y - want).abs().max()) <= atol + rtol * float(
         want.abs().max())
-    assert torch.equal(spmv.ell_spmv(vals, cols, x), y)   # same bits
+    assert torch.equal(y, sliced.sliced_matvec(op, x))   # lane order
+    assert torch.equal(spmv.ell_spmv(op, x), y)          # same bits
+
+
+def test_device_ell_keeps_only_its_sliced_layout_on_the_card(card):
+    from acg_torch.ops import sliced, spmv
+    from acg_torch.sparse.ell import EllMatrix
+
+    A = _local_csr(3000, 7, 400)
+    dev = spmv.DeviceEll.from_ell(EllMatrix.from_csr(A), device=card)
+    assert dev.vals.device.type == "cpu" and dev.colidx.device.type == "cpu"
+    assert dev.sliced.device.type == "cuda" and dev.device.type == "cuda"
+    assert sliced.unroll("ell_spmv") == sliced.unroll("sgell_spmv") >= 1
+    x = torch.randn(dev.nrows_padded, device=card)
+    y = dev.matvec(x)
+    assert torch.equal(y, sliced.sliced_matvec(dev.sliced, x))
+    want = spmv.ell_matvec(dev.vals.to(card), dev.colidx.to(card), x)
+    rtol, atol, _ = _TOL[torch.float32]
+    assert float((y - want).abs().max()) <= atol + rtol * float(
+        want.abs().max())
 
 
 def test_unstructured_wrappers_reject_what_the_kernels_do_not_take(card):
-    from acg_torch.ops import sgell, spmv
+    from acg_torch.ops import sgell, sliced, spmv
 
     A = _local_csr(2000, 4, 100)
     dev = sgell.build_device_sgell(A, min_fill=0.0, device=card)
+    op = dev.sliced
     x = torch.zeros(dev.nrows_padded, device=card)
+    before = sgell.launches
     with pytest.raises(AcgError):                   # f64 vectors
-        sgell.sgell_spmv(dev.vals, dev.idx, dev.seg, dev.tile_start,
-                         x.double())
-    with pytest.raises(AcgError):                   # x of another length
-        sgell.sgell_spmv(dev.vals, dev.idx, dev.seg, dev.tile_start, x[:8])
-    with pytest.raises(AcgError):                   # int64 segments
-        sgell.sgell_spmv(dev.vals, dev.idx, dev.seg.long(), dev.tile_start,
-                         x)
-    with pytest.raises(AcgError):                   # int32 lane indices
-        sgell.sgell_spmv(dev.vals, dev.idx.int(), dev.seg, dev.tile_start,
-                         x)
-    with pytest.raises(AcgError):                   # the pack on the host
-        sgell.sgell_spmv(dev.vals.cpu(), dev.idx, dev.seg, dev.tile_start,
-                         x)
+        sgell.sgell_spmv(op, x.double())
+    with pytest.raises(AcgError):                   # x shorter than ncols
+        sgell.sgell_spmv(op, x[:8])
+    with pytest.raises(AcgError):                   # f64 values
+        sgell.sgell_spmv(dataclasses.replace(op, vals=op.vals.double()), x)
+    with pytest.raises(AcgError):                   # int64 columns
+        sgell.sgell_spmv(dataclasses.replace(op, cols=op.cols.long()), x)
+    with pytest.raises(AcgError):                   # the layout on the host
+        sgell.sgell_spmv(dataclasses.replace(op, vals=op.vals.cpu()), x)
+    assert sgell.launches == before
     vals = torch.randn(64, 3, device=card)
     cols = torch.zeros(64, 3, dtype=torch.int32, device=card)
+    eop = sliced.slice_ell(vals, cols, 64)
     xv = torch.randn(64, device=card)
-    with pytest.raises(AcgError):                   # int64 columns
-        spmv.ell_spmv(vals, cols.long(), xv)
+    before = spmv.launches
+    with pytest.raises(AcgError):                   # int32 row order
+        spmv.ell_spmv(dataclasses.replace(eop, perm=eop.perm.long()), xv)
     with pytest.raises(AcgError):                   # half precision
-        spmv.ell_spmv(vals, cols, xv.half())
+        spmv.ell_spmv(eop, xv.half())
     with pytest.raises(AcgError):                   # strided values
-        spmv.ell_spmv(torch.randn(64, 6, device=card)[:, ::2], cols, xv)
-    # x may have any length (a rectangular operator), but not none
+        spmv.ell_spmv(dataclasses.replace(
+            eop, vals=torch.randn(2 * eop.vals.numel(),
+                                  device=card)[::2]), xv)
+    # x may be longer than the columns (a rectangular operator), not shorter
     with pytest.raises(AcgError):                   # an empty x
-        spmv.ell_spmv(vals, cols, xv[:0])
+        spmv.ell_spmv(eop, xv[:0])
+    assert spmv.launches == before
+    assert spmv.ell_spmv(eop, torch.randn(100, device=card)).shape == (64,)
 
 
 @pytest.mark.parametrize("tier,dtype", [("rcm+sgell", np.float32),
@@ -803,6 +836,8 @@ def test_ell_spmv_rectangle_matches_plain(card, n, m, width, vdt):
     the plain version bit for bit; with random values, within _TOL."""
     from acg_torch.ops import spmv
 
+    from acg_torch.ops import sliced
+
     rng = np.random.default_rng(n + m)
     cols = torch.from_numpy(rng.integers(0, m, (n, width)).astype(np.int32))
     for exact in (True, False):
@@ -813,8 +848,9 @@ def test_ell_spmv_rectangle_matches_plain(card, n, m, width, vdt):
             vals = torch.from_numpy(rng.standard_normal((n, width)))
             x = torch.from_numpy(rng.standard_normal(m))
         vals, x = vals.to(vdt).to(card), x.to(vdt).to(card)
+        op = sliced.slice_ell(vals, cols.to(card), m)
         before = spmv.launches
-        y = spmv.ell_spmv(vals, cols.to(card), x)
+        y = spmv.ell_spmv(op, x)
         assert spmv.launches == before + 1 and y.shape == (n,)
         want = spmv.ell_matvec(vals, cols.to(card), x)
         if exact:

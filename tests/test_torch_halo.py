@@ -22,6 +22,8 @@ Tolerances, each with its reason:
   sums each row in another order).
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -40,7 +42,7 @@ from acg_tpu.sparse import poisson as jpoisson
 
 from acg_torch.config import HaloMethod
 from acg_torch.errors import AcgError, Status
-from acg_torch.ops import spmv
+from acg_torch.ops import sliced, spmv
 from acg_torch.parallel import halo, rdma_halo
 from acg_torch.parallel.mesh import make_mesh
 from acg_torch.partition import graph, partitioner
@@ -358,27 +360,46 @@ def test_compressed_wire_not_ported():
 
 def test_ell_rectangle_and_shape_errors():
     """The interface operator is rectangular (owned rows × ghost slots):
-    the plain version takes any x length, and the wrapper's argument
-    check accepts it and rejects what the kernel cannot take."""
+    its sliced layout keeps the column bound, the plain version takes any
+    x at least that long, and the wrapper's argument check accepts it and
+    rejects what the kernel cannot take."""
     rng = np.random.default_rng(0)
     vals = torch.from_numpy(rng.standard_normal((6, 3)))
     cols = torch.from_numpy(rng.integers(0, 4, (6, 3)).astype(np.int32))
     x = torch.from_numpy(rng.standard_normal(4))
-    y = spmv.ell_spmv(vals, cols, x)
+    op = sliced.slice_ell(vals, cols, 4)
+    y = spmv.ell_spmv(op, x)
     want = (vals.numpy() * x.numpy()[cols.numpy()]).sum(1)
     assert y.shape == (6,)
     np.testing.assert_allclose(y.numpy(), want, rtol=1e-15)
-    spmv._check(vals, cols, x)                  # a rectangle passes
-    spmv._check(vals, cols, torch.zeros(100, dtype=torch.float64))
-    for v, c, xx in ((vals, cols, torch.zeros(0, dtype=torch.float64)),
-                     (vals, cols[:, :2], x),
-                     (vals[:0], cols[:0], x),
-                     (vals, cols, x[None]),
-                     (vals, cols.long(), x),
-                     (vals, cols, x.to(torch.int32))):
+
+    def check(o, xx):
+        sliced.check_operands("ell_spmv", o, xx, spmv._VEC_DTYPES,
+                              spmv._VAL_DTYPES)
+
+    check(op, x)                                # a rectangle passes
+    check(op, torch.zeros(100, dtype=torch.float64))
+    empty = sliced.slice_ell(vals[:0], cols[:0], 4)
+    for o, xx in ((op, torch.zeros(0, dtype=torch.float64)),
+                  (op, x[:3]),
+                  (empty, x),
+                  (op, x[None]),
+                  (op, torch.zeros(8, dtype=torch.float64)[::2]),
+                  (dataclasses.replace(op, vals=op.vals.half()), x),
+                  (op, x.to(torch.int32))):
         with pytest.raises(AcgError) as e:
-            spmv._check(v, c, xx)
+            check(o, xx)
         assert e.value.status == Status.ERR_INVALID_VALUE
+    # a layout the kernel cannot read is refused when it is made
+    for bad in (dict(cols=op.cols.long()), dict(ptr=op.ptr.int()),
+                dict(perm=op.perm[:-1]), dict(vals=op.vals[:-1])):
+        with pytest.raises(AcgError) as e:
+            dataclasses.replace(op, **bad)
+        assert e.value.status == Status.ERR_INVALID_VALUE
+    # a column past the ghost slots is refused once, when sliced
+    with pytest.raises(AcgError) as e:
+        sliced.slice_ell(vals, cols, 3)
+    assert e.value.status == Status.ERR_INDEX_OUT_OF_BOUNDS
 
 
 def test_rdma_kernel_source():

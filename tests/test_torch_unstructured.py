@@ -52,7 +52,7 @@ from acg_tpu.sparse import rcm as jrcm
 from acg_torch.config import SolverOptions
 from acg_torch.errors import AcgError, Status
 from acg_torch.io.mtxfile import MtxFile, write_mtx
-from acg_torch.ops import sgell, spmv
+from acg_torch.ops import sgell, sliced, spmv
 from acg_torch.ops.dia import DeviceDia
 from acg_torch.solvers.cg import (PermutedOperator, build_device_operator,
                                   cg, cg_pipelined)
@@ -292,19 +292,24 @@ def test_batched_matvecs_are_the_one_system_rows():
 
 
 def test_wrappers_on_the_cpu_take_no_kernel_checks():
-    """On a CPU tensor each wrapper IS its plain version."""
+    """On a CPU tensor each wrapper IS the plain version of the sliced
+    product, with the bits of the sgell pack's plain version and within
+    rounding of the ELL rectangle's."""
     _, At = _probe_like_matrix()
     dev = _device_sgell(At, None)
     x = torch.randn(dev.nrows_padded)
-    assert torch.equal(
-        sgell.sgell_spmv(dev.vals, dev.idx, dev.seg, dev.tile_start, x),
-        sgell.sgell_matvec(dev.vals, dev.idx, dev.seg, dev.tile_start, x))
+    before = (sgell.launches, spmv.launches)
+    y = sgell.sgell_spmv(dev.sliced, x)
+    assert torch.equal(y, sliced.sliced_matvec(dev.sliced, x))
+    assert torch.equal(y, sgell.sgell_matvec(dev.vals, dev.idx, dev.seg,
+                                             dev.tile_start, x))
     E = spmv.DeviceEll.from_ell(EllMatrix.from_csr(At), device="cpu")
     x = torch.randn(E.nrows_padded)
-    assert torch.equal(spmv.ell_spmv(E.vals, E.colidx, x),
-                       spmv.ell_matvec(E.vals, E.colidx, x))
-    assert [spmv.group_size(w) for w in (1, 2, 3, 7, 16, 17, 55, 300)] == [
-        1, 2, 4, 8, 16, 32, 32, 32]
+    y = spmv.ell_spmv(E.sliced, x)
+    assert torch.equal(y, sliced.sliced_matvec(E.sliced, x))
+    want = spmv.ell_matvec(E.vals, E.colidx, x)
+    assert float((y - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    assert (sgell.launches, spmv.launches) == before
 
 
 def test_operator_properties_match_jax(jax_sgell_interpret):
@@ -314,14 +319,18 @@ def test_operator_properties_match_jax(jax_sgell_interpret):
     assert (tdev.S, tdev.ntiles, tdev.nrows_padded, tdev.nnz) == (
         jdev.S, jdev.ntiles, jdev.nrows_padded, jdev.nnz)
     assert tdev.fill == pytest.approx(jdev.fill, rel=1e-15)
-    # int8 lane indices: S*1024*(4+1), the segments and the tile table
+    # the pack's own bytes, int8 lane indices: S*1024*(4+1), the segments
+    # and the tile table
     S, nt = tdev.S, tdev.ntiles
-    assert tdev.operator_stream_bytes() == (S * 1024 * 5 + S * 8 * 4
-                                            + (nt + 1) * 4)
+    assert tdev.padded_bytes() == (S * 1024 * 5 + S * 8 * 4 + (nt + 1) * 4)
+    # what the kernel streams: the sliced layout, far below the pack
+    assert tdev.operator_stream_bytes() == tdev.sliced.stream_bytes()
+    assert tdev.operator_stream_bytes() < tdev.padded_bytes() / 2
     Ej, Et = jell.EllMatrix.from_csr(Aj), EllMatrix.from_csr(At)
     je = jspmv.DeviceEll.from_ell(Ej)
     te = spmv.DeviceEll.from_ell(Et, device="cpu")
-    assert te.operator_stream_bytes() == je.operator_stream_bytes()
+    assert te.padded_bytes() == je.operator_stream_bytes()
+    assert te.operator_stream_bytes() == te.sliced.stream_bytes()
     assert (te.width, te.nrows_padded) == (je.width, je.nrows_padded)
 
 
@@ -364,9 +373,9 @@ def test_auto_routing_matches_jax(jax_sgell_interpret, case, dtype, want):
     if want == "rcm+sgell":
         assert tdev.fill == pytest.approx(jdev.dev.fill, rel=1e-15)
         assert tdev.fill >= sgell.MIN_FILL
-        assert {"pack", "upload"} <= set(steps)
+        assert {"pack", "upload", "slice"} <= set(steps)
     if want == "ell":
-        assert {"ell_build", "upload"} <= set(steps)
+        assert {"ell_build", "upload", "slice"} <= set(steps)
 
 
 @pytest.mark.parametrize("fmt,dtype", [("ell", np.float32),
