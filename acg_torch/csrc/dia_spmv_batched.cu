@@ -21,6 +21,17 @@
 // {1, 2, 4, 8}), so the NB accumulators stay in registers; B > 8 runs
 // ceil(B/8) chunks and reads the band stream once per chunk.
 //
+// Registers: with the dot a thread carries 2*NB running sums (its row's
+// accumulators and its dot partials).  On its own ptxas gives those
+// kernels 48-66 registers a thread; compiled for four blocks an SM (at
+// most 64) they schedule their loads better and run 6-19% faster on an
+// H100 at 256^3, B = 8, in every band tier.  Without the dot ptxas's own
+// choice (32-40) is kept: the same bound raises it and costs 11-20% at
+// f32 (measured: PERF.md section 6).  So the two forms are two entry points
+// over one row walk.  Staging x instead (TMA bulk copies into shared
+// memory shared across a thread-block cluster) was measured and was
+// slower on that card.
+//
 // Bits: the launch geometry (grid_blocks(n) blocks, one thread per row
 // in a grid-stride loop), the band order, the multiply-adds and the
 // per-system two-pass dot (acg::block_sum_rows_store, then
@@ -33,14 +44,19 @@ namespace {
 
 using acg::kThreads;
 
+// Blocks an SM that the dot kernel is compiled for: ptxas then keeps a
+// thread within 64 registers (65,536 / (4 * 256)).
+constexpr int kDotBlocksPerSm = 4;
+
 template <typename V, typename B, bool SCALED, int NB, bool DOT>
-__global__ void __launch_bounds__(kThreads)
-dia_spmv_batched_kernel(const B* __restrict__ bands,
-                        const V* __restrict__ scales,
-                        const int64_t* __restrict__ offsets, int64_t ndiags,
-                        const V* __restrict__ X, V* __restrict__ Y,
-                        V* __restrict__ partials, int64_t n, int nsys,
-                        int64_t nblocks) {
+__device__ __forceinline__ void dia_rows(const B* __restrict__ bands,
+                                         const V* __restrict__ scales,
+                                         const int64_t* __restrict__ offsets,
+                                         int64_t ndiags,
+                                         const V* __restrict__ X,
+                                         V* __restrict__ Y,
+                                         V* __restrict__ partials, int64_t n,
+                                         int nsys, int64_t nblocks) {
   V dot[NB];
 #pragma unroll
   for (int s = 0; s < NB; ++s) dot[s] = V(0);
@@ -72,6 +88,32 @@ dia_spmv_batched_kernel(const B* __restrict__ bands,
     acg::block_sum_rows_store<V, kThreads, NB>(dot, nsys, partials, nblocks);
 }
 
+// Without the dot: ptxas's own register choice (32-40 a thread).
+template <typename V, typename B, bool SCALED, int NB>
+__global__ void __launch_bounds__(kThreads)
+dia_spmv_batched_kernel(const B* __restrict__ bands,
+                        const V* __restrict__ scales,
+                        const int64_t* __restrict__ offsets, int64_t ndiags,
+                        const V* __restrict__ X, V* __restrict__ Y, int64_t n,
+                        int nsys) {
+  dia_rows<V, B, SCALED, NB, false>(bands, scales, offsets, ndiags, X, Y,
+                                    nullptr, n, nsys, 0);
+}
+
+// With the dot: compiled for kDotBlocksPerSm blocks an SM (the note at
+// the top says why).
+template <typename V, typename B, bool SCALED, int NB>
+__global__ void __launch_bounds__(kThreads, kDotBlocksPerSm)
+dia_spmv_batched_dot_kernel(const B* __restrict__ bands,
+                            const V* __restrict__ scales,
+                            const int64_t* __restrict__ offsets,
+                            int64_t ndiags, const V* __restrict__ X,
+                            V* __restrict__ Y, V* __restrict__ partials,
+                            int64_t n, int nsys, int64_t nblocks) {
+  dia_rows<V, B, SCALED, NB, true>(bands, scales, offsets, ndiags, X, Y,
+                                   partials, n, nsys, nblocks);
+}
+
 template <typename V, typename B, bool SCALED, int NB>
 cudaError_t launch_chunk(const B* bp, const V* sp, const int64_t* op,
                          int64_t ndiags, const V* x, V* y, V* partials,
@@ -79,12 +121,11 @@ cudaError_t launch_chunk(const B* bp, const V* sp, const int64_t* op,
                          cudaStream_t s) {
   const unsigned grid = static_cast<unsigned>(nblocks);
   if (dot)
-    dia_spmv_batched_kernel<V, B, SCALED, NB, true><<<grid, kThreads, 0, s>>>(
+    dia_spmv_batched_dot_kernel<V, B, SCALED, NB><<<grid, kThreads, 0, s>>>(
         bp, sp, op, ndiags, x, y, partials, n, nsys, nblocks);
   else
-    dia_spmv_batched_kernel<V, B, SCALED, NB, false>
-        <<<grid, kThreads, 0, s>>>(bp, sp, op, ndiags, x, y, nullptr, n, nsys,
-                                   nblocks);
+    dia_spmv_batched_kernel<V, B, SCALED, NB><<<grid, kThreads, 0, s>>>(
+        bp, sp, op, ndiags, x, y, n, nsys);
   return cudaGetLastError();
 }
 

@@ -23,6 +23,14 @@
 // in registers.  Indices are 32-bit within a system (the wrapper admits
 // npad < 2^31) and 64-bit across systems.
 //
+// Registers: the kernel is compiled for four blocks an SM (at most 64
+// registers a thread).  ptxas then schedules the loads better than on
+// its own (it gives the f64 kernel with the dot 64 registers either
+// way): on an H100 at 256^3, B = 8, 8-10% faster with the dot at f64,
+// 15-19% without it, and no slower at f32 (measured: PERF.md section 6).
+// Staging x instead (TMA bulk copies into shared memory shared across a
+// thread-block cluster) was measured and was slower on that card.
+//
 // Bits: the launch geometry (grid_blocks(npad) blocks, one thread per
 // element in a grid-stride loop), the arm order, the multiply-adds and
 // the per-system two-pass dot are those of stencil_spmv.cu, so each
@@ -36,8 +44,12 @@ using acg::kMaxArms;
 using acg::kThreads;
 using acg::StencilArgs;
 
+// Blocks an SM that the kernel is compiled for: ptxas then keeps a thread
+// within 64 registers (65,536 / (4 * 256)).
+constexpr int kBlocksPerSm = 4;
+
 template <typename V, int NB, bool DOT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 stencil_spmv_batched_kernel(const __grid_constant__ StencilArgs a,
                             const V* __restrict__ X, V* __restrict__ Y,
                             V* __restrict__ partials, int64_t npad,

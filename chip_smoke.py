@@ -87,8 +87,10 @@ raises and the script exits non-zero:
               (the CLI with --nrhs 4); the kernels phase holds both
               batched kernels in every tier against their plain versions
               and, system by system, bit for bit against the one-system
-              kernels (B = 8 and B = 1), and times them beside 8 calls of
-              the one-system kernel;
+              kernels (B = 8 and B = 1; the DIA kernel also at B = 16,
+              two launches), and times them beside B calls of the
+              one-system kernel; the build phase lists the registers of
+              every instantiation of the two kernels;
 12. unstructured
               fem-sgell (classic CG, f32, rtol 1e-6: rcm+sgell) and
               fem-ell (f64, rtol 1e-8: ell) on fem3d-1m from a
@@ -281,6 +283,7 @@ def main() -> int:
     idle = [k["name"] for k in lines if k["launches"] <= 0]
     if idle:
         raise SystemExit(f"error: the main path never launched {idle}")
+    _emit({"gap_ranking_ms": _gap_ranking(lines)})
     _emit({"kernels": lines})
     _emit({"ok": True, "device": {"platform": "gpu",
                                   "kind": torch.cuda.get_device_name(0),
@@ -303,8 +306,12 @@ def _build_phase():
                           for ln in used if "Used " in ln), default=None)
         spills[name] = sum(int(v) for v in
                            re.findall(r"(\d+) bytes spill", log))
+    # every instantiation of the two multi-RHS kernels
+    batched = {name: sorted({int(v) for v in
+                             re.findall(r"Used (\d+) registers", log)})
+               for name, log in logs.items() if name.endswith("_batched")}
     return {"built": sorted(logs), "max_registers": regs,
-            "spill_bytes": spills,
+            "spill_bytes": spills, "batched_kernel_registers": batched,
             "libraries": [str(_build.library_path(n).relative_to(REPO))
                           for n in _build.SOURCES]}
 
@@ -642,12 +649,13 @@ def _per_system_bits(Y, d, X, one):
 
 
 def _batched_kernels(D, G: int, nrhs: int, ctx):
-    """Both multi-RHS kernels in every tier at (nrhs, n): held against
-    their plain versions (``_check_kernel``), each system bit-identical to
-    the one-system kernel at B = nrhs and at B = 1, and timed beside
-    nrhs calls of the one-system kernel and the library call on the same
-    batch (cuSPARSE SpMM for DIA, conv3d with batch N = nrhs for the
-    stencil)."""
+    """Both multi-RHS kernels in every tier at (nrhs, n), and the DIA
+    kernel at bf16/f32 with 2 nrhs systems (two launches, the bands read
+    twice): held against their plain versions (``_check_kernel``), each
+    system bit-identical to the one-system kernel at B and at B = 1, and
+    timed beside B calls of the one-system kernel and the library call on
+    the same batch (cuSPARSE SpMM for DIA, conv3d with batch N = nrhs for
+    the stencil)."""
     import torch
 
     from acg_torch.ops.blas1 import batched_dot
@@ -659,7 +667,7 @@ def _batched_kernels(D, G: int, nrhs: int, ctx):
 
     n, nrp = D.nrows, D.nrows_padded
     gen = torch.Generator(device="cuda").manual_seed(3)
-    X64 = torch.randn(nrhs, nrp, generator=gen, device="cuda",
+    X64 = torch.randn(2 * nrhs, nrp, generator=gen, device="cuda",
                       dtype=torch.float64)
 
     def extras(batched, one, X):
@@ -683,18 +691,25 @@ def _batched_kernels(D, G: int, nrhs: int, ctx):
     tiers = (("bf16/f32", torch.float32, "auto"),
              ("int8/f32", torch.float32, "int8"),
              ("f64/f64", torch.float64, None))
+    # B = nrhs in every tier, both with and without the dot; B = 2 nrhs
+    # (two launches, the band stream read twice) at bf16/f32 with the dot
     for tier, vdt, mat in tiers:
         dev = DeviceDia.from_dia(D, dtype=str(vdt)[6:], mat_dtype=mat)
-        X = X64.to(vdt)
         A = _csr_of(dev, vdt)
-        Xt = X[:, :n].T.contiguous()          # (n, B) for the SpMM
-        D_, vb = len(dev.offsets), X.element_size()
+        D_ = len(dev.offsets)
+        vb = torch.empty((), dtype=vdt).element_size()
 
         def one(x, w, dev=dev):
             return dia_spmv(dev.bands, dev.scales, dev.offsets_t, x,
                             with_dot=w)
 
-        for with_dot in (False, True):
+        runs = [(nrhs, False), (nrhs, True)]
+        if tier == "bf16/f32":
+            runs.append((2 * nrhs, True))
+        for B, with_dot in runs:
+            X = X64[:B].to(vdt).contiguous()
+            Xt = X[:, :n].T.contiguous()          # (n, B) for the SpMM
+
             def run(X=X, dev=dev, w=with_dot):
                 return dia_spmv_batched(dev.bands, dev.scales,
                                         dev.offsets_t, X, with_dot=w)
@@ -703,14 +718,16 @@ def _batched_kernels(D, G: int, nrhs: int, ctx):
                 Y = dia_matvec(dev.bands, dev.offsets, X, dev.scales)
                 return (Y, batched_dot(X, Y)) if w else Y
 
-            _check_kernel({"name": "dia_spmv_batched", "tier": tier,
-                           "with_dot": with_dot, "nrhs": nrhs},
+            _check_kernel({"name": "dia_spmv_batched",
+                           "tier": tier if B == nrhs else f"{tier} B={B}",
+                           "with_dot": with_dot, "nrhs": B},
                           run, plain, X, ctx,
-                          D_ * n * dev.mat_itemsize + nrhs * 2 * n * vb,
-                          nrhs * (2 * D_ * n + (2 * n if with_dot else 0)),
+                          D_ * n * dev.mat_itemsize + B * 2 * n * vb,
+                          B * (2 * D_ * n + (2 * n if with_dot else 0)),
                           lambda A=A, Xt=Xt: torch.sparse.mm(A, Xt),
                           extra=extras(run, one, X))
-        del dev, X, A, Xt
+            del X, Xt
+        del dev, A
         torch.cuda.empty_cache()
     weight = torch.zeros(1, 1, 3, 3, 3, dtype=torch.float64, device="cuda")
     weight[0, 0, 1, 1, 1] = 6.0
@@ -722,7 +739,7 @@ def _batched_kernels(D, G: int, nrhs: int, ctx):
         if spec is None:
             raise SystemExit(f"error: the Poisson operator did not "
                              f"recognize as a stencil: {why}")
-        X = X64.to(vdt)
+        X = X64[:nrhs].to(vdt).contiguous()
         X[:, n:] = 0
         w = weight.to(vdt)
 
@@ -2611,6 +2628,18 @@ def _profile_phase(ctx):
 
 # ---------------------------------------------------------------------------
 # the kernels line
+
+
+def _gap_ranking(lines) -> dict:
+    """Per kernel, launches x (ms - bound_ms) summed over the solve
+    phases of the kernels line: the device time its launches lose to
+    the bound, largest first (the order in which to redesign them)."""
+    out = {}
+    for k in lines:
+        name = k["name"].split(":")[0]
+        out[name] = out.get(name, 0.0) + k["launches"] * (k["ms"]
+                                                          - k["bound_ms"])
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 def _kernel_lines(ctx) -> list:

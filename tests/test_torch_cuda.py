@@ -3,7 +3,9 @@
 These need an NVIDIA GPU and skip elsewhere.  They cover what
 ``chip_smoke.py`` does not: small and ragged sizes, 1-D/2-D grids and
 the 27-point stencil, offsets that leave the vector, every band tier,
-the multi-RHS kernels at B = 1 and B = 9 (past one chunk of 8), the
+the multi-RHS kernels at B in {1, 2, 3, 5, 8, 9, 16} (chunk tails),
+grids of fewer than 8 and an odd number of blocks, x off a 16-byte
+boundary, two k-steps a block, the
 shared-memory ring and clustered-window kernels of the HBM tier (every
 band tier, ragged n, spans of several tiles, offsets past the vector,
 x off a 16-byte boundary; y bit-equal to dia_spmv), the
@@ -310,11 +312,18 @@ def _check_batched(Y, d, X, Yp, one):
         assert torch.equal(Y[s], y) and torch.equal(d[s], ds)
 
 
-@pytest.mark.parametrize("nsys", [1, 9])
+# chunk tails: one launch of 1, 2, 3, 5 or 8 systems, and 8 + 1, 8 + 8
+_NSYS = [1, 2, 3, 5, 8, 9, 16]
+
+
+@pytest.mark.parametrize("nsys", _NSYS)
 @pytest.mark.parametrize("vdt", ["float32", "float64"])
 @pytest.mark.parametrize("mat", ["auto", "int8", None, "float32"])
 @pytest.mark.parametrize("n,offsets", [
-    (1000, (-300, -1, 0, 1, 999)),
+    (700, (-33, -1, 0, 1, 33)),                    # G = 3
+    (1000, (-300, -1, 0, 1, 999)),                 # G = 4
+    (2053, (-300, -129, -1, 0, 1, 129, 300)),      # G = 9; f32 rows off
+    #                                                16-byte boundaries
     (4099, (-2048, -129, -1, 0, 1, 129, 2048, 5000)),
 ])
 def test_dia_spmv_batched_matches_plain_and_1d(card, n, offsets, mat, vdt,
@@ -337,11 +346,12 @@ def test_dia_spmv_batched_matches_plain_and_1d(card, n, offsets, mat, vdt,
     assert torch.equal(again, d)                    # no atomics: same bits
 
 
-@pytest.mark.parametrize("nsys", [1, 9])
+@pytest.mark.parametrize("nsys", _NSYS)
 @pytest.mark.parametrize("vdt", [torch.float32, torch.float64])
 @pytest.mark.parametrize("gen", [
     lambda: poisson.poisson2d_5pt(13, 17),
     lambda: poisson.poisson3d_7pt(5, 6, 7),
+    lambda: poisson.poisson3d_7pt(13, 14, 15),     # G = 11
     lambda: poisson.poisson3d_27pt(6),
 ])
 def test_stencil_spmv_batched_matches_plain_and_1d(card, gen, vdt, nsys):
@@ -359,6 +369,46 @@ def test_stencil_spmv_batched_matches_plain_and_1d(card, gen, vdt, nsys):
                    lambda x: st.stencil_spmv(spec, x, with_dot=True))
     assert torch.all(Y[:, n:] == 0)
     assert torch.equal(st.stencil_spmv_batched(spec, X), Y)
+
+
+@pytest.mark.parametrize("vdt", [torch.float32, torch.float64])
+def test_batched_kernels_take_x_off_a_16_byte_boundary(card, vdt):
+    """X one element past a 16-byte boundary (every system's row starts
+    off a 16-byte boundary): Y and the dots keep the 1-D kernels'
+    bits."""
+    D = _random_dia(2053, (-300, -129, -1, 0, 1, 129, 300))
+    dev = DeviceDia.from_dia(D, dtype=str(vdt)[6:], mat_dtype=None,
+                             device=card)
+    buf = torch.zeros(5 * 2053 + 1, dtype=vdt, device=card)
+    X = buf[1:].view(5, 2053)
+    X.copy_(torch.randn(5, 2053, dtype=vdt, device=card))
+    assert X.data_ptr() % 16 != 0
+    Y, d = dev.matvec_dot(X)
+    _check_batched(Y, d, X, dia_matvec(dev.bands, dev.offsets, X,
+                                       dev.scales), dev.matvec_dot)
+    spec, _ = st.recognize_stencil(poisson.poisson3d_7pt(13, 14, 15))
+    n = spec.nrows
+    buf = torch.zeros(3 * n + 1, dtype=vdt, device=card)
+    X = buf[1:].view(3, n)
+    X.copy_(torch.randn(3, n, dtype=vdt, device=card))
+    Y, d = st.stencil_spmv_batched(spec, X, with_dot=True)
+    _check_batched(Y, d, X, st.stencil_matvec(X, spec.grid, spec.digits,
+                                              spec.coeffs),
+                   lambda x: st.stencil_spmv(spec, x, with_dot=True))
+
+
+def test_batched_kernels_two_ksteps(card):
+    """Past 256 x 4096 rows a block runs two k-steps: Y and the dots keep
+    the 1-D kernel's bits."""
+    n = 256 * 4096 + 1000
+    D = _random_dia(n, (-70000, -257, -1, 0, 1, 257, 70000), seed=3)
+    dev = DeviceDia.from_dia(D, dtype="float64", mat_dtype=None,
+                             device=card)
+    X = torch.randn(8, n, dtype=torch.float64, device=card)
+    Y, d = dia_kernels.dia_spmv_batched(dev.bands, dev.scales,
+                                        dev.offsets_t, X, with_dot=True)
+    _check_batched(Y, d, X, dia_matvec(dev.bands, dev.offsets, X,
+                                       dev.scales), dev.matvec_dot)
 
 
 def test_batched_wrappers_reject_what_the_kernels_do_not_take(card):
