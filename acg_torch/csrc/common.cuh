@@ -214,16 +214,26 @@ __device__ __forceinline__ V dia_row_at(const V* __restrict__ scales,
 // [0, n): the bounds test is left out and the arithmetic is
 // dia_row_at's, so the row has the same bits.  The HBM kernels take it
 // for the tiles where no band leaves the vector (all but the first and
-// last few), with xat(d) giving x[i + off[d]].
-template <typename V, bool SCALED, typename BAt, typename XAt>
+// last few), with xat(d) giving x[i + off[d]].  With D > 0 the band
+// count is D, fixed at compile time, and the loop is unrolled: a caller
+// that loads the row's band and x values ahead of the sum into arrays
+// (bat(d) returning bv[d], xat(d) xv[d]) keeps them, and the scales, in
+// registers.
+template <typename V, bool SCALED, int D = 0, typename BAt, typename XAt>
 __device__ __forceinline__ V dia_row_interior(const V* __restrict__ scales,
                                               int ndiags, BAt bat,
                                               XAt xat) {
   V acc = V(0);
-  for (int d = 0; d < ndiags; ++d) {
+  auto term = [&](int d) {
     V b = band_value<V>(bat(d));
     if constexpr (SCALED) b *= scales[d];
     acc += b * xat(d);
+  };
+  if constexpr (D > 0) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) term(d);
+  } else {
+    for (int d = 0; d < ndiags; ++d) term(d);
   }
   return acc;
 }
@@ -360,6 +370,16 @@ __device__ __forceinline__ void run_bounds(int64_t ntiles, int64_t& t0,
   const int64_t b = blockIdx.x, nb = gridDim.x;
   t0 = b * ntiles / nb;
   t1 = (b + 1) * ntiles / nb;
+}
+
+// The wave order of a persistent grid (acg_torch/ops/dia_plan.py
+// wave_tiles): block b takes tiles b, b + nb, b + 2 nb, ..., so the
+// blocks move through the vector together and a tile's far neighbours
+// are streamed by other blocks within about one wave.  f(t) runs for
+// each of the block's tiles in that order.
+template <typename F>
+__device__ __forceinline__ void wave_tiles(int64_t ntiles, F&& f) {
+  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) f(t);
 }
 
 // ---------------------------------------------------------------------------

@@ -6,10 +6,10 @@ aligned so ``bands[d, i] = A[i, i + offset[d]]``; entries whose column
 falls outside [0, n) are 0.  The port of ``acg_tpu/ops/dia.py``: the
 same host matrix, the same storage tiers chosen in the same order, and
 an operator whose ``matvec`` runs a hand-written kernel on the card:
-:func:`acg_torch.ops.dia_kernels.dia_spmv` while x fits the card's L2,
-past it the shared-memory ring or clustered-window kernel
-(``dia_spmv_ring``, ``dia_spmv_windows``) by the plan of
-:mod:`acg_torch.ops.dia_plan`, made once per operator.
+:func:`acg_torch.ops.dia_kernels.dia_spmv` while x fits the card's L2
+(and for full-width f64 bands), past it the clustered-window or
+shared-memory ring kernel (``dia_spmv_windows``, ``dia_spmv_ring``) by
+the plan of :mod:`acg_torch.ops.dia_plan`, made once per operator.
 """
 
 from __future__ import annotations
@@ -24,7 +24,8 @@ from acg_torch.ops.dia_kernels import (cg_pipelined_iter, dia_matvec,
                                        dia_spmv, dia_spmv_batched,
                                        dia_spmv_ring, dia_spmv_windows)
 from acg_torch.ops.dia_plan import (Budgets, HbmPlan, device_budgets,
-                                    fused_plan_for, make_plan)
+                                    fused_plan_for, make_plan,
+                                    resident_fixed)
 from acg_torch.sparse.csr import CsrMatrix
 
 __all__ = ["DiaMatrix", "DeviceDia", "dia_efficiency", "dia_matvec",
@@ -147,7 +148,10 @@ class DeviceDia:
     int64 tensor beside the bands (the kernel reads them on the card).
     ``plan`` is the HBM-tier launch geometry of a one-vector SpMV, or
     None for the resident kernel (:func:`acg_torch.ops.dia_plan.
-    fused_plan_for` on the device's budgets, made once here)."""
+    fused_plan_for` on the device's budgets, made once here); ``fixed``
+    whether the resident kernel runs with its band count fixed
+    (:func:`acg_torch.ops.dia_plan.resident_fixed`, on the same
+    budgets)."""
 
     bands: torch.Tensor
     scales: torch.Tensor | None
@@ -158,6 +162,7 @@ class DeviceDia:
     nnz: int
     vec_dtype: str
     plan: HbmPlan | None = None
+    fixed: bool = False
 
     @classmethod
     def from_bands(cls, bands: torch.Tensor, scales, offsets, nrows: int,
@@ -184,7 +189,9 @@ class DeviceDia:
                    offsets_t=torch.tensor(offsets, dtype=torch.int64,
                                           device=dev),
                    nrows=int(nrows), ncols=int(ncols), nnz=int(nnz),
-                   vec_dtype=str(vdt).removeprefix("torch."), plan=plan)
+                   vec_dtype=str(vdt).removeprefix("torch."), plan=plan,
+                   fixed=resident_fixed(n, len(offsets), vdt, bands.dtype,
+                                        budgets))
 
     @classmethod
     def from_dia(cls, D: DiaMatrix, dtype=None, mat_dtype="auto",
@@ -271,7 +278,7 @@ class DeviceDia:
                                     x, with_dot=with_dot)
         if self.plan is None:
             return dia_spmv(self.bands, self.scales, self.offsets_t, x,
-                            with_dot=with_dot)
+                            with_dot=with_dot, fixed=self.fixed)
         spmv = dia_spmv_ring if self.plan.kind == "hbm-ring" else \
             dia_spmv_windows
         return spmv(self.bands, self.scales, self.offsets_t, x, self.plan,

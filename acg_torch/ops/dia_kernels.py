@@ -114,8 +114,8 @@ def _load():
         lib.acg_dia_spmv.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_void_p]
+            ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p]
         _lib = lib
     return _lib
 
@@ -149,15 +149,19 @@ def _check(bands, scales, offsets, x, name="dia_spmv", batched=False):
 
 
 def dia_spmv(bands: torch.Tensor, scales: torch.Tensor | None,
-             offsets: torch.Tensor, x: torch.Tensor, with_dot: bool = False):
+             offsets: torch.Tensor, x: torch.Tensor, with_dot: bool = False,
+             fixed: bool = False):
     """y = DIA(bands, offsets) @ x, plus the scalar <x, y> when
     ``with_dot`` (for CG's t = A p that is p'Ap).
 
     ``bands``: (D, n) bf16, int8 0/1 mask (with ``scales``), f32 or f64;
     ``scales``: (D,) at the vector dtype or None; ``offsets``: (D,) int64
     tensor on the vector's device, ascending; ``x``: (n,) f32 or f64.
-    Returns ``y`` or ``(y, dot)`` with ``dot`` a 0-d tensor.  CUDA
-    tensors launch the kernel; CPU tensors take :func:`dia_matvec`."""
+    ``fixed``: launch the kernel with the band count fixed (f32 vectors,
+    D in ``dia_plan.FIXED_BANDS``; ``DeviceDia.fixed`` says when the plan
+    takes it); the same bits either way.  Returns ``y`` or ``(y, dot)``
+    with ``dot`` a 0-d tensor.  CUDA tensors launch the kernel; CPU
+    tensors take :func:`dia_matvec`."""
     global launches
     if x.device.type == "cpu":
         y = dia_matvec(bands, offsets.tolist(), x, scales)
@@ -179,7 +183,7 @@ def dia_spmv(bands: torch.Tensor, scales: torch.Tensor | None,
             bands.data_ptr(), _BAND_CODES[bands.dtype],
             scales.data_ptr() if scales is not None else None,
             offsets.data_ptr(), bands.shape[0], x.data_ptr(), y.data_ptr(),
-            _VEC_CODES[x.dtype], n,
+            _VEC_CODES[x.dtype], n, int(fixed),
             partials.data_ptr() if with_dot else None, nblocks,
             dot.data_ptr() if with_dot else None,
             torch.cuda.current_stream(x.device).cuda_stream)
@@ -533,7 +537,7 @@ def _load_windows():
             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p]
         _windows_lib = lib
     return _windows_lib
@@ -623,7 +627,8 @@ def dia_spmv_windows(bands: torch.Tensor, scales: torch.Tensor | None,
             offsets.data_ptr(), bands.shape[0], x.data_ptr(), y.data_ptr(),
             _VEC_CODES[x.dtype], x.shape[0], plan.tile, plan.table.data_ptr(),
             plan.nclusters, plan.buflen, plan.ntiles,
-            x.data_ptr() % 16 // x.element_size(), plan.smem, plan.nblocks,
+            x.data_ptr() % 16 // x.element_size(), plan.stages, plan.smem,
+            plan.nblocks,
             partials.data_ptr() if with_dot else None,
             dot.data_ptr() if with_dot else None,
             torch.cuda.current_stream(x.device).cuda_stream)

@@ -7,24 +7,31 @@ the card's own budgets in place of the TPU's VMEM budget:
 
 - **resident** (``dia_spmv``): while the vector x fits the device's L2
   cache, the on-chip store that kernel leans on for x, as the TPU's
-  resident kernel leans on VMEM;
-- **hbm-ring** (``dia_spmv_ring``): past it, while one block's ring of
+  resident kernel leans on VMEM; and past it for full-width f64 bands;
+- **hbm** (``dia_spmv_windows``): past it, while a ring of three or four
+  stages, each one x window per offset cluster and the band tiles of one
+  tile, fits one block's opt-in shared memory;
+- **hbm-ring** (``dia_spmv_ring``): else while one block's ring of
   consecutive x tiles spanning the whole offset reach (and the kernel's
-  double-buffered band tiles) fits its opt-in shared memory; x then
-  streams once;
-- **hbm** (``dia_spmv_windows``): else while one double-buffered x
-  window per offset cluster (and the band tiles) fits the same budget;
+  double-buffered band tiles) fits the same budget; x then streams once;
 - **resident** again when neither fits, as the JAX package falls back
   to its non-HBM path.
 
-The ring comes before the windows, as in ``hbm_kernel_plan``.  The port
-has no (rows, 128) layout, so everything here is in elements: a tile is
-``T`` elements and the cluster slack is 1024 elements (JAX's 8 rows of
-128 lanes); for offsets that are multiples of 128 and ``T = rt * 128``
-the spans and clusters equal the JAX package's.  Unlike the JAX plans,
-f64 vectors and bands are admitted.  Bands whose offset reaches past
-the whole vector (|offset| >= n) contribute nothing and are left out of
-the geometry.  The plan functions take the budgets as arguments
+Two choices differ from the JAX package's, on measurements on an H100
+(PERF.md): the windows kernel comes before the ring (on 10,000^2 the
+ring took 1.33 ms a call at bf16/f32 against the windows' 0.73-0.74 and
+``dia_spmv``'s 0.81-0.83), and f64 bands stay on ``dia_spmv`` past the
+L2 (on 10,000^2 f64/f64 1.93-2.01 ms against the windows' 2.08-2.26 and
+the ring's 2.78-2.83; at 256^3 f64/f64 0.46-0.50 against 0.50-0.52):
+with 8-byte bands the band stream, which no staging shortens, is most
+of the traffic.  The port has no (rows, 128) layout, so everything here
+is in elements: a tile is ``T`` elements and the cluster slack is 1024
+elements (JAX's 8 rows of 128 lanes); for offsets that are multiples of
+128 and ``T = rt * 128`` the spans and clusters equal the JAX
+package's.  Unlike the JAX plans, f64 vectors and bands are admitted.
+Bands whose offset reaches past the whole vector (|offset| >= n)
+contribute nothing and are left out of the geometry.  The plan
+functions take the budgets as arguments
 (:class:`Budgets`); :func:`device_budgets` reads them from the card.
 """
 
@@ -34,17 +41,28 @@ import dataclasses
 
 import torch
 
-__all__ = ["Budgets", "HbmPlan", "SLACK", "TILES", "THREADS",
+__all__ = ["Budgets", "HbmPlan", "SLACK", "STAGES", "TILES", "THREADS",
+           "WINDOWS_THREADS", "WINDOW_TILES", "FIXED_BANDS",
            "blocks_per_sm", "cluster_windows", "device_budgets",
-           "fused_plan_for", "hbm_kernel_plan", "make_plan", "ring_bytes",
-           "ring_plan", "ring_span", "run_bounds", "window_layout",
-           "windows_bytes", "windows_plan"]
+           "fused_plan_for", "hbm_kernel_plan", "make_plan",
+           "resident_fixed", "ring_bytes", "ring_plan", "ring_span",
+           "run_bounds", "wave_tiles", "window_layout", "windows_bytes",
+           "windows_plan", "windows_stages"]
 
 SLACK = 1024                    # JAX's 8 rows x 128 lanes, in elements
 TILES = (2048, 1024, 512, 256)  # x tiles (elements) the plans try, largest
 #                                 first
 THREADS = 256                   # threads per block (acg::kThreads)
-MAX_BLOCKS_PER_SM = 8           # 2048 resident threads / THREADS
+WINDOWS_THREADS = THREADS + 32  # the windows kernel's consumers and its
+#                                 producer warp
+STAGES = (4, 3)                 # ring depths the windows plan tries,
+#                                 deepest first
+WINDOW_TILES = (1024, 512, 256)  # the windows plan's tiles, largest first
+#                                  (2048 ran slower than 1024 at every
+#                                  depth, PERF.md)
+FIXED_BANDS = (3, 5, 7, 27)     # the band counts dia_spmv's fixed kernel
+#                                 is compiled for
+MAX_THREADS_PER_SM = 2048
 _COPY_BYTES = 16                # one cp.async chunk
 
 
@@ -148,25 +166,35 @@ def window_layout(offsets, tile: int, itemsize: int) -> tuple:
     return tuple(out)
 
 
+def _round(nbytes: int, to: int) -> int:
+    return -(-nbytes // to) * to
+
+
 def windows_bytes(offsets, tile: int, itemsize: int, band_itemsize: int,
-                  ndiags: int | None = None) -> int:
-    """Shared memory of the windows kernel: two buffers of every
-    cluster's window, two buffers of the ``ndiags`` band tiles (by
-    default one band per offset), each band's window position (int32)
-    and the dot's tree."""
+                  ndiags: int | None = None, stages: int = STAGES[-1]) -> int:
+    """Shared memory of the windows kernel (``dia_hbm_windows.cu``): a
+    head of the 2 x ``stages`` mbarriers (8 bytes each) and each band's
+    window position (int32), rounded up to 128 bytes; ``stages`` buffers,
+    each every cluster's window and the ``ndiags`` band tiles (by default
+    one band per offset), each part rounded up to 16 bytes; and the
+    dot's tree."""
     buf = sum(length for _, length, _ in window_layout(offsets, tile,
                                                        itemsize))
     nd = len(offsets) if ndiags is None else ndiags
-    return (2 * buf * itemsize + _band_buffers(tile, band_itemsize, nd)
-            + 4 * nd + _static_bytes(itemsize))
+    stage = _round(buf * itemsize, 16) + _round(nd * tile * band_itemsize,
+                                                16)
+    return (_round(16 * stages + 4 * nd, 128) + stages * stage
+            + _static_bytes(itemsize))
 
 
-def blocks_per_sm(smem: int, budgets: Budgets) -> int:
-    """Blocks of ``smem`` bytes of shared memory that fit one SM, at most
-    the thread limit's; the SM reserves what its total exceeds one
-    block's opt-in for every block."""
+def blocks_per_sm(smem: int, budgets: Budgets,
+                  threads: int = THREADS) -> int:
+    """Blocks of ``threads`` threads and ``smem`` bytes of shared memory
+    that fit one SM, at most the thread limit's; the SM reserves what its
+    total exceeds one block's opt-in for every block."""
     reserve = budgets.smem_sm - budgets.smem_block
-    return min(MAX_BLOCKS_PER_SM, budgets.smem_sm // (smem + reserve))
+    return min(MAX_THREADS_PER_SM // threads,
+               budgets.smem_sm // (smem + reserve))
 
 
 def _pick_tile(footprint, budgets: Budgets) -> int | None:
@@ -189,29 +217,44 @@ def ring_plan(n: int, offsets, vec_dtype, band_dtype,
                       budgets)
 
 
+def windows_stages(n: int, offsets, vec_dtype, band_dtype, tile: int,
+                   budgets: Budgets) -> int | None:
+    """The windows kernel's ring depth at ``tile``: the deepest of
+    ``STAGES`` whose ring fits one block; None when none does."""
+    live = _live(offsets, n)
+    vb, mb = _itemsize(vec_dtype), _itemsize(band_dtype)
+    for s in STAGES:
+        if windows_bytes(live, tile, vb, mb, len(offsets),
+                         s) <= budgets.smem_block:
+            return s
+    return None
+
+
 def windows_plan(n: int, offsets, vec_dtype, band_dtype,
                  budgets: Budgets) -> int | None:
-    """Tile of the clustered-window kernel, or None when its windows do
-    not fit one block (``pallas_hbm2d_plan``)."""
-    live = _live(offsets, n)
-    if not live:
+    """Tile of the clustered-window kernel, or None when no ring of its
+    windows fits one block (``pallas_hbm2d_plan``): the largest of
+    ``WINDOW_TILES`` at which a ring of ``STAGES`` depth fits one block
+    (on the card the deepest ring at 1024 was fastest or within the
+    spread of the fastest in every cell, PERF.md)."""
+    if not _live(offsets, n):
         return None
-    vb, mb = _itemsize(vec_dtype), _itemsize(band_dtype)
-    return _pick_tile(
-        lambda t: windows_bytes(live, t, vb, mb, len(offsets)), budgets)
+    return next((t for t in WINDOW_TILES
+                 if windows_stages(n, offsets, vec_dtype, band_dtype, t,
+                                   budgets) is not None), None)
 
 
 def hbm_kernel_plan(n: int, offsets, vec_dtype, band_dtype,
                     budgets: Budgets):
-    """``(kind, tile)`` for x past the L2, ring before windows (the one
-    owner of that priority, as ``hbm_kernel_plan`` is in the JAX
-    package), or ``(None, None)``."""
-    tile = ring_plan(n, offsets, vec_dtype, band_dtype, budgets)
-    if tile is not None:
-        return "hbm-ring", tile
+    """``(kind, tile)`` for x past the L2, windows before the ring (the
+    one owner of that priority; the JAX package's ``hbm_kernel_plan``
+    rings first), or ``(None, None)``."""
     tile = windows_plan(n, offsets, vec_dtype, band_dtype, budgets)
     if tile is not None:
         return "hbm", tile
+    tile = ring_plan(n, offsets, vec_dtype, band_dtype, budgets)
+    if tile is not None:
+        return "hbm-ring", tile
     return None, None
 
 
@@ -219,19 +262,48 @@ def fused_plan_for(n: int, offsets, vec_dtype, band_dtype,
                    budgets: Budgets | None) -> tuple[str, int | None]:
     """``("resident" | "hbm-ring" | "hbm", tile)`` for a one-vector DIA
     SpMV of ``n`` rows (``fused_plan_for``); the resident kernel has no
-    tile (None).  ``budgets`` None (the CPU) is always resident."""
+    tile (None).  ``budgets`` None (the CPU) is always resident, and so
+    are full-width f64 bands (module docstring)."""
     if budgets is None:
         return "resident", None
-    if n * _itemsize(vec_dtype) <= budgets.l2_bytes:
+    if (n * _itemsize(vec_dtype) <= budgets.l2_bytes
+            or _itemsize(band_dtype) >= 8):
         return "resident", None
     kind, tile = hbm_kernel_plan(n, offsets, vec_dtype, band_dtype, budgets)
     return (kind, tile) if kind is not None else ("resident", None)
 
 
+def resident_fixed(n: int, ndiags: int, vec_dtype, band_dtype,
+                   budgets: Budgets | None) -> bool:
+    """Whether the resident kernel ``dia_spmv`` runs with the band count
+    fixed at compile time and streaming band loads (``dia_spmv.cu``): for
+    f32 vectors, a band count of ``FIXED_BANDS``, and a call whose bands,
+    x and y exceed the L2.  There it measured ahead of the generic kernel
+    on an H100 (256^3 and 464^3); inside the L2 the generic kernel was
+    faster (128^3 bf16/f32), and at f64 vectors too (PERF.md).  None
+    budgets (the CPU): False."""
+    if (budgets is None or vec_dtype != torch.float32
+            or ndiags not in FIXED_BANDS):
+        return False
+    nbytes = (ndiags * n * _itemsize(band_dtype)
+              + 2 * n * _itemsize(vec_dtype))
+    return nbytes > budgets.l2_bytes
+
+
 def run_bounds(b: int, nblocks: int, ntiles: int) -> tuple[int, int]:
     """The contiguous run of tiles [t0, t1) that block ``b`` of a
-    persistent grid of ``nblocks`` walks, in order."""
+    persistent grid of ``nblocks`` walks, in order (the ring kernel: its
+    ring slides along one run)."""
     return b * ntiles // nblocks, (b + 1) * ntiles // nblocks
+
+
+def wave_tiles(b: int, nblocks: int, ntiles: int) -> range:
+    """The tiles that block ``b`` of a persistent grid of ``nblocks``
+    walks in the wave order of the windows kernel (``acg::wave_tiles``):
+    b, b + nblocks, b + 2 nblocks, ...  All blocks move through the
+    vector together, so a tile's far windows were streamed by other
+    blocks within about one wave."""
+    return range(b, ntiles, nblocks)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,8 +315,8 @@ class HbmPlan:
     shared memory in bytes.  Ring: ``lo`` and ``hi`` the span in tiles.
     Windows: ``table`` an int64 tensor on the device, per cluster (lo,
     length, base) then per band its cluster (-1 for a band wholly
-    outside), ``nclusters`` and ``buflen`` (the elements of one
-    buffer)."""
+    outside), ``nclusters``, ``buflen`` (the elements of one stage's
+    windows) and ``stages`` (the buffers in its ring)."""
 
     kind: str
     tile: int
@@ -256,25 +328,33 @@ class HbmPlan:
     table: torch.Tensor | None = None
     nclusters: int = 0
     buflen: int = 0
+    stages: int = 0
 
 
 def make_plan(kind: str, tile: int, n: int, offsets, vec_dtype, band_dtype,
               budgets: Budgets, device=None) -> HbmPlan:
     """The :class:`HbmPlan` of ``kind`` at ``tile`` for ``n`` rows.  The
     grid is as many blocks as fit the card (``budgets``) at once, at most
-    one a tile."""
+    one a tile.  The windows kernel's ring depth is
+    :func:`windows_stages`' (the shallowest of ``STAGES`` when none fits,
+    which the card then refuses)."""
     vb, mb = _itemsize(vec_dtype), _itemsize(band_dtype)
     live = _live(offsets, n)
     ntiles = -(-n // tile)
+    threads = THREADS
     if kind == "hbm-ring":
         lo, hi = ring_span(live, tile)
         smem = ring_bytes(live, tile, vb, mb, len(offsets))
     elif kind == "hbm":
         lo = hi = 0
-        smem = windows_bytes(live, tile, vb, mb, len(offsets))
+        stages = (windows_stages(n, offsets, vec_dtype, band_dtype, tile,
+                                 budgets) or STAGES[-1])
+        smem = windows_bytes(live, tile, vb, mb, len(offsets), stages)
+        threads = WINDOWS_THREADS
     else:
         raise ValueError(f"no HBM kernel of kind {kind!r}")
-    nblocks = min(budgets.sms * max(1, blocks_per_sm(smem, budgets)), ntiles)
+    nblocks = min(budgets.sms * max(1, blocks_per_sm(smem, budgets,
+                                                     threads)), ntiles)
     # dynamic shared memory only: the dot's tree is static
     dyn = smem - _static_bytes(vb)
     if kind == "hbm-ring":
@@ -290,4 +370,5 @@ def make_plan(kind: str, tile: int, n: int, offsets, vec_dtype, band_dtype,
     table = torch.tensor(rows, dtype=torch.int64, device=device)
     return HbmPlan(kind, tile, ntiles, nblocks, dyn, table=table,
                    nclusters=len(layout),
-                   buflen=sum(length for _, length, _ in layout))
+                   buflen=sum(length for _, length, _ in layout),
+                   stages=stages)

@@ -22,7 +22,7 @@ raises and the script exits non-zero:
               clustered-window kernel;
    p2d-10k    set-up of the 5-point 2-D Poisson on 10,000^2 (10^8
               unknowns) built directly in band form, fmt="dia", planned
-              onto the shared-memory ring kernel;
+              onto the windows kernel (the ring on a plan made for it);
    dist-setup set-up of the distributed cell: 256^3 f64 Poisson as a
               host CSR, partition_graph into 4 grid blocks,
               partition_system, build_sharded onto ["cuda:0"] * 4 (the
@@ -47,11 +47,14 @@ raises and the script exits non-zero:
               rectangle and bit for bit against sliced_matvec, each beside
               cuSPARSE CSR x on the same matrix in the same ordering and
               a bound counting the stored entries; the HBM tier:
-              dia_spmv_windows at 256^3 (bf16/f32, int8/f32, f64/f64)
-              and 464^3 (bf16 bands, f32 and f64 vectors),
-              dia_spmv_ring on 10,000^2 (bf16/f32, f64/f64), each with y
+              dia_spmv_windows at 256^3 (bf16/f32, int8/f32, f64/f64),
+              464^3 (bf16 bands, f32 and f64 vectors) and 10,000^2
+              (bf16/f32), dia_spmv_ring on 10,000^2 (bf16/f32, f64/f64;
+              a kernel on a plan made for it where the operator's plan
+              takes another is marked planned: false), each with y
               bit-equal to dia_spmv and timed beside dia_spmv and
-              cuSPARSE CSR x on the same operator, and
+              cuSPARSE CSR x on the same operator, dia_spmv with the
+              dot on the 464^3 operator in a row of its own, and
               dia_spmv at bench.py's 128^3 (its resident path); the
               distributed path's kernels at its shapes: stencil_spmv on
               a 256x128x128 shard, ell_spmv on a shard's interface
@@ -110,9 +113,13 @@ raises and the script exits non-zero:
               in float64 with the plain dia_matvec on the card (< 3e-4),
               us/iter beside the iteration's bound; dia-100m-f64: the
               same bf16 bands with f64 vectors to rtol 1e-8 (< 1e-7);
-              p2d-ring: 200 fixed iterations on 10,000^2 through the ring
-              kernel (cuda-dia-hbm-ring), the true residual held to the
-              recurrence's within f32 rounding drift;
+              p2d and p2d-ring: 200 fixed iterations on 10,000^2
+              through its planned windows kernel (cuda-dia-hbm) and
+              through the ring kernel on a plan made for it
+              (cuda-dia-hbm-ring), the true residual held to the
+              recurrence's within f32 rounding drift; every DIA phase
+              prints the plan it took (kernel, tile, grid, shared
+              memory, ring depth);
 14. distributed
               cg_dist with 4 shards on the one card: dist-stencil,
               dist-stencil-allgather, dist-stencil-rdma (the stencil
@@ -277,7 +284,8 @@ def main() -> int:
     _phase("dist-fem", lambda: _dist_fem_phase(nparts, ctx))
     _phase("dia-100m", lambda: _dia_100m_solve(ctx, "float32"))
     _phase("dia-100m-f64", lambda: _dia_100m_solve(ctx, "float64"))
-    _phase("p2d-ring", lambda: _p2d_ring_solve(p2d_iters, ctx))
+    _phase("p2d", lambda: _p2d_solve(p2d_iters, ctx, ring=False))
+    _phase("p2d-ring", lambda: _p2d_solve(p2d_iters, ctx, ring=True))
     _phase("profile", lambda: _profile_phase(ctx))
     lines = _kernel_lines(ctx)
     idle = [k["name"] for k in lines if k["launches"] <= 0]
@@ -547,7 +555,7 @@ def _kernels_phase(G: int, nrhs: int, ctx):
         for with_dot in (False, True):
             def run(dev=dev, x=x, w=with_dot):
                 return dia_spmv(dev.bands, dev.scales, dev.offsets_t, x,
-                                with_dot=w)
+                                with_dot=w, fixed=dev.fixed)
 
             def plain(dev=dev, x=x, w=with_dot):
                 y = dia_matvec(dev.bands, dev.offsets, x, dev.scales)
@@ -566,7 +574,8 @@ def _kernels_phase(G: int, nrhs: int, ctx):
                     lambda *a, dev=dev: cg_pipelined_iter_plain(
                         dev.bands, dev.scales, dev.offsets, *a),
                     _composed(lambda v, dev=dev: dia_spmv(
-                        dev.bands, dev.scales, dev.offsets_t, v)),
+                        dev.bands, dev.scales, dev.offsets_t, v,
+                        fixed=dev.fixed)),
                     vecs, ab, n, ctx,
                     D_ * n * dev.mat_itemsize + 12 * n * vb,
                     2 * D_ * n + 16 * n)
@@ -701,7 +710,7 @@ def _batched_kernels(D, G: int, nrhs: int, ctx):
 
         def one(x, w, dev=dev):
             return dia_spmv(dev.bands, dev.scales, dev.offsets_t, x,
-                            with_dot=w)
+                            with_dot=w, fixed=dev.fixed)
 
         runs = [(nrhs, False), (nrhs, True)]
         if tier == "bf16/f32":
@@ -877,6 +886,20 @@ _DIA_ONE_VECTOR = {"resident": "dia_spmv", "hbm-ring": "dia_spmv_ring",
                    "hbm": "dia_spmv_windows"}
 
 
+def _plan_info(op) -> dict:
+    """The one-vector SpMV plan a DIA operator took: its kernel and, for
+    ``dia_spmv``, whether it runs with the band count fixed, for an HBM
+    kernel the tile, grid, shared memory and ring depth (windows) or span
+    (ring)."""
+    p = op.plan
+    if p is None:
+        return {"kind": "resident", "kernel": "dia_spmv", "fixed": op.fixed}
+    return {"kind": p.kind, "kernel": _DIA_ONE_VECTOR[p.kind],
+            "tile": p.tile, "nblocks": p.nblocks, "smem": p.smem,
+            **({"stages": p.stages} if p.kind == "hbm"
+               else {"span": [p.lo, p.hi]})}
+
+
 def _dia_names(op, pipelined: bool):
     """(loop body of the kernel name, loop kernel, eager kernel) of a DIA
     solve: the one-vector SpMV kernel of the operator's plan takes the
@@ -989,7 +1012,7 @@ def _dia_bf16_solve(G: int, iters: int, ctx, pipelined: bool = False,
                                              residual_rtol=0.0))
     launches = _read_counts(ctx, phase)
     rep = _solve_report(res, launches)
-    rep["plan"] = op.kind
+    rep["plan"] = _plan_info(op)
     ok = ((res.operator_format, res.kernel) == ("dia", f"cuda-dia-{body}")
           and res.niterations == iters and np.all(np.isfinite(res.x))
           and res.x.shape == np.shape(b))
@@ -1061,6 +1084,7 @@ def _dia_f64_solve(G: int, ctx, pipelined: bool = False, nrhs: int = 0):
                                              residual_rtol=1e-8))
     launches = _read_counts(ctx, phase)
     rep = _solve_report(res, launches)
+    rep["plan"] = _plan_info(op)
     if nrhs:
         rep["true_relative_residual"] = _batched_true_residuals(op, res.x, b)
         rep["one_system_iterations_seed2"] = ctx["iterations"]["dia-f64"]
@@ -1607,6 +1631,7 @@ def _rcm_dia_phase(n: int, ctx):
                                                  residual_rtol=1e-8))
         launches = _read_counts(ctx, phase)
         rep = _solve_report(res, launches)
+        rep["plan"] = _plan_info(op.dev)
         rep["true_relative_residual"] = _host_true_residual(A, res.x, b)
         rep["error_vs_manufactured"] = float(np.linalg.norm(res.x - xstar))
         ok = ((res.operator_format, res.kernel)
@@ -1712,12 +1737,15 @@ def _cli_fem_phase(points: int):
 # the HBM tier: x past the card's L2, the ring and clustered-window kernels
 
 
-def _hbm_check(dev, tier, x, ctx):
+def _hbm_check(dev, tier, x, ctx, resident_row=False, planned=True):
     """The planned HBM kernel of ``dev`` (its ``plan``: ring or windows)
     with the fused dot, held against its plain version, y bit-equal to
     ``dia_spmv`` on the same operator, the dot's bits stable; timed
     beside the bound, the plain version, ``dia_spmv`` and cuSPARSE CSR x
-    on the same matrix."""
+    on the same matrix.  ``resident_row``: ``dia_spmv`` with the dot on
+    the same operator gets a row of its own beside it.  ``planned``:
+    whether the operator's own plan takes this kernel (else the row runs
+    it on a plan made for it, ``_forced``)."""
     import torch
 
     from acg_torch.ops.dia_kernels import (dia_matvec_ring_plain,
@@ -1742,7 +1770,7 @@ def _hbm_check(dev, tier, x, ctx):
 
     def resident():
         return dia_spmv(dev.bands, dev.scales, dev.offsets_t, x,
-                        with_dot=True)
+                        with_dot=True, fixed=dev.fixed)
 
     def extra(row):
         row["bits_equal_dia_spmv"] = bool(torch.equal(run()[0],
@@ -1756,24 +1784,37 @@ def _hbm_check(dev, tier, x, ctx):
     label = {"name": name, "tier": tier, "with_dot": True, "n": n,
              "plan": {"tile": plan.tile, "nblocks": plan.nblocks,
                       "smem": plan.smem, "ntiles": plan.ntiles,
+                      "planned": planned,
                       **({"span": [plan.lo, plan.hi]} if ring else
                          {"clusters": plan.nclusters,
-                          "buflen": plan.buflen})}}
+                          "buflen": plan.buflen,
+                          "stages": plan.stages})}}
     # the plain versions walk the tiles from Python (the ring one step of
     # the persistent grid at a time): five timed runs
     _check_kernel(label, run, plain, x, ctx, nbytes, 2 * D_ * n + 2 * n,
                   lambda: A @ x[:n], extra=extra, plain_reps=5)
+    if resident_row:
+        from acg_torch.ops.dia_kernels import dia_matvec
+
+        def plain_resident():
+            y = dia_matvec(dev.bands, dev.offsets, x, dev.scales)
+            return y, torch.dot(x, y)
+
+        _check_kernel({"name": "dia_spmv", "tier": tier, "with_dot": True,
+                       "n": n}, resident, plain_resident, x, ctx, nbytes,
+                      2 * D_ * n + 2 * n, lambda: A @ x[:n], plain_reps=5)
     del A
     torch.cuda.empty_cache()
 
 
 def _hbm_kernels(D, ctx):
     """Both HBM kernels at the shapes their paths give them: the windows
-    kernel at 256^3 (the bands/vectors tiers bf16/f32, int8/f32,
-    f64/f64) and on the 464^3 operator (bf16/f32, and bf16 bands with
-    f64 vectors); the ring on the 10,000^2 2-D operator (bf16/f32, and
-    f64/f64).  ``dia_spmv`` keeps its resident path at 128^3, whose
-    bf16/f32 row is checked here too."""
+    kernel at 256^3 (the bands/vectors tiers bf16/f32, int8/f32 and, on
+    a plan made for it, f64/f64, which the plan sends to ``dia_spmv``),
+    on the 464^3 operator (bf16/f32, and bf16 bands with f64 vectors)
+    and on the 10,000^2 2-D operator (bf16/f32); the ring on 10,000^2
+    (bf16/f32 and f64/f64, on plans made for it).  ``dia_spmv`` keeps
+    its resident path at 128^3 and gets a row of its own at 464^3."""
     import numpy as np
     import torch
 
@@ -1792,20 +1833,22 @@ def _hbm_kernels(D, ctx):
     _check_kernel({"name": "dia_spmv", "tier": "bf16/f32 128^3",
                    "with_dot": True},
                   lambda: dia_spmv(dev.bands, dev.scales, dev.offsets_t, x,
-                                   with_dot=True),
+                                   with_dot=True, fixed=dev.fixed),
                   lambda: (lambda y: (y, torch.dot(x, y)))(
                       dia_matvec(dev.bands, dev.offsets, x, dev.scales)),
                   x, ctx, 7 * n * dev.mat_itemsize + 2 * n * 4,
                   2 * 7 * n + 2 * n, lambda: A @ x)
     del dev, x, A, D128
-    for tier, vdt, mat in (("bf16/f32", "float32", "auto"),
-                           ("int8/f32", "float32", "int8"),
-                           ("f64/f64", "float64", None)):
+    # the plan: windows for the narrow bands, dia_spmv for f64 bands
+    for tier, vdt, mat, kind in (("bf16/f32", "float32", "auto", "hbm"),
+                                 ("int8/f32", "float32", "int8", "hbm"),
+                                 ("f64/f64", "float64", None, "resident")):
         dev = DeviceDia.from_dia(D, dtype=vdt, mat_dtype=mat)
-        if dev.kind != "hbm":
+        if dev.kind != kind:
             raise SystemExit(f"error: 256^3 {tier} planned {dev.kind}")
         x = _padded_x(D.nrows, dev.nrows_padded, getattr(torch, vdt), 9)
-        _hbm_check(dev, f"{tier} 256^3", x, ctx)
+        _hbm_check(_forced(dev, "hbm"), f"{tier} 256^3", x, ctx,
+                   planned=kind == "hbm")
         del dev, x
     big = ctx["p464"]["op"]
     for vdt in (torch.float32, torch.float64):
@@ -1814,18 +1857,24 @@ def _hbm_kernels(D, ctx):
         if dev.kind != "hbm":
             raise SystemExit(f"error: 464^3 {vdt} planned {dev.kind}")
         x = _padded_x(dev.nrows, dev.nrows_padded, vdt, 10)
-        _hbm_check(dev, f"bf16/f{x.element_size() * 8} 464^3", x, ctx)
+        _hbm_check(dev, f"bf16/f{x.element_size() * 8} 464^3", x, ctx,
+                   resident_row=vdt == torch.float32)
         del dev, x
+    # 10,000^2: the plan takes the windows at bf16/f32 and dia_spmv at
+    # f64/f64; the ring keeps both rows on a plan made for it
     p2d = ctx["p2d"]["op"]
-    for tier, dev in (("bf16/f32", p2d),
-                      ("f64/f64", DeviceDia.from_dia(ctx["p2d"]["D"],
-                                                     dtype="float64",
-                                                     mat_dtype=None))):
-        if dev.kind != "hbm-ring":
+    for tier, dev, kind in (("bf16/f32", p2d, "hbm"),
+                            ("f64/f64", DeviceDia.from_dia(
+                                ctx["p2d"]["D"], dtype="float64",
+                                mat_dtype=None), "resident")):
+        if dev.kind != kind:
             raise SystemExit(f"error: 10,000^2 {tier} planned {dev.kind}")
         x = _padded_x(dev.nrows, dev.nrows_padded,
                       getattr(torch, dev.vec_dtype), 11)
-        _hbm_check(dev, f"{tier} 10000^2", x, ctx)
+        _hbm_check(_forced(dev, "hbm-ring"), f"{tier} 10000^2", x, ctx,
+                   planned=False)
+        if kind == "hbm":
+            _hbm_check(dev, f"{tier} 10000^2", x, ctx)
         del dev, x
     del ctx["p2d"]["D"]
     torch.cuda.empty_cache()
@@ -1838,6 +1887,28 @@ def _with_vectors(op, vec_dtype):
 
     return DeviceDia.from_bands(op.bands, op.scales, op.offsets, op.nrows,
                                 op.ncols, op.nnz, vec_dtype)
+
+
+def _forced(dev, kind: str):
+    """``dev`` with a plan of ``kind`` ("hbm" or "hbm-ring") at that
+    kernel's own tile on this card, where the operator's plan takes
+    another kernel: the kernel keeps its row and its phase.  The ring
+    runs only on such a plan here: no operator this script drives plans
+    it (the plan takes it for many offset clusters over a short span,
+    tests/test_torch_dia_order.py)."""
+    import torch
+
+    from acg_torch.ops import dia_plan
+
+    if dev.kind == kind:
+        return dev
+    b = dia_plan.device_budgets(dev.device)
+    vdt = getattr(torch, dev.vec_dtype)
+    pick = dia_plan.windows_plan if kind == "hbm" else dia_plan.ring_plan
+    tile = pick(dev.nrows_padded, dev.offsets, vdt, dev.bands.dtype, b)
+    return dataclasses.replace(dev, plan=dia_plan.make_plan(
+        kind, tile, dev.nrows_padded, dev.offsets, vdt, dev.bands.dtype, b,
+        device=dev.device))
 
 
 def _p3d_big_setup(G: int, ctx):
@@ -1899,8 +1970,9 @@ def _p2d_setup(nx: int, ctx):
     """The 2-D 5-point Poisson at nx^2 = 10^8 unknowns (the JAX
     package's p2d family at the 100M-DOF scale) in band form, through
     ``build_device_operator(fmt="dia")``: bf16 bands, f32 vectors,
-    planned onto the ring kernel.  The host bands are kept for the f64
-    kernel row, then freed."""
+    planned onto the windows kernel (the JAX package rings here; the
+    port's plan takes the windows first, PERF.md).  The host bands
+    are kept for the f64 kernel rows, then freed."""
     import numpy as np
     import torch
 
@@ -1913,14 +1985,13 @@ def _p2d_setup(nx: int, ctx):
     op = build_device_operator(D, dtype=np.float32, fmt="dia")
     torch.cuda.synchronize()
     up_s = time.perf_counter() - t0
-    if op.bands.dtype != torch.bfloat16 or op.kind != "hbm-ring":
+    if op.bands.dtype != torch.bfloat16 or op.kind != "hbm":
         raise SystemExit(f"error: {nx}^2 stored {op.bands.dtype} planned "
-                         f"{op.kind}, expected bf16 on the ring kernel")
+                         f"{op.kind}, expected bf16 on the windows kernel")
     ctx["p2d"] = {"op": op, "D": D}
     return {"grid": [nx, nx], "n": op.nrows, "nnz": op.nnz,
-            "plan": op.kind, "tile": op.plan.tile,
-            "span": [op.plan.lo, op.plan.hi], "nblocks": op.plan.nblocks,
-            "smem_bytes": op.plan.smem,
+            "plan": _plan_info(op), "ring": _plan_info(_forced(op,
+                                                               "hbm-ring")),
             "host_seconds": {"bands": gen_s, "check_cast_upload": up_s}}
 
 
@@ -1978,7 +2049,7 @@ def _dia_100m_solve(ctx, vec_dtype: str):
     del x, r
     bound = _iteration_bound_us(op, ctx)
     rep.update(rtol=rtol, maxits=maxits, true_relative_residual=cert,
-               plan=op.kind, iteration_bound_us=bound,
+               plan=_plan_info(op), iteration_bound_us=bound,
                us_per_iter_over_bound=rep["us_per_iter"] / bound,
                host_setup_seconds=big["setup_seconds"])
     its = res.niterations
@@ -1999,11 +2070,13 @@ def _dia_100m_solve(ctx, vec_dtype: str):
     return rep
 
 
-def _p2d_ring_solve(iters: int, ctx):
+def _p2d_solve(iters: int, ctx, ring: bool):
     """Classic CG on the 10^8-unknown 2-D operator for ``iters`` fixed
     iterations (every criterion off, the bench protocol), from b = A x*
     for x* = default_rng(10_000).standard_normal(n): the loop runs the
-    ring kernel.  The true residual ||b - A x|| (float64, plain
+    operator's planned kernel (phase p2d: the windows), or with ``ring``
+    the ring kernel on a plan made for it (phase p2d-ring, last: it
+    frees the operator).  The true residual ||b - A x|| (float64, plain
     ``dia_matvec`` on the card) must agree with the recurrence's ||r||
     to within the rounding drift of f32 CG, iters * 2^-24 * (8 ||x|| +
     ||b||) (8 bounds ||A|| for the 5-point operator with diagonal 4)."""
@@ -2014,7 +2087,11 @@ def _p2d_ring_solve(iters: int, ctx):
     from acg_torch.ops.dia_kernels import dia_matvec
     from acg_torch.solvers.cg import cg
 
+    phase = "p2d-ring" if ring else "p2d"
     op = ctx["p2d"]["op"]
+    if ring:
+        op = _forced(op, "hbm-ring")
+    kind = op.kind
     n = op.nrows_padded
     xstar = torch.from_numpy(np.random.default_rng(10_000).standard_normal(
         n)).cuda()
@@ -2024,7 +2101,7 @@ def _p2d_ring_solve(iters: int, ctx):
     cg(op, b, options=SolverOptions(maxits=20, residual_rtol=0.0))
     _reset_counts()
     res = cg(op, b, options=SolverOptions(maxits=iters, residual_rtol=0.0))
-    launches = _read_counts(ctx, "p2d-ring")
+    launches = _read_counts(ctx, phase)
     rep = _solve_report(res, launches)
     x = torch.from_numpy(res.x).cuda().double()
     true = float(torch.linalg.norm(b64 - dia_matvec(op.bands, op.offsets,
@@ -2036,17 +2113,21 @@ def _p2d_ring_solve(iters: int, ctx):
     rep.update(true_residual=true, recurrence_residual=res.rnrm2,
                residual_gap=abs(true - res.rnrm2), drift_allowed=drift,
                relative_residual_bnorm=true / float(torch.linalg.norm(b64)),
-               plan=op.kind, iteration_bound_us=bound,
+               plan=_plan_info(op), iteration_bound_us=bound,
                us_per_iter_over_bound=rep["us_per_iter"] / bound)
-    ok = ((res.operator_format, res.kernel) == ("dia", "cuda-dia-hbm-ring")
+    ok = ((res.operator_format, res.kernel) == ("dia", f"cuda-dia-{kind}")
+          and kind == ("hbm-ring" if ring else "hbm")
           and res.niterations == iters and np.all(np.isfinite(res.x))
           and abs(true - res.rnrm2) <= drift
           and true < float(torch.linalg.norm(b64)))
     if not ok:
-        raise SystemExit(f"error: p2d-ring solve failed: {rep}")
-    _check_launches(rep, launches, "dia_spmv_ring", iters, False,
-                    "p2d-ring", eager="dia_spmv_ring")
-    del ctx["p2d"], op, b, b64
+        raise SystemExit(f"error: {phase} solve failed: {rep}")
+    kernel = _DIA_ONE_VECTOR[kind]
+    _check_launches(rep, launches, kernel, iters, False, phase,
+                    eager=kernel)
+    if ring:
+        del ctx["p2d"]
+    del op, b, b64
     torch.cuda.empty_cache()
     return rep
 
@@ -2198,7 +2279,8 @@ def _dist_kernels(ctx):
     _check_kernel({"name": "dia_spmv", "tier": "bf16/f32 256^3/4 shard",
                    "with_dot": True, "plan": dop.kind},
                   lambda: dia_spmv(dop.bands, dop.scales, dop.offsets_t, xf,
-                                   with_dot=True), plain_dia, xf, ctx,
+                                   with_dot=True, fixed=dop.fixed),
+                  plain_dia, xf, ctx,
                   D_ * nd * 2 + 2 * nd * 4, 2 * D_ * nd + 2 * nd,
                   lambda: csr32 @ xf)
     del csr32
@@ -2429,7 +2511,7 @@ def _dist_dia_solve(iters: int, ctx):
     ref = ctx["dia_bf16_ref"]
     rec = res.rnrm2 / res.bnrm2
     true = _poisson7_residual(ctx["dist"]["grid"], res.x, b)
-    rep.update(plan=ss.local_ops[0].kind,
+    rep.update(plan=_plan_info(ss.local_ops[0]),
                single_device_us_per_iter=ref["us_per_iter"],
                host_true_relative_residual=true,
                single_device_host_true_relative_residual=ref[
@@ -2702,6 +2784,7 @@ def _kernel_lines(ctx) -> list:
              ("ell_spmv", "f64/f64 fem3d-1m", "pipelined-fem-ell", None),
              ("dia_spmv_windows", "bf16/f32 464^3", "dia-100m", True),
              ("dia_spmv_windows", "bf16/f64 464^3", "dia-100m-f64", True),
+             ("dia_spmv_windows", "bf16/f32 10000^2", "p2d", True),
              ("dia_spmv_ring", "bf16/f32 10000^2", "p2d-ring", True),
              ("stencil_spmv", "matrix-free/float64 256^3/4 shard",
               "dist-stencil-rdma", True),

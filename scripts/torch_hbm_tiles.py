@@ -1,24 +1,32 @@
-"""Time the HBM-tier DIA kernels (acg_torch/csrc/dia_hbm_ring.cu,
-acg_torch/csrc/dia_hbm_windows.cu) at every tile their plan could take,
-beside dia_spmv on the same operator, on an NVIDIA GPU.
+"""Time the one-vector DIA kernels (acg_torch/csrc/dia_spmv.cu,
+acg_torch/csrc/dia_hbm_ring.cu, acg_torch/csrc/dia_hbm_windows.cu) on
+the operators whose plan chooses between them, on an NVIDIA GPU.
 
-For each configuration (the 464^3 and 256^3 7-point Poisson operators
-and the 10,000^2 5-point one, bf16 bands with f32 vectors, and f64
-vectors) and each kernel and tile of ``acg_torch.ops.dia_plan.TILES``
-whose shared memory fits one block of this card, the kernel with the
-fused dot is timed with CUDA events (median of 25) in interleaved
-rounds, its y checked bit-equal to ``dia_spmv``'s, and the tile the plan
-picks is marked.  The bound is the bytes one call must move (bands at
-their storage width, x read and y written once) over the data sheet's
-3.35 TB/s.
+For each configuration (the 464^3, 256^3 and 128^3 7-point Poisson
+operators and the 10,000^2 5-point one, in the band and vector tiers
+``chip_smoke.py`` drives) ``dia_spmv`` (its generic kernel, and the one
+with the band count fixed where it has one) and each HBM kernel at every
+tile of ``acg_torch.ops.dia_plan.TILES`` whose shared memory fits one
+block of this card are timed with the fused dot with CUDA events (median
+of 25) in interleaved rounds, y checked bit-equal to ``dia_spmv``'s, and
+the kernel, tile and depth the plan picks are marked.  The windows
+kernel runs at each ring depth of ``dia_plan.STAGES`` that fits: the
+deepest as this card plans it, a shallower one as the plan makes it for
+a block budget that holds it and not the deeper (one block an SM).  The
+bound is the bytes one call must move (bands at their storage width, x
+read and y written once) over the data sheet's 3.35 TB/s.
 
 Prints the card's name and power limit, one JSON line per (round,
-configuration, kernel, tile) and a summary line.  Imports nothing of JAX.
+configuration, kernel, tile, depth) and a summary line with each
+configuration's fastest time per kernel and the plan's choice.  Imports
+nothing of JAX.
 
 Run on the card: python scripts/torch_hbm_tiles.py [config ...]
-(configs: p3d-464-f32 p3d-464-f64 p3d-256-f32 p2d-10k-f32 p2d-10k-f64)
+(configs: p3d-464-f32 p3d-464-f64 p3d-256-f32 p3d-256-int8 p3d-256-f64
+p3d-128-f32 p2d-10k-f32 p2d-10k-f64)
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -57,29 +65,52 @@ def _time_ms(fn) -> float:
     return sorted(times)[REPS // 2]
 
 
+# (operator, vector dtype, band tier: "auto" bf16-exact, "int8" mask with
+# scales, None full width)
 CONFIGS = {
     "p3d-464-f32": (lambda: poisson3d_7pt_dia(464, dtype=np.float32),
-                    "float32"),
+                    "float32", "auto"),
     "p3d-464-f64": (lambda: poisson3d_7pt_dia(464, dtype=np.float32),
-                    "float64"),
+                    "float64", "auto"),
     "p3d-256-f32": (lambda: poisson3d_7pt_dia(256, dtype=np.float32),
-                    "float32"),
-    "p2d-10k-f32": (lambda: _poisson2d_dia(10_000), "float32"),
-    "p2d-10k-f64": (lambda: _poisson2d_dia(10_000), "float64"),
+                    "float32", "auto"),
+    "p3d-256-int8": (lambda: poisson3d_7pt_dia(256, dtype=np.float32),
+                     "float32", "int8"),
+    "p3d-256-f64": (lambda: poisson3d_7pt_dia(256), "float64", None),
+    "p3d-128-f32": (lambda: poisson3d_7pt_dia(128, dtype=np.float32),
+                    "float32", "auto"),
+    "p2d-10k-f32": (lambda: _poisson2d_dia(10_000), "float32", "auto"),
+    "p2d-10k-f64": (lambda: _poisson2d_dia(10_000), "float64", None),
 }
 
 
 def _cases(dev, budgets):
-    """(kind, tile, plan) for every kernel and tile that fits one block."""
+    """(kind, tile, stages, plan) for every kernel, tile and ring depth
+    that fits one block."""
     vdt = getattr(torch, dev.vec_dtype)
+    n = dev.nrows_padded
+    live = [o for o in dev.offsets if abs(o) < n]
     out = []
     for kind in ("hbm-ring", "hbm"):
         for tile in dia_plan.TILES:
-            plan = dia_plan.make_plan(kind, tile, dev.nrows_padded,
-                                      dev.offsets, vdt, dev.bands.dtype,
-                                      budgets, device=dev.device)
-            if plan.smem + dia_plan.THREADS * 8 <= budgets.smem_block:
-                out.append((kind, tile, plan))
+            for stages in ((None,) if kind == "hbm-ring"
+                           else dia_plan.STAGES):
+                b = budgets
+                if stages is not None:
+                    need = dia_plan.windows_bytes(
+                        live, tile, torch.empty((), dtype=vdt).element_size(),
+                        dev.mat_itemsize, len(dev.offsets), stages)
+                    if need > budgets.smem_block:
+                        continue
+                    if dia_plan.windows_stages(n, dev.offsets, vdt,
+                                               dev.bands.dtype, tile,
+                                               budgets) != stages:
+                        b = dataclasses.replace(budgets, smem_block=need)
+                plan = dia_plan.make_plan(kind, tile, n, dev.offsets, vdt,
+                                          dev.bands.dtype, b,
+                                          device=dev.device)
+                if plan.smem + dia_plan.THREADS * 8 <= budgets.smem_block:
+                    out.append((kind, tile, stages, plan))
     return out
 
 
@@ -96,14 +127,16 @@ def main() -> int:
     budgets = dia_plan.device_budgets(torch.device("cuda"))
     summary = {}
     for name in names:
-        make, vdt = CONFIGS[name]
+        make, vdt, mat = CONFIGS[name]
         D = make()
-        # bf16 bands (exact for both operators) at either vector dtype
-        dev = DeviceDia.from_dia(D, dtype="float32")
-        if vdt == "float64":
+        if mat == "auto" and vdt == "float64":
+            # bf16 bands (exact) with f64 vectors, as dia-100m-f64
+            dev = DeviceDia.from_dia(D, dtype="float32")
             dev = DeviceDia.from_bands(dev.bands, dev.scales, dev.offsets,
                                        dev.nrows, dev.ncols, dev.nnz,
                                        "float64")
+        else:
+            dev = DeviceDia.from_dia(D, dtype=vdt, mat_dtype=mat)
         del D
         n = dev.nrows_padded
         x = torch.from_numpy(np.random.default_rng(1).standard_normal(
@@ -114,14 +147,20 @@ def main() -> int:
         ref = dia_spmv(dev.bands, dev.scales, dev.offsets_t, x)
         cases = _cases(dev, budgets)
         times = {}
+        fixed = (False,) + ((True,) if vdt == "float32" and len(
+            dev.offsets) in dia_plan.FIXED_BANDS else ())
         for rnd in range(ROUNDS):
-            t = _time_ms(lambda: dia_spmv(dev.bands, dev.scales,
-                                          dev.offsets_t, x, with_dot=True))
-            times.setdefault("dia_spmv", []).append(t)
-            print(json.dumps({"round": rnd, "config": name,
-                              "kernel": "dia_spmv", "ms": t,
-                              "bound_ms": bound}), flush=True)
-            for kind, tile, plan in cases:
+            for f in fixed:
+                t = _time_ms(lambda f=f: dia_spmv(
+                    dev.bands, dev.scales, dev.offsets_t, x, with_dot=True,
+                    fixed=f))
+                key = "dia_spmv:fixed" if f else "dia_spmv"
+                times.setdefault(key, []).append(t)
+                print(json.dumps({"round": rnd, "config": name,
+                                  "kernel": key, "ms": t, "bound_ms": bound,
+                                  "planned": dev.plan is None
+                                  and dev.fixed == f}), flush=True)
+            for kind, tile, stages, plan in cases:
                 spmv = dia_spmv_ring if kind == "hbm-ring" else \
                     dia_spmv_windows
 
@@ -131,24 +170,32 @@ def main() -> int:
 
                 bits = bool(torch.equal(run()[0], ref))
                 t = _time_ms(run)
-                key = f"{kind}:{tile}"
+                key = f"{kind}:{tile}" + (f":{stages}" if stages else "")
                 times.setdefault(key, []).append(t)
                 print(json.dumps({
                     "round": rnd, "config": name, "kernel": kind,
-                    "tile": tile, "nblocks": plan.nblocks,
+                    "tile": tile, "stages": stages, "nblocks": plan.nblocks,
                     "smem": plan.smem, "ms": t, "bound_ms": bound,
                     "bits_equal_dia_spmv": bits,
                     "planned": dev.plan is not None
-                    and (dev.plan.kind, dev.plan.tile) == (kind, tile)}),
+                    and (dev.plan.kind, dev.plan.tile,
+                         dev.plan.stages or None) == (kind, tile, stages)}),
                     flush=True)
                 if not bits:
                     print(f"error: {name} {key} disagrees with dia_spmv",
                           file=sys.stderr)
                     return 1
+        best = {}
+        for k, v in times.items():
+            kern = k.split(":")[0]
+            if kern not in best or min(v) < best[kern][1]:
+                best[kern] = (k, min(v), max(v))
         summary[name] = {"bound_ms": bound,
                          "plan": [dev.kind, dev.plan.tile if dev.plan
-                                  else None],
-                         "best_ms": {k: min(v) for k, v in times.items()}}
+                                  else None,
+                                  dev.plan.stages if dev.plan else None],
+                         "fastest_per_kernel": best,
+                         "ms": {k: sorted(v) for k, v in times.items()}}
         del dev, x, ref
         torch.cuda.empty_cache()
     print(json.dumps({"summary": summary, "gpu": smi}), flush=True)

@@ -93,6 +93,93 @@ def test_dia_spmv_matches_plain(card, n, offsets, mat, vdt):
     assert torch.equal(again[1], got[1])            # no atomics: same bits
 
 
+def _tiered(D, mat):
+    """Bands that the tier ``mat`` stores (bf16-exact for "auto",
+    two-valued for "int8")."""
+    n = D.nrows
+    if mat in ("auto", "int8"):
+        D = DiaMatrix(n, n, D.offsets, np.sign(D.bands) * 0.5, D.nnz)
+    if mat == "int8":
+        D = DiaMatrix(n, n, D.offsets, np.abs(D.bands), D.nnz)
+    return D
+
+
+_O27 = tuple(sorted(a * 100 + b * 10 + c for a in (-1, 0, 1)
+                    for b in (-1, 0, 1) for c in (-1, 0, 1)))
+
+
+def _fixed_kernels(dev):
+    """The kernels of dia_spmv a call on ``dev`` can take: the generic
+    one, and the one with the band count fixed where it is compiled (f32
+    vectors, 3, 5, 7 or 27 bands)."""
+    from acg_torch.ops import dia_plan
+
+    return (False,) + ((True,) if dev.vec_dtype == "float32" and len(
+        dev.offsets) in dia_plan.FIXED_BANDS else ())
+
+
+# the band counts the fixed kernel is compiled for (3, 5, 7, 27) and one
+# it is not (4); n below one block, not a multiple of 256, and a band
+# past the vector (every row then takes the generic body)
+@pytest.mark.parametrize("vdt", ["float32", "float64"])
+@pytest.mark.parametrize("mat", ["auto", "int8", None, "float32"])
+@pytest.mark.parametrize("offsets", [
+    (-1, 0, 1), (-33, -1, 0, 1, 33), (-1100, -33, -1, 0, 1, 33, 1100),
+    _O27, (-2, 0, 1, 5)])
+@pytest.mark.parametrize("n", [100, 5001, 70_001, "past"])
+def test_dia_spmv_fixed_bands_equal_batched(card, n, offsets, mat, vdt):
+    """Both kernels of dia_spmv keep its bits: y and the dot equal
+    dia_spmv_batched's (which sums every row with the generic body) at
+    B = 1, and the plain version within _TOL; the fixed kernel is refused
+    where it is not compiled."""
+    if n == "past":                                 # a band past the vector
+        n, offsets = 900, offsets[:-1] + (offsets[-1] + 900,)
+    D = _tiered(_random_dia(n, offsets, seed=len(offsets)), mat)
+    dev = DeviceDia.from_dia(D, dtype=vdt, mat_dtype=mat, device=card)
+    x = torch.randn(n, dtype=getattr(torch, vdt), device=card)
+    kernels = _fixed_kernels(dev)
+    for with_dot in (True, False):
+        one = dia_kernels.dia_spmv_batched(dev.bands, dev.scales,
+                                           dev.offsets_t, x[None],
+                                           with_dot=with_dot)
+        for fixed in kernels:
+            got = dia_spmv(dev.bands, dev.scales, dev.offsets_t, x,
+                           with_dot=with_dot, fixed=fixed)
+            if with_dot:
+                assert torch.equal(got[0], one[0][0])
+                assert torch.equal(got[1], one[1][0])
+                y = dia_matvec(dev.bands, dev.offsets, x, dev.scales)
+                _check(got, (y, torch.dot(x, y)), x, x.dtype)
+            else:
+                assert torch.equal(got, one[0])
+    if len(kernels) == 1:
+        with pytest.raises(AcgError):
+            dia_spmv(dev.bands, dev.scales, dev.offsets_t, x, fixed=True)
+
+
+@pytest.mark.parametrize("vdt", ["float32", "float64"])
+@pytest.mark.parametrize("mat", ["auto", None])
+@pytest.mark.parametrize("offsets", [(-70_000, -257, -1, 0, 1, 257, 70_000),
+                                     _O27])
+def test_dia_spmv_dot_bits_with_several_rows_a_thread(card, offsets, mat,
+                                                      vdt):
+    """Past 256 x 4096 rows every thread sums several rows into its dot
+    (the 256^3 solves' shape): dia_spmv's y and dot, from either kernel,
+    equal each system's of dia_spmv_batched at B = 8 (the generic row
+    body, one multiply-add a row into the dot)."""
+    n = 256 * 4096 * 2 + 777
+    D = _tiered(_random_dia(n, offsets, seed=9), mat)
+    dev = DeviceDia.from_dia(D, dtype=vdt, mat_dtype=mat, device=card)
+    X = torch.randn(8, n, dtype=getattr(torch, vdt), device=card)
+    Y, d = dia_kernels.dia_spmv_batched(dev.bands, dev.scales,
+                                        dev.offsets_t, X, with_dot=True)
+    for fixed in _fixed_kernels(dev):
+        for s in range(8):
+            y, ds = dia_spmv(dev.bands, dev.scales, dev.offsets_t, X[s],
+                             with_dot=True, fixed=fixed)
+            assert torch.equal(Y[s], y) and torch.equal(d[s], ds)
+
+
 @pytest.mark.parametrize("vdt", [torch.float32, torch.float64])
 @pytest.mark.parametrize("gen", [
     lambda: poisson.poisson2d_5pt(1, 37),
@@ -731,6 +818,60 @@ def test_hbm_kernels_match_plain(card, n, offsets, tile, mat, vdt, kind):
         assert torch.equal(again[1], got[1])        # no atomics: same bits
 
 
+# the pipelined windows kernel: 7 bands (its fixed-D body) and 5 (the
+# generic one), spans wide enough for bulk-copied tiles, both ring depths
+# the plan makes (the shallower through a per-block budget that holds it
+# and not the deeper)
+@pytest.mark.parametrize("stages", [4, 3])
+@pytest.mark.parametrize("vdt", ["float32", "float64"])
+@pytest.mark.parametrize("mat", ["auto", "int8", None])
+@pytest.mark.parametrize("n,offsets,tile", [
+    (300_007, (-20_000, -150, -1, 0, 1, 150, 20_000), 1024),
+    (200_000, (-9000, -31, 0, 31, 9000), 512),
+])
+def test_windows_pipeline_matches_plain(card, n, offsets, tile, mat, vdt,
+                                        stages):
+    """Bulk-copied interior tiles beside the tiles read straight from
+    device memory (the ends, the ragged last tile), x 16-byte aligned and
+    one element off, and a grid with more blocks than tiles: y bit-equal
+    to dia_spmv, the dot within _TOL of the plain version and stable."""
+    from acg_torch.ops import dia_plan
+
+    D = _tiered(_random_dia(n, offsets, seed=5), mat)
+    dev = DeviceDia.from_dia(D, dtype=vdt, mat_dtype=mat, device=card)
+    budgets = dia_plan.device_budgets(card)
+    vt = getattr(torch, vdt)
+
+    def need(tile):
+        return dia_plan.windows_bytes(
+            offsets, tile, torch.empty((), dtype=vt).element_size(),
+            dev.bands.element_size(), len(offsets), stages)
+
+    while need(tile) > budgets.smem_block:
+        tile //= 2                                  # the ring fits one block
+    if stages < dia_plan.STAGES[0]:
+        budgets = dataclasses.replace(budgets, smem_block=need(tile))
+    plan = dia_plan.make_plan("hbm", tile, dev.nrows_padded, dev.offsets, vt,
+                              dev.bands.dtype, budgets, device=card)
+    assert plan.stages == stages
+    buf = torch.randn(dev.nrows_padded + 1, dtype=getattr(torch, vdt),
+                      device=card)
+    for p in (plan, dataclasses.replace(plan, nblocks=plan.ntiles + 7)):
+        for x in (buf[:-1].clone(), buf[1:]):
+            got = dia_kernels.dia_spmv_windows(dev.bands, dev.scales,
+                                               dev.offsets_t, x, p,
+                                               with_dot=True)
+            y = dia_kernels.dia_matvec_windows_plain(dev.bands, dev.offsets,
+                                                     x, dev.scales, p)
+            _check(got, (y, torch.dot(x, y)), x, x.dtype)
+            assert torch.equal(got[0], dia_spmv(dev.bands, dev.scales,
+                                                dev.offsets_t, x))
+            again = dia_kernels.dia_spmv_windows(dev.bands, dev.scales,
+                                                 dev.offsets_t, x, p,
+                                                 with_dot=True)
+            assert torch.equal(again[1], got[1])
+
+
 def test_hbm_wrappers_reject_what_the_kernels_do_not_take(card):
     D = _random_dia(5000, (-1000, 0, 1000))
     dev = DeviceDia.from_dia(D, mat_dtype=None, device=card)
@@ -750,33 +891,61 @@ def test_hbm_wrappers_reject_what_the_kernels_do_not_take(card):
             _hbm_plan("hbm-ring", 256, dev, card))
 
 
-@pytest.mark.parametrize("kind", ["hbm-ring", "hbm"])
+def _ring_operator(n):
+    """An SPD operator that the plan sends to the ring kernel on the
+    card's own shared memory, at f32 and at f64 vectors: 31 bands in 16
+    offset clusters over +-11,783 (offsets +-1537 k and +-(1537 k +
+    1024), k = 0..7), where no windows ring of 3 stages fits one block
+    at any tile.  Diagonal 2, every other band -1/32."""
+    offsets = tuple(sorted({s * (1537 * k + e) for k in range(8)
+                            for e in (0, 1024) for s in (1, -1)}))
+    bands = np.full((len(offsets), n), -1 / 32)
+    for d, off in enumerate(offsets):
+        if off == 0:
+            bands[d] = 2.0
+        elif off > 0:
+            bands[d, n - off:] = 0.0
+        else:
+            bands[d, :-off] = 0.0
+    return DiaMatrix(n, n, offsets, bands, int((bands != 0).sum()))
+
+
+@pytest.mark.parametrize("kind", ["hbm-ring", "hbm", "resident"])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_cg_through_the_hbm_kernels_matches_cpu(card, kind, dtype):
     """A solve whose operator leaves a (pretended) small L2: the loop and
-    the eager matvecs go through the planned kernel, once per SpMV."""
+    the eager matvecs go through the planned kernel, once per SpMV: the
+    windows kernel for the 3-D Poisson operator, the ring for an operator
+    of many clusters over a short span, and dia_spmv where no ring fits
+    one block (its fixed kernel at f32 vectors)."""
     from acg_torch.ops import dia_plan
 
-    D = poisson.poisson3d_7pt_dia(24)
+    D = _ring_operator(50_000) if kind == "hbm-ring" else \
+        poisson.poisson3d_7pt_dia(24)
     real = dia_plan.device_budgets(card)
     small = dataclasses.replace(real, l2_bytes=1024)
+    if kind == "resident":
+        small = dataclasses.replace(small, smem_block=4096)
     dev = DeviceDia.from_dia(D, dtype=dtype, device=card, budgets=small)
-    assert dev.kind == "hbm-ring"
-    if kind == "hbm":
-        dev = dataclasses.replace(dev, plan=_hbm_plan("hbm", 512, dev, card))
+    assert dev.kind == kind
+    if kind == "resident":
+        assert dev.fixed == (dtype == np.float32)
     host = DeviceDia.from_dia(D, dtype=dtype, device="cpu", budgets=small)
     rng = np.random.default_rng(6)
     b = D.matvec(rng.standard_normal(D.nrows))
     rtol = 1e-5 if dtype == np.float32 else 1e-10
     o = SolverOptions(maxits=1000, residual_rtol=rtol)
-    counter = "ring_launches" if kind == "hbm-ring" else "windows_launches"
-    before = getattr(dia_kernels, counter), dia_kernels.launches
+    counter = {"hbm-ring": "ring_launches", "hbm": "windows_launches",
+               "resident": "launches"}[kind]
+    before = {c: getattr(dia_kernels, c) for c in
+              ("ring_launches", "windows_launches", "launches")}
     rg = cg(dev, b, options=o)
-    assert (getattr(dia_kernels, counter) - before[0]
-            == rg.niterations + 1)
-    assert dia_kernels.launches == before[1]
+    for c, v in before.items():
+        assert getattr(dia_kernels, c) - v == (
+            rg.niterations + 1 if c == counter else 0)
     rc = cg(host, b, options=o, device="cpu")
-    assert rg.kernel == f"cuda-dia-{kind}" and rc.kernel == "torch-plain"
+    want = "cuda-dia-fused" if kind == "resident" else f"cuda-dia-{kind}"
+    assert rg.kernel == want and rc.kernel == "torch-plain"
     assert abs(rg.niterations - rc.niterations) <= 1
     x = rg.x.astype(np.float64)
     assert np.linalg.norm(b - D.matvec(x)) <= 10 * rtol * np.linalg.norm(b)
