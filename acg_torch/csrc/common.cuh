@@ -393,6 +393,10 @@ struct StencilArgs {
   int32_t offsets[kMaxArms];    // flat offsets, ascending
   int32_t digits[kMaxArms][3];  // per-arm shift along each axis, in {-1,0,1}
   double coeffs[kMaxArms];
+  // Read by the fixed-arm kernel of stencil_spmv.cu only:
+  int32_t stride[3];  // the launch's grid stride as grid coordinates
+  int32_t lo[3];      // the interior box: an element with lo[a] <= c_a <=
+  int32_t hi[3];      // hi[a] on every axis has every arm inside the grid
 };
 
 // Row i < n of the stencil action: each band value is made in registers

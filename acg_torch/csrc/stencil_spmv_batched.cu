@@ -13,9 +13,12 @@
 //
 // Bound on this card: bytes, B*2*npad*vec_bytes (X read once, Y written
 // once; the operator is its spec in the constant bank).  The one-system
-// kernel stencil_spmv.cu reaches only a third of that bound: it is held
-// back by its per-element integer work, the divisions that turn the
-// element index into grid coordinates and the per-arm boundary tests.
+// stencil_spmv.cu's generic kernel reaches two fifths of its bound at
+// f64 and a fifth at f32 (with the dot, calls queued back to back): it
+// is held back by its per-element integer work, the divisions that turn
+// the element index into grid coordinates and the per-arm boundary
+// tests (its fixed-arm kernel, which walks the coordinates without
+// division, reaches about half at f64 and a third at f32: PERF.md).
 // Here each thread does that work once per element for all systems of
 // its chunk: it derives the coordinates once, tests each arm once, and
 // applies an in-bounds arm to every system.  Systems run in chunks of at

@@ -13,7 +13,9 @@ action is regenerated from (grid, arm offsets, arm digits, coefficients).
 - **:class:`DeviceStencil`**: the device operator, holding no tensors.
 - **:func:`stencil_spmv`**: the kernel wrapper (``csrc/stencil_spmv.cu``
   on a CUDA tensor, the plain grid-shift :func:`stencil_matvec` on a CPU
-  tensor), with an optional fused <x, y>.
+  tensor), with an optional fused <x, y>.  The kernel has a generic form
+  and one with the arm count fixed at 5, 7 or 27 (:func:`fixed_arms`,
+  :func:`interior_box`, :func:`stride_coords`: its plan and geometry).
 - **:func:`stencil_spmv_batched`**: the multi-RHS wrapper over B systems
   (``csrc/stencil_spmv_batched.cu`` on a CUDA tensor, the same
   :func:`stencil_matvec` on a CPU ``(B, npad)`` tensor).
@@ -35,7 +37,8 @@ import torch
 
 from acg_torch.errors import AcgError, Status
 from acg_torch.ops.blas1 import batched_dot, pipelined_update
-from acg_torch.ops.dia_kernels import check_pipe_operands, grid_blocks
+from acg_torch.ops.dia_kernels import (THREADS, check_pipe_operands,
+                                       grid_blocks)
 from acg_torch.utils.backend import kernel_device
 
 # a "stencil" with more arms than the densest supported family (27-pt box)
@@ -243,7 +246,51 @@ def stencil_matvec(x: torch.Tensor, grid: tuple, digits: tuple,
 
 
 # ---------------------------------------------------------------------------
-# the kernel wrapper
+# the fixed-arm kernel's plan and geometry (csrc/stencil_spmv.cu)
+
+FIXED_ARMS = (5, 7, 27)     # the arm counts of stencil_spmv's fixed-arm
+#                             kernel: 2-D 5-point, 3-D 7- and 27-point
+
+
+def fixed_arms(spec: StencilSpec) -> bool:
+    """Whether :func:`stencil_spmv` runs the fixed-arm kernel for
+    ``spec`` unless told otherwise (the plan): every arm count that
+    kernel is compiled for.  The same bits either way."""
+    return len(spec.offsets) in FIXED_ARMS
+
+
+def route(spec: StencilSpec, fixed=None) -> str:
+    """The kernel a CUDA :func:`stencil_spmv` call with ``fixed`` runs:
+    ``"fixed-<arms>"`` or ``"generic"``."""
+    if fixed is None:
+        fixed = fixed_arms(spec)
+    return f"fixed-{len(spec.offsets)}" if fixed else "generic"
+
+
+def interior_box(dims: tuple, digits) -> tuple:
+    """(lo, hi) per axis: an element whose coordinate c_a lies in
+    [lo_a, hi_a] on every axis has every arm inside the grid.  lo_a is 1
+    when an arm steps -1 along axis a, hi_a is dims_a - 1 less 1 when one
+    steps +1; the box is empty (hi_a < lo_a) on an axis too short for
+    its arms.  The fixed-arm kernel sums a row inside the box on the
+    first two axes with its loads issued up front, masking off the arms
+    that step past [lo_2, hi_2] on the last."""
+    lo = tuple(int(any(dg[a] < 0 for dg in digits)) for a in range(3))
+    hi = tuple(dims[a] - 1 - int(any(dg[a] > 0 for dg in digits))
+               for a in range(3))
+    return lo, hi
+
+
+def stride_coords(step: int, dims: tuple) -> tuple:
+    """The grid coordinates (s0, s1, s2) of the flat step ``step`` (the
+    launch's grid stride); s0 may exceed dims[0]."""
+    r, s2 = divmod(step, dims[2])
+    s0, s1 = divmod(r, dims[1])
+    return s0, s1, s2
+
+
+# ---------------------------------------------------------------------------
+# the kernel wrappers
 
 
 class _CStencil(ctypes.Structure):
@@ -253,25 +300,35 @@ class _CStencil(ctypes.Structure):
                 ("dims", ctypes.c_int32 * 3),
                 ("offsets", ctypes.c_int32 * _MAX_ARMS),
                 ("digits", (ctypes.c_int32 * 3) * _MAX_ARMS),
-                ("coeffs", ctypes.c_double * _MAX_ARMS)]
+                ("coeffs", ctypes.c_double * _MAX_ARMS),
+                ("stride", ctypes.c_int32 * 3),
+                ("lo", ctypes.c_int32 * 3),
+                ("hi", ctypes.c_int32 * 3)]
 
 
 @functools.lru_cache(maxsize=64)
-def _c_spec(spec: StencilSpec) -> _CStencil:
-    """The spec as the kernel's struct, the grid padded with leading unit
-    axes to 3-D (digits padded with leading zeros)."""
-    k = len(spec.grid)
+def _c_spec(spec: StencilSpec, nblocks: int = 1) -> _CStencil:
+    """The spec as the kernel's struct for a launch of ``nblocks`` blocks:
+    the grid padded with leading unit axes to 3-D (digits padded with
+    leading zeros), the launch stride's coordinates, the interior box."""
+    lead = 3 - len(spec.grid)
+    dims = (1,) * lead + tuple(int(d) for d in spec.grid)
+    digits = tuple((0,) * lead + tuple(int(g) for g in dg)
+                   for dg in spec.digits)
     a = _CStencil()
     a.narms = len(spec.offsets)
-    lead = 3 - k
-    for ax, d in enumerate((1,) * lead + tuple(spec.grid)):
-        a.dims[ax] = int(d)
-    for i, (off, dg, c) in enumerate(zip(spec.offsets, spec.digits,
+    for ax in range(3):
+        a.dims[ax] = dims[ax]
+    for i, (off, dg, c) in enumerate(zip(spec.offsets, digits,
                                          spec.coeffs)):
         a.offsets[i] = int(off)
-        for ax, g in enumerate((0,) * lead + tuple(dg)):
-            a.digits[i][ax] = int(g)
+        for ax in range(3):
+            a.digits[i][ax] = dg[ax]
         a.coeffs[i] = float(c)
+    lo, hi = interior_box(dims, digits)
+    for ax, v in enumerate(stride_coords(nblocks * THREADS, dims)):
+        a.stride[ax] = v
+        a.lo[ax], a.hi[ax] = lo[ax], hi[ax]
     return a
 
 
@@ -289,8 +346,8 @@ def _load():
         lib.acg_stencil_spmv.restype = ctypes.c_int
         lib.acg_stencil_spmv.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
         _lib = lib
     return _lib
 
@@ -313,13 +370,18 @@ def _check_spec(name: str, spec: StencilSpec, x: torch.Tensor,
                        f"of at most 3 axes and {_MAX_ARMS} arms")
 
 
-def stencil_spmv(spec: StencilSpec, x: torch.Tensor, with_dot: bool = False):
+def stencil_spmv(spec: StencilSpec, x: torch.Tensor, with_dot: bool = False,
+                 fixed=None):
     """y = stencil @ x, plus the scalar <x, y> when ``with_dot``.
 
     ``x``: (npad,) f32 or f64 with ``npad >= prod(spec.grid)``; entries
-    past the grid come back exactly 0.  Returns ``y`` or ``(y, dot)`` with
-    ``dot`` a 0-d tensor.  CUDA tensors launch the kernel; CPU tensors
-    take :func:`stencil_matvec`."""
+    past the grid come back exactly 0.  ``fixed``: None (every caller of
+    the solvers) as the plan says (:func:`fixed_arms`); True or False
+    force the fixed-arm kernel (an arm count in ``FIXED_ARMS``, else the
+    launch raises) or the generic one, for holding one against the
+    other.  The same bits either way.  Returns ``y`` or
+    ``(y, dot)`` with ``dot`` a 0-d tensor.  CUDA tensors launch the
+    kernel; CPU tensors take :func:`stencil_matvec`."""
     global launches
     if x.device.type == "cpu":
         y = stencil_matvec(x, spec.grid, spec.digits, spec.coeffs)
@@ -336,10 +398,12 @@ def stencil_spmv(spec: StencilSpec, x: torch.Tensor, with_dot: bool = False):
     if with_dot:
         partials = torch.empty(nblocks, dtype=x.dtype, device=x.device)
         dot = torch.empty((), dtype=x.dtype, device=x.device)
+    if fixed is None:
+        fixed = fixed_arms(spec)
     with kernel_device(x):
         rc = lib.acg_stencil_spmv(
-            ctypes.addressof(_c_spec(spec)), x.data_ptr(), y.data_ptr(),
-            _VEC_CODES[x.dtype], npad, n,
+            ctypes.addressof(_c_spec(spec, nblocks)), x.data_ptr(),
+            y.data_ptr(), _VEC_CODES[x.dtype], npad, n, int(fixed),
             partials.data_ptr() if with_dot else None, nblocks,
             dot.data_ptr() if with_dot else None,
             torch.cuda.current_stream(x.device).cuda_stream)
@@ -397,8 +461,8 @@ def stencil_spmv_batched(spec: StencilSpec, X: torch.Tensor,
         dots = torch.empty(nsys, dtype=X.dtype, device=X.device)
     with kernel_device(X):
         rc = lib.acg_stencil_spmv_batched(
-            ctypes.addressof(_c_spec(spec)), X.data_ptr(), Y.data_ptr(),
-            _VEC_CODES[X.dtype], npad, spec.nrows, nsys,
+            ctypes.addressof(_c_spec(spec, nblocks)), X.data_ptr(),
+            Y.data_ptr(), _VEC_CODES[X.dtype], npad, spec.nrows, nsys,
             partials.data_ptr() if with_dot else None, nblocks,
             dots.data_ptr() if with_dot else None,
             torch.cuda.current_stream(X.device).cuda_stream)
@@ -473,8 +537,9 @@ def cg_pipelined_iter_stencil(spec: StencilSpec, w, z, r, p, s, x, alpha,
     gd = torch.empty(2, dtype=w.dtype, device=w.device)
     with kernel_device(w):
         rc = lib.acg_stencil_pipe(
-            ctypes.addressof(_c_spec(spec)), alpha.data_ptr(), beta.data_ptr(),
-            w.data_ptr(), w_out.data_ptr(), z.data_ptr(), r.data_ptr(),
+            ctypes.addressof(_c_spec(spec, nblocks)), alpha.data_ptr(),
+            beta.data_ptr(), w.data_ptr(), w_out.data_ptr(), z.data_ptr(),
+            r.data_ptr(),
             p.data_ptr(), s.data_ptr(), x.data_ptr(), _VEC_CODES[w.dtype],
             npad,
             spec.nrows, partials.data_ptr(), nblocks, gd.data_ptr(),

@@ -39,6 +39,13 @@ raises and the script exits non-zero:
               with their padding rows checked exactly zero and beside the
               open-coded body (SpMV kernel, torch updates and dots),
               as no single library call computes a pipelined iteration;
+              every stencil_spmv row names the kernel the plan routes
+              it to (route: fixed-5, fixed-7, fixed-27 or generic) and
+              holds y and the dot bit for bit against the generic
+              kernel forced on the same x (bits_equal_generic), and the
+              fixed kernel's other arm counts run on the 27-point
+              operator on 128^3 and the 2-D 5-point on 4096^2 (f32 and
+              f64, beside conv3d / conv2d);
               sgell_spmv and ell_spmv on the sliced layouts of the
               fem3d-1m operators (ELL also at f32, and at f32 on the RCM
               ordering sgell runs on) and, with bf16 values, of a randomly
@@ -527,8 +534,7 @@ def _kernels_phase(G: int, nrhs: int, ctx):
                                            dia_matvec, dia_spmv)
     from acg_torch.ops.stencil import (cg_pipelined_iter_stencil,
                                        cg_pipelined_iter_stencil_plain,
-                                       recognize_stencil, stencil_matvec,
-                                       stencil_spmv)
+                                       recognize_stencil, stencil_spmv)
     from acg_torch.sparse.poisson import poisson3d_7pt_dia
 
     D = poisson3d_7pt_dia(G)
@@ -595,27 +601,12 @@ def _kernels_phase(G: int, nrhs: int, ctx):
         x = xs[vdt]
         w = weight.to(vdt)
         for with_dot in (False, True):
-            def run(x=x, wd=with_dot):
-                return stencil_spmv(spec, x, with_dot=wd)
-
-            def plain(x=x, wd=with_dot):
-                y = stencil_matvec(x, spec.grid, spec.digits, spec.coeffs)
-                return (y, torch.dot(x, y)) if wd else y
-
             def library(x=x, w=w):
                 return torch.nn.functional.conv3d(
                     x[:n].view(1, 1, G, G, G), w, padding=1)
 
-            yp = plain()
-            yp = yp[0] if with_dot else yp
-            lib_err = float((library().reshape(-1) - yp[:n]).abs().max())
-            _check_kernel({"name": "stencil_spmv",
-                           "tier": f"matrix-free/{str(vdt)[6:]}",
-                           "with_dot": with_dot,
-                           "library_max_abs_err": lib_err},
-                          run, plain, x, ctx, 2 * n * x.element_size(),
-                          2 * len(spec.offsets) * n
-                          + (2 * n if with_dot else 0), library)
+            _stencil_row(spec, x, with_dot, f"matrix-free/{str(vdt)[6:]}",
+                         library, ctx)
         # the pipelined iteration, with 8 padding rows past the grid
         vecs, ab = _pipe_inputs(n, n + 8, vdt)
         _check_pipe({"name": "cg_pipelined_iter_stencil",
@@ -630,6 +621,7 @@ def _kernels_phase(G: int, nrhs: int, ctx):
         del vecs
     del xs
     torch.cuda.empty_cache()
+    _stencil_shapes(ctx)
     _batched_kernels(D, G, nrhs, ctx)
     _unstructured_kernels(ctx)
     _hbm_kernels(D, ctx)
@@ -637,6 +629,103 @@ def _kernels_phase(G: int, nrhs: int, ctx):
     return {"grid": [G, G, G], "n": n, "nrhs": nrhs,
             "configurations": len(ctx["rows"]),
             "launches_while_checking": _counts()}
+
+
+def _stencil_row(spec, x, with_dot, tier, library, ctx):
+    """One stencil_spmv configuration through ``_check_kernel``, with the
+    kernel the plan routes it to (``route``) and ``bits_equal_generic``:
+    y (and the dot) bit-equal to the generic kernel forced on the same x,
+    which is judged.  The conv library call's difference from the plain
+    version is recorded beside it."""
+    import torch
+
+    from acg_torch.ops.stencil import route, stencil_matvec, stencil_spmv
+
+    n = spec.nrows
+
+    def run():
+        return stencil_spmv(spec, x, with_dot=with_dot)
+
+    def plain():
+        y = stencil_matvec(x, spec.grid, spec.digits, spec.coeffs)
+        return (y, torch.dot(x, y)) if with_dot else y
+
+    def check(row):
+        got = run()
+        want = stencil_spmv(spec, x, with_dot=with_dot, fixed=False)
+        if with_dot:
+            row["bits_equal_generic"] = (bool(torch.equal(got[0], want[0]))
+                                         and bool(torch.equal(got[1],
+                                                              want[1])))
+        else:
+            row["bits_equal_generic"] = bool(torch.equal(got, want))
+        return row["bits_equal_generic"]
+
+    yp = plain()
+    yp = yp[0] if with_dot else yp
+    lib_err = float((library().reshape(-1) - yp[:n]).abs().max())
+    del yp
+    _check_kernel({"name": "stencil_spmv", "tier": tier,
+                   "with_dot": with_dot, "route": route(spec),
+                   "grid": list(spec.grid),
+                   "library_max_abs_err": lib_err},
+                  run, plain, x, ctx, 2 * n * x.element_size(),
+                  2 * len(spec.offsets) * n + (2 * n if with_dot else 0),
+                  library, extra=check)
+
+
+def _grid_stencil(grid: tuple, digits: list, centre: float):
+    """The constant-coefficient stencil on ``grid`` with the arms
+    ``digits`` (each at -1, the centre at ``centre``), made directly as a
+    spec: no host matrix."""
+    from acg_torch.ops.stencil import StencilSpec
+
+    strides = [math.prod(grid[a + 1:]) for a in range(len(grid))]
+    arms = sorted((sum(g * s for g, s in zip(dg, strides)), tuple(dg))
+                  for dg in digits)
+    nnz = sum(math.prod(G - abs(g) for G, g in zip(grid, dg))
+              for _, dg in arms)
+    return StencilSpec(grid=tuple(grid), offsets=tuple(o for o, _ in arms),
+                       digits=tuple(dg for _, dg in arms),
+                       coeffs=tuple(centre if not any(dg) else -1.0
+                                    for _, dg in arms), nnz=nnz)
+
+
+def _stencil_shapes(ctx, edge27: int = 128, edge2d: int = 4096):
+    """stencil_spmv on the other arm counts its fixed kernel is compiled
+    for: the 27-point operator on edge27^3 beside conv3d, the 2-D 5-point
+    on edge2d^2 beside conv2d, f32 and f64, with and without the dot."""
+    import itertools
+
+    import torch
+
+    cases = (("27pt", (edge27,) * 3,
+              list(itertools.product((-1, 0, 1), repeat=3)), 26.0),
+             ("2d-5pt", (edge2d,) * 2,
+              [(-1, 0), (0, -1), (0, 0), (0, 1), (1, 0)], 4.0))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for name, grid, digits, centre in cases:
+        spec = _grid_stencil(grid, digits, centre)
+        n = spec.nrows
+        w64 = torch.full((3,) * len(grid), -1.0, dtype=torch.float64,
+                         device="cuda")
+        if len(grid) == 2:
+            w64[0, 0] = w64[0, 2] = w64[2, 0] = w64[2, 2] = 0.0
+        w64[(1,) * len(grid)] = centre
+        conv = (torch.nn.functional.conv3d if len(grid) == 3
+                else torch.nn.functional.conv2d)
+        for vdt in (torch.float32, torch.float64):
+            x = torch.randn(n, generator=gen, dtype=torch.float64,
+                            device="cuda").to(vdt)
+            w = w64.to(vdt)[None, None]
+            tier = (f"matrix-free/{str(vdt)[6:]} {name} "
+                    f"{'x'.join(map(str, grid))}")
+            for with_dot in (False, True):
+                _stencil_row(spec, x, with_dot, tier,
+                             lambda x=x, w=w: conv(x.view(1, 1, *grid), w,
+                                                   padding=1), ctx)
+            del x
+        torch.cuda.empty_cache()
 
 
 def _per_system_bits(Y, d, X, one):
@@ -2235,7 +2324,6 @@ def _dist_kernels(ctx):
     import torch
 
     from acg_torch.ops.dia_kernels import dia_matvec, dia_spmv
-    from acg_torch.ops.stencil import stencil_matvec, stencil_spmv
     from acg_torch.parallel import rdma_halo
     from acg_torch.parallel.halo import halo_allgather, halo_ppermute
 
@@ -2252,17 +2340,9 @@ def _dist_kernels(ctx):
               (1, 1, 2)):
         w[(0, 0) + c] = -1.0
 
-    def plain_st():
-        y = stencil_matvec(x, spec.grid, spec.digits, spec.coeffs)
-        return y, torch.dot(x, y)
-
-    _check_kernel({"name": "stencil_spmv",
-                   "tier": "matrix-free/float64 256^3/4 shard",
-                   "with_dot": True, "grid": list(spec.grid)},
-                  lambda: stencil_spmv(spec, x, with_dot=True), plain_st,
-                  x, ctx, 2 * n * 8, 2 * len(spec.offsets) * n + 2 * n,
-                  lambda: torch.nn.functional.conv3d(
-                      x[:n].view(1, 1, *spec.grid), w, padding=1))
+    _stencil_row(spec, x, True, "matrix-free/float64 256^3/4 shard",
+                 lambda: torch.nn.functional.conv3d(
+                     x[:n].view(1, 1, *spec.grid), w, padding=1), ctx)
     # the interface operator of shard 0: its border rows over its ghost
     # slots
     _iface_check(ss, 0, "bf16/f64 interface 256^3/4", ctx)
@@ -2824,7 +2904,8 @@ def _kernel_lines(ctx) -> list:
                     "dia_spmv_ms", "bits_equal_dia_spmv",
                     "plan", "P", "R", "S", "chunks_per_slot",
                     "ghosts_bit_equal_ppermute_allgather", "halo_ms",
-                    "library", "grid", "rows", "ghosts"):
+                    "library", "grid", "rows", "ghosts", "route",
+                    "bits_equal_generic"):
             if key in row:
                 entry[key] = row[key]
         # one counter a kernel: two configurations of it in one phase

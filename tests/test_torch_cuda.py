@@ -203,6 +203,84 @@ def test_stencil_spmv_matches_plain(card, gen, vdt):
     assert torch.equal(st.stencil_spmv(spec, x), got[0])
 
 
+def _one_sided_spec():
+    """Five one-sided arms on a 6 x 7 x 8 grid (strides 56, 8, 1), built
+    directly: the fixed 5-arm kernel in 3-D with no arm past +0."""
+    digits = ((-1, -1, 0), (-1, 0, 0), (0, -1, 0), (0, 0, -1), (0, 0, 0))
+    return st.StencilSpec(grid=(6, 7, 8), offsets=(-64, -56, -8, -1, 0),
+                          digits=digits, coeffs=(0.5, -1.25, 2.0, 3.0, -0.75),
+                          nnz=0)
+
+
+# (grid generator, rows of padding past the grid)
+_FIXED_CASES = {
+    "13x14x15": (lambda: poisson.poisson3d_7pt(13, 14, 15), 0),
+    "1x32x32": (lambda: poisson.poisson3d_7pt(1, 32, 32), 0),
+    "27pt-9x10x11": (lambda: poisson.poisson3d_27pt(9, 10, 11), 0),
+    "axis-of-2": (lambda: poisson.poisson3d_7pt(2, 9, 10), 0),
+    "padded": (lambda: poisson.poisson3d_7pt(13, 14, 15), 14),
+    "stride-wraps-every-axis": (lambda: poisson.poisson3d_7pt(101, 103, 107),
+                                5),
+    "smaller-than-one-stride": (lambda: poisson.poisson2d_5pt(5, 7), 3),
+    "2d-5pt-4097x300": (lambda: poisson.poisson2d_5pt(4097, 300), 0),
+    "one-sided-5": (_one_sided_spec, 2),
+    "shard-256x128x128": (lambda: poisson.poisson3d_7pt_dia(256, 128, 128),
+                          0),
+}
+
+
+@pytest.mark.parametrize("vdt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", list(_FIXED_CASES))
+def test_stencil_spmv_fixed_equals_generic(card, case, vdt):
+    """The fixed-arm kernel gives y and the dot the generic kernel's bits
+    (on several vectors: a last-bit difference shows on some and not
+    others), the padding rows exactly 0, the plain version within _TOL;
+    the plan takes it by default, DeviceStencil's products too."""
+    gen, pad = _FIXED_CASES[case]
+    spec = gen()
+    if not isinstance(spec, st.StencilSpec):
+        spec, why = st.recognize_stencil(spec)
+        assert spec is not None, why
+    assert st.fixed_arms(spec)
+    n = spec.nrows
+    gen_ = torch.Generator(device=card).manual_seed(len(case))
+    for _ in range(3):
+        x = torch.zeros(n + pad, dtype=vdt, device=card)
+        x[:n] = torch.randn(n, generator=gen_, dtype=vdt, device=card)
+        before = st.launches
+        yf, df = st.stencil_spmv(spec, x, with_dot=True)
+        yg, dg = st.stencil_spmv(spec, x, with_dot=True, fixed=False)
+        assert st.launches == before + 2
+        assert torch.equal(yf, yg) and torch.equal(df, dg)
+        assert torch.equal(st.stencil_spmv(spec, x, fixed=True), yg)
+        assert torch.all(yf[n:] == 0)
+        y = st.stencil_matvec(x, spec.grid, spec.digits, spec.coeffs)
+        _check((yf, df), (y, torch.dot(x, y)), x, vdt)
+    assert st.route(spec) == f"fixed-{len(spec.offsets)}"
+    dev = st.DeviceStencil.from_spec(spec, dtype=str(vdt)[6:], device=card)
+    before = st.launches
+    assert torch.equal(dev.matvec_dot(x)[1], df)
+    assert st.launches == before + 1
+
+
+def test_stencil_spmv_fixed_is_refused_off_its_arm_counts(card):
+    """9 arms: the plan takes the generic kernel, and asking for the
+    fixed one raises (no fallback)."""
+    r, c, v, n = poisson._stencil_coo(
+        (9, 10), [(i, j) for i in (-1, 0, 1) for j in (-1, 0, 1)
+                  if (i, j) != (0, 0)], 8.0, [-1.0] * 8, np.float64)
+    from acg_torch.sparse.csr import coo_to_csr
+
+    spec, why = st.recognize_stencil(coo_to_csr(r, c, v, n, n))
+    assert spec is not None and len(spec.offsets) == 9, why
+    assert not st.fixed_arms(spec)
+    x = torch.randn(n, dtype=torch.float64, device=card)
+    y = st.stencil_spmv(spec, x)
+    assert torch.equal(y, st.stencil_spmv(spec, x, fixed=False))
+    with pytest.raises(AcgError):
+        st.stencil_spmv(spec, x, fixed=True)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
     D = _random_dia(64, (-1, 0, 1))
     dev = DeviceDia.from_dia(D, mat_dtype=None, device=card)
