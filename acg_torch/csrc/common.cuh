@@ -2,7 +2,7 @@
 // deterministic two-pass reduction behind the fused dots, the row
 // bodies of the two operator tiers (DIA bands, matrix-free stencil),
 // which the SpMV kernels and the pipelined-iteration kernels share, and
-// the asynchronous x staging of the HBM-tier DIA kernels.
+// the bulk-copy pipeline of the HBM-tier DIA kernels.
 //
 // The TPU kernels sum their per-tile partials in grid order into one
 // scalar, because the TPU grid runs in order on one core.  On this card
@@ -271,96 +271,93 @@ __device__ __forceinline__ V dia_row(const B* __restrict__ bands,
 }
 
 // ---------------------------------------------------------------------------
-// Asynchronous copies of x into shared memory (cp.async, sm_80 and up).
-// A thread's copies are complete after its cp_async_wait; a
-// __syncthreads() after that makes every thread's copies visible.
+// The HBM-tier DIA kernels' pipeline: 1-D bulk copies (the TMA's
+// cp.async.bulk) from device memory into shared memory, their arrival
+// counted on an mbarrier, and the full/empty mbarriers through which a
+// producer warp and the consumer warps hand stages to each other.
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
                : "memory");
 }
 
-template <int N>  // 4 or 8 bytes
-__device__ __forceinline__ void cp_async_small(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "n"(N)
+// Make the initialised barriers visible to the async proxy (the bulk
+// copies); then a __syncthreads() before any thread uses them.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
 }
 
-template <int N>  // wait until at most N of this thread's groups are pending
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Stage x[a, a + len) into dst[0, len) with the block's threads, as
-// asynchronous copies; elements whose index leaves [0, n) are written 0
-// (the TPU kernels' zero halo).  ``aligned``: &x[a] and dst are 16-byte
-// aligned and len is a whole number of 16-byte chunks, so every chunk
-// inside [0, n) goes as one 16-byte copy and only chunks at the ends of
-// the vector go element by element; else every element is copied alone.
-template <typename V>
-__device__ __forceinline__ void stage_x(V* __restrict__ dst,
-                                        const V* __restrict__ x, int64_t n,
-                                        int64_t a, int len, bool aligned) {
-  constexpr int kVe = 16 / static_cast<int>(sizeof(V));
-  if (aligned) {
-    for (int k = threadIdx.x * kVe; k < len; k += blockDim.x * kVe) {
-      const int64_t j = a + k;
-      if (j >= 0 && j + kVe <= n) {
-        cp_async_16(dst + k, x + j);
-      } else {
-#pragma unroll
-        for (int e = 0; e < kVe; ++e) {
-          if (j + e >= 0 && j + e < n)
-            cp_async_small<sizeof(V)>(dst + k + e, x + j + e);
-          else
-            dst[k + e] = V(0);
-        }
-      }
-    }
-  } else {
-    for (int k = threadIdx.x; k < len; k += blockDim.x) {
-      const int64_t j = a + k;
-      if (j >= 0 && j < n)
-        cp_async_small<sizeof(V)>(dst + k, x + j);
-      else
-        dst[k] = V(0);
-    }
+// Wait until the phase of parity ``parity`` of the barrier has completed.
+// A wait that outlasts ~2^34 clocks (seconds) traps, so a fault in the
+// pipeline ends the launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = smem_addr(bar);
+  const long long start = clock64();
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 34)) __trap();
   }
 }
 
-// Stage src[0, valid) into dst[0, valid) (elements of a band's storage
-// type E) with the block's threads: whole 16-byte chunks as cp.async
-// copies when ``aligned`` (src and dst 16-byte aligned), the rest, and
-// everything when not aligned, by ordinary loads and stores.  Nothing is
-// written past ``valid`` (rows past the vector are never computed).
-template <typename E>
-__device__ __forceinline__ void stage_band(E* __restrict__ dst,
-                                           const E* __restrict__ src,
-                                           int valid, bool aligned) {
-  constexpr int kVe = 16 / static_cast<int>(sizeof(E));
-  if (aligned) {
-    for (int k = threadIdx.x * kVe; k < valid; k += blockDim.x * kVe) {
-      if (k + kVe <= valid) {
-        cp_async_16(dst + k, src + k);
-      } else {
-        for (int e = k; e < valid; ++e) dst[e] = src[e];
-      }
-    }
-  } else {
-    for (int k = threadIdx.x; k < valid; k += blockDim.x) dst[k] = src[k];
-  }
+// One 1-D bulk copy of ``bytes`` (a multiple of 16; both addresses
+// 16-byte aligned) from device memory into shared memory, its arrival
+// counted on ``bar``.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The same, the source's lines marked to leave the L2 first (``policy``
+// from evict_first_policy).
+__device__ __forceinline__ void bulk_load_once(void* dst, const void* src,
+                                               unsigned bytes, uint64_t* bar,
+                                               uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
 }
 
 // The contiguous run of tiles [t0, t1) that block b of a persistent grid

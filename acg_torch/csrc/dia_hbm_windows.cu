@@ -54,85 +54,17 @@
 
 namespace {
 
+using acg::bulk_load;
+using acg::bulk_load_once;
+using acg::evict_first_policy;
 using acg::kThreads;
+using acg::mbar_arrive;
+using acg::mbar_expect_tx;
+using acg::mbar_init;
+using acg::mbar_wait;
 
 constexpr int kWarps = kThreads / 32;  // consumer warps
 constexpr int kBlock = kThreads + 32;  // and one producer warp
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   acg::smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(acg::smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   acg::smem_addr(bar))
-               : "memory");
-}
-
-// Wait until the phase of parity ``parity`` of the barrier has completed.
-// A wait that outlasts ~2^34 clocks (seconds) traps, so a fault in the
-// pipeline ends the launch with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const unsigned a = acg::smem_addr(bar);
-  const long long start = clock64();
-  for (;;) {
-    unsigned done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > (1ll << 34)) __trap();
-  }
-}
-
-// One 1-D bulk copy of ``bytes`` (a multiple of 16; both addresses
-// 16-byte aligned) from device memory into shared memory, its arrival
-// counted on ``bar``.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(acg::smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(acg::smem_addr(bar))
-      : "memory");
-}
-
-// The same, the source's lines marked to leave the L2 first (``policy``
-// from evict_first_policy).
-__device__ __forceinline__ void bulk_load_once(void* dst, const void* src,
-                                               unsigned bytes, uint64_t* bar,
-                                               uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(
-          acg::smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(acg::smem_addr(bar)), "l"(policy)
-      : "memory");
-}
-
-__device__ __forceinline__ uint64_t evict_first_policy() {
-  uint64_t p;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
-               : "=l"(p));
-  return p;
-}
 
 __device__ __forceinline__ int64_t floor_div(int64_t a, int64_t b) {
   const int64_t q = a / b;
@@ -198,7 +130,7 @@ dia_windows_kernel(const B* __restrict__ bands, const V* __restrict__ scales,
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kWarps);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    acg::mbar_fence_init();
   }
   __syncthreads();
 

@@ -403,58 +403,104 @@ def _band(bands, scales, d: int, rows, dtype):
     return b
 
 
+def _ring_geometry(bands, offsets, x, plan):
+    """The ring kernel's split of every block's run (``run_bounds``) into
+    row tiles summed straight from device memory and its bulk-copied
+    middle ``[c0, c1)``: the row tiles that are whole, whose span lies
+    inside the vector and whose rows keep every band inside it, when x
+    and the band rows are 16-byte aligned (``dia_hbm_ring.cu``).
+    Returns ``(t0, t1, c0, c1)``, tensors of one entry a block."""
+    n, T, nt, nb = x.shape[-1], plan.tile, plan.ntiles, plan.nblocks
+    hi = plan.hi
+    live = all(abs(o) < n for o in offsets)
+    omin, omax = min(0, *offsets), max(0, *offsets)
+    in0, in1 = -(-(-omin) // T), (n - omax) // T
+    if not live or in1 < in0:
+        in0 = in1 = 0
+    bulk = (x.data_ptr() % 16 == 0 and bands.data_ptr() % 16 == 0
+            and n * bands.element_size() % 16 == 0)
+    t0, t1 = run_bounds(torch.arange(nb, device=x.device), nb, nt)
+    c0 = torch.minimum(torch.maximum(t0.new_tensor(max(-plan.lo, in0)), t0),
+                       t1)
+    c1 = torch.minimum(torch.maximum(t0.new_tensor(min(n // T - hi, in1)),
+                                     c0), t1)
+    return t0, t1, c0, (c1 if bulk else c0)
+
+
 def dia_matvec_ring_plain(bands: torch.Tensor, offsets, x: torch.Tensor,
                           scales: torch.Tensor | None, plan):
     """y = DIA(bands, offsets) @ x read through the ring kernel's
-    geometry, the plain PyTorch version of :func:`dia_spmv_ring`: every
-    block of the persistent grid walks its run of tiles
-    (``dia_plan.run_bounds``) with a ring of ``hi - lo + 2`` x tiles,
-    filled in the kernel's order (the span first, then before each tile
-    the next tile the run needs, into slot ``tile mod slots``; tiles
-    outside the vector zero) and read by the kernel's slot arithmetic.
-    The blocks advance together, one tile each per step.  A row sums its
-    bands as :func:`dia_matvec` does, so y has its bits."""
+    geometry, the plain PyTorch version of :func:`dia_spmv_ring`.  Every
+    block of the persistent grid walks its run of row tiles
+    (``dia_plan.run_bounds``); the tiles outside its bulk-copied middle
+    read x straight (:func:`_ring_geometry`), the middle reads it
+    through a ring of ``hi - lo + stages`` x tiles, x tile k of the
+    middle (counted from the first tile's span) in slot ``k mod slots``.
+    The blocks advance together, one row tile each per step, and the
+    ring is filled as the kernel's producer may have filled it at the
+    latest: ``stages`` row tiles ahead, each with its span.  A row reads
+    only the x tiles its row tile waits for (its span); a position whose
+    slot holds another tile, because the plan's span or slots are too
+    few, reads NaN.  A row sums its bands as :func:`dia_matvec` does, so
+    y has its bits."""
     n, T, nt, nb = x.shape[-1], plan.tile, plan.ntiles, plan.nblocks
-    slots, lo = plan.hi - plan.lo + 2, plan.lo
+    offs = [int(o) for o in offsets]
+    span = plan.hi - plan.lo + 1
+    slots = span + plan.stages - 1
     ring_len = slots * T
     dev, dt = x.device, x.dtype
     zero = torch.zeros((), dtype=dt, device=dev)
+    nan = torch.full((), float("nan"), dtype=dt, device=dev)
+    t0, t1, c0, c1 = _ring_geometry(bands, offs, x, plan)
+    y = torch.zeros(nt * T, dtype=dt, device=dev)
+    # the rows summed straight from device memory
+    tiles = torch.arange(nt, device=dev)
+    owner = torch.searchsorted(t1, tiles, right=True)
+    direct = (tiles < c0[owner]) | (tiles >= c1[owner])
+    rows = (tiles[direct][:, None] * T
+            + torch.arange(T, device=dev)).reshape(-1)
+    rows = rows[rows < n]
+    acc = torch.zeros(rows.shape, dtype=dt, device=dev)
+    for d, off in enumerate(offs):
+        j = rows + off
+        valid = (j >= 0) & (j < n)
+        xd = torch.where(valid, x[j.clamp(0, n - 1)], zero)
+        acc = acc + _band(bands, scales, d, rows, dt) * xd
+    y[rows] = acc
+    # the bulk-copied middles, through the ring
+    npipe = c1 - c0
+    ring = torch.zeros(nb, ring_len, dtype=dt, device=dev)
+    held = torch.full((nb, slots), -1, dtype=torch.int64, device=dev)
+    filled = torch.zeros(nb, dtype=torch.int64, device=dev)
     xt = torch.zeros(nt * T, dtype=dt, device=dev)
     xt[:n] = x
     xt = xt.view(nt, T)
-    t0, t1 = run_bounds(torch.arange(nb, device=dev), nb, nt)
-    ring = torch.zeros(nb, slots, T, dtype=dt, device=dev)
-
-    def fetch(jt, active):
-        who = active.nonzero().squeeze(1)
-        jt = jt[who]
-        inside = ((jt >= 0) & (jt < nt))[:, None]
-        ring[who, torch.remainder(jt, slots)] = torch.where(
-            inside, xt[jt.clamp(0, nt - 1)], zero)
-
-    for k in range(slots - 1):
-        fetch(t0 + lo + k, t0 < t1)
-    y = torch.zeros(nt * T, dtype=dt, device=dev)
-    offs = [int(o) for o in offsets]
-    for step in range(int((t1 - t0).max())):
-        t = t0 + step
-        fetch(t + 1 + plan.hi, t + 1 < t1)
-        who = (t < t1).nonzero().squeeze(1)
-        ta = t[who]
-        rows, rc = _tile_rows(plan, ta, n)
-        flat = ring[who].reshape(len(who), ring_len)
-        base = ((ta + lo) * T)[:, None]
-        s0 = (torch.remainder(ta + lo, slots) * T)[:, None]
+    first = c0 + plan.lo                     # the first x tile of a middle
+    r = torch.arange(T, device=dev)
+    for i in range(int(npipe.max())):
+        # the producer at its furthest: row tile i + stages - 1's span
+        last = torch.clamp(npipe - 1, max=i + plan.stages - 1)
+        want = torch.where(npipe > 0, last + span, 0)
+        while True:
+            who = (filled < want).nonzero().squeeze(1)
+            if who.numel() == 0:
+                break
+            k = filled[who]
+            ring.view(nb, slots, T)[who, k % slots] = xt[first[who] + k]
+            held[who, k % slots] = k
+            filled[who] += 1
+        who = (npipe > i).nonzero().squeeze(1)
+        rw, hw = ring[who], held[who]
+        rows = (c0[who, None] + i) * T + r
         acc = torch.zeros(rows.shape, dtype=dt, device=dev)
         for d, off in enumerate(offs):
-            j = rows + off
-            valid = (j >= 0) & (j < n)
-            p = s0 + (j - base)
+            p = (i % slots) * T + off - plan.lo * T + r
             p = torch.where(p >= ring_len, p - ring_len, p)
-            xd = torch.where(valid, flat.gather(1, p.clamp(0, ring_len - 1)),
-                             zero)
-            acc = acc + _band(bands, scales, d, rc, dt) * xd
-        y.view(nt, T)[ta] = acc
+            tile_of = hw[:, p // T]
+            ok = (tile_of >= i) & (tile_of < i + span)
+            xd = torch.where(ok, rw[:, p], nan)
+            acc = acc + _band(bands, scales, d, rows, dt) * xd
+        y[rows.reshape(-1)] = acc.reshape(-1)
     return y[:n]
 
 
@@ -519,7 +565,7 @@ def _load_ring():
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         _ring_lib = lib
     return _ring_lib
@@ -578,8 +624,8 @@ def dia_spmv_ring(bands: torch.Tensor, scales: torch.Tensor | None,
             scales.data_ptr() if scales is not None else None,
             offsets.data_ptr(), bands.shape[0], x.data_ptr(), y.data_ptr(),
             _VEC_CODES[x.dtype], x.shape[0], plan.tile, plan.lo,
-            plan.hi - plan.lo + 2, plan.ntiles, int(x.data_ptr() % 16 == 0),
-            plan.smem, plan.nblocks,
+            plan.hi - plan.lo + 1, plan.stages, plan.ntiles, plan.smem,
+            plan.nblocks,
             partials.data_ptr() if with_dot else None,
             dot.data_ptr() if with_dot else None,
             torch.cuda.current_stream(x.device).cuda_stream)

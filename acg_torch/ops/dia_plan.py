@@ -8,23 +8,25 @@ the card's own budgets in place of the TPU's VMEM budget:
 - **resident** (``dia_spmv``): while the vector x fits the device's L2
   cache, the on-chip store that kernel leans on for x, as the TPU's
   resident kernel leans on VMEM; and past it for full-width f64 bands;
-- **hbm** (``dia_spmv_windows``): past it, while a ring of three or four
+- **hbm-ring** (``dia_spmv_ring``): past it, while one block's ring of
+  consecutive x tiles spanning the whole offset reach, two to four row
+  tiles deep, and as many stages of band tiles fit one block's opt-in
+  shared memory; x then streams once;
+- **hbm** (``dia_spmv_windows``): else while a ring of three or four
   stages, each one x window per offset cluster and the band tiles of one
-  tile, fits one block's opt-in shared memory;
-- **hbm-ring** (``dia_spmv_ring``): else while one block's ring of
-  consecutive x tiles spanning the whole offset reach (and the kernel's
-  double-buffered band tiles) fits the same budget; x then streams once;
+  tile, fits the same budget;
 - **resident** again when neither fits, as the JAX package falls back
   to its non-HBM path.
 
-Two choices differ from the JAX package's, on measurements on an H100
-(PERF.md): the windows kernel comes before the ring (on 10,000^2 the
-ring took 1.33 ms a call at bf16/f32 against the windows' 0.73-0.74 and
-``dia_spmv``'s 0.81-0.83), and f64 bands stay on ``dia_spmv`` past the
-L2 (on 10,000^2 f64/f64 1.93-2.01 ms against the windows' 2.08-2.26 and
-the ring's 2.78-2.83; at 256^3 f64/f64 0.46-0.50 against 0.50-0.52):
-with 8-byte bands the band stream, which no staging shortens, is most
-of the traffic.  The port has no (rows, 128) layout, so everything here
+The order is the JAX package's: on an H100 the ring took 0.651 ms a call
+(queued back to back) on 10,000^2 bf16/f32 against the windows' 0.678-
+0.682, and 0.969 against 1.294-1.304 with f64 vectors (PERF.md).
+One choice differs from the JAX package's, on measurements on the same
+card: f64 bands stay on ``dia_spmv`` past the L2 (on 10,000^2 f64/f64
+1.93-2.01 ms against the windows' 2.08-2.26; the ring, redesigned, ties
+it at 1.92-1.93 queued; at 256^3 f64/f64 0.46-0.50 against 0.50-0.52):
+with 8-byte bands the band stream, which no staging shortens, is most of
+the traffic.  The port has no (rows, 128) layout, so everything here
 is in elements: a tile is ``T`` elements and the cluster slack is 1024
 elements (JAX's 8 rows of 128 lanes); for offsets that are multiples of
 128 and ``T = rt * 128`` the spans and clusters equal the JAX
@@ -41,25 +43,29 @@ import dataclasses
 
 import torch
 
-__all__ = ["Budgets", "HbmPlan", "SLACK", "STAGES", "TILES", "THREADS",
-           "WINDOWS_THREADS", "WINDOW_TILES", "FIXED_BANDS",
+__all__ = ["Budgets", "HbmPlan", "SLACK", "STAGES", "RING_STAGES", "TILES",
+           "THREADS", "WINDOWS_THREADS", "WINDOW_TILES", "FIXED_BANDS",
            "blocks_per_sm", "cluster_windows", "device_budgets",
            "fused_plan_for", "hbm_kernel_plan", "make_plan",
            "resident_fixed", "ring_bytes", "ring_plan", "ring_span",
-           "run_bounds", "wave_tiles", "window_layout", "windows_bytes",
-           "windows_plan", "windows_stages"]
+           "ring_slots", "ring_stages", "run_bounds", "wave_tiles",
+           "window_layout", "windows_bytes", "windows_plan",
+           "windows_stages"]
 
 SLACK = 1024                    # JAX's 8 rows x 128 lanes, in elements
-TILES = (2048, 1024, 512, 256)  # x tiles (elements) the plans try, largest
-#                                 first
+TILES = (2048, 1024, 512, 256)  # x tiles (elements) the tile sweeps try
+#                                 (scripts/torch_hbm_tiles.py)
 THREADS = 256                   # threads per block (acg::kThreads)
-WINDOWS_THREADS = THREADS + 32  # the windows kernel's consumers and its
-#                                 producer warp
+WINDOWS_THREADS = THREADS + 32  # a block of either HBM kernel: its
+#                                 consumers and its producer warp
 STAGES = (4, 3)                 # ring depths the windows plan tries,
 #                                 deepest first
-WINDOW_TILES = (1024, 512, 256)  # the windows plan's tiles, largest first
+RING_STAGES = (4, 3, 2)         # row tiles in flight the ring plan tries,
+#                                 deepest first (2: the depth at which the
+#                                 widest spans still fit, PERF.md)
+WINDOW_TILES = (1024, 512, 256)  # both HBM plans' tiles, largest first
 #                                  (2048 ran slower than 1024 at every
-#                                  depth, PERF.md)
+#                                  depth of the windows, PERF.md)
 FIXED_BANDS = (3, 5, 7, 27)     # the band counts dia_spmv's fixed kernel
 #                                 is compiled for
 MAX_THREADS_PER_SM = 2048
@@ -133,22 +139,29 @@ def _itemsize(dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
 
-def _band_buffers(tile: int, band_itemsize: int, ndiags: int) -> int:
-    """Both kernels stage every band's tile, double-buffered."""
-    return 2 * ndiags * tile * band_itemsize
+def ring_slots(offsets, tile: int, stages: int) -> int:
+    """x tiles in the ring kernel's ring: the span ``hi - lo + 1`` of one
+    row tile and one more tile for each further row tile in flight, so
+    that every one of the ``stages`` row tiles the producer may have
+    filled ahead has its whole span resident."""
+    lo, hi = ring_span(offsets, tile)
+    return hi - lo + stages
 
 
 def ring_bytes(offsets, tile: int, itemsize: int, band_itemsize: int,
-               ndiags: int | None = None) -> int:
-    """Shared memory of the ring kernel: T_ring + 1 slots of ``tile``
-    elements (one extra slot takes the next tile while this one
-    computes), two buffers of the ``ndiags`` band tiles (by default one
-    band per offset), each band's position in the ring (int32) and the
-    dot's tree."""
-    lo, hi = ring_span(offsets, tile)
+               ndiags: int | None = None,
+               stages: int = RING_STAGES[-1]) -> int:
+    """Shared memory of the ring kernel (``dia_hbm_ring.cu``): a head of
+    the 2 x ``stages`` band mbarriers, the 2 x slots x-tile mbarriers (8
+    bytes each) and each band's position in the ring (int32), rounded up
+    to 128 bytes; the ring of :func:`ring_slots` x tiles; ``stages``
+    buffers of the ``ndiags`` band tiles (by default one band per
+    offset), each rounded up to 16 bytes; and the dot's tree."""
     nd = len(offsets) if ndiags is None else ndiags
-    return ((hi - lo + 2) * tile * itemsize
-            + _band_buffers(tile, band_itemsize, nd) + 4 * nd
+    slots = ring_slots(offsets, tile, stages)
+    return (_round(16 * (stages + slots) + 4 * nd, 128)
+            + slots * tile * itemsize
+            + stages * _round(nd * tile * band_itemsize, 16)
             + _static_bytes(itemsize))
 
 
@@ -197,24 +210,69 @@ def blocks_per_sm(smem: int, budgets: Budgets,
                budgets.smem_sm // (smem + reserve))
 
 
-def _pick_tile(footprint, budgets: Budgets) -> int | None:
-    """The largest tile at which two blocks fit an SM, else the largest
-    at which one block fits, else None."""
-    fits = [t for t in TILES if footprint(t) <= budgets.smem_block]
-    two = [t for t in fits if blocks_per_sm(footprint(t), budgets) >= 2]
-    return (two or fits or [None])[0]
+def ring_stages(n: int, offsets, vec_dtype, band_dtype, tile: int,
+                budgets: Budgets) -> int | None:
+    """The ring kernel's depth at ``tile``: the deepest of
+    ``RING_STAGES`` whose ring fits one block; None when none does."""
+    live = _live(offsets, n)
+    vb, mb = _itemsize(vec_dtype), _itemsize(band_dtype)
+    for s in RING_STAGES:
+        if ring_bytes(live, tile, vb, mb, len(offsets),
+                      s) <= budgets.smem_block:
+            return s
+    return None
+
+
+def _ring_fits(n: int, offsets, vec_dtype, band_dtype, budgets: Budgets,
+               blocks: int) -> tuple | None:
+    """``(tile, stages)``: the largest of ``WINDOW_TILES`` with a ring
+    depth of ``RING_STAGES`` of which ``blocks`` blocks fit one SM, at
+    the deepest such depth; None when none does."""
+    live = _live(offsets, n)
+    vb, mb = _itemsize(vec_dtype), _itemsize(band_dtype)
+    for t in WINDOW_TILES:
+        for s in RING_STAGES:
+            need = ring_bytes(live, t, vb, mb, len(offsets), s)
+            if need <= budgets.smem_block and blocks_per_sm(
+                    need, budgets, WINDOWS_THREADS) >= blocks:
+                return t, s
+    return None
+
+
+def ring_stages(n: int, offsets, vec_dtype, band_dtype, tile: int,
+                budgets: Budgets) -> int | None:
+    """The ring kernel's depth at ``tile``: the deepest of
+    ``RING_STAGES`` at which two blocks fit an SM when the plan's tile
+    holds two there, else the deepest whose ring fits one block; None
+    when none does."""
+    live = _live(offsets, n)
+    vb, mb = _itemsize(vec_dtype), _itemsize(band_dtype)
+    fits = [s for s in RING_STAGES
+            if ring_bytes(live, tile, vb, mb, len(offsets),
+                          s) <= budgets.smem_block]
+    two = _ring_fits(n, offsets, vec_dtype, band_dtype, budgets, 2)
+    if two is not None and two[0] == tile:
+        return two[1]
+    return fits[0] if fits else None
 
 
 def ring_plan(n: int, offsets, vec_dtype, band_dtype,
               budgets: Budgets) -> int | None:
     """Tile of the ring kernel, or None when no ring fits one block
-    (``pallas_hbm2d_ring_plan``)."""
-    live = _live(offsets, n)
-    if not live:
+    (``pallas_hbm2d_ring_plan``): the largest of ``WINDOW_TILES`` at
+    which two blocks of some depth of ``RING_STAGES`` fit an SM, else the
+    largest at which one block fits (:func:`ring_stages` then gives the
+    depth).  On an H100 two blocks a ring ran ahead of one deeper block
+    at every tile (10,000^2 bf16/f32 at T = 1024: 2 row tiles in flight
+    and two blocks an SM 0.650 ms a call queued against 0.694 for 4 in
+    flight and one block, PERF.md)."""
+    if not _live(offsets, n):
         return None
-    vb, mb = _itemsize(vec_dtype), _itemsize(band_dtype)
-    return _pick_tile(lambda t: ring_bytes(live, t, vb, mb, len(offsets)),
-                      budgets)
+    for blocks in (2, 1):
+        fit = _ring_fits(n, offsets, vec_dtype, band_dtype, budgets, blocks)
+        if fit is not None:
+            return fit[0]
+    return None
 
 
 def windows_stages(n: int, offsets, vec_dtype, band_dtype, tile: int,
@@ -246,15 +304,15 @@ def windows_plan(n: int, offsets, vec_dtype, band_dtype,
 
 def hbm_kernel_plan(n: int, offsets, vec_dtype, band_dtype,
                     budgets: Budgets):
-    """``(kind, tile)`` for x past the L2, windows before the ring (the
-    one owner of that priority; the JAX package's ``hbm_kernel_plan``
-    rings first), or ``(None, None)``."""
-    tile = windows_plan(n, offsets, vec_dtype, band_dtype, budgets)
-    if tile is not None:
-        return "hbm", tile
+    """``(kind, tile)`` for x past the L2, the ring before the windows
+    (the one owner of that priority, the JAX package's
+    ``hbm_kernel_plan`` order), or ``(None, None)``."""
     tile = ring_plan(n, offsets, vec_dtype, band_dtype, budgets)
     if tile is not None:
         return "hbm-ring", tile
+    tile = windows_plan(n, offsets, vec_dtype, band_dtype, budgets)
+    if tile is not None:
+        return "hbm", tile
     return None, None
 
 
@@ -312,11 +370,12 @@ class HbmPlan:
 
     ``kind`` "hbm-ring" or "hbm"; ``tile`` x tile in elements; ``ntiles``
     row tiles; ``nblocks`` the persistent grid; ``smem`` its dynamic
-    shared memory in bytes.  Ring: ``lo`` and ``hi`` the span in tiles.
-    Windows: ``table`` an int64 tensor on the device, per cluster (lo,
-    length, base) then per band its cluster (-1 for a band wholly
-    outside), ``nclusters``, ``buflen`` (the elements of one stage's
-    windows) and ``stages`` (the buffers in its ring)."""
+    shared memory in bytes; ``stages`` the row tiles in flight (the
+    buffers of band tiles, and of windows).  Ring: ``lo`` and ``hi`` the
+    span in tiles (``hi - lo + stages`` slots of x).  Windows: ``table``
+    an int64 tensor on the device, per cluster (lo, length, base) then
+    per band its cluster (-1 for a band wholly outside), ``nclusters``
+    and ``buflen`` (the elements of one stage's windows)."""
 
     kind: str
     tile: int
@@ -335,30 +394,32 @@ def make_plan(kind: str, tile: int, n: int, offsets, vec_dtype, band_dtype,
               budgets: Budgets, device=None) -> HbmPlan:
     """The :class:`HbmPlan` of ``kind`` at ``tile`` for ``n`` rows.  The
     grid is as many blocks as fit the card (``budgets``) at once, at most
-    one a tile.  The windows kernel's ring depth is
-    :func:`windows_stages`' (the shallowest of ``STAGES`` when none fits,
-    which the card then refuses)."""
+    one a tile.  The ring depth is :func:`ring_stages`' or
+    :func:`windows_stages`' (the shallowest of ``RING_STAGES`` or
+    ``STAGES`` when none fits, which the card then refuses)."""
     vb, mb = _itemsize(vec_dtype), _itemsize(band_dtype)
     live = _live(offsets, n)
     ntiles = -(-n // tile)
-    threads = THREADS
     if kind == "hbm-ring":
         lo, hi = ring_span(live, tile)
-        smem = ring_bytes(live, tile, vb, mb, len(offsets))
+        stages = (ring_stages(n, offsets, vec_dtype, band_dtype, tile,
+                              budgets) or RING_STAGES[-1])
+        smem = ring_bytes(live, tile, vb, mb, len(offsets), stages)
     elif kind == "hbm":
         lo = hi = 0
         stages = (windows_stages(n, offsets, vec_dtype, band_dtype, tile,
                                  budgets) or STAGES[-1])
         smem = windows_bytes(live, tile, vb, mb, len(offsets), stages)
-        threads = WINDOWS_THREADS
     else:
         raise ValueError(f"no HBM kernel of kind {kind!r}")
     nblocks = min(budgets.sms * max(1, blocks_per_sm(smem, budgets,
-                                                     threads)), ntiles)
+                                                     WINDOWS_THREADS)),
+                  ntiles)
     # dynamic shared memory only: the dot's tree is static
     dyn = smem - _static_bytes(vb)
     if kind == "hbm-ring":
-        return HbmPlan(kind, tile, ntiles, nblocks, dyn, lo=lo, hi=hi)
+        return HbmPlan(kind, tile, ntiles, nblocks, dyn, lo=lo, hi=hi,
+                       stages=stages)
     layout = window_layout(live, tile, vb)
     member = {}
     for c, (_, _, bands) in enumerate(cluster_windows(live)):

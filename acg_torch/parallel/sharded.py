@@ -336,7 +336,8 @@ class ShardedSystem:
                                "here")
             state = (self.rdma if self.rdma is not None else
                      RdmaState(self.tables.partner, self.tables.max_msg,
-                               torch_dtype(self.vec_dtype), self.devices))
+                               torch_dtype(self.vec_dtype), self.devices,
+                               tables=self.tables))
         return dataclasses.replace(self, method=method, rdma=state)
 
     def check_transport(self) -> None:

@@ -22,7 +22,7 @@ raises and the script exits non-zero:
               clustered-window kernel;
    p2d-10k    set-up of the 5-point 2-D Poisson on 10,000^2 (10^8
               unknowns) built directly in band form, fmt="dia", planned
-              onto the windows kernel (the ring on a plan made for it);
+              onto the ring kernel (the windows on a plan made for it);
    dist-setup set-up of the distributed cell: 256^3 f64 Poisson as a
               host CSR, partition_graph into 4 grid blocks,
               partition_system, build_sharded onto ["cuda:0"] * 4 (the
@@ -66,10 +66,13 @@ raises and the script exits non-zero:
               distributed path's kernels at its shapes: stencil_spmv on
               a 256x128x128 shard, ell_spmv on a shard's interface
               operator (border rows x ghost slots), dia_spmv on a shard's
-              bf16 bands, and rdma_exchange on the 4-shard tables (bit
-              for bit against its plain version, ghosts bit for bit
-              against halo_ppermute and halo_allgather, timed beside one
-              Tensor.copy_ per slot and beside the three whole halos);
+              bf16 bands, and the put+signal kernel on the 4-shard
+              tables at GPU scope (rdma_exchange bit for bit against its
+              plain version, the fused halo's ghosts bit for bit against
+              its plain version, halo_ppermute and halo_allgather; one
+              call and 25 queued, beside one Tensor.copy_ per slot, the
+              three whole halos and the fused halo's bound); the ring's
+              and windows' rows name their depth (row tiles in flight);
 3. stencil    classic CG, 256^3 Poisson, f64, fmt="auto" (the matrix-free
               tier), manufactured solution, rtol 1e-8, true residual
               recomputed here with the stencil kernel;
@@ -120,10 +123,10 @@ raises and the script exits non-zero:
               in float64 with the plain dia_matvec on the card (< 3e-4),
               us/iter beside the iteration's bound; dia-100m-f64: the
               same bf16 bands with f64 vectors to rtol 1e-8 (< 1e-7);
-              p2d and p2d-ring: 200 fixed iterations on 10,000^2
-              through its planned windows kernel (cuda-dia-hbm) and
-              through the ring kernel on a plan made for it
-              (cuda-dia-hbm-ring), the true residual held to the
+              p2d and p2d-windows: 200 fixed iterations on 10,000^2
+              through its planned ring kernel (cuda-dia-hbm-ring) and
+              through the windows kernel on a plan made for it
+              (cuda-dia-hbm), the true residual held to the
               recurrence's within f32 rounding drift; every DIA phase
               prints the plan it took (kernel, tile, grid, shared
               memory, ring depth);
@@ -291,8 +294,8 @@ def main() -> int:
     _phase("dist-fem", lambda: _dist_fem_phase(nparts, ctx))
     _phase("dia-100m", lambda: _dia_100m_solve(ctx, "float32"))
     _phase("dia-100m-f64", lambda: _dia_100m_solve(ctx, "float64"))
-    _phase("p2d", lambda: _p2d_solve(p2d_iters, ctx, ring=False))
-    _phase("p2d-ring", lambda: _p2d_solve(p2d_iters, ctx, ring=True))
+    _phase("p2d", lambda: _p2d_solve(p2d_iters, ctx, windows=False))
+    _phase("p2d-windows", lambda: _p2d_solve(p2d_iters, ctx, windows=True))
     _phase("profile", lambda: _profile_phase(ctx))
     lines = _kernel_lines(ctx)
     idle = [k["name"] for k in lines if k["launches"] <= 0]
@@ -353,6 +356,28 @@ def _time_ms(fn, reps: int, warmup: int = 3) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def _queued_ms(fn, calls: int = 25, reps: int = 5) -> float:
+    """ms a call on the card: the median of ``reps`` runs of ``calls``
+    calls of ``fn()`` queued back to back between one pair of CUDA events
+    (one call queued before the first event, so the card is busy while
+    the host queues the rest)."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        fn()
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / calls)
+    return sorted(out)[reps // 2]
 
 
 def _bound(nbytes: int, flops: int, dtype, ctx) -> tuple[float, str]:
@@ -978,15 +1003,15 @@ _DIA_ONE_VECTOR = {"resident": "dia_spmv", "hbm-ring": "dia_spmv_ring",
 def _plan_info(op) -> dict:
     """The one-vector SpMV plan a DIA operator took: its kernel and, for
     ``dia_spmv``, whether it runs with the band count fixed, for an HBM
-    kernel the tile, grid, shared memory and ring depth (windows) or span
-    (ring)."""
+    kernel the tile, grid, shared memory, ring depth (row tiles in
+    flight) and, for the ring, its span."""
     p = op.plan
     if p is None:
         return {"kind": "resident", "kernel": "dia_spmv", "fixed": op.fixed}
     return {"kind": p.kind, "kernel": _DIA_ONE_VECTOR[p.kind],
             "tile": p.tile, "nblocks": p.nblocks, "smem": p.smem,
-            **({"stages": p.stages} if p.kind == "hbm"
-               else {"span": [p.lo, p.hi]})}
+            "stages": p.stages,
+            **({} if p.kind == "hbm" else {"span": [p.lo, p.hi]})}
 
 
 def _dia_names(op, pipelined: bool):
@@ -1873,11 +1898,10 @@ def _hbm_check(dev, tier, x, ctx, resident_row=False, planned=True):
     label = {"name": name, "tier": tier, "with_dot": True, "n": n,
              "plan": {"tile": plan.tile, "nblocks": plan.nblocks,
                       "smem": plan.smem, "ntiles": plan.ntiles,
-                      "planned": planned,
+                      "planned": planned, "stages": plan.stages,
                       **({"span": [plan.lo, plan.hi]} if ring else
                          {"clusters": plan.nclusters,
-                          "buflen": plan.buflen,
-                          "stages": plan.stages})}}
+                          "buflen": plan.buflen})}}
     # the plain versions walk the tiles from Python (the ring one step of
     # the persistent grid at a time): five timed runs
     _check_kernel(label, run, plain, x, ctx, nbytes, 2 * D_ * n + 2 * n,
@@ -1901,8 +1925,9 @@ def _hbm_kernels(D, ctx):
     kernel at 256^3 (the bands/vectors tiers bf16/f32, int8/f32 and, on
     a plan made for it, f64/f64, which the plan sends to ``dia_spmv``),
     on the 464^3 operator (bf16/f32, and bf16 bands with f64 vectors)
-    and on the 10,000^2 2-D operator (bf16/f32); the ring on 10,000^2
-    (bf16/f32 and f64/f64, on plans made for it).  ``dia_spmv`` keeps
+    and on the 10,000^2 2-D operator (bf16/f32, on a plan made for it);
+    the ring on 10,000^2 (bf16/f32 as planned, f64/f64 on a plan made
+    for it, which the plan sends to ``dia_spmv``).  ``dia_spmv`` keeps
     its resident path at 128^3 and gets a row of its own at 464^3."""
     import numpy as np
     import torch
@@ -1949,10 +1974,11 @@ def _hbm_kernels(D, ctx):
         _hbm_check(dev, f"bf16/f{x.element_size() * 8} 464^3", x, ctx,
                    resident_row=vdt == torch.float32)
         del dev, x
-    # 10,000^2: the plan takes the windows at bf16/f32 and dia_spmv at
-    # f64/f64; the ring keeps both rows on a plan made for it
+    # 10,000^2: the plan takes the ring at bf16/f32 and dia_spmv at
+    # f64/f64 (the ring's row there on a plan made for it); the windows
+    # kernel keeps its bf16/f32 row on a plan made for it
     p2d = ctx["p2d"]["op"]
-    for tier, dev, kind in (("bf16/f32", p2d, "hbm"),
+    for tier, dev, kind in (("bf16/f32", p2d, "hbm-ring"),
                             ("f64/f64", DeviceDia.from_dia(
                                 ctx["p2d"]["D"], dtype="float64",
                                 mat_dtype=None), "resident")):
@@ -1961,9 +1987,10 @@ def _hbm_kernels(D, ctx):
         x = _padded_x(dev.nrows, dev.nrows_padded,
                       getattr(torch, dev.vec_dtype), 11)
         _hbm_check(_forced(dev, "hbm-ring"), f"{tier} 10000^2", x, ctx,
-                   planned=False)
-        if kind == "hbm":
-            _hbm_check(dev, f"{tier} 10000^2", x, ctx)
+                   planned=kind == "hbm-ring")
+        if kind == "hbm-ring":
+            _hbm_check(_forced(dev, "hbm"), f"{tier} 10000^2", x, ctx,
+                       planned=False)
         del dev, x
     del ctx["p2d"]["D"]
     torch.cuda.empty_cache()
@@ -1981,10 +2008,9 @@ def _with_vectors(op, vec_dtype):
 def _forced(dev, kind: str):
     """``dev`` with a plan of ``kind`` ("hbm" or "hbm-ring") at that
     kernel's own tile on this card, where the operator's plan takes
-    another kernel: the kernel keeps its row and its phase.  The ring
-    runs only on such a plan here: no operator this script drives plans
-    it (the plan takes it for many offset clusters over a short span,
-    tests/test_torch_dia_order.py)."""
+    another kernel: the kernel keeps its row and its phase (the windows
+    on 10,000^2, which plans the ring; the ring on the 3-D operators'
+    +-nx*ny spans, where it does not fit, is never forced)."""
     import torch
 
     from acg_torch.ops import dia_plan
@@ -2059,9 +2085,9 @@ def _p2d_setup(nx: int, ctx):
     """The 2-D 5-point Poisson at nx^2 = 10^8 unknowns (the JAX
     package's p2d family at the 100M-DOF scale) in band form, through
     ``build_device_operator(fmt="dia")``: bf16 bands, f32 vectors,
-    planned onto the windows kernel (the JAX package rings here; the
-    port's plan takes the windows first, PERF.md).  The host bands
-    are kept for the f64 kernel rows, then freed."""
+    planned onto the ring kernel, as the JAX package plans it (PERF.md:
+    the redesigned ring runs ahead of the windows there).  The host
+    bands are kept for the f64 kernel rows, then freed."""
     import numpy as np
     import torch
 
@@ -2074,13 +2100,13 @@ def _p2d_setup(nx: int, ctx):
     op = build_device_operator(D, dtype=np.float32, fmt="dia")
     torch.cuda.synchronize()
     up_s = time.perf_counter() - t0
-    if op.bands.dtype != torch.bfloat16 or op.kind != "hbm":
+    if op.bands.dtype != torch.bfloat16 or op.kind != "hbm-ring":
         raise SystemExit(f"error: {nx}^2 stored {op.bands.dtype} planned "
-                         f"{op.kind}, expected bf16 on the windows kernel")
+                         f"{op.kind}, expected bf16 on the ring kernel")
     ctx["p2d"] = {"op": op, "D": D}
     return {"grid": [nx, nx], "n": op.nrows, "nnz": op.nnz,
-            "plan": _plan_info(op), "ring": _plan_info(_forced(op,
-                                                               "hbm-ring")),
+            "plan": _plan_info(op), "windows": _plan_info(_forced(op,
+                                                                  "hbm")),
             "host_seconds": {"bands": gen_s, "check_cast_upload": up_s}}
 
 
@@ -2159,12 +2185,12 @@ def _dia_100m_solve(ctx, vec_dtype: str):
     return rep
 
 
-def _p2d_solve(iters: int, ctx, ring: bool):
+def _p2d_solve(iters: int, ctx, windows: bool):
     """Classic CG on the 10^8-unknown 2-D operator for ``iters`` fixed
     iterations (every criterion off, the bench protocol), from b = A x*
     for x* = default_rng(10_000).standard_normal(n): the loop runs the
-    operator's planned kernel (phase p2d: the windows), or with ``ring``
-    the ring kernel on a plan made for it (phase p2d-ring, last: it
+    operator's planned kernel (phase p2d: the ring), or with ``windows``
+    the windows kernel on a plan made for it (phase p2d-windows, last: it
     frees the operator).  The true residual ||b - A x|| (float64, plain
     ``dia_matvec`` on the card) must agree with the recurrence's ||r||
     to within the rounding drift of f32 CG, iters * 2^-24 * (8 ||x|| +
@@ -2176,10 +2202,10 @@ def _p2d_solve(iters: int, ctx, ring: bool):
     from acg_torch.ops.dia_kernels import dia_matvec
     from acg_torch.solvers.cg import cg
 
-    phase = "p2d-ring" if ring else "p2d"
+    phase = "p2d-windows" if windows else "p2d"
     op = ctx["p2d"]["op"]
-    if ring:
-        op = _forced(op, "hbm-ring")
+    if windows:
+        op = _forced(op, "hbm")
     kind = op.kind
     n = op.nrows_padded
     xstar = torch.from_numpy(np.random.default_rng(10_000).standard_normal(
@@ -2205,7 +2231,7 @@ def _p2d_solve(iters: int, ctx, ring: bool):
                plan=_plan_info(op), iteration_bound_us=bound,
                us_per_iter_over_bound=rep["us_per_iter"] / bound)
     ok = ((res.operator_format, res.kernel) == ("dia", f"cuda-dia-{kind}")
-          and kind == ("hbm-ring" if ring else "hbm")
+          and kind == ("hbm" if windows else "hbm-ring")
           and res.niterations == iters and np.all(np.isfinite(res.x))
           and abs(true - res.rnrm2) <= drift
           and true < float(torch.linalg.norm(b64)))
@@ -2214,7 +2240,7 @@ def _p2d_solve(iters: int, ctx, ring: bool):
     kernel = _DIA_ONE_VECTOR[kind]
     _check_launches(rep, launches, kernel, iters, False, phase,
                     eager=kernel)
-    if ring:
+    if windows:
         del ctx["p2d"]
     del op, b, b64
     torch.cuda.empty_cache()
@@ -2316,11 +2342,14 @@ def _dist_kernels(ctx):
     plain versions: stencil_spmv on one shard's sub-grid (with the dot;
     beside conv3d), ell_spmv on one shard's interface operator (border
     rows x ghost slots; beside cuSPARSE CSR on the same matrix), dia_spmv on
-    one shard's bf16 bands at f32 (with the dot), and rdma_exchange on the
-    4-shard halo tables: delivered blocks bit-equal to the plain version,
-    ghosts bit-equal to halo_ppermute and halo_allgather, timed beside
-    the same slots moved by one Tensor.copy_ each and beside the three
-    whole halos."""
+    one shard's bf16 bands at f32 (with the dot), and the put+signal
+    kernel on the 4-shard halo tables at GPU scope: rdma_exchange's
+    delivered blocks bit-equal to the plain version, the fused halo's
+    ghosts bit-equal to its plain version, halo_ppermute and
+    halo_allgather; the exchange timed one call at a time and queued,
+    beside the same slots moved by one Tensor.copy_ each and its bound,
+    and the three whole halos (one call, queued) beside the fused halo's
+    own bound."""
     import torch
 
     from acg_torch.ops.dia_kernels import dia_matvec, dia_spmv
@@ -2364,57 +2393,71 @@ def _dist_kernels(ctx):
                   D_ * nd * 2 + 2 * nd * 4, 2 * D_ * nd + 2 * nd,
                   lambda: csr32 @ xf)
     del csr32
-    # the put+signal exchange on the 4-shard tables
+    # the put+signal kernel on the 4-shard tables: the exchange of (R, S)
+    # blocks, and the halo with its pack and unpack fused in
     st, state = ss.tables, ss.rdma
     P, R, S = len(ss.local_ops), state.R, state.S
     xs = [torch.randn(o.nrows_padded, generator=gen, dtype=torch.float64,
                       device="cuda") for o in ss.local_ops]
-    for xi, idx, buf in zip(xs, st.send_full, state.send):
-        torch.index_select(xi, 0, idx, out=buf.view(-1))
-    send = [b.clone() for b in state.send]
+    send = [xi[idx].view(R, S) for xi, idx in zip(xs, st.send_full)]
     got = [o.clone() for o in
-           rdma_halo.rdma_exchange(state.send, st.partner, state)]
+           rdma_halo.rdma_exchange(send, st.partner, state)]
     want = rdma_halo.rdma_exchange_plain(send, st.partner)
     torch.cuda.synchronize()
     state.check()
     bits = all(torch.equal(a, b) for a, b in zip(got, want))
-    g_rdma = rdma_halo.halo_rdma(xs, st, state)
+    g_rdma = [g.clone() for g in rdma_halo.halo_rdma(xs, st, state)]
+    g_plain = rdma_halo.halo_rdma_plain(xs, st)
     g_pp, g_ag = halo_ppermute(xs, st), halo_allgather(xs, st)
+    torch.cuda.synchronize()
+    state.check()
     halo_bits = all(torch.equal(a, b) and torch.equal(a, c)
-                    for a, b, c in zip(g_rdma, g_pp, g_ag))
+                    and torch.equal(a, d)
+                    for a, b, c, d in zip(g_rdma, g_pp, g_ag, g_plain))
     pairs = [(p, r, int(st.partner[p, r]) if st.partner[p, r] >= 0 else p)
              for p in range(P) for r in range(R)]
 
     def copies():
         for p, r, q in pairs:
-            state.out[p][r].copy_(state.send[q][r])
+            state.out[p][r].copy_(send[q][r])
 
-    word = state.send[0].element_size()
+    def exchange():
+        return rdma_halo.rdma_exchange(send, st.partner, state)
+
+    halos = {"rdma": lambda: rdma_halo.halo_rdma(xs, st, state),
+             "ppermute": lambda: halo_ppermute(xs, st),
+             "allgather": lambda: halo_allgather(xs, st)}
+    word = send[0].element_size()
+    nghost = sum(st.nghost)
     row = {"name": "rdma_exchange", "tier": "f64 256^3/4", "with_dot": None,
            "P": P, "R": R, "S": S, "chunks_per_slot": state.C,
+           "chunk_words": state.chunk, "scope": state.scope,
            "max_abs_err": max(float((a - b).abs().max())
                               for a, b in zip(got, want)),
            "bits_equal_plain": bits,
-           "ghosts_bit_equal_ppermute_allgather": halo_bits,
-           "ms": _time_ms(lambda: rdma_halo.rdma_exchange(
-               state.send, st.partner, state), ctx["reps"]),
+           "ghosts_bit_equal_plain_ppermute_allgather": halo_bits,
+           "ms": _time_ms(exchange, ctx["reps"]),
+           "ms_queued": _queued_ms(exchange),
            "plain_ms": _time_ms(lambda: rdma_halo.rdma_exchange_plain(
                send, st.partner), ctx["reps"]),
            "library_ms": _time_ms(copies, ctx["reps"]),
            "library": "one Tensor.copy_ (cudaMemcpyAsync) per slot",
-           "halo_ms": {
-               "rdma": _time_ms(lambda: rdma_halo.halo_rdma(xs, st, state),
-                                ctx["reps"]),
-               "ppermute": _time_ms(lambda: halo_ppermute(xs, st),
-                                    ctx["reps"]),
-               "allgather": _time_ms(lambda: halo_allgather(xs, st),
-                                     ctx["reps"])}}
-    # read every send word and write every delivered word once
+           "halo_ms": {k: _time_ms(f, ctx["reps"]) for k, f in halos.items()},
+           "halo_ms_queued": {k: _queued_ms(f) for k, f in halos.items()},
+           "halo_plain_ms": _time_ms(lambda: rdma_halo.halo_rdma_plain(
+               xs, st), ctx["reps"])}
+    # the exchange reads every send word and writes every delivered word
+    # once; the fused halo reads every send word from the owned vectors
+    # and the pack and unpack words (int32) once, and writes every ghost
+    # once
     row["bound_ms"], row["bound_by"] = _bound(2 * P * R * S * word, 0,
                                               torch.float64, ctx)
+    row["halo_bound_ms"], _ = _bound(
+        P * R * S * word + nghost * word + 2 * P * R * S * 4, 0,
+        torch.float64, ctx)
     ctx["rows"].append(row)
     _emit({"kernel_check": row})
-    if not (bits and halo_bits):
+    if not (bits and halo_bits and state.scope == "gpu"):
         raise SystemExit(f"error: rdma_exchange disagrees: {row}")
 
 
@@ -2864,8 +2907,8 @@ def _kernel_lines(ctx) -> list:
              ("ell_spmv", "f64/f64 fem3d-1m", "pipelined-fem-ell", None),
              ("dia_spmv_windows", "bf16/f32 464^3", "dia-100m", True),
              ("dia_spmv_windows", "bf16/f64 464^3", "dia-100m-f64", True),
-             ("dia_spmv_windows", "bf16/f32 10000^2", "p2d", True),
-             ("dia_spmv_ring", "bf16/f32 10000^2", "p2d-ring", True),
+             ("dia_spmv_ring", "bf16/f32 10000^2", "p2d", True),
+             ("dia_spmv_windows", "bf16/f32 10000^2", "p2d-windows", True),
              ("stencil_spmv", "matrix-free/float64 256^3/4 shard",
               "dist-stencil-rdma", True),
              ("ell_spmv", "bf16/f64 interface 256^3/4",
@@ -2903,7 +2946,9 @@ def _kernel_lines(ctx) -> list:
                     "padded_bytes",
                     "dia_spmv_ms", "bits_equal_dia_spmv",
                     "plan", "P", "R", "S", "chunks_per_slot",
-                    "ghosts_bit_equal_ppermute_allgather", "halo_ms",
+                    "chunk_words", "scope", "ms_queued",
+                    "ghosts_bit_equal_plain_ppermute_allgather", "halo_ms",
+                    "halo_ms_queued", "halo_bound_ms",
                     "library", "grid", "rows", "ghosts", "route",
                     "bits_equal_generic"):
             if key in row:

@@ -950,6 +950,78 @@ def test_windows_pipeline_matches_plain(card, n, offsets, tile, mat, vdt,
             assert torch.equal(again[1], got[1])
 
 
+# the ring's producer-warp pipeline: 5 bands (its fixed-D body) and 9 (the
+# generic one), spans of many tiles, every depth the plan makes (the
+# shallower through a per-block budget that holds it and not the deeper);
+# n even with a ragged last tile, and odd (band rows off 16 bytes: every
+# row straight from device memory)
+@pytest.mark.parametrize("stages", [4, 3, 2])
+@pytest.mark.parametrize("vdt", ["float32", "float64"])
+@pytest.mark.parametrize("mat", ["auto", "int8", None])
+@pytest.mark.parametrize("n,offsets,tile", [
+    (300_008, (-6000, -1, 0, 1, 6000), 1024),
+    (200_003, (-9000, -31, 0, 31, 9000), 512),
+    (250_000, (-6000, -2100, -1024, -1, 0, 1, 1024, 2100, 6000), 256),
+])
+def test_ring_pipeline_matches_plain(card, n, offsets, tile, mat, vdt,
+                                     stages):
+    """Bulk-copied row tiles beside the tiles read straight from device
+    memory (the ends of the vector, the ragged last tile, unaligned rows),
+    x 16-byte aligned and one element off, runs of many tiles and grids
+    whose runs are shorter than the span: y with and without the dot
+    bit-equal to dia_spmv, within _TOL of the plain version, the dot
+    stable."""
+    from acg_torch.ops import dia_plan
+
+    D = _tiered(_random_dia(n, offsets, seed=7), mat)
+    dev = DeviceDia.from_dia(D, dtype=vdt, mat_dtype=mat, device=card)
+    budgets = dia_plan.device_budgets(card)
+    vt = getattr(torch, vdt)
+
+    def need(tile):
+        return dia_plan.ring_bytes(
+            offsets, tile, torch.empty((), dtype=vt).element_size(),
+            dev.bands.element_size(), len(offsets), stages)
+
+    while need(tile) > budgets.smem_block:
+        tile //= 2                                  # the ring fits one block
+    assert tile >= 256
+    # a block budget that holds this depth and no deeper one, one block an
+    # SM; and the card's own plan at the same tile
+    reserve = budgets.smem_sm - budgets.smem_block
+    one = dataclasses.replace(budgets, smem_block=need(tile),
+                              smem_sm=need(tile) + reserve)
+    plan = dia_plan.make_plan("hbm-ring", tile, dev.nrows_padded,
+                              dev.offsets, vt, dev.bands.dtype, one,
+                              device=card)
+    assert plan.stages == stages
+    own = dia_plan.make_plan("hbm-ring", tile, dev.nrows_padded,
+                             dev.offsets, vt, dev.bands.dtype, budgets,
+                             device=card)
+    buf = torch.randn(dev.nrows_padded + 1, dtype=vt, device=card)
+    span = plan.hi - plan.lo + 1
+    for p in (plan, own, dataclasses.replace(plan, nblocks=max(
+            1, plan.ntiles // max(1, span // 2))),
+              dataclasses.replace(plan, nblocks=plan.ntiles + 7)):
+        for x in (buf[:-1].clone(), buf[1:]):
+            before = dia_kernels.ring_launches
+            got = dia_kernels.dia_spmv_ring(dev.bands, dev.scales,
+                                            dev.offsets_t, x, p,
+                                            with_dot=True)
+            y_only = dia_kernels.dia_spmv_ring(dev.bands, dev.scales,
+                                               dev.offsets_t, x, p)
+            assert dia_kernels.ring_launches == before + 2
+            y = dia_kernels.dia_matvec_ring_plain(dev.bands, dev.offsets, x,
+                                                  dev.scales, p)
+            _check(got, (y, torch.dot(x, y)), x, x.dtype)
+            ref = dia_spmv(dev.bands, dev.scales, dev.offsets_t, x)
+            assert torch.equal(got[0], ref) and torch.equal(y_only, ref)
+            again = dia_kernels.dia_spmv_ring(dev.bands, dev.scales,
+                                              dev.offsets_t, x, p,
+                                              with_dot=True)
+            assert torch.equal(again[1], got[1])
+
+
 def test_hbm_wrappers_reject_what_the_kernels_do_not_take(card):
     D = _random_dia(5000, (-1000, 0, 1000))
     dev = DeviceDia.from_dia(D, mat_dtype=None, device=card)
@@ -988,18 +1060,35 @@ def _ring_operator(n):
     return DiaMatrix(n, n, offsets, bands, int((bands != 0).sum()))
 
 
+def _wide_operator(n):
+    """An SPD operator whose +-40,000 span no ring of x tiles holds in one
+    block of the card, at any tile or depth, while three windows do:
+    offsets (-40,000, -1, 0, 1, 40,000), diagonal 2, every other band
+    -1/8."""
+    offsets = (-40_000, -1, 0, 1, 40_000)
+    bands = np.full((5, n), -1 / 8)
+    bands[2] = 2.0
+    for d, off in enumerate(offsets):
+        if off > 0:
+            bands[d, n - off:] = 0.0
+        elif off < 0:
+            bands[d, :-off] = 0.0
+    return DiaMatrix(n, n, offsets, bands, int((bands != 0).sum()))
+
+
 @pytest.mark.parametrize("kind", ["hbm-ring", "hbm", "resident"])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_cg_through_the_hbm_kernels_matches_cpu(card, kind, dtype):
     """A solve whose operator leaves a (pretended) small L2: the loop and
     the eager matvecs go through the planned kernel, once per SpMV: the
-    windows kernel for the 3-D Poisson operator, the ring for an operator
-    of many clusters over a short span, and dia_spmv where no ring fits
-    one block (its fixed kernel at f32 vectors)."""
+    ring for an operator of many clusters over a short span, the windows
+    kernel for one whose span no ring holds, and dia_spmv where no ring
+    or windows fit one block (its fixed kernel at f32 vectors)."""
     from acg_torch.ops import dia_plan
 
-    D = _ring_operator(50_000) if kind == "hbm-ring" else \
-        poisson.poisson3d_7pt_dia(24)
+    D = (_ring_operator(50_000) if kind == "hbm-ring" else
+         _wide_operator(200_000) if kind == "hbm" else
+         poisson.poisson3d_7pt_dia(24))
     real = dia_plan.device_budgets(card)
     small = dataclasses.replace(real, l2_bytes=1024)
     if kind == "resident":
@@ -1055,6 +1144,7 @@ def test_rdma_exchange_matches_plain(card, P, R, S, dtype):
 
     partner = _partner_table(P, R, seed=P * 100 + R)
     state = rdma_halo.RdmaState(partner, S, dtype, make_mesh(P, [card] * P))
+    assert state.scope == "gpu"            # every partner shares the card
     gen = torch.Generator(device=card).manual_seed(S)
     for rep in range(3):        # parities 0, 1, 0: the buffers alternate
         send = [torch.randn((R, S), dtype=dtype, device=card, generator=gen)
@@ -1109,8 +1199,9 @@ def test_rdma_wait_times_out_instead_of_hanging(card, monkeypatch):
     state = rdma_halo.RdmaState(partner, 64, torch.float32,
                                 make_mesh(2, [card] * 2))
     # launch shard 0's blocks alone: shard 1 never puts
-    dev, _, shards, local, part = state.launch_tables[0]
-    state.launch_tables = [(dev, 1, shards, local[:1], part)]
+    lt = state.launch_tables[0]
+    state.launch_tables = [rdma_halo._Launch(lt.device, lt.local[:1],
+                                             lt.shards, lt.partner, lt.sys)]
     send = [torch.ones((1, 64), device=card) for _ in range(2)]
     rdma_halo.rdma_exchange(send, partner, state)
     torch.cuda.synchronize()
@@ -1122,6 +1213,44 @@ def test_rdma_wait_times_out_instead_of_hanging(card, monkeypatch):
     with pytest.raises(AcgError, match="spoilt"):
         rdma_halo.rdma_exchange(send, partner, state)
     assert rdma_halo.launches == before
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("P", [2, 4, 8])
+@pytest.mark.parametrize("edge", [9, 12])        # S = 81 (odd), 144-36
+def test_fused_halo_matches_every_transport(card, edge, P, dtype):
+    """The put+signal halo with its pack and unpack fused in, P shards
+    sharing the card (GPU scope): one launch an exchange, ghosts bit-equal
+    to its plain version, halo_ppermute and halo_allgather over three
+    exchanges (both receive parities), every flag and epoch advanced
+    once an exchange; a state made for other tables is refused."""
+    from acg_torch.parallel import rdma_halo
+    from acg_torch.parallel.halo import halo_allgather, halo_ppermute
+    from acg_torch.solvers.cg_dist import build_sharded
+
+    A = poisson.poisson3d_7pt(edge)
+    ss = build_sharded(A, nparts=P, devices=[card] * P, dtype=dtype,
+                       method="rdma")
+    state, st = ss.rdma, ss.tables
+    assert state.scope == "gpu" and state.tables is st
+    gen = np.random.default_rng(edge * 10 + P)
+    for rep in range(3):
+        xs = [torch.from_numpy(gen.standard_normal(op.nrows_padded).astype(
+            dtype)).to(card) for op in ss.local_ops]
+        before = rdma_halo.launches
+        got = [g.clone() for g in rdma_halo.halo_rdma(xs, st, state)]
+        torch.cuda.synchronize()
+        assert rdma_halo.launches == before + 1
+        state.check()
+        for a, b, c, d in zip(got, rdma_halo.halo_rdma_plain(xs, st),
+                              halo_ppermute(xs, st), halo_allgather(xs, st)):
+            assert torch.equal(a, b) and torch.equal(a, c)
+            assert torch.equal(a, d)
+        for fl, ep in zip(state.flags, state.epoch):
+            assert torch.all(fl == rep + 1) and torch.all(ep == rep + 1)
+    other = build_sharded(A, nparts=P, devices=[card] * P, dtype=dtype)
+    with pytest.raises(AcgError):
+        rdma_halo.halo_rdma(xs, other.tables, state)
 
 
 @pytest.mark.parametrize("vdt", [torch.float32, torch.float64])
@@ -1207,6 +1336,7 @@ def test_rdma_and_cg_dist_across_cards(card):
     devs = [torch.device("cuda", i % n_dev) for i in range(4)]
     partner = _partner_table(4, 3, seed=11)
     state = rdma_halo.RdmaState(partner, 5000, torch.float64, devs)
+    assert state.scope == "sys"           # partners on other cards
     gen = np.random.default_rng(12)
     for _ in range(3):
         send = [torch.from_numpy(gen.standard_normal((3, 5000))).to(d)

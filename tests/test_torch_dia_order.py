@@ -27,6 +27,8 @@ own row split and ring are held to the same bits on the card
   1e-4 relative to |x|·|y|: the tolerances of ``tests/test_torch_dia.py``).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -37,8 +39,10 @@ from acg_tpu.ops import pallas_kernels as pk
 
 from acg_torch.ops import dia_plan as dp
 from acg_torch.ops.dia import DeviceDia, DiaMatrix
-from acg_torch.ops.dia_kernels import (dia_matvec, dia_matvec_windows_plain,
-                                       dia_spmv, dia_spmv_windows)
+from acg_torch.ops.dia_kernels import (_ring_geometry, dia_matvec,
+                                       dia_matvec_ring_plain,
+                                       dia_matvec_windows_plain, dia_spmv,
+                                       dia_spmv_ring, dia_spmv_windows)
 
 F32, F64, BF16 = torch.float32, torch.float64, torch.bfloat16
 H100 = dp.Budgets(l2_bytes=50 * 2**20, smem_block=232_448,
@@ -145,6 +149,72 @@ def test_plan_depth_follows_the_block_budget(stages):
 
 
 # ---------------------------------------------------------------------------
+# the ring plan's slots and depth
+
+O2D = (-10_000, -1, 0, 1, 10_000)
+
+
+@pytest.mark.parametrize("stages", dp.RING_STAGES)
+def test_ring_bytes_written_out(stages):
+    # 10,000^2, T = 1024, f32 vectors, bf16 bands: span -10 .. 10 (21 x
+    # tiles) and one slot more for each further row tile in flight; a
+    # head of 2 x (stages + slots) mbarriers and 5 positions
+    slots = 21 + stages - 1
+    assert dp.ring_slots(O2D, 1024, stages) == slots
+    head = -(-(16 * (stages + slots) + 4 * 5) // 128) * 128
+    assert dp.ring_bytes(O2D, 1024, 4, 2, 5, stages) == \
+        head + slots * 1024 * 4 + stages * 5 * 1024 * 2 + 256 * 4
+    # int8 bands, a span of 3 tiles: the head grows with the slots
+    head = -(-(16 * (2 * stages + 2) + 4 * 3) // 128) * 128
+    assert head == {4: 256, 3: 256, 2: 128}[stages]
+    assert dp.ring_bytes((-1, 0, 1), 256, 4, 1, 3, stages) == \
+        head + (2 + stages) * 256 * 4 + stages * 3 * 256 + 256 * 4
+
+
+def test_ring_stages_follow_the_budget():
+    # two blocks an SM first: at 10,000^2 bf16/f32 and T = 1024 a ring of
+    # 2 row tiles in flight (111,104 bytes and the dot's 1,024) lets two
+    # blocks share an SM's 233,472, 3 (125,440) and 4 (139,776) do not
+    assert dp.ring_bytes(O2D, 1024, 4, 2, 5, 2) == 112_128
+    assert dp.blocks_per_sm(112_128, H100, dp.WINDOWS_THREADS) == 2
+    assert dp.blocks_per_sm(dp.ring_bytes(O2D, 1024, 4, 2, 5, 3), H100,
+                            dp.WINDOWS_THREADS) == 1
+    assert dp.ring_stages(10 ** 8, O2D, F32, BF16, 1024, H100) == 2
+    p = dp.make_plan("hbm-ring", 1024, 10 ** 8, O2D, F32, BF16, H100)
+    assert (p.stages, p.nblocks) == (2, 264)
+    # else the deepest of 4, 3, 2 that fits one block (232,448 bytes), at
+    # the largest of 1024, 512, 256 that has one
+    assert dp.ring_stages(10 ** 8, O2D, F64, BF16, 1024, H100) == 3
+    assert dp.ring_stages(10 ** 8, O2D, F64, F64, 1024, H100) is None
+    assert dp.ring_stages(10 ** 8, O2D, F64, F64, 512, H100) == 2
+    assert dp.ring_stages(10 ** 8, O2D, F64, F64, 256, H100) == 4
+    assert dp.ring_plan(10 ** 8, O2D, F32, BF16, H100) == 1024
+    assert dp.ring_plan(10 ** 8, O2D, F64, F64, H100) == 512
+    p = dp.make_plan("hbm-ring", 512, 10 ** 8, O2D, F64, F64, H100)
+    assert (p.lo, p.hi, p.stages, p.nblocks) == (-20, 20, 2, 132)
+    assert p.smem == dp.ring_bytes(O2D, 512, 8, 8, 5, 2) - 256 * 8
+    # a 3-D operator's +-nx*ny span holds no ring at any tile or depth
+    assert dp.ring_plan(464 ** 3, O464, F32, BF16, H100) is None
+
+
+@pytest.mark.parametrize("stages", dp.RING_STAGES)
+def test_ring_plan_depth_follows_the_block_budget(stages):
+    """A block budget that holds a ring of ``stages`` row tiles and not a
+    deeper one plans that depth (one block an SM when the block budget is
+    the SM's less the card's 1 KB reserve: no depth lets two blocks share
+    it); the card's own budget takes the depth at which two blocks do."""
+    need = dp.ring_bytes(O2D, 1024, 4, 2, 5, stages)
+    budgets = dp.Budgets(l2_bytes=H100.l2_bytes, smem_block=need,
+                         smem_sm=need + 1024, sms=132)
+    assert dp.ring_plan(10 ** 8, O2D, F32, BF16, budgets) == 1024
+    p = dp.make_plan("hbm-ring", 1024, 10 ** 8, O2D, F32, BF16, budgets)
+    assert p.stages == stages and p.smem == need - 1024
+    assert p.nblocks == 132
+    p = dp.make_plan("hbm-ring", 1024, 10 ** 8, O2D, F32, BF16, H100)
+    assert (p.stages, p.nblocks) == (2, 264)
+
+
+# ---------------------------------------------------------------------------
 # dia_spmv's fixed kernel and the ring: what the plan takes
 
 
@@ -184,15 +254,19 @@ def _ring_offsets():
 
 
 def test_ring_is_planned_only_for_many_clusters_over_a_short_span():
-    """The windows kernel comes first, so the ring takes an operator only
-    where no windows ring of 3 stages fits one block at 1024, 512 or 256
-    while the ring does: many offset clusters over a span a ring of x
-    tiles holds.  At 16 clusters the windows of 3 stages at T = 256 need
-    240,128 bytes (a head of 6 mbarriers and 31 positions, 256 bytes;
-    a stage eight windows of 1284 f32 elements, seven of 772, one of 260,
-    and 31 bf16 band tiles; the dot's tree), past the block's 232,448;
-    the ring at T = 512 holds 2 x 24 + 2 slots of x and two sets of band
-    tiles in 167,036."""
+    """Where its span fits one block the ring comes first (the JAX plan's
+    order); where it does not, the windows.  An operator of many offset
+    clusters over a short span holds no windows ring at all: at 16
+    clusters the windows of 3 stages at T = 256 need 240,128 bytes (a
+    head of 6 mbarriers and 31 positions, 256 bytes; a stage eight
+    windows of 1284 f32 elements, seven of 772, one of 260, and 31 bf16
+    band tiles; the dot's tree), past the block's 232,448.  The ring at T
+    = 512 and 3 row tiles in flight holds 2 x 24 + 3 slots of x and three
+    sets of band tiles behind a head of 2 x (3 + 51) mbarriers and 31
+    positions (1,024 bytes): 201,728 bytes; 4 in flight (235,520) and T =
+    1024 at any depth do not fit.  At f64 vectors only T = 256 with 2 in
+    flight fits (232,192 bytes: 96 slots of 2 KB), so the ring's depths
+    go down to 2."""
     o = _ring_offsets()
     assert len(o) == 31 and len(dp.cluster_windows(o)) == 16
     assert dp.windows_bytes(o, 256, 4, 2, 31, 3) == \
@@ -202,15 +276,26 @@ def test_ring_is_planned_only_for_many_clusters_over_a_short_span():
     assert dp.fused_plan_for(10 ** 8, o, F32, BF16, H100) == ("hbm-ring",
                                                                512)
     assert dp.ring_span(o, 512) == (-24, 24)
-    assert dp.ring_bytes(o, 512, 4, 2) == \
-        50 * 512 * 4 + 2 * 31 * 512 * 2 + 4 * 31 + 256 * 4
+    assert dp.ring_slots(o, 512, 3) == 51
+    assert dp.ring_bytes(o, 512, 4, 2, stages=3) == \
+        1024 + 51 * 512 * 4 + 3 * 31 * 512 * 2 + 256 * 4
+    assert dp.ring_bytes(o, 512, 4, 2, stages=3) == 201_728
+    assert dp.ring_bytes(o, 512, 4, 2, stages=4) == 235_520
+    assert dp.ring_stages(10 ** 8, o, F32, BF16, 512, H100) == 3
+    assert dp.ring_stages(10 ** 8, o, F32, BF16, 1024, H100) is None
     assert dp.fused_plan_for(10 ** 8, o, F64, BF16, H100) == ("hbm-ring",
                                                                256)
-    # no operator chip_smoke.py drives goes there: the 7-, 5- and 3-band
-    # operators all plan the windows or dia_spmv
-    for n, offsets in ((464 ** 3, O464), (256 ** 3, O256),
-                       (10 ** 8, (-10_000, -1, 0, 1, 10_000))):
+    assert dp.ring_bytes(o, 256, 8, 2, stages=2) == \
+        1792 + 96 * 256 * 8 + 2 * 31 * 256 * 2 + 256 * 8
+    assert dp.ring_bytes(o, 256, 8, 2, stages=2) == 232_192
+    assert dp.ring_stages(10 ** 8, o, F64, BF16, 256, H100) == 2
+    # the 7-band 3-D operators chip_smoke.py drives span more than a ring
+    # holds (+-nx*ny): the windows; the 5-band 2-D one takes the ring
+    for n, offsets in ((464 ** 3, O464), (256 ** 3, O256)):
+        assert dp.ring_plan(n, offsets, F32, BF16, H100) is None
         assert dp.fused_plan_for(n, offsets, F32, BF16, H100)[0] == "hbm"
+    assert dp.fused_plan_for(10 ** 8, O2D, F32, BF16, H100) == ("hbm-ring",
+                                                                1024)
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +344,63 @@ def test_windows_plain_on_and_off_a_16_byte_boundary(n, offsets, tile, vdt,
     y, dot = dia_spmv_windows(dev.bands, None, dev.offsets_t, x, plan,
                               with_dot=True)
     assert torch.equal(y, want) and torch.equal(dot, torch.dot(x, want))
+
+
+# (n, offsets, whether the ring is read): spans of 7 and 13 tiles at T =
+# 256 with bulk-copied tiles in the middle of the runs and a ragged last
+# tile; band rows off a 16-byte boundary (n * 4 bytes), and a band
+# reaching past the vector: every row straight from x
+_RING_PLAIN = [(20_000, (-700, -1, 0, 1, 700), True),
+               (9_008, (-1300, -257, 0, 257, 1300), True),
+               (9_001, (-1300, -257, 0, 257, 1300), False),
+               (3_000, (-3500, 0, 600), False)]
+
+
+@pytest.mark.parametrize("nblocks", [1, 3, "per tile"])
+@pytest.mark.parametrize("stages", dp.RING_STAGES)
+@pytest.mark.parametrize("tile", [256, 512])
+@pytest.mark.parametrize("n,offsets,bulk", _RING_PLAIN)
+def test_ring_plain_follows_the_new_slot_mapping(n, offsets, bulk, tile,
+                                                 stages, nblocks):
+    """The plain ring reads every bulk-copied row through its ring of
+    hi - lo + stages slots, filled as the producer may have filled it
+    ``stages`` row tiles ahead, and the rest straight from x: bit-equal
+    to dia_matvec at every tile, depth and grid, down to one row tile a
+    block (a run shorter than the span); the dot through the wrapper too;
+    x off a 16-byte boundary sends every row to the straight path."""
+    D = _random_dia(n, offsets, seed=tile + stages)
+    dev = DeviceDia.from_dia(D, dtype="float32", mat_dtype="float32",
+                             device="cpu")
+    plan = dp.make_plan("hbm-ring", tile, dev.nrows_padded, dev.offsets,
+                        F32, dev.bands.dtype, SMALL)
+    nb = plan.ntiles if nblocks == "per tile" else nblocks
+    plan = dataclasses.replace(plan, stages=stages, nblocks=nb)
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        dev.nrows_padded).astype(np.float32))
+    want = dia_matvec(dev.bands, dev.offsets, x)
+    for xx in (x, _shifted(x, 1)):
+        got = dia_matvec_ring_plain(dev.bands, dev.offsets, xx, None, plan)
+        assert torch.equal(got, want)
+    t0, t1, c0, c1 = _ring_geometry(dev.bands, list(dev.offsets), x, plan)
+    assert (int((c1 - c0).sum()) > 0) == bulk   # the ring was read
+    assert bool(torch.all((t0 <= c0) & (c0 <= c1) & (c1 <= t1)))
+    y, dot = dia_spmv_ring(dev.bands, None, dev.offsets_t, x, plan,
+                           with_dot=True)
+    assert torch.equal(y, want) and torch.equal(dot, torch.dot(x, want))
+
+
+def test_ring_plain_poisons_what_the_ring_does_not_hold():
+    """One slot too few (a plan whose span is a tile short) reads x tiles
+    the ring does not hold for that row tile: NaN, not x."""
+    D = _random_dia(20_000, (-700, 0, 700))
+    dev = DeviceDia.from_dia(D, dtype="float64", mat_dtype=None,
+                             device="cpu")
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(20_000))
+    plan = dp.make_plan("hbm-ring", 256, 20_000, dev.offsets, F64, F64,
+                        SMALL)
+    short = dataclasses.replace(plan, hi=plan.hi - 1)
+    got = dia_matvec_ring_plain(dev.bands, dev.offsets, x, None, short)
+    assert bool(torch.isnan(got).any())
 
 
 @pytest.mark.parametrize("shift", [0, 1])

@@ -300,6 +300,61 @@ def test_rdma_plain_equals_ppermute(case, nparts):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("nparts", [2, 4, 8])
+@pytest.mark.parametrize("case", [("p2d", (12, 12)), ("p27", 6),
+                                  ("mesh", 400)], ids=lambda c: c[0])
+def test_ghost_slots_invert_ghost_src(case, nparts):
+    """The fused halo's unpack map: every ghost is covered once, at the
+    slot position it arrives at; every other position is a pad (-1); no
+    position is named twice."""
+    _, _, _, tps = _systems(case, nparts)
+    G = max(-(-max(p.nghost for p in tps.parts) // 8) * 8, 8)
+    tables = halo.build_halo_tables(tps, nghost_max=G)
+    st = halo.shard_tables(tables, tps, [CPU] * tps.nparts)
+    R, S = st.partner.shape[1], st.max_msg
+    for p in tps.parts:
+        src = st.ghost_src[p.part]
+        slot = rdma_halo.ghost_slots(src, R * S)
+        assert slot.shape == (R * S,) and slot.dtype == torch.int64
+        filled = slot[slot >= 0]
+        assert torch.equal(torch.sort(filled).values,
+                           torch.arange(p.nghost))          # once each
+        assert torch.equal(slot[src], torch.arange(p.nghost))
+        assert bool(torch.all(slot[slot < 0] == -1))
+        # the pads are the positions no round delivers a ghost to, and a
+        # delivered position names the ghost slot the tables give it
+        recv = torch.from_numpy(tables.recv_idx[p.part].reshape(-1)
+                                .astype(np.int64))
+        assert torch.equal(slot >= 0, recv < G)
+        assert torch.equal(slot[slot >= 0], recv[recv < G])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("nparts", [2, 4, 8])
+def test_fused_halo_plain_equals_every_transport(nparts, dtype):
+    """The fused halo's plain version (gather by send_full, deliver,
+    unpack through the inverse of ghost_src) against halo_ppermute,
+    halo_allgather and the JAX package's ppermute transport on the same
+    tables and the same seeded vectors: bit-equal (every path only
+    copies values)."""
+    _, TA, jps, tps = _systems(("p27", 6), nparts)
+    x = np.random.default_rng(nparts + 20).standard_normal(
+        TA.nrows).astype(dtype)
+    st = _port_tables(tps)
+    xs = [torch.from_numpy(xl.copy()) for xl in tps.scatter_vector(x)]
+    got = rdma_halo.halo_rdma_plain(xs, st)
+    want = _jax_ghosts(jps, x, JHaloMethod.PPERMUTE, dtype)
+    for i, p in enumerate(tps.parts):
+        assert got[i].dtype == xs[i].dtype and got[i].shape == (p.nghost,)
+        np.testing.assert_array_equal(got[i].numpy(), want[i, : p.nghost])
+    for fn in (halo.halo_ppermute, halo.halo_allgather):
+        for a, b in zip(got, fn(xs, st)):
+            assert torch.equal(a, b)
+    # through the entry point (CPU tensors take the plain version)
+    for a, b in zip(rdma_halo.halo_rdma(xs, st), got):
+        assert torch.equal(a, b)
+
+
 def test_rdma_exchange_plain_delivery():
     """Slot r of shard p lands in slot r of its partner; a slot with no
     partner comes back to its own shard."""
@@ -412,6 +467,11 @@ def test_rdma_kernel_source():
     for need in ('extern "C"', "Replaces the TPU kernel",
                  "Bound on this card", "__threadfence_system",
                  "cudaLaunchCooperativeKernel", "ld.acquire.sys",
-                 "red.release.sys"):
+                 "red.release.sys",
+                 # GPU scope where every partner shares the card
+                 "ld.acquire.gpu", "red.release.gpu", "fence.acq_rel.gpu",
+                 # the pack and unpack fused in, by value parameters
+                 "src[pack[i]]", "out[gh] = w", "const Launch L",
+                 "bool HALO", "bool SYS"):
         assert need in text, need
     assert "cudaMemcpy" not in text

@@ -90,15 +90,16 @@ O128 = (-16384, -128, -1, 0, 1, 128, 16384)
 
 @pytest.mark.parametrize("case", [
     # (n, offsets, vector dtype, band dtype, kind): the configurations
-    # chip_smoke.py drives, on the card's own budgets; the windows kernel
-    # before the ring, and f64 bands resident past the L2 (differences on
-    # purpose from the JAX plan, measured: ROADMAP Queue 3)
+    # chip_smoke.py drives, on the card's own budgets; the ring before the
+    # windows (the JAX plan's order, measured again: ROADMAP Queue 3),
+    # and f64 bands resident past the L2 (a difference on purpose)
     (464 ** 3, O464, F32, BF16, "hbm"),
     (464 ** 3, O464, F64, BF16, "hbm"),
     (256 ** 3, O256, F32, BF16, "hbm"),
     (256 ** 3, O256, F32, torch.int8, "hbm"),
     (256 ** 3, O256, F64, F64, "resident"),
-    (10 ** 8, O2D, F32, BF16, "hbm"),
+    (10 ** 8, O2D, F32, BF16, "hbm-ring"),
+    (10 ** 8, O2D, F64, BF16, "hbm-ring"),
     (10 ** 8, O2D, F64, F64, "resident"),
     (128 ** 3, O128, F32, BF16, "resident"),
     (128 ** 3, O128, F64, F64, "resident"),
@@ -112,12 +113,14 @@ def test_plan_routing_at_h100_budgets(case):
 
 
 def test_plan_geometry_at_h100_budgets():
-    # 10,000^2 at f32 with bf16 bands: T = 1024 (at 2048 the ring of 12
-    # slots, 96 KB, and the band tiles would leave one block an SM),
-    # span -10 .. 10, 22 slots = 88 KB, two blocks an SM
+    # 10,000^2 at f32 with bf16 bands: T = 1024, the largest tile of
+    # WINDOW_TILES at which two blocks of 288 threads fit an SM, with 2
+    # row tiles in flight; span -10 .. 10, 21 + 1 = 22 slots = 88 KB, 2
+    # stages of the 5 band tiles, behind a head of 2 x (2 + 22)
+    # mbarriers and 5 positions (512 bytes)
     p = dp.make_plan("hbm-ring", 1024, 10 ** 8, O2D, F32, BF16, H100)
-    assert (p.lo, p.hi) == (-10, 10)
-    assert p.smem == 22 * 1024 * 4 + 2 * 5 * 1024 * 2 + 4 * 5
+    assert (p.lo, p.hi) == (-10, 10) and p.stages == 2
+    assert p.smem == 512 + 22 * 1024 * 4 + 2 * 5 * 1024 * 2
     assert p.nblocks == 2 * 132 and p.ntiles == -(-10 ** 8 // 1024)
     assert dp.ring_plan(10 ** 8, O2D, F32, BF16, H100) == 1024
     # 464^3: the ring would need 214 slots (1.7 MB): windows, three
@@ -325,13 +328,13 @@ _RTOL = {np.float32: 1e-5, np.float64: 1e-10}
 
 
 def _routed(D, dtype, kind):
-    """The port's DeviceDia on the CPU, planned by SMALL (onto the
-    windows kernel), or given a ring plan at the smallest tile."""
+    """The port's DeviceDia on the CPU, planned by SMALL (onto the ring
+    kernel), or given a windows plan at the smallest tile."""
     dev = DeviceDia.from_dia(D, dtype=dtype, device="cpu", budgets=SMALL)
-    assert dev.kind == "hbm"
-    if kind == "hbm-ring":
+    assert dev.kind == "hbm-ring"
+    if kind == "hbm":
         dev = dataclasses.replace(dev, plan=dp.make_plan(
-            "hbm-ring", 256, dev.nrows_padded, dev.offsets,
+            "hbm", 256, dev.nrows_padded, dev.offsets,
             getattr(torch, np.dtype(dtype).name), dev.bands.dtype, SMALL))
     return dev
 
