@@ -1,9 +1,10 @@
-"""``acg-torch`` command-line program for one device.
+"""``acg-torch`` command-line program, on one device or over shards.
 
-The port of the single-device path of ``acg_tpu/cli.py`` (itself the
-counterpart of the reference program cuda/acg-cuda.c): the same
-positional arguments (A [b] [x0], Matrix Market files), the same flags
-for one device, the same pipeline and the same stats block:
+The port of the single-device and distributed paths of
+``acg_tpu/cli.py`` (itself the counterpart of the reference program
+cuda/acg-cuda.c): the same positional arguments (A [b] [x0], Matrix
+Market files), the same flags for what is ported, the same pipeline and
+the same stats block:
 
   read A -> build the device operator -> b from file / ones /
   manufactured solution -> warmup solves -> solve -> stats ->
@@ -19,12 +20,15 @@ DIA, RCM+DIA, RCM+sgell or ELL tier, as the matrix allows), ``dia``,
 ``ell``, ``sgell`` (f32 only) and ``stencil``.
 ``--device`` picks where it runs (default ``cuda``; with no card that
 default is an error, never a silent CPU run).  ``--nparts P`` (P > 1)
-runs distributed classic CG over P shards (``acg_torch.solvers.cg_dist``),
-partitioned by ``--partition-method`` (auto|chunk|rb) with the halo of
-``--halo`` (ppermute|allgather|rdma, or from ``--comm``); on CUDA the
-shards take the visible cards, one each (one card and P > 1 exit 1 with
-ERR_MESH, as the JAX program does on one chip), and with ``--device cpu``
-they share the CPU.
+runs distributed CG over P shards (``acg_torch.solvers.cg_dist``:
+classic, or pipelined with ``--solver acg-pipelined``, and with
+``--nrhs K`` K systems in one loop), partitioned by
+``--partition-method`` (auto|chunk|rb) with the halo of ``--halo``
+(ppermute|allgather|rdma, or from ``--comm``) and its messages in the
+encoding of ``--halo-wire`` (f32|bf16|int16-delta; rdma sends f32 only);
+on CUDA the shards take the visible cards, one each (one card and P > 1
+exit 1 with ERR_MESH, as the JAX program does on one chip), and with
+``--device cpu`` they share the CPU.
 
 Run: ``python -m acg_torch.cli A.mtx --manufactured-solution -v``
 """
@@ -77,8 +81,9 @@ def make_parser() -> argparse.ArgumentParser:
                         "ported")
     p.add_argument("--nparts", type=int, default=1,
                    help="number of row shards [1]; > 1 runs distributed "
-                        "classic CG, one shard per visible card (or on "
-                        "the CPU with --device cpu)")
+                        "CG (classic or pipelined, one or --nrhs systems), "
+                        "one shard per visible card (or on the CPU with "
+                        "--device cpu)")
     p.add_argument("--nrhs", type=int, default=1, metavar="K",
                    help="solve K right-hand sides against the one operator "
                         "in a single batched loop (the operator is read "
@@ -122,6 +127,13 @@ def make_parser() -> argparse.ArgumentParser:
                         "edge-coloured neighbour copies, one gather of "
                         "every part's border values, or the device-"
                         "initiated put+signal kernel (CUDA only)")
+    p.add_argument("--halo-wire", default="f32",
+                   choices=["f32", "bf16", "int16-delta"],
+                   help="on-wire halo message encoding for --nparts > 1 "
+                        "[f32 = the vector dtype, exact]; bf16 / "
+                        "int16-delta send two bytes a value and decode "
+                        "before any arithmetic (ppermute and allgather "
+                        "only)")
     p.add_argument("--format", default="auto",
                    choices=["auto", "dia", "ell", "sgell", "stencil"],
                    help="device operator layout [auto]: auto picks the "
@@ -198,12 +210,17 @@ def _main(argv=None) -> int:
         raise AcgError(Status.ERR_INVALID_VALUE,
                        f"--nparts must be >= 1, got {args.nparts}")
     dist = args.nparts > 1
-    if dist and (pipelined or args.nrhs > 1):
+    halo = resolve_halo(args.comm, args.halo)
+    if dist and halo == "rdma" and args.halo_wire != "f32":
         raise AcgError(Status.ERR_NOT_SUPPORTED,
-                       "--nparts > 1 with "
-                       + ("--solver " + args.solver if pipelined
-                          else "--nrhs > 1")
-                       + ": not yet ported (distributed classic CG is)")
+                       "--halo-wire compresses the ppermute/allgather "
+                       "messages; the rdma halo is a put+signal kernel "
+                       "that writes raw vector words (use --halo "
+                       "ppermute or allgather)")
+    if dist and halo == "rdma" and args.nrhs > 1:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       "--nrhs > 1 with --nparts > 1 takes the ppermute or "
+                       "allgather halo (the rdma halo moves 1-D packs)")
     if args.residual_replacement and not pipelined:
         print("warning: --residual-replacement applies to pipelined "
               "solvers only (--solver acg-pipelined); ignored",
@@ -252,7 +269,8 @@ def _main(argv=None) -> int:
         diffrtol=args.diff_rtol, residual_atol=args.residual_atol,
         residual_rtol=args.residual_rtol, warmup=args.warmup,
         check_every=args.check_every,
-        replace_every=args.residual_replacement if pipelined else 0)
+        replace_every=args.residual_replacement if pipelined else 0,
+        halo_wire=args.halo_wire)
     mat_dtype = {"auto": "auto", "same": None}.get(
         args.mat_precision, args.mat_precision)
 
@@ -262,16 +280,18 @@ def _main(argv=None) -> int:
     t0 = time.perf_counter()
     steps = {}
     if dist:
-        from acg_torch.solvers.cg_dist import build_sharded, cg_dist
-        solve = cg_dist
+        from acg_torch.solvers.cg_dist import (build_sharded, cg_dist,
+                                               cg_pipelined_dist)
+        solve = cg_pipelined_dist if pipelined else cg_dist
         dev = build_sharded(
             A, nparts=args.nparts,
             devices=None if device.type == "cuda" else [device] * args.nparts,
-            dtype=vdt, method=resolve_halo(args.comm, args.halo),
+            dtype=vdt, method=halo,
             partition_method=args.partition_method, seed=args.seed,
             mat_dtype=mat_dtype, fmt=args.format, timings=steps)
         what = (f"{args.nparts} shards ({dev.local_fmt}, halo "
-                f"{dev.method.value}, {dev.halo.nrounds} rounds)")
+                f"{dev.method.value}, {dev.halo.nrounds} rounds, wire "
+                f"{args.halo_wire})")
     else:
         dev = build_device_operator(A, dtype=vdt, fmt=args.format,
                                     mat_dtype=mat_dtype, device=device,

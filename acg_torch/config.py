@@ -32,11 +32,13 @@ class SolverOptions:
       ``|b-Ax| < residual_atol``, ``|b-Ax| < residual_rtol*|b-Ax0|``.
 
     Fields the port's loops do not run yet (``segment_iters``,
-    ``monitor_every``, ``sstep``, ``pipeline_depth``, ``halo_wire``) are
-    kept and validated so options objects carry over unchanged;
+    ``monitor_every``, ``sstep``, ``pipeline_depth``) are kept and
+    validated so options objects carry over unchanged;
     :func:`acg_torch.solvers.cg.cg` and ``cg_pipelined`` refuse the ones
     that would change what they compute.  ``replace_every`` is run by
-    ``cg_pipelined`` (classic CG has no recurrence to replace).
+    the pipelined solvers (classic CG has no recurrence to replace);
+    ``halo_wire`` by the distributed ones (``solvers/cg_dist.py``; one
+    device has no halo).
     """
 
     maxits: int = 100

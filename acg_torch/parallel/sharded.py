@@ -26,7 +26,8 @@ global order.  Per shard:
 
 A shard vector has its local operator's padded length (``nrows_padded``);
 padding entries stay zero through every CG update, as on one device.
-:class:`ShardVec` carries the per-shard vectors through the classic loop.
+:class:`ShardVec` carries the per-shard vectors, one system or a (B, n)
+batch, through the classic and pipelined loops.
 """
 
 from __future__ import annotations
@@ -207,15 +208,16 @@ def resolve_local_fmt(ps: PartitionedSystem, fmt: str = "auto",
 
 
 class ShardVec(list):
-    """Per-shard vectors, one tensor a shard, carried through the classic
-    loop (``acg_torch.solvers.loops.cg_while``) in place of one tensor:
-    it offers the few vector operations the loop uses (``-``, ``clone``,
-    ``addcmul_``, ``torch.zeros_like``), each applied shard by shard.  A
-    0-d scalar of the loop lives on the first shard's device and is moved
-    to a shard's device where it differs."""
+    """Per-shard vectors, one tensor a shard, carried through the CG loops
+    (``acg_torch.solvers.loops``) in place of one tensor: each shard is
+    (n,), or (B, n) for B systems, and the few vector operations the loops
+    use (``-``, ``clone``, ``addcmul_``, ``torch.zeros_like``,
+    ``torch.addcmul``, ``torch.where``) apply shard by shard.  A scalar of
+    the loop (0-d, or per system (B,) and (B, 1)) lives on the first
+    shard's device and is moved to a shard's device where it differs."""
 
     def dim(self) -> int:
-        return 1
+        return self[0].dim()
 
     @property
     def device(self) -> torch.device:
@@ -238,9 +240,22 @@ class ShardVec(list):
 
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
         if func is torch.zeros_like and not kwargs:
             return cls(torch.zeros_like(t) for t in args[0])
-        return NotImplemented
+        if func not in (torch.addcmul, torch.where):
+            return NotImplemented
+        out = kwargs.pop("out", None)
+        shards = next(a for a in args if isinstance(a, ShardVec))
+        res = cls()
+        for i, t in enumerate(shards):
+            a_i = [a[i] if isinstance(a, ShardVec)
+                   else on_device(a, t.device)
+                   if isinstance(a, torch.Tensor) else a for a in args]
+            if out is not None:
+                kwargs["out"] = out[i]
+            res.append(func(*a_i, **kwargs))
+        return res
 
 
 def sum_in_order(parts, dev: torch.device) -> torch.Tensor:
@@ -350,49 +365,67 @@ class ShardedSystem:
     # -- vectors (ref acgvector scatter/gather, acg/vector.c:938+) --
 
     def to_sharded(self, x_global) -> ShardVec:
-        """Global host vector -> per-shard owned vectors on their devices,
+        """Global host vector (n,) or batch (B, n) -> per-shard owned
+        vectors on their devices, (nrows_padded,) or (B, nrows_padded),
         zero-padded to each local operator's padded length."""
-        tdt = torch_dtype(self.vec_dtype)
+        x_global = np.asarray(x_global)
+        vdt = np.dtype(self.vec_dtype)
         out = ShardVec()
-        for op, xl, dev in zip(self.local_ops,
-                               self.ps.scatter_vector(x_global),
-                               self.devices):
-            v = torch.zeros(op.nrows_padded, dtype=tdt)
-            v[: len(xl)] = torch.from_numpy(np.asarray(xl).astype(
-                np.dtype(self.vec_dtype)))
-            out.append(v.to(dev))
+        for op, p, dev in zip(self.local_ops, self.ps.parts, self.devices):
+            v = np.zeros(x_global.shape[:-1] + (op.nrows_padded,),
+                         dtype=vdt)
+            v[..., : p.nown] = x_global[..., p.owned_global]
+            out.append(torch.from_numpy(v).to(dev))
         return out
 
     def from_sharded(self, xs) -> np.ndarray:
-        """Per-shard vectors -> the global host vector (the reference's
-        solution gather, cuda/acg-cuda.c:2388-2425)."""
-        return self.ps.gather_vector([x.cpu().numpy() for x in xs])
+        """Per-shard vectors -> the global host vector, (n,) or (B, n)
+        (the reference's solution gather, cuda/acg-cuda.c:2388-2425)."""
+        locs = [x.cpu().numpy() for x in xs]
+        out = np.zeros(locs[0].shape[:-1] + (self.nrows,),
+                       dtype=locs[0].dtype)
+        for p, xl in zip(self.ps.parts, locs):
+            out[..., p.owned_global] = xl[..., : p.nown]
+        return out
 
     # -- the operator --
 
-    def exchange(self, xs) -> list:
-        """Every shard's ghost values by the system's halo method."""
+    def exchange(self, xs, wire: str = "f32") -> list:
+        """Every shard's ghost values by the system's halo method, the
+        messages sent in ``wire``'s encoding (the put+signal halo sends
+        one-system vectors at full width only; the solvers refuse the
+        rest before they start)."""
         if self.method == HaloMethod.RDMA:
             return halo_rdma(xs, self.tables, self.rdma)
         if self.method == HaloMethod.ALLGATHER:
-            return halo_allgather(xs, self.tables)
-        return halo_ppermute(xs, self.tables)
+            return halo_allgather(xs, self.tables, wire)
+        return halo_ppermute(xs, self.tables, wire)
 
-    def add_iface(self, i: int, y: torch.Tensor, ghosts: torch.Tensor):
-        """y += A_iface ghosts for shard ``i`` (in place, on its border
-        rows); returns (border rows, their interface products), or None
-        for a shard without ghosts."""
+    def iface_product(self, i: int, ghosts: torch.Tensor):
+        """(border rows, A_iface ghosts) of shard ``i``: one ``ell_spmv``
+        launch, once per system for ([B,] nghost) ghosts of a batch, the
+        products ([B,] nrows_iface); None for a shard without ghosts."""
         if self.iface[i] is None:
             return None
         op, rows = self.iface[i]
-        t = ell_spmv(op, ghosts)
-        y.index_add_(0, rows, t)        # rows are distinct: one add each
-        return rows, t
+        if ghosts.dim() == 2:
+            return rows, torch.stack([ell_spmv(op, g) for g in ghosts])
+        return rows, ell_spmv(op, ghosts)
 
-    def matvec(self, xs) -> ShardVec:
-        """y = A x, shard by shard: the halo, the local SpMV, and the
-        interface product added to the owned rows."""
-        ghosts = self.exchange(xs)
+    def add_iface(self, i: int, y: torch.Tensor, ghosts: torch.Tensor):
+        """y += A_iface ghosts for shard ``i`` (in place, on its border
+        rows of every system); returns :meth:`iface_product`."""
+        iface = self.iface_product(i, ghosts)
+        if iface is not None:
+            # rows are distinct: one add each
+            y.index_add_(y.dim() - 1, *iface)
+        return iface
+
+    def matvec(self, xs, wire: str = "f32") -> ShardVec:
+        """y = A x, shard by shard, for one system or a (B, n) batch: the
+        halo, the local SpMV, and the interface product added to the owned
+        rows."""
+        ghosts = self.exchange(xs, wire)
         out = ShardVec()
         for i, (op, x) in enumerate(zip(self.local_ops, xs)):
             y = op.matvec(x)

@@ -1356,3 +1356,182 @@ def test_rdma_and_cg_dist_across_cards(card):
         many = cg_dist(A, b, options=o, nparts=4, devices=devs, method=m)
         assert many.niterations == one.niterations, m
         assert np.array_equal(many.x, one.x), m
+
+
+# ---------------------------------------------------------------------------
+# distributed pipelined, multi-RHS and compressed-wire paths
+
+
+def _two_components():
+    """A 7 x 9 grid and, beside it, a 5 x 3 grid with no edge between
+    them, split into parts of 21, 19 and 23 rows (odd lengths) and one
+    part holding the second grid alone (a shard with no ghosts)."""
+    from acg_torch.sparse.csr import coo_to_csr
+
+    A1, A2 = poisson.poisson2d_5pt(7, 9), poisson.poisson2d_5pt(5, 3)
+    r1, c1, v1 = A1.to_coo()
+    r2, c2, v2 = A2.to_coo()
+    n = A1.nrows + A2.nrows
+    A = coo_to_csr(np.concatenate([r1, r2 + A1.nrows]),
+                   np.concatenate([c1, c2 + A1.nrows]),
+                   np.concatenate([v1, v2]), n, n)
+    part = np.repeat(np.arange(4, dtype=np.int32), [21, 19, 23, A2.nrows])
+    return A, part
+
+
+def _dist_case(kind):
+    if kind == "dia-two-components":
+        A, part = _two_components()
+        return A, dict(part=part, fmt="dia")
+    return poisson.poisson3d_7pt(12), dict(nparts=4)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("kind", ["dia-two-components", "stencil"])
+def test_dist_pipe_step_matches_plain(card, kind, dtype):
+    """One step of the per-shard single-kernel pipelined iteration with
+    the interface folded in, four shards on the card under each halo,
+    against the same step on the CPU (the kernels' plain versions)."""
+    import importlib
+
+    from acg_torch.solvers.cg_dist import build_sharded
+
+    cgd = importlib.import_module("acg_torch.solvers.cg_dist")
+    A, kw = _dist_case(kind)
+    gpu = build_sharded(A, devices=[card] * 4, dtype=dtype, **kw)
+    cpu = build_sharded(A, devices=["cpu"] * 4, dtype=dtype, **kw)
+    assert gpu.local_fmt == ("dia" if kind.startswith("dia") else "stencil")
+    if kind.startswith("dia"):
+        assert gpu.iface[3] is None
+        assert [p.nown % 2 for p in gpu.ps.parts[:3]] == [1, 1, 1]
+    rng = np.random.default_rng(3)
+    vecs = [rng.standard_normal(A.nrows).astype(dtype) for _ in range(6)]
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    rtol, atol, dot_rtol = _TOL[tdt]
+
+    def run(ss):
+        z, r, p, w, s, x = (ss.to_sharded(v) for v in vecs)
+        dev = ss.devices[0]
+        ab = (torch.tensor(0.37, dtype=tdt, device=dev),
+              torch.tensor(1.21, dtype=tdt, device=dev))
+        out = cgd._pipe_step(ss, dev, "f32")(z, r, p, w, s, x, *ab)
+        return [ss.from_sharded(v) for v in out[:6]], out[6:], [
+            [t.cpu() for t in v] for v in out[:6]]
+
+    want, (gw, dw), _ = run(cpu)
+    for halo in ("ppermute", "allgather", "rdma"):
+        got, (gg, dg), shards = run(gpu.with_halo(halo))
+        for g, w in zip(got, want):
+            assert np.abs(g - w).max() <= atol + rtol * np.abs(w).max()
+        r2, w2 = want[4].astype(np.float64), want[5].astype(np.float64)
+        assert abs(float(gg) - float(gw)) <= dot_rtol * (r2 @ r2)
+        assert abs(float(dg) - float(dw)) <= dot_rtol * (
+            np.linalg.norm(r2) * np.linalg.norm(w2))
+        for op, v in zip(gpu.local_ops, shards[0]):
+            assert bool(torch.all(v[op.nrows:] == 0))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("kind", ["dia-two-components", "stencil"])
+def test_cg_pipelined_dist_on_the_card(card, kind, dtype):
+    """A whole distributed pipelined solve on four shards of the card:
+    the single-kernel iteration once a shard an iteration, the same x bit
+    for bit under the three halos, the CPU solve's count (f64; within 1
+    at f32) and a certified residual.  f32 solves to rtol 1e-4, an order
+    above the f32 floor eps·κ of these operators (about 4e-6), near
+    which the pipelined recurrences of two roundings part (ROADMAP Queue
+    3, not faults)."""
+    from acg_torch.ops import dia_kernels
+    from acg_torch.ops import stencil as stn
+    from acg_torch.solvers.cg_dist import build_sharded, cg_pipelined_dist
+
+    A, kw = _dist_case(kind)
+    b = A.matvec(np.random.default_rng(4).standard_normal(A.nrows)).astype(
+        dtype)
+    rtol = 1e-4 if dtype == np.float32 else 1e-10
+    o = SolverOptions(maxits=1000, residual_rtol=rtol)
+    ss = build_sharded(A, devices=[card] * 4, dtype=dtype, **kw)
+    tier = ss.local_fmt
+    out = {}
+    for m in ("ppermute", "allgather", "rdma"):
+        before = (dia_kernels.pipe_launches + stn.pipe_launches)
+        out[m] = cg_pipelined_dist(ss.with_halo(m), b, options=o)
+        n = dia_kernels.pipe_launches + stn.pipe_launches - before
+        assert n == 4 * out[m].niterations
+        assert out[m].kernel == f"cuda-{tier}-pipe+{m}"
+    for m in ("allgather", "rdma"):
+        assert out[m].niterations == out["ppermute"].niterations
+        assert np.array_equal(out[m].x, out["ppermute"].x)
+    host = cg_pipelined_dist(A, b, options=o, devices=["cpu"] * 4,
+                             dtype=dtype, **kw)
+    assert abs(host.niterations - out["rdma"].niterations) <= (
+        1 if dtype == np.float32 else 0)
+    x = out["rdma"].x.astype(np.float64)
+    assert np.linalg.norm(b - A.matvec(x)) <= 10 * rtol * np.linalg.norm(b)
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+@pytest.mark.parametrize("fmt", ["auto", "dia", "ell"])
+def test_dist_batched_on_the_card(card, fmt, pipelined):
+    """A (B, n) solve on four shards of the card: the multi-RHS kernels
+    (the one-system kernel once per system on ELL), the CPU solve's
+    per-system counts and x within 1e-10."""
+    from acg_torch.ops import dia_kernels
+    from acg_torch.ops import stencil as stn
+    from acg_torch.solvers.cg_dist import cg_dist, cg_pipelined_dist
+
+    A = poisson.poisson3d_7pt(12)
+    rng = np.random.default_rng(6)
+    b = np.stack([A.matvec(rng.standard_normal(A.nrows)) for _ in range(3)])
+    o = SolverOptions(maxits=1000, residual_rtol=1e-10)
+    fn = cg_pipelined_dist if pipelined else cg_dist
+    one = (dia_kernels.launches + stn.launches + dia_kernels.pipe_launches
+           + stn.pipe_launches)
+    got = fn(A, b, options=o, nparts=4, devices=[card] * 4, fmt=fmt,
+             method="allgather")
+    assert one == (dia_kernels.launches + stn.launches
+                   + dia_kernels.pipe_launches + stn.pipe_launches)
+    want = fn(A, b, options=o, nparts=4, devices=["cpu"] * 4, fmt=fmt,
+              method="allgather")
+    np.testing.assert_array_equal(got.iterations_per_system,
+                                  want.iterations_per_system)
+    for s in range(3):
+        assert np.linalg.norm(got.x[s] - want.x[s]) <= 1e-10 * np.linalg.norm(
+            want.x[s])
+    tier = {"auto": "stencil"}.get(fmt, fmt)
+    body = "spmv" if fmt == "ell" else "batched"
+    assert got.kernel == f"cuda-{tier}-{body}+allgather"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("wire", ["f32", "bf16", "int16-delta"])
+def test_batched_ghosts_and_wire_on_the_card(card, wire, dtype):
+    """The halos of one system and of a (B, n) batch, under each wire, on
+    the card bit-equal to the same exchange on the CPU; the codec alone
+    too, on random, constant and batched messages."""
+    from acg_torch.parallel import halo
+    from acg_torch.solvers.cg_dist import build_sharded
+
+    A = poisson.poisson3d_27pt(8)
+    gpu = build_sharded(A, nparts=4, devices=[card] * 4, fmt="ell")
+    cpu = build_sharded(A, nparts=4, devices=["cpu"] * 4, fmt="ell")
+    gen = torch.Generator().manual_seed(9)
+    for shape in ((), (5,)):
+        xs = [torch.randn(shape + (op.nrows_padded,), generator=gen,
+                          dtype=torch.float64).to(dtype) * 4 + 1
+              for op in cpu.local_ops]
+        for fn in (halo.halo_ppermute, halo.halo_allgather):
+            got = fn([x.to(card) for x in xs], gpu.tables, wire)
+            want = fn(xs, cpu.tables, wire)
+            for g, w in zip(got, want):
+                assert g.shape == w.shape and torch.equal(g.cpu(), w)
+    msgs = [torch.randn(1001, generator=gen, dtype=torch.float64) * 30,
+            torch.full((64,), -2.5, dtype=torch.float64),
+            torch.randn(3, 257, generator=gen, dtype=torch.float64)]
+    for m in msgs:
+        m = m.to(dtype)
+        enc = halo.wire_encode(m.to(card), wire)
+        assert torch.equal(enc.cpu(), halo.wire_encode(m, wire))
+        assert torch.equal(halo.wire_decode(enc, wire, dtype).cpu(),
+                           halo.wire_decode(halo.wire_encode(m, wire), wire,
+                                            dtype))

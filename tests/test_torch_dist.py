@@ -255,13 +255,22 @@ def test_unported_options_raise():
     _, b = manufactured_rhs(A, seed=0)
     kw = dict(nparts=2, devices=_cpu(2))
     for opts in (SolverOptions(segment_iters=4),
-                 SolverOptions(monitor_every=2),
-                 SolverOptions(halo_wire="bf16")):
+                 SolverOptions(monitor_every=2)):
         with pytest.raises(AcgError, match="not yet ported") as e:
             cg_dist(A, b, options=opts, **kw)
         assert e.value.status == Status.ERR_NOT_SUPPORTED
-    with pytest.raises(AcgError, match="not yet ported"):
-        cg_dist(A, np.stack([b, b]), **kw)
+    with pytest.raises(AcgError, match="not yet ported") as e:
+        cg_dist(A, b, partition_method="kway", **kw)
+    assert e.value.status == Status.ERR_NOT_SUPPORTED
+    # the put+signal halo moves one system at full width: a batch and a
+    # compressed wire are refused before the shards are built
+    with pytest.raises(AcgError, match="multi-RHS solves support") as e:
+        cg_dist(A, np.stack([b, b]), method="rdma", **kw)
+    assert e.value.status == Status.ERR_NOT_SUPPORTED
+    with pytest.raises(AcgError, match="halo_wire compression") as e:
+        cg_dist(A, b, options=SolverOptions(halo_wire="bf16"),
+                method="rdma", **kw)
+    assert e.value.status == Status.ERR_NOT_SUPPORTED
     with pytest.raises(AcgError) as e:
         build_sharded(A, **kw, fmt="sgell")        # f64: the tier refuses
     assert e.value.status == Status.ERR_NOT_SUPPORTED
@@ -344,7 +353,9 @@ def test_cli_nparts_errors(matrix_file, monkeypatch, capsys):
         out = _run(matrix_file, "--nparts", "4", "-q")
         assert out.returncode == 1 and "error:" in out.stderr
     for extra in (["--comm", "nvshmem"], ["--halo", "rdma"],
-                  ["--solver", "acg-pipelined"], ["--nrhs", "2"],
+                  ["--halo", "rdma", "--nrhs", "2"],
+                  ["--halo", "rdma", "--halo-wire", "bf16"],
+                  ["--solver", "acg-sstep"],
                   ["--partition-method", "kway"]):
         assert cli.main([matrix_file, "--device", "cpu", "--nparts", "4",
                          "-q", *extra]) == 1

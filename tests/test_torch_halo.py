@@ -405,12 +405,23 @@ def test_make_mesh_layouts(monkeypatch):
 
 
 def test_compressed_wire_not_ported():
+    """The compressed wires are ported (``tests/test_torch_halo_wire.py``
+    holds them against the JAX codec): both transports take them and
+    deliver the f32 ghosts to the wire's precision; a wire that does not
+    exist is refused."""
     _, _, _, tps = _systems(("p2d", (8, 8)), 2)
     st = _port_tables(tps)
-    xs = [torch.zeros(p.nown, dtype=torch.float64) for p in tps.parts]
+    rng = np.random.default_rng(3)
+    xs = [torch.from_numpy(rng.standard_normal(p.nown)) for p in tps.parts]
     for fn in (halo.halo_ppermute, halo.halo_allgather):
-        with pytest.raises(AcgError, match="not yet ported"):
-            fn(xs, st, wire="bf16")
+        exact = fn(xs, st)
+        for wire, tol in (("bf16", 2.0 ** -8), ("int16-delta", 1e-4)):
+            for a, b in zip(fn(xs, st, wire=wire), exact):
+                assert a.dtype == b.dtype and a.shape == b.shape
+                assert float((a - b).abs().max()) <= tol * 4.0
+        with pytest.raises(AcgError, match="unknown halo wire") as e:
+            fn(xs, st, wire="fp8")
+        assert e.value.status == Status.ERR_INVALID_VALUE
 
 
 def test_ell_rectangle_and_shape_errors():
