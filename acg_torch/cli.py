@@ -10,11 +10,15 @@ the same stats block:
   manufactured solution -> warmup solves -> solve -> stats ->
   (optionally) write the solution.
 
-``--solver`` takes the JAX program's choices; ``acg`` (classic CG) and
-``acg-pipelined`` (pipelined CG), with their aliases ``acg-device`` and
-``acg-device-pipelined``, are ported, and every other choice exits 1
-with a "not yet ported" error.  ``--nrhs K`` solves K copies of the
-right-hand side in one batched loop (the multi-RHS kernels).
+``--solver`` takes the JAX program's eleven choices: ``acg`` (classic
+CG) and ``acg-pipelined`` (pipelined CG), with their aliases
+``acg-device`` and ``acg-device-pipelined``; ``acg-sstep`` / ``cg-sstep``
+(s-step CG, one Gram reduction per ``--sstep`` iterations);
+``acg-pipelined-deep`` / ``cg-pipelined-deep`` (``--pipeline-depth``
+reductions in flight); ``host`` (the NumPy oracle) and ``petsc`` /
+``petsc-pipelined`` (the SciPy baseline), which run on the host and take
+one right-hand side.  ``--nrhs K`` solves K copies of the right-hand side
+in one batched loop (the multi-RHS kernels).
 ``--format`` takes the JAX program's layouts: ``auto`` (the stencil,
 DIA, RCM+DIA, RCM+sgell or ELL tier, as the matrix allows), ``dia``,
 ``ell``, ``sgell`` (f32 only) and ``stencil``.
@@ -28,7 +32,8 @@ classic, or pipelined with ``--solver acg-pipelined``, and with
 encoding of ``--halo-wire`` (f32|bf16|int16-delta; rdma sends f32 only);
 on CUDA the shards take the visible cards, one each (one card and P > 1
 exit 1 with ERR_MESH, as the JAX program does on one chip), and with
-``--device cpu`` they share the CPU.
+``--device cpu`` they share the CPU; the s-step and deep solvers are not
+yet ported across shards.
 
 Run: ``python -m acg_torch.cli A.mtx --manufactured-solution -v``
 """
@@ -49,12 +54,10 @@ from acg_torch.sparse.csr import csr_from_mtx, manufactured_rhs
 from acg_torch.utils.stats import format_solver_stats
 
 
-# the JAX program's --solver choices (acg_tpu/cli.py), and those ported
+# the JAX program's --solver choices (acg_tpu/cli.py)
 _SOLVERS = ("acg", "acg-pipelined", "acg-sstep", "cg-sstep", "acg-device",
             "acg-device-pipelined", "acg-pipelined-deep",
             "cg-pipelined-deep", "host", "petsc", "petsc-pipelined")
-_PORTED = {"acg": False, "acg-device": False, "acg-pipelined": True,
-           "acg-device-pipelined": True}        # solver: pipelined?
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -105,8 +108,23 @@ def make_parser() -> argparse.ArgumentParser:
                    help="solver variant [acg]; acg-device* are aliases of "
                         "acg*; acg-pipelined runs pipelined CG (one fused "
                         "reduction per iteration, the whole iteration in "
-                        "one kernel); the other choices are not yet "
-                        "ported")
+                        "one kernel); acg-sstep / cg-sstep run s-step CG "
+                        "(one Gram reduction per --sstep iterations); "
+                        "acg-pipelined-deep / cg-pipelined-deep run the "
+                        "depth-L pipelined loop (--pipeline-depth "
+                        "reductions in flight, certified exits); host "
+                        "runs the NumPy oracle and petsc* the SciPy "
+                        "baseline, on the host")
+    p.add_argument("--sstep", type=int, default=4, metavar="S",
+                   help="s-step block size for --solver acg-sstep: one "
+                        "Gram reduction per S iterations; 2 <= S <= 16 "
+                        "(an indefinite Gram falls back to classic CG, "
+                        "said in the kernel line) [4]")
+    p.add_argument("--pipeline-depth", type=int, default=2, metavar="L",
+                   help="depth for --solver acg-pipelined-deep: L dot-block "
+                        "reductions in flight, every exit certified "
+                        "against the true residual; 1 <= L <= 8 (L = 1 is "
+                        "the ordinary pipelined solver) [2]")
     p.add_argument("--check-every", type=int, default=1, metavar="K",
                    help="test convergence every K iterations; the host "
                         "reads the device loop's flag only then [1]")
@@ -202,14 +220,29 @@ def _main(argv=None) -> int:
     except (TypeError, ValueError) as e:
         print(f"error: --numfmt: {e}", file=sys.stderr)
         return 2
-    if args.solver not in _PORTED:
-        raise AcgError(Status.ERR_NOT_SUPPORTED,
-                       f"--solver {args.solver}: not yet ported")
-    pipelined = _PORTED[args.solver]
+    solver = args.solver
+    host = solver == "host" or solver.startswith("petsc")
+    sstep_mode = "sstep" in solver
+    deep_mode = "deep" in solver
+    pipelined = "pipelined" in solver and not (deep_mode or host)
     if args.nparts < 1:
         raise AcgError(Status.ERR_INVALID_VALUE,
                        f"--nparts must be >= 1, got {args.nparts}")
-    dist = args.nparts > 1
+    if sstep_mode and not 2 <= args.sstep <= 16:
+        raise AcgError(Status.ERR_INVALID_VALUE,
+                       f"--sstep {args.sstep}: the s-step block size "
+                       "must be in [2, 16]")
+    if deep_mode and not 1 <= args.pipeline_depth <= 8:
+        raise AcgError(Status.ERR_INVALID_VALUE,
+                       f"--pipeline-depth {args.pipeline_depth}: the "
+                       "pipeline depth must be in [1, 8] (depth 1 is the "
+                       "ordinary pipelined solver)")
+    # the host solvers take A as it is read, on one process
+    dist = args.nparts > 1 and not host
+    if dist and (sstep_mode or deep_mode):
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"--solver {solver} with --nparts {args.nparts}: "
+                       "distributed s-step/deep: not yet ported")
     halo = resolve_halo(args.comm, args.halo)
     if dist and halo == "rdma" and args.halo_wire != "f32":
         raise AcgError(Status.ERR_NOT_SUPPORTED,
@@ -221,12 +254,16 @@ def _main(argv=None) -> int:
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        "--nrhs > 1 with --nparts > 1 takes the ppermute or "
                        "allgather halo (the rdma halo moves 1-D packs)")
-    if args.residual_replacement and not pipelined:
+    if args.residual_replacement and not (pipelined or deep_mode):
         print("warning: --residual-replacement applies to pipelined "
               "solvers only (--solver acg-pipelined); ignored",
               file=sys.stderr)
+    if args.check_every != 1 and sstep_mode:
+        print("warning: --check-every has no effect on the s-step loop "
+              "(convergence is decided at every block boundary); ignored",
+              file=sys.stderr)
     from acg_torch.utils.backend import resolve_device
-    device = resolve_device(args.device)
+    device = None if host else resolve_device(args.device)
     vdt = np.dtype(args.dtype)
 
     # 1. read A (ref cuda/acg-cuda.c:1296-1331)
@@ -261,25 +298,48 @@ def _main(argv=None) -> int:
         raise AcgError(Status.ERR_INVALID_VALUE,
                        f"--nrhs must be >= 1, got {args.nrhs}")
     if args.nrhs > 1:
+        if host:
+            raise AcgError(Status.ERR_NOT_SUPPORTED,
+                           f"--nrhs > 1 requires a device solver "
+                           f"(--solver {solver} solves one system at a "
+                           "time)")
         # the (K, n) batch; K = 1 stays on the 1-D path, and x0 stays 1-D
         # (the solvers share one guess across the batch)
         b = np.tile(np.asarray(b)[None, :], (args.nrhs, 1))
     options = SolverOptions(
         maxits=args.max_iterations, diffatol=args.diff_atol,
         diffrtol=args.diff_rtol, residual_atol=args.residual_atol,
-        residual_rtol=args.residual_rtol, warmup=args.warmup,
-        check_every=args.check_every,
-        replace_every=args.residual_replacement if pipelined else 0,
+        residual_rtol=args.residual_rtol,
+        warmup=0 if host else args.warmup, check_every=args.check_every,
+        replace_every=(args.residual_replacement
+                       if pipelined or deep_mode else 0),
+        sstep=args.sstep if sstep_mode else 0,
+        pipeline_depth=args.pipeline_depth if deep_mode else 1,
         halo_wire=args.halo_wire)
     mat_dtype = {"auto": "auto", "same": None}.get(
         args.mat_precision, args.mat_precision)
 
     # 3. operator build + solve (ref cuda/acg-cuda.c:2209-2261)
-    from acg_torch.solvers.cg import build_device_operator, cg, cg_pipelined
-    solve = cg_pipelined if pipelined else cg
+    from acg_torch.solvers.cg import (build_device_operator, cg,
+                                      cg_pipelined, cg_pipelined_deep,
+                                      cg_sstep)
+    solve = (cg_sstep if sstep_mode else cg_pipelined_deep if deep_mode
+             else cg_pipelined if pipelined else cg)
     t0 = time.perf_counter()
     steps = {}
-    if dist:
+    if host:
+        # the host oracle and the SciPy baseline take A as it was read
+        from acg_torch.solvers.baseline import cg_scipy
+        from acg_torch.solvers.cg_host import cg_host
+        dev = A
+        what = "host CSR"
+        if solver == "host":
+            def solve(A, b, x0=None, options=None, fmt=None):
+                return cg_host(A, b, x0=x0, options=options)
+        else:
+            def solve(A, b, x0=None, options=None, fmt=None):
+                return cg_scipy(A, b, x0=x0, options=options)
+    elif dist:
         from acg_torch.solvers.cg_dist import (build_sharded, cg_dist,
                                                cg_pipelined_dist)
         solve = cg_pipelined_dist if pipelined else cg_dist
@@ -299,12 +359,12 @@ def _main(argv=None) -> int:
         inner = getattr(dev, "dev", dev)
         what = (type(inner).__name__
                 + (" in an RCM ordering" if inner is not dev else ""))
-    _log(args, f"operator: {what} on {device} "
+    _log(args, f"operator: {what} on {device or 'the host'} "
                f"({time.perf_counter() - t0:.3f} s"
                + "".join(f"; {k} {v:.3f} s" for k, v in steps.items())
                + ")")
     try:
-        for _ in range(args.warmup):
+        for _ in range(options.warmup):
             # a warmup that does not converge still warmed everything
             try:
                 solve(dev, b, x0=x0, options=options, fmt=args.format)

@@ -32,13 +32,12 @@ class SolverOptions:
       ``|b-Ax| < residual_atol``, ``|b-Ax| < residual_rtol*|b-Ax0|``.
 
     Fields the port's loops do not run yet (``segment_iters``,
-    ``monitor_every``, ``sstep``, ``pipeline_depth``) are kept and
-    validated so options objects carry over unchanged;
-    :func:`acg_torch.solvers.cg.cg` and ``cg_pipelined`` refuse the ones
-    that would change what they compute.  ``replace_every`` is run by
-    the pipelined solvers (classic CG has no recurrence to replace);
-    ``halo_wire`` by the distributed ones (``solvers/cg_dist.py``; one
-    device has no halo).
+    ``monitor_every``) are kept and validated so options objects carry
+    over unchanged; the solvers refuse them.  ``replace_every`` is run
+    by the pipelined and deep-pipelined solvers (classic CG has no
+    recurrence to replace); ``sstep`` by ``cg_sstep``; ``pipeline_depth``
+    by ``cg_pipelined_deep``; ``halo_wire`` by the distributed solvers
+    (``solvers/cg_dist.py``; one device has no halo).
     """
 
     maxits: int = 100

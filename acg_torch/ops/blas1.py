@@ -1,5 +1,6 @@
-"""Level-1 BLAS reductions (reference acg/vector.c:561-620) and the
-pipelined-CG vector update.
+"""Level-1 BLAS reductions (reference acg/vector.c:561-620), the
+pipelined-CG vector update, and the block products of the s-step and
+deep-pipelined loops (:func:`gram`, :func:`block_dot`, :func:`combine`).
 
 Ordinary torch ops: in the JAX package XLA fused these into the solver
 loop and nothing was hand-written for them.  ``nexclude`` drops that many
@@ -9,6 +10,8 @@ system to a ``(B,)`` tensor.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -57,3 +60,50 @@ def pipelined_update(q, w, z, r, p, s, x, alpha, beta):
     r2 = torch.addcmul(r, alpha, s2, value=-1)
     w2 = torch.addcmul(w, alpha, z2, value=-1)
     return z2, p2, s2, x2, r2, w2
+
+
+@contextlib.contextmanager
+def _full_precision_matmul():
+    """f32 products at f32, never TF32, whatever the global setting: the
+    s-step decisions stand on the Gram entries (``acg_tpu.ops.blas1``
+    forces ``Precision.HIGHEST`` for the same reason), and a TF32 Gram
+    carries ~1e-3 relative error."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def gram(V: torch.Tensor) -> torch.Tensor:
+    """All m² inner products of an m-vector basis block in one
+    tall-skinny product (``acg_tpu.ops.blas1.gram``, the s-step
+    reduction): ``V`` of shape (m, n) gives (m, m).  A batch ``V`` of
+    shape (m, B, n) gives the per-system stack (B, m, m), one product per
+    system, so a system's Gram is the one its one-system solve forms."""
+    with _full_precision_matmul():
+        if V.dim() == 3:
+            return torch.stack([V[:, s] @ V[:, s].T
+                                for s in range(V.shape[1])])
+        return V @ V.T
+
+
+def block_dot(V: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The m inner products <V_i, w> in one matrix-vector product
+    (``acg_tpu.ops.blas1.block_dot``): (m, n) against (n,) gives (m,);
+    a batch (m, B, n) against (B, n) gives (B, m)."""
+    with _full_precision_matmul():
+        if V.dim() == 3:
+            return torch.stack([V[:, s] @ w[s] for s in range(V.shape[1])])
+        return V @ w
+
+
+def combine(c: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """The basis combination sum_i c_i V_i in one product: (m,) against
+    (m, n) gives (n,), k combinations (k, m) give (k, n) from one read of
+    V; per system, (B, m) against (m, B, n) gives (B, n)."""
+    with _full_precision_matmul():
+        if V.dim() == 3:
+            return torch.stack([c[s] @ V[:, s] for s in range(V.shape[1])])
+        return c @ V

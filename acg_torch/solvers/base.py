@@ -43,6 +43,12 @@ class SolveStats:
     allreduce: OpCounters = dataclasses.field(default_factory=OpCounters)
     halo: OpCounters = dataclasses.field(default_factory=OpCounters)
     nhalomsgs: int = 0
+    # s-step blocks, and the host seconds they spent waiting for each
+    # block's Gram matrix and then on its coefficient recurrences, Ritz
+    # step, Leja order and combination launches (cg_sstep)
+    nsstepblocks: int = 0
+    tsstepwait: float = 0.0
+    tsstephost: float = 0.0
 
     def iterations_per_sec(self) -> float:
         if self.tsolve <= 0:
@@ -157,11 +163,20 @@ def conform_x0_batch(x0, b_shape, tile):
     return x0
 
 
-def cg_flops_per_iter(nnz: int, nrows: int, pipelined: bool = False) -> int:
+def cg_flops_per_iter(nnz: int, nrows: int, pipelined: bool = False,
+                      sstep: int = 0) -> int:
     """Flop model per CG iteration (ref acg/cgcuda.c:885): SpMV 2
     flops/nnz and 2 dots at 2 flops/row each, plus 3 axpys at 2 flops/row
     (classic) or the fused 6-vector update at 12 flops/row (pipelined,
-    ref acg/cgcuda.c:1783)."""
+    ref acg/cgcuda.c:1783).  ``sstep`` = s prices an s-step block divided
+    by s (``acg_tpu.solvers.base.cg_flops_per_iter``): 2s operator
+    applications, the (m, n) x (n, m) Gram (m = 2s+1), 2s-1 shifted-basis
+    axpys and the two m-coefficient combinations rebuilding x and p."""
+    if sstep:
+        s, m = sstep, 2 * sstep + 1
+        block = (2 * s * 2 * nnz + m * m * 2 * nrows
+                 + (2 * s - 1) * 2 * nrows + 2 * m * 2 * nrows)
+        return block // s
     if not pipelined:
         return 2 * nnz + 2 * (2 * nrows) + 3 * (2 * nrows)
     return 2 * nnz + 2 * (2 * nrows) + 12 * nrows

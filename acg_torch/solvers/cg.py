@@ -25,6 +25,7 @@ carries per-system counts, residuals and histories.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -32,7 +33,8 @@ import torch
 
 from acg_torch.config import SolverOptions
 from acg_torch.errors import AcgError, Status
-from acg_torch.ops.blas1 import batched_dot, ddot, dnrm2
+from acg_torch.ops.blas1 import (batched_dot, block_dot, combine, ddot,
+                                 dnrm2, gram)
 from acg_torch.ops.dia import DeviceDia, DiaMatrix, dia_efficiency
 from acg_torch.ops.sgell import (DeviceSgell, build_device_sgell,
                                  sgell_require_available)
@@ -41,8 +43,10 @@ from acg_torch.ops.stencil import DeviceStencil, try_device_stencil
 from acg_torch.solvers.base import (SolveResult, SolveStats,
                                     cg_flops_per_iter, conform_x0_batch,
                                     kernel_disengagement_note, path_names)
-from acg_torch.solvers.loops import (_BREAKDOWN, _CONVERGED, _FAULT, _OK,
-                                     cg_pipelined_while, cg_while)
+from acg_torch.solvers.loops import (_BREAKDOWN, _CONVERGED, _FAULT,
+                                     _GRAM_BAD, _OK, cg_pipelined_deep_while,
+                                     cg_pipelined_while, cg_sstep_while,
+                                     cg_while)
 from acg_torch.sparse.csr import CsrMatrix
 from acg_torch.sparse.ell import EllMatrix
 from acg_torch.sparse.rcm import permute_symmetric, rcm_order
@@ -216,7 +220,8 @@ def _prepare(A, b, x0, dtype, fmt: str, mat_dtype, device):
 
 def _describe_path(op, fmt: str, pipelined: bool = False,
                    replace_every: int = 0, batch: int = 0,
-                   perm=None) -> tuple[str, str, str]:
+                   perm=None, open_coded: bool = False) -> tuple[str, str,
+                                                                str]:
     """(operator_format, kernel, note) actually in effect.  ``perm`` is
     not None for an operator in an RCM ordering.  ``batch`` > 0 is a
     (batch, n) multi-RHS solve, whose loop runs the batched SpMV kernel
@@ -226,19 +231,23 @@ def _describe_path(op, fmt: str, pipelined: bool = False,
     sgell loops run their SpMV kernel in every body.  On the DIA tier
     a loop whose SpMV is a one-vector kernel names the kernel of the
     operator's plan: ``cuda-dia-hbm-ring`` / ``cuda-dia-hbm`` for x past
-    the card's L2."""
+    the card's L2.  ``open_coded``: a loop of its own around the plain
+    SpMV kernel (the s-step and deep-pipelined solvers), whose only note
+    is a forced format."""
     tier = ("sgell" if isinstance(op, DeviceSgell)
             else "ell" if isinstance(op, DeviceEll)
             else "stencil" if isinstance(op, DeviceStencil) else "dia")
     has_pipe = hasattr(op, "pipelined_iter")
     engaged = has_pipe and replace_every == 0 and not batch
     body = ("spmv" if not has_pipe else "batched" if batch
+            else "spmv" if open_coded
             else "fused" if not pipelined else "pipe" if engaged
             else "spmv")
     if tier == "dia" and body in ("fused", "spmv") and op.kind != "resident":
         # the SpMV of the loop body runs the kernel of the operator's plan
         body = op.kind
-    note = kernel_disengagement_note(pipelined, engaged, replace_every,
+    note = kernel_disengagement_note(pipelined and not open_coded, engaged,
+                                     replace_every,
                                      forced_fmt=fmt,
                                      stencil=tier == "stencil", batch=batch,
                                      has_pipe=has_pipe)
@@ -251,10 +260,25 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _host_x(op, x, perm) -> np.ndarray:
+    """The solution on the host in the caller's ordering (``perm``
+    new_to_old un-permutes it), padding dropped."""
+    x_host = x[..., : op.nrows].cpu().numpy()
+    if perm is not None:
+        xp, x_host = x_host, np.empty_like(x_host)
+        x_host[..., perm] = xp
+    return x_host
+
+
 def _finish(op, x, k, rr, flag, rr0, options: SolverOptions,
             tsolve: float, bnrm2, dxx=None, stats=None,
             path=("", "", ""), hist=None, pipelined: bool = False,
-            perm=None) -> SolveResult:
+            perm=None, sstep: int = 0,
+            solver: str | None = None) -> SolveResult:
     """Assemble the SolveResult and raise the classified errors, as
     ``acg_tpu.solvers.cg._finish`` does.  A multi-RHS solve (``x`` of
     shape (B, n); ``k``, ``flag`` and the norms per system) is summarized
@@ -262,18 +286,18 @@ def _finish(op, x, k, rr, flag, rr0, options: SolverOptions,
     r0nrm2 and bnrm2 (one system's pair, never a cross-system mix); a
     fault in any system dominates, then a breakdown in any, then "all
     converged"; flops count each system's own iterations.  ``perm``
-    (new_to_old) un-permutes the solution into the caller's ordering."""
+    (new_to_old) un-permutes the solution into the caller's ordering.
+    ``sstep`` prices the iterations with the s-step block model;
+    ``solver`` names the solver in the non-convergence message.  ``k``,
+    ``flag`` and the norms may be tensors or host arrays."""
     batched = x.dim() == 2
-    x_host = x[..., : op.nrows].cpu().numpy()
-    if perm is not None:
-        xp, x_host = x_host, np.empty_like(x_host)
-        x_host[..., perm] = xp
+    x_host = _host_x(op, x, perm)
     bnrm2 = np.asarray(bnrm2, dtype=np.float64)
     if batched:
-        ksys = k.cpu().numpy().astype(np.int64)
-        flags = flag.cpu().numpy().astype(np.int64)
-        rnrm2s = np.sqrt(rr.cpu().numpy().astype(np.float64))
-        r0nrm2s = np.sqrt(rr0.cpu().numpy().astype(np.float64))
+        ksys = _host(k).astype(np.int64)
+        flags = _host(flag).astype(np.int64)
+        rnrm2s = np.sqrt(_host(rr).astype(np.float64))
+        r0nrm2s = np.sqrt(_host(rr0).astype(np.float64))
         k = int(ksys.max())
         flag = (_FAULT if np.any(flags == _FAULT)
                 else _BREAKDOWN if np.any(flags == _BREAKDOWN)
@@ -294,7 +318,7 @@ def _finish(op, x, k, rr, flag, rr0, options: SolverOptions,
     st.niterations = k
     # useful flops: each system advances only while it is active
     st.nflops += niters_total * cg_flops_per_iter(op.nnz, op.nrows,
-                                                  pipelined)
+                                                  pipelined, sstep)
     st.tsolve += tsolve
     o = options
     res = SolveResult(
@@ -307,7 +331,7 @@ def _finish(op, x, k, rr, flag, rr0, options: SolverOptions,
                              and np.all(np.isfinite(x_host)))
                   else "non-finite values in solution or residual"),
         operator_format=path[0], kernel=path[1], kernel_note=path[2],
-        residual_history=(hist[..., : k + 1].cpu().numpy().astype(np.float64)
+        residual_history=(_host(hist)[..., : k + 1].astype(np.float64)
                           if hist is not None else None))
     if batched:
         res.nrhs = len(ksys)
@@ -337,7 +361,8 @@ def _finish(op, x, k, rr, flag, rr0, options: SolverOptions,
     if flag != _CONVERGED and not no_criteria:
         res.status = Status.ERR_NOT_CONVERGED
         err = AcgError(Status.ERR_NOT_CONVERGED,
-                       f"CG did not converge in {o.maxits} iterations "
+                       f"{solver or 'CG'} did not converge in {o.maxits} "
+                       "iterations "
                        f"(|r|/|r0| = {res.relative_residual:.3e})")
         err.result = res
         raise err
@@ -352,7 +377,8 @@ def _finish(op, x, k, rr, flag, rr0, options: SolverOptions,
 
 def cg(A, b, x0=None, options: SolverOptions = SolverOptions(),
        dtype=None, fmt: str = "auto", mat_dtype="auto",
-       stats: SolveStats | None = None, device=None) -> SolveResult:
+       stats: SolveStats | None = None, device=None,
+       atol2_floor=None) -> SolveResult:
     """Classic CG on one device (``acg_tpu.solvers.cg.cg``).
 
     ``A`` is a host CsrMatrix, DiaMatrix or EllMatrix, or an operator
@@ -369,7 +395,10 @@ def cg(A, b, x0=None, options: SolverOptions = SolverOptions(),
     ``device`` defaults to ``cuda`` and raises when no card is present;
     ``device="cpu"`` runs the plain PyTorch versions of the kernels.
     Raises ``AcgError`` with the partial result attached as ``.result``
-    on breakdown or non-convergence, as the JAX solver does."""
+    on breakdown or non-convergence, as the JAX solver does.
+    ``atol2_floor`` (the s-step and deep fallbacks) is a squared absolute
+    threshold, a scalar or per system (B,), folded into the atol term, so
+    each system keeps its own original criterion."""
     o = options
     if o.segment_iters or o.monitor_every:
         raise AcgError(Status.ERR_NOT_SUPPORTED,
@@ -382,7 +411,9 @@ def cg(A, b, x0=None, options: SolverOptions = SolverOptions(),
     def scalar(v):
         return torch.tensor(v, dtype=vdt, device=op.device)
 
-    stop2 = (scalar(o.residual_atol ** 2), scalar(o.residual_rtol ** 2))
+    atol2 = (o.residual_atol ** 2 if atol2_floor is None
+             else np.maximum(o.residual_atol ** 2, atol2_floor))
+    stop2 = (scalar(atol2), scalar(o.residual_rtol ** 2))
     track_diff = o.diffatol > 0 or o.diffrtol > 0
     diffstop = o.diffatol ** 2              # diffrtol needs |x0|
     if o.diffrtol > 0:
@@ -484,3 +515,475 @@ def cg_pipelined(A, b, x0=None, options: SolverOptions = SolverOptions(),
                    path=_describe_path(op, fmt, True, o.replace_every,
                                        batch, perm=perm),
                    hist=hist, pipelined=True, perm=perm)
+
+
+# ---------------------------------------------------------------------------
+# s-step CG
+
+
+def _cheb_leja_nodes(s: int) -> np.ndarray:
+    """Leja-ordered Chebyshev nodes of (0, 1) (``acg_tpu.solvers.cg``
+    ``_cheb_leja_nodes``): scaled by the estimated largest eigenvalue they
+    seed the first s-step block's Newton shifts (and the deep pipeline's
+    fill shifts); Leja order is scale-invariant, so the unit nodes are
+    ordered once, here by products of distances."""
+    j = np.arange(s)
+    v = 0.5 * (1.0 + np.cos((2 * j + 1) * np.pi / (2 * s)))
+    order = [int(np.argmax(np.abs(v)))]
+    for _ in range(s - 1):
+        prod = np.ones(s)
+        for i in order:
+            prod *= np.abs(v - v[i])
+        prod[order] = -1.0
+        order.append(int(np.argmax(prod)))
+    return v[order]
+
+
+def _sstep_block_fn(mv, b, s: int):
+    """The s-step basis of :func:`cg_sstep_while`, built a block: residual
+    replacement r = b - A x, the Newton-shifted P and R blocks through
+    the operator's SpMV kernel (without the dot), and the Gram matrix in
+    one product (:func:`gram`).  The (2s+1, [B,] n) basis is allocated
+    once and rewritten every block; its padding rows stay 0, as every
+    SpMV kernel returns them (the Gram reduces over them)."""
+    batched = b.dim() == 2
+    m = 2 * s + 1
+    V = torch.empty((m,) + tuple(b.shape), dtype=b.dtype, device=b.device)
+
+    def block_fn(x, p, shifts):
+        th = torch.from_numpy(np.ascontiguousarray(shifts)).to(b.device)
+        if batched:
+            th = th[:, None, :]
+        torch.sub(b, mv(x), out=V[s + 1])
+        V[0].copy_(p)
+        for j in range(s):
+            torch.addcmul(mv(V[j]), th[..., j], V[j], value=-1,
+                          out=V[j + 1])
+        for j in range(s - 1):
+            torch.addcmul(mv(V[s + 1 + j]), th[..., j], V[s + 1 + j],
+                          value=-1, out=V[s + 2 + j])
+        return V, gram(V)
+
+    return block_fn
+
+
+def _power_lmax(mv, dot, b, iters: int = 6):
+    """A crude largest-eigenvalue estimate by power iteration from b (six
+    operator applications before the loop; ``acg_tpu.solvers.cg``
+    ``_power_lmax``): it scales the Chebyshev shift seeds, and the Ritz
+    refinement replaces them after the first block."""
+    bc = (lambda v: v[:, None]) if b.dim() == 2 else (lambda v: v)
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    v = b
+    lam = torch.zeros(b.shape[:-1], dtype=b.dtype, device=b.device)
+    for _ in range(iters):
+        nv = torch.sqrt(dot(v, v))
+        v = v / bc(torch.where(nv == 0, one, nv))
+        v = mv(v)
+        lam = torch.sqrt(dot(v, v))
+    return lam
+
+
+def _seed_shifts(op, b, n: int, shifts0):
+    """The first block's shifts, ([B,] n): ``shifts0`` as given (a shared
+    (n,) seed tiled over a batch), else the Leja-ordered Chebyshev nodes
+    scaled by the power-iteration estimate."""
+    vdt = np.dtype(op.vec_dtype)
+    if shifts0 is None:
+        lam = _host(_power_lmax(op.matvec, batched_dot, b))
+        shifts0 = lam[..., None] * _cheb_leja_nodes(n).astype(vdt)
+    shifts0 = np.asarray(shifts0, dtype=vdt)
+    if b.dim() == 2 and shifts0.ndim == 1:
+        shifts0 = np.tile(shifts0, (b.shape[0], 1))
+    return shifts0
+
+
+def _cg_sstep_device(op, b, x0, stop2, s: int, maxits: int, shifts0=None,
+                     stats=None):
+    """s-step CG on the device operator (``acg_tpu.solvers.cg``
+    ``_cg_sstep_device``): the entry residual, the shift seeds, the loop,
+    and the certification of every exit by a fresh |b - A x|².  Host
+    arrays of leading axis B (1 for one system) come back beside x:
+    ``(x, kiter, rr_true, flag, rr0, hist)``; ``stats`` gets the loop's
+    block times."""
+    r0 = b - op.matvec(x0)
+    rr0 = np.atleast_1d(_host(batched_dot(r0, r0)))
+    shifts0 = _seed_shifts(op, b, s, shifts0).reshape(rr0.shape[0], s)
+    x, kiter, _rr, flag, hist, _shifts = cg_sstep_while(
+        _sstep_block_fn(op.matvec, b, s), combine, b, x0, r0, rr0, shifts0,
+        stop2, s, maxits, stats=stats)
+    rT = b - op.matvec(x)
+    rrT = np.atleast_1d(_host(batched_dot(rT, rT)))
+    flag, hist = _sstep_certify(rrT, kiter, flag, hist, stop2, rr0)
+    return x, kiter, rrT, flag, rr0, hist
+
+
+def _sstep_certify(rrT, kiter, flag, hist, stop2, rr0):
+    """The s-step exit certification (host arrays of leading axis B): the
+    freshly reduced true |r|² decides convergence in both directions (a
+    block-boundary _CONVERGED it refutes is demoted), and each system's
+    last history sample becomes that certified value."""
+    atol2, rtol2 = stop2
+    thresh2 = np.maximum(atol2, rtol2 * rr0)
+    any_crit = bool(atol2 > 0 or rtol2 > 0)
+    met = (rrT < thresh2) | (any_crit & (rrT == 0))
+    flag = np.where(met, _CONVERGED,
+                    np.where(flag == _CONVERGED, _OK, flag))
+    hist[np.arange(rrT.shape[0]), kiter] = rrT
+    return flag, hist
+
+
+def _refuse_unported(o: SolverOptions, name: str) -> None:
+    if o.diffatol > 0 or o.diffrtol > 0:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"{name} CG supports residual-based stopping only")
+    if o.segment_iters > 0:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       "segment_iters is supported by the classic and "
+                       f"pipelined solvers, not by {name} CG")
+    if o.monitor_every:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       "monitor_every: not yet ported")
+
+
+def _sstep_validate(o: SolverOptions) -> int:
+    """The rejections of the s-step wrapper; returns the block size."""
+    if o.sstep < 2:
+        raise AcgError(Status.ERR_INVALID_VALUE,
+                       "cg_sstep requires SolverOptions.sstep >= 2 "
+                       "(the s-step block size; --sstep on the CLI)")
+    _refuse_unported(o, "s-step")
+    return o.sstep
+
+
+def _sstep_fallback_stop(o: SolverOptions, rr0) -> np.ndarray:
+    """The classic fallback's ``atol2_floor``: each system's ORIGINAL
+    squared threshold max(atol², rtol²·|r0|²).  The fallback's rtol is
+    relative to its own start, which :func:`_sstep_fallback_x0` keeps no
+    worse than |r0| but can make arbitrarily tighter; the floor restores
+    every system's own criterion."""
+    return np.maximum(o.residual_atol ** 2,
+                      o.residual_rtol ** 2 * np.asarray(rr0, np.float64))
+
+
+def _sstep_fallback_x0(x_part, x0, rrT, rr0):
+    """The fallback's starting iterate: each system's s-step iterate only
+    where its CERTIFIED true residual is finite and no worse than |r0|²,
+    else the caller's x0 (zeros when None): a poisoned start drives the
+    classic recurrence away from the truth."""
+    rrT_h = np.atleast_1d(np.asarray(rrT, np.float64))
+    rr0_h = np.atleast_1d(np.asarray(rr0, np.float64))
+    keep = np.isfinite(rrT_h) & (rrT_h <= rr0_h)
+    if np.all(keep):
+        return x_part
+    xp = np.asarray(x_part, dtype=np.float64)
+    if xp.ndim == 2:
+        x0o = (np.zeros_like(xp) if x0 is None
+               else np.broadcast_to(np.asarray(x0, dtype=np.float64),
+                                    xp.shape))
+        return np.where(keep[:, None], xp, x0o)
+    return np.zeros_like(xp) if x0 is None else np.asarray(x0, np.float64)
+
+
+def _sstep_fallback(solve_classic, k_done, ksys, s: int, why: str,
+                    spent_flops: int = 0, label: str | None = None):
+    """Run the classic-CG fallback (never silently wrong) and fold the
+    iterations already spent into its result: the note joins
+    ``kernel_note``, per-system counts add the s-step counts (the batch
+    summary is the max of the per-system totals), and the stats carry
+    the spent work.  ``label`` names the solver in the note (the deep
+    wrapper's fallback)."""
+    note = (f"{label or f'cg-sstep(s={s})'} fell back to classic cg "
+            f"after {k_done} iteration(s): {why}")
+
+    def _fold(res):
+        res.kernel_note = (res.kernel_note + "; " + note
+                           if res.kernel_note else note)
+        if ksys is not None and res.iterations_per_system is not None:
+            res.iterations_per_system = (
+                np.asarray(res.iterations_per_system) + ksys)
+            folded = int(np.max(res.iterations_per_system))
+        else:
+            folded = res.niterations + int(k_done)
+        delta = folded - res.niterations
+        res.niterations = folded
+        if res.stats is not None:
+            res.stats.niterations += delta
+            res.stats.ntotaliterations += delta
+            res.stats.nflops += int(spent_flops)
+        return res
+
+    try:
+        return _fold(solve_classic())
+    except AcgError as e:
+        if getattr(e, "result", None) is not None:
+            _fold(e.result)
+        raise
+
+
+def cg_sstep(A, b, x0=None, options: SolverOptions = SolverOptions(),
+             dtype=None, fmt: str = "auto", mat_dtype="auto",
+             stats: SolveStats | None = None, device=None, shifts0=None,
+             recycle=None) -> SolveResult:
+    """s-step (communication-reduced) CG on one device
+    (``acg_tpu.solvers.cg.cg_sstep``): one Gram reduction per
+    ``options.sstep`` iterations (the loop contract is
+    :func:`acg_torch.solvers.loops.cg_sstep_while`).  Residual
+    replacement every block and certification of every exit are built
+    in; an indefinite or non-finite Gram falls back to classic CG from
+    the last good iterate, said in ``kernel_note``.  Each block's 2s
+    SpMVs run the operator's kernel without the dot (``cuda-*-spmv``,
+    ``cuda-dia-hbm*`` past the L2, ``cuda-*-batched`` for a (B, n) b).
+
+    ``shifts0`` ((s,) or (B, s)) overrides the power-iteration /
+    Chebyshev Newton-shift seeds.  ``recycle`` (the serve stack's
+    spectral recycling) is not yet ported.  Other arguments and errors as
+    :func:`cg`; residual criteria only."""
+    o = options
+    s = _sstep_validate(o)
+    if recycle is not None:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       "recycle (a RecycleState): not yet ported")
+    op, b_pad, x0_pad, perm = _prepare(A, b, x0, dtype, fmt, mat_dtype,
+                                       device)
+    batched = b_pad.dim() == 2
+    vdt = np.dtype(op.vec_dtype)
+    stop2 = (vdt.type(o.residual_atol ** 2), vdt.type(o.residual_rtol ** 2))
+    bnrm2 = dnrm2(b_pad).cpu().numpy()
+    st = stats if stats is not None else SolveStats()
+    _sync(op.device)
+    t0 = time.perf_counter()
+    x, k, rr, flag, rr0, hist = _cg_sstep_device(
+        op, b_pad, x0_pad, stop2, s, o.maxits, shifts0, stats=st)
+    _sync(op.device)
+    tsolve = time.perf_counter() - t0
+    if not batched:
+        k, rr, flag, rr0, hist = int(k[0]), rr[0], int(flag[0]), rr0[0], \
+            hist[0]
+    if np.any(np.atleast_1d(flag) == _GRAM_BAD):
+        # classic CG re-solves from the last good iterate, and re-diagnoses:
+        # a truly indefinite operator raises its breakdown there
+        k_done = int(np.max(k))
+        x_part = _sstep_fallback_x0(_host_x(op, x, perm), x0, rr, rr0)
+        o2 = dataclasses.replace(o, sstep=0,
+                                 maxits=max(o.maxits - k_done, 0))
+        return _sstep_fallback(
+            lambda: cg(A, b, x0=x_part, options=o2, dtype=dtype, fmt=fmt,
+                       mat_dtype=mat_dtype, stats=st, device=device,
+                       atol2_floor=_sstep_fallback_stop(o, rr0)),
+            k_done, k if batched else None, s,
+            "indefinite/non-finite Gram matrix",
+            spent_flops=k_done * cg_flops_per_iter(op.nnz, op.nrows,
+                                                   sstep=s))
+    return _finish(op, x, k, rr, flag, rr0, o, tsolve, bnrm2, stats=st,
+                   path=_describe_path(op, fmt, batch=len(k) if batched
+                                       else 0, perm=perm, open_coded=True),
+                   hist=hist, perm=perm, sstep=s, solver="cg-sstep")
+
+
+# ---------------------------------------------------------------------------
+# depth-l pipelined CG
+
+# consecutive dispatches ending in breakdown or certified-exit drift
+# before the deep solver falls back to classic CG (each re-dispatch
+# already is a residual replacement, so three failed restarts mean the
+# basis itself is the problem)
+_DEEP_MAX_BAD = 3
+
+
+def _deep_validate(o: SolverOptions) -> int:
+    """The rejections of the deep-pipelined wrapper; returns the depth
+    (>= 2: depth 1 is dispatched to :func:`cg_pipelined` first)."""
+    _refuse_unported(o, "deep-pipelined")
+    return o.pipeline_depth
+
+
+def _cg_pipelined_deep_device(op, b, x0, stop2, depth: int, maxits: int,
+                              check_every: int, replace_every: int,
+                              certify: bool, shifts, k_start: int = 0,
+                              rr0_in=None, flags_in=None, hist_in=None,
+                              ksys_in=None, guard: bool = False):
+    """One deep-pipelined dispatch (pipeline segment) on the device
+    operator: the fill chain, the bodies and the true-residual
+    certification (:func:`acg_torch.solvers.loops.cg_pipelined_deep_while`),
+    the dot block as one matrix-vector product over the z ring."""
+    return cg_pipelined_deep_while(
+        op.matvec, block_dot, combine, batched_dot, b, x0, stop2, depth,
+        shifts, maxits, check_every=check_every,
+        replace_every=replace_every, certify=certify, k_start=k_start,
+        rr0_in=rr0_in, flags_in=flags_in, hist_in=hist_in, ksys_in=ksys_in,
+        guard=guard)
+
+
+def cg_pipelined_deep(A, b, x0=None,
+                      options: SolverOptions = SolverOptions(),
+                      dtype=None, fmt: str = "auto", mat_dtype="auto",
+                      stats: SolveStats | None = None, device=None,
+                      shifts0=None) -> SolveResult:
+    """Depth-l pipelined CG on one device, l = ``options.pipeline_depth``
+    reductions in flight (``acg_tpu.solvers.cg.cg_pipelined_deep``; the
+    loop contract is
+    :func:`acg_torch.solvers.loops.cg_pipelined_deep_while`).  Each body
+    runs the operator's SpMV kernel once, without the dot.
+
+    The host re-dispatches the pipeline segment until the solve finishes:
+    every re-entry recomputes r = b - A x, every claimed exit is
+    certified against a fresh true residual, and ``_DEEP_MAX_BAD``
+    consecutive dispatches ending in breakdown or certified drift fall
+    back to classic CG from the last safe iterate (said in
+    ``kernel_note``).  The shift seeds (six SpMVs of power iteration, or
+    ``shifts0`` ((l,) or (B, l))) are formed once and serve every
+    dispatch.  ``pipeline_depth == 1`` is :func:`cg_pipelined`,
+    unchanged.  Other arguments and errors as :func:`cg`; residual
+    criteria only."""
+    o = options
+    if o.pipeline_depth == 1:
+        return cg_pipelined(A, b, x0, options=o, dtype=dtype, fmt=fmt,
+                            mat_dtype=mat_dtype, stats=stats, device=device)
+    l = _deep_validate(o)
+    op, b_pad, x0_pad, perm = _prepare(A, b, x0, dtype, fmt, mat_dtype,
+                                       device)
+    batched = b_pad.dim() == 2
+    vdt = b_pad.dtype
+    stop2 = (torch.tensor(o.residual_atol ** 2, dtype=vdt, device=op.device),
+             torch.tensor(o.residual_rtol ** 2, dtype=vdt, device=op.device))
+    bnrm2 = dnrm2(b_pad).cpu().numpy()
+    certify = o.residual_atol > 0 or o.residual_rtol > 0
+    _sync(op.device)
+    t0 = time.perf_counter()
+    shifts = torch.from_numpy(_seed_shifts(op, b_pad, l, shifts0)).to(
+        op.device)
+    # the restart operands of the dispatch protocol
+    x_op, k_op, rr0_op, flags_op, hist_op, ksys_op = (x0_pad, 0, None, None,
+                                                      None, None)
+    fails = ndisp = 0
+    while True:
+        (x_op, kret, rr, flag, rr0_op, hist_op, k_op, more,
+         drift) = _cg_pipelined_deep_device(
+            op, b_pad, x_op, stop2, l, o.maxits, o.check_every,
+            o.replace_every, certify, shifts, k_start=k_op, rr0_in=rr0_op,
+            flags_in=flags_op, hist_in=hist_op, ksys_in=ksys_op,
+            guard=o.guard_nonfinite)
+        ndisp += 1
+        if batched:
+            ksys_op = kret
+        flags_h = np.atleast_1d(_host(flag))
+        if np.any(flags_h == _FAULT):
+            break    # the finiteness guard fired: surface it, no restart
+        brk = bool(np.any(flags_h == _BREAKDOWN))
+        fails = fails + 1 if brk or bool(drift.any()) else 0
+        if fails >= _DEEP_MAX_BAD:
+            # never silently wrong: classic CG re-solves from the last
+            # safe iterate
+            why = ("indefinite Gram/LDL pivot" if brk
+                   else "certified-exit drift")
+            rr_h, rr0_h = _host(rr), _host(rr0_op)
+            x_part = _sstep_fallback_x0(_host_x(op, x_op, perm), x0, rr_h,
+                                        rr0_h)
+            o2 = dataclasses.replace(o, pipeline_depth=1,
+                                     maxits=max(o.maxits - k_op, 0))
+            return _sstep_fallback(
+                lambda: cg(A, b, x0=x_part, options=o2, dtype=dtype,
+                           fmt=fmt, mat_dtype=mat_dtype, stats=stats,
+                           device=device,
+                           atol2_floor=_sstep_fallback_stop(o, rr0_h)),
+                k_op, _host(kret) if batched else None, l, why,
+                spent_flops=k_op * cg_flops_per_iter(op.nnz, op.nrows,
+                                                     pipelined=True),
+                label=f"cg-pipelined-deep(l={l})")
+        # restart: a breakdown gets another chance on a fresh basis (the
+        # re-dispatch replaces its residual); drift is still _OK
+        live = bool(np.any((flags_h == _OK) | (flags_h == _BREAKDOWN)))
+        flags_op = torch.where(flag == _BREAKDOWN, _OK, flag).to(torch.int32)
+        if not (live and k_op < o.maxits):
+            break
+    _sync(op.device)
+    tsolve = time.perf_counter() - t0
+    name, kernel, note = _describe_path(op, fmt, batch=b_pad.shape[0]
+                                        if batched else 0, perm=perm,
+                                        open_coded=True)
+    note = (f"deep pipeline depth {l}, {ndisp} dispatch(es)"
+            + ("; " + note if note else ""))
+    return _finish(op, x_op, kret, rr, flag if batched else int(flag), rr0_op,
+                   o, tsolve, bnrm2, stats=stats, path=(name, kernel, note),
+                   hist=hist_op, pipelined=True, perm=perm,
+                   solver="cg-pipelined-deep")
+
+
+# ---------------------------------------------------------------------------
+# recycled (deflated) CG
+
+
+def _deflate_x0(matvec, b, x0, W, WtAW):
+    """Galerkin-project the retained basis out of the initial residual,
+    x0' = x0 + W (W'AW)^{-1} W' r0 with r0 = b - A x0, on the host in
+    float64 (``acg_tpu.solvers.cg._deflate_x0``; set-up work, the solve
+    afterwards is :func:`cg`'s).  Returns the deflated x0, or the
+    undeflated one when the projection cannot be applied soundly
+    (singular W'AW, a non-finite correction).  ``matvec`` maps a host
+    vector to A times it."""
+    b64 = np.asarray(b, np.float64)
+    if x0 is None:
+        x064 = np.zeros_like(b64)
+        r0 = b64
+    else:
+        x064 = np.asarray(x0, np.float64)
+        ax0 = (np.stack([np.asarray(matvec(row), np.float64)
+                         for row in x064])
+               if b64.ndim == 2 else np.asarray(matvec(x064), np.float64))
+        r0 = b64 - ax0
+    W = np.asarray(W, np.float64)
+    WtAW = np.asarray(WtAW, np.float64)
+    try:
+        if b64.ndim == 2:               # per-system correction, (B, k)
+            coef = np.linalg.solve(WtAW, (r0 @ W).T).T
+            x0d = x064 + coef @ W.T
+        else:
+            x0d = x064 + W @ np.linalg.solve(WtAW, W.T @ r0)
+    except np.linalg.LinAlgError:
+        return x064
+    return x0d if np.all(np.isfinite(x0d)) else x064
+
+
+def _host_matvec(A):
+    """A's product on host vectors in the caller's ordering: a host
+    matrix's own ``matvec``, or a device operator applied on its device;
+    None for anything else."""
+    if isinstance(A, PermutedOperator):
+        inner, perm = _host_matvec(A.dev), A.perm
+
+        def mv_perm(v):
+            y = np.empty_like(np.asarray(v, np.float64))
+            y[perm] = inner(np.asarray(v)[perm])
+            return y
+        return mv_perm
+    if isinstance(A, (DeviceDia, DeviceStencil, DeviceEll, DeviceSgell)):
+        vdt = getattr(torch, A.vec_dtype)
+
+        def mv_dev(v):
+            t = torch.zeros(A.nrows_padded, dtype=vdt, device=A.device)
+            t[: A.nrows] = torch.from_numpy(np.asarray(v)).to(t)
+            return A.matvec(t)[: A.nrows].cpu().numpy()
+        return mv_dev
+    return getattr(A, "matvec", None)
+
+
+def cg_recycled(A, b, x0=None, options: SolverOptions = SolverOptions(),
+                dtype=None, fmt: str = "auto", mat_dtype="auto",
+                stats: SolveStats | None = None, device=None, W=None,
+                WtAW=None, recycle=None, matvec=None) -> SolveResult:
+    """Deflated CG (``acg_tpu.solvers.cg.cg_recycled``): project the k
+    retained directions ``W`` (n, k), with ``WtAW`` = W'AW (k, k), out of
+    the initial residual at set-up (:func:`_deflate_x0`, on the host),
+    then run :func:`cg` unchanged: nothing is added to an iteration.
+    Without a basis it IS :func:`cg`.  ``matvec`` (host vector -> A
+    times it) overrides A's own for the deflation; ``recycle`` (the
+    serve stack's retained basis) is not yet ported."""
+    if recycle is not None:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       "recycle (a RecycleState): not yet ported")
+    mv = matvec if matvec is not None else _host_matvec(A)
+    if W is not None and WtAW is not None and mv is not None:
+        x0 = _deflate_x0(mv, b, x0, W, WtAW)
+    return cg(A, b, x0, options, dtype, fmt, mat_dtype, stats=stats,
+              device=device)

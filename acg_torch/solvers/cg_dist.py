@@ -60,7 +60,7 @@ from acg_torch.partition.graph import PartitionedSystem, partition_system
 from acg_torch.partition.partitioner import partition_graph
 from acg_torch.solvers.base import (SolveStats, conform_x0_batch,
                                     kernel_disengagement_note, path_names)
-from acg_torch.solvers.cg import _finish
+from acg_torch.solvers.cg import _deflate_x0, _finish
 from acg_torch.solvers.loops import cg_pipelined_while, cg_while
 from acg_torch.utils.timing import host_step
 
@@ -397,3 +397,22 @@ def cg_pipelined_dist(A, b, x0=None,
     results and errors as :func:`cg_dist`; residual criteria only (the
     diff criteria raise ``ERR_NOT_SUPPORTED``)."""
     return _solve_dist(True, A, b, x0, options, stats, build_kw)
+
+
+def cg_recycled_dist(A, b, x0=None,
+                     options: SolverOptions = SolverOptions(),
+                     stats: SolveStats | None = None, W=None, WtAW=None,
+                     recycle=None, matvec=None, **build_kw):
+    """Distributed deflated CG (``acg_tpu.solvers.cg_dist``
+    ``cg_recycled_dist``): project the retained basis ``W`` (with
+    ``WtAW`` = W'AW) out of the initial residual on the host at set-up,
+    then run :func:`cg_dist` unchanged.  With no basis, or no host
+    product (``matvec``, else ``A.matvec``), it IS :func:`cg_dist`;
+    ``recycle`` (the serve stack's retained basis) is not yet ported."""
+    if recycle is not None:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       "recycle (a RecycleState): not yet ported")
+    mv = matvec if matvec is not None else getattr(A, "matvec", None)
+    if W is not None and WtAW is not None and mv is not None:
+        x0 = _deflate_x0(mv, b, x0, W, WtAW)
+    return cg_dist(A, b, x0, options, stats, **build_kw)

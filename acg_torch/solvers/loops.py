@@ -28,11 +28,19 @@ iteration) only take finite values no result reads.
 
 from __future__ import annotations
 
+import time
+
+import numpy as np
 import torch
 
 from acg_torch.ops.blas1 import pipelined_update
 
 _OK, _CONVERGED, _BREAKDOWN, _FAULT = 0, 1, 2, 3
+# s-step only: the Gram factorization went indefinite or non-finite (an
+# ill-conditioned basis, or an operator that is not SPD: the coefficient
+# recurrence cannot tell them apart); the wrapper falls back to classic
+# CG from the current iterate and says so in SolveResult.kernel_note
+_GRAM_BAD = 4
 
 
 def cg_while(matvec, dot, b, x0, stop2, diffstop, maxits: int,
@@ -470,3 +478,550 @@ def _cg_pipelined_batched(matvec, dot2, b, x0, stop2, maxits: int,
         flag = torch.where(torch.isfinite(gamma) & torch.isfinite(delta),
                            flag, _FAULT).to(torch.int32)
     return x, ksys, gamma, flag, gamma0, hist
+
+
+# ---------------------------------------------------------------------------
+# s-step CG
+
+
+def _leja_order(v: np.ndarray) -> np.ndarray:
+    """Leja ordering of a shift set along the last axis, rows of a batch
+    independently (``acg_tpu.solvers.loops._leja_order``): the
+    largest-magnitude point first, then greedily the point maximizing the
+    product of distances to those chosen, accumulated as a sum of logs in
+    ``v``'s dtype.  The Newton-basis stabilization: monomial-ordered
+    shifts lose the conditioning they exist to buy."""
+    v = np.asarray(v)
+    s = v.shape[-1]
+    if s == 1:
+        return v
+    tiny = v.dtype.type(1e-30)
+
+    def take(i):
+        return np.take_along_axis(v, i[..., None], axis=-1)[..., 0]
+
+    idx = np.argmax(np.abs(v), axis=-1)
+    out = [take(idx)]
+    picked = np.arange(s) == idx[..., None]
+    logprod = np.zeros(v.shape, v.dtype)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for _ in range(s - 1):
+            logprod = logprod + np.log(np.abs(v - out[-1][..., None]) + tiny)
+            idx = np.argmax(np.where(picked, -np.inf, logprod), axis=-1)
+            out.append(take(idx))
+            picked = picked | (np.arange(s) == idx[..., None])
+    return np.stack(out, axis=-1).astype(v.dtype)
+
+
+def _newton_basis_matrix(shifts: np.ndarray, s: int) -> np.ndarray:
+    """The change-of-basis matrix with A V = V B on the first s (P) and
+    s-1 (R) columns of the Newton basis block
+    (``acg_tpu.solvers.loops._newton_basis_matrix``): the recurrence
+    V[j+1] = (A - theta_j) V[j] gives A V[j] = V[j+1] + theta_j V[j], so B
+    is the P/R-blocked sub-diagonal of ones plus theta on the diagonal;
+    the spill columns are zero.  ``shifts`` ([B,] s) gives ([B,] m, m),
+    m = 2s+1."""
+    m = 2 * s + 1
+    sub = np.zeros((m, m), dtype=shifts.dtype)
+    for j in range(s):
+        sub[j + 1, j] = 1.0
+    for j in range(s - 1):
+        sub[s + 2 + j, s + 1 + j] = 1.0
+    zero1 = np.zeros(shifts.shape[:-1] + (1,), shifts.dtype)
+    theta = np.concatenate([shifts, zero1, shifts[..., : s - 1], zero1],
+                           axis=-1)
+    return sub + theta[..., :, None] * np.eye(m, dtype=shifts.dtype)
+
+
+def _history_init(rr0: np.ndarray, maxits: int) -> np.ndarray:
+    """The (B, maxits+1) residual-norm² history on the host, NaN past
+    what was run, slot 0 = |r0|²."""
+    hist = np.full((rr0.shape[0], maxits + 1), np.nan, dtype=rr0.dtype)
+    hist[:, 0] = rr0
+    return hist
+
+
+def cg_sstep_while(block_fn, combine_fn, b, x0, p0, rr0, shifts0, stop2,
+                   s: int, maxits: int, stats=None):
+    """s-step (communication-reduced) CG, one Gram reduction per s
+    iterations (arXiv:2501.03743; the port of
+    ``acg_tpu.solvers.loops.cg_sstep_while``).
+
+    Per block, ``block_fn(x, p, shifts) -> (V, G)`` builds the (2s+1)
+    basis on the device: rows 0..s the Newton-shifted P block from p,
+    rows s+1..2s the R block from the REPLACED residual r = b - A x (so
+    G[s+1, s+1] is the true |b - A x|² every exit stands on), and its Gram
+    matrix G = V Vᵀ.  The s inner steps are recurrences on the
+    coefficients: every inner product <u, v> with u = u'ᵀV, v = v'ᵀV is
+    u'ᵀ G v', and A V is the static :func:`_newton_basis_matrix`.  Here
+    they run on the HOST in NumPy, in the vector dtype: G (m² scalars a
+    system) is copied down once a block, the inner recurrences, the Ritz
+    step (``eigvalsh`` of the s x s Lanczos tridiagonal) and the Leja
+    order run there, and the two coefficient vectors go back for the
+    combinations ``combine_fn(c, V)``, both from one read of V: x +=
+    xcᵀV and p = pcᵀV, skipped for a system that committed nothing.  On
+    the card this is one device-to-host copy a block where the JAX loop
+    runs a few hundred scalar operations inside its ``while_loop``.
+
+    Exit discipline, as in the JAX loop: convergence is decided only at
+    block boundaries on the replaced residual; an inner estimate below
+    tolerance pauses that system until the next block certifies it or
+    resumes it; a true residual more than 1e4 x |r0|² above (the
+    divergence guard), a non-finite Gram, an indefinite quadratic form
+    beyond the coefficient-space roundoff floor, or a live block that
+    committed nothing flags ``_GRAM_BAD`` with the block rolled back (x
+    keeps its last good state), and the wrapper falls back to classic
+    CG.  A complete block's Lanczos tridiagonal gives the next block's
+    shifts (its Ritz values, Leja-ordered) when they are finite and
+    positive.
+
+    ``b``/``x0``/``p0`` are device tensors, (n,) or (B, n); ``rr0`` and
+    ``shifts0`` host arrays ((B,) / (B, s), B = 1 for one system) in the
+    vector dtype, ``stop2`` the host (atol², rtol²).  Returns ``(x, kiter,
+    rr, flag, hist, shifts)`` with x on the device and the rest host
+    arrays of leading axis B, ``hist`` (B, maxits+1) written at each
+    system's own iteration cursor.  A ``SolveStats`` given as ``stats``
+    counts the blocks and accumulates the host's seconds a block: the
+    wait for G, then the rest of the block."""
+    batched = b.dim() == 2
+    vdt = rr0.dtype
+    t = vdt.type
+    nsys = rr0.shape[0]
+    m = 2 * s + 1
+    one, zero = t(1), t(0)
+    atol2, rtol2 = stop2
+    thresh2 = np.maximum(atol2, rtol2 * rr0)
+    any_crit = bool(atol2 > 0 or rtol2 > 0)
+
+    def met(rr):
+        return (rr < thresh2) | (any_crit & (rr == 0))
+
+    def hist_put(pos, mask, val):
+        sel = np.nonzero(mask)[0]
+        hist[sel, pos[sel]] = val[sel]
+
+    x, p = x0.clone(), p0
+    rr, shifts = rr0.copy(), shifts0.copy()
+    kiter = np.zeros(nsys, np.int64)
+    flag = np.zeros(nsys, np.int64)
+    hist = _history_init(rr0, maxits)
+    e_p = np.zeros((nsys, m), vdt)
+    e_p[:, 0] = 1
+    e_r = np.zeros((nsys, m), vdt)
+    e_r[:, s + 1] = 1
+    eps = t(4.0 * m * np.finfo(vdt).eps)
+    eye = np.eye(s, dtype=vdt)
+    with np.errstate(all="ignore"):
+        while np.any((flag == _OK) & (kiter < maxits)):
+            V, G = block_fn(x, p, shifts if batched else shifts[0])
+            t_wait = time.perf_counter()
+            G = G.cpu().numpy().reshape(nsys, m, m)
+            t_host = time.perf_counter()
+            rr_true = G[:, s + 1, s + 1]
+            gfin = np.all(np.isfinite(G), axis=(-2, -1))
+            # the divergence guard: an ill-conditioned basis can commit
+            # garbage for blocks while every coefficient quantity stays
+            # finite; the block boundary's true residual catches it
+            difn = gfin & ~met(rr_true) & (rr_true > t(1e4) * rr0)
+            active0 = flag == _OK
+            flag = np.where(active0 & (~gfin | difn), _GRAM_BAD,
+                            np.where(active0 & met(rr_true), _CONVERGED, flag))
+            hist_put(kiter, active0 & gfin, rr_true)
+            active = flag == _OK
+            Bmat = _newton_basis_matrix(shifts, s)
+            kiter0 = kiter.copy()
+            pc, rc = e_p.copy(), e_r.copy()
+            xc = np.zeros_like(pc)
+            rr_j = rr_true.copy()
+            conv_est = np.zeros(nsys, bool)
+            bad = np.zeros(nsys, bool)
+            allok = active.copy()
+            # quadratic forms c'Gc carry absolute error ~ m eps max|G| |c|²: a
+            # tiny negative within it is cancellation at the attainable
+            # floor (the system pauses), not an indefinite Gram
+            gmax = np.max(np.abs(G), axis=(-2, -1))
+            alphas, betas = [], []
+            for _ in range(s):
+                w = np.einsum("bij,bj->bi", Bmat, pc)
+                denom = np.sum(pc * np.einsum("bij,bj->bi", G, w), axis=-1)
+                step = active & ~bad & ~conv_est & (kiter < maxits)
+                zerofrozen = step & (rr_j == 0)
+                attempt = step & (rr_j > 0)
+                floor_p = eps * gmax * np.sum(pc * pc, axis=-1)
+                benign_d = (attempt & (denom <= 0) & np.isfinite(denom)
+                            & (np.abs(denom) <= floor_p))
+                conv_est = conv_est | benign_d
+                indef = attempt & ~benign_d & ((denom <= 0)
+                                               | ~np.isfinite(denom))
+                bad = bad | indef
+                do = attempt & ~indef & ~benign_d
+                alpha = np.where(do, rr_j / np.where(do, denom, one), zero)
+                xc2 = xc + alpha[:, None] * pc
+                rc2 = rc - alpha[:, None] * w
+                rr_n = np.sum(rc2 * np.einsum("bij,bj->bi", G, rc2), axis=-1)
+                floor_r = eps * gmax * np.sum(rc2 * rc2, axis=-1)
+                rr_n = np.where((rr_n < 0) & (np.abs(rr_n) <= floor_r), zero,
+                                rr_n)
+                ok2 = np.isfinite(rr_n) & (rr_n >= 0)
+                bad = bad | (do & ~ok2)
+                commit = do & ok2
+                xc = np.where(commit[:, None], xc2, xc)
+                rc = np.where(commit[:, None], rc2, rc)
+                counted = commit | zerofrozen
+                kiter = kiter + counted
+                hist_put(kiter, counted, np.where(commit, rr_n, rr_j))
+                conv_est = conv_est | (commit & met(rr_n))
+                beta = np.where(commit, rr_n / np.where(rr_j == 0, one, rr_j),
+                                zero)
+                pc = np.where(commit[:, None], rc2 + beta[:, None] * pc, pc)
+                alphas.append(alpha)
+                betas.append(beta)
+                allok = allok & commit
+                rr_j = np.where(commit, rr_n, rr_j)
+            # a live block that committed nothing would rebuild the same
+            # basis forever: the fallback takes over
+            changed = kiter > kiter0
+            stalled = active & ~changed & (kiter < maxits)
+            flag = np.where(active & (bad | stalled), _GRAM_BAD, flag)
+            # only committed steps touched xc, so a bad block rolls back; the
+            # combinations run only where a step committed (0 x inf = NaN)
+            moved = np.nonzero(changed)[0]
+            if moved.size:
+                # every system's (xc, pc) in one copy: a copy waits for the
+                # stream, so one a system would wait out each combination
+                cdev = torch.from_numpy(np.stack([xc[moved], pc[moved]],
+                                                 axis=1)).to(x.device)
+            for j, i in enumerate(moved):
+                xi, pi = (x[i], p[i]) if batched else (x, p)
+                # both combinations from one read of the basis
+                xp = combine_fn(cdev[j], V[:, i] if batched else V)
+                xi.add_(xp[0])
+                pi.copy_(xp[1])
+            # on-the-fly Ritz refinement: a complete block's (alpha, beta)
+            # is a Lanczos tridiagonal whose eigenvalues shift the next block
+            a = np.stack(alphas, axis=-1)
+            bt = np.stack(betas, axis=-1)
+            a_safe = np.where(a > 0, a, one)
+            diag = one / a_safe
+            bt_h, a_h = bt[:, : s - 1], a_safe[:, : s - 1]
+            diag[:, 1:] += bt_h / a_h
+            off = np.sqrt(np.maximum(bt_h, zero)) / a_h
+            T = diag[:, :, None] * eye
+            idx = np.arange(s - 1)
+            T[:, idx, idx + 1] = off
+            T[:, idx + 1, idx] = off
+            # a non-finite tridiagonal keeps the old shifts, as JAX's NaN
+            # eigenvalues do
+            valid = allok & np.all(np.isfinite(T), axis=(-2, -1))
+            T = np.where(valid[:, None, None], T, eye)
+            new_shifts = _leja_order(np.linalg.eigvalsh(T).astype(vdt))
+            good = (valid & np.all(np.isfinite(new_shifts), axis=-1)
+                    & np.all(new_shifts > 0, axis=-1))
+            shifts = np.where(good[:, None], new_shifts, shifts)
+            rr = rr_j
+            if stats is not None:
+                stats.nsstepblocks += 1
+                stats.tsstepwait += t_host - t_wait
+                stats.tsstephost += time.perf_counter() - t_host
+    return x, kiter, rr, flag, hist, shifts
+
+
+# ---------------------------------------------------------------------------
+# depth-l pipelined CG
+
+
+def cg_pipelined_deep_while(matvec, dots, combine_fn, dot, b, x0, stop2,
+                            depth: int, shifts, maxits: int,
+                            check_every: int = 1, replace_every: int = 0,
+                            certify: bool = True, k_start: int = 0,
+                            rr0_in=None, flags_in=None, hist_in=None,
+                            ksys_in=None, guard: bool = False):
+    """Depth-l pipelined CG, l reductions in flight: ONE pipeline segment
+    (dispatch) of the port of ``acg_tpu.solvers.loops``
+    ``cg_pipelined_deep_while`` (p(l)-CG, Cornelis/Cools/Vanroose
+    arXiv:1801.04728).
+
+    The iteration runs on the shifted-Newton basis z_j = p_l(A) v_{j-l};
+    each body issues ONE SpMV and ONE dot block ``dots(Z, z_new)`` (the
+    2l+1 inner products of z_new with the window, a ([B,] 2l+1) result in
+    the window's storage order) and consumes the block issued l bodies
+    before: it finalizes column c = t+1 of the banded basis change G by
+    forward substitution, reads (gamma_t, delta_t) off T G = G B,
+    recovers the Lanczos vector v_c and advances x by the D-Lanczos
+    update, whose residual estimate comes free.  ``combine_fn(c, V)``
+    forms sum_i c_i V_i (v_c's correction) in one product.  The window of
+    z (2l+1 vectors) and of v (the 2l the bodies read) are rings: a body
+    writes its new vector over the oldest and advances the head, so no
+    vector is copied to slide a window.
+
+    The scalars stay on the device as 0-d (or (B,)) tensors, decided
+    with tensor ops as the JAX body decides them; the host reads the flag
+    only every ``check_every`` bodies (and at ``maxits`` or the
+    ``replace_every`` bound), one body late on every device (on the card
+    the copy of a check point's flag overlaps the next body).  Between
+    reads a system that breaks down or claims convergence FREEZES (every
+    update is selected on its commit), so the host's body count equals
+    the JAX count k while any system is live, and the extra bodies
+    change nothing.
+
+    DISPATCH PROTOCOL (restart = residual replacement): the entry
+    recomputes r = b - A x; the segment stops after ``replace_every``
+    updates, on a claimed exit, or at ``maxits``; the certifier after the
+    loop derives the TRUE residual and only a true value below the
+    threshold flags ``_CONVERGED``; ``drift`` marks an estimate it
+    refuted.  ``k_start`` (host int), ``rr0_in``, ``flags_in``,
+    ``hist_in`` and ``ksys_in`` carry a solve across dispatches (None on
+    the first).  A non-positive LDL pivot or Cholesky diagonal freezes
+    the system with ``_BREAKDOWN`` and no commit; ``guard`` flags a
+    non-finite estimate or pivot ``_FAULT`` at the check points.
+
+    ``shifts`` ([B,] l) is a device tensor.  Returns ``(x, kret, rr, flag,
+    rr0, hist, k, more, drift)``: ``rr`` the certified |r|² (or the last
+    estimate without ``certify``), ``k`` the host update count to pass
+    back as the next ``k_start``, ``more`` whether a system can go on;
+    ``kret`` is ``k`` for one system, the per-system counts (B,) for a
+    batch."""
+    batched = b.dim() == 2
+    l, w = depth, 2 * depth + 1
+    if l < 2:
+        raise ValueError("cg_pipelined_deep_while requires depth >= 2 "
+                         "(depth 1 is cg_pipelined_while)")
+    dev, dt = b.device, b.dtype
+    bc = (lambda v: v[:, None]) if batched else (lambda v: v)
+    one = torch.ones((), dtype=dt, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    nan = torch.full((), float("nan"), dtype=dt, device=dev)
+    atol2, rtol2 = stop2
+    k0 = int(k_start)
+
+    r = b - matvec(x0)
+    eta2 = dot(r, r)
+    rr0 = eta2 if rr0_in is None else torch.where(rr0_in > 0, rr0_in, eta2)
+    thresh2 = torch.maximum(atol2, rtol2 * rr0)
+    any_crit = bool(atol2 > 0) or bool(rtol2 > 0)
+
+    def met(g):
+        m = g < thresh2
+        return (m | (g == 0)) if any_crit else m
+
+    def code(c):
+        return torch.tensor(c, dtype=torch.int32, device=dev)
+
+    ok_c, conv_c, brk_c, fault_c = (code(c) for c in
+                                    (_OK, _CONVERGED, _BREAKDOWN, _FAULT))
+
+    eta = torch.sqrt(eta2)
+    inv_eta = torch.where(eta2 > 0, one / torch.where(eta2 > 0, eta, one),
+                          zero)
+    # the z window, a ring of 2l+1 slots: z_{-l}..z_l after the fill
+    # chain z_{j+1} = (A - sigma_j) z_j; z_{<0} are zero rows, so their
+    # dots come out exactly 0 (the band mask, for free)
+    Z = torch.zeros((w,) + tuple(b.shape), dtype=dt, device=dev)
+    torch.mul(r, bc(inv_eta), out=Z[l])
+    for j in range(l):
+        torch.addcmul(matvec(Z[l + j]), bc(shifts[..., j]), Z[l + j],
+                      value=-1, out=Z[l + j + 1])
+    # the first l dot blocks: D_j = (z_{j+1-2l+a}, z_{j+1}), a = 0..2l
+    dbuf = []
+    for j in range(l):
+        Dz = dots(Z, Z[l + j + 1])              # (z_i, z_{j+1}), i = -l..l
+        pad = torch.zeros(Dz.shape[:-1] + (l - j - 1,), dtype=dt,
+                          device=dev)
+        dbuf.append(torch.cat([pad, Dz[..., : j + l + 2]], dim=-1))
+    hz = 0                                       # the ring's oldest slot
+    # the v window, a ring of the 2l vectors the bodies read: v_0 = z_0
+    Vr = torch.zeros((w - 1,) + tuple(b.shape), dtype=dt, device=dev)
+    Vr[w - 2].copy_(Z[l])
+    hv = 0
+    sshape = tuple(eta2.shape)
+    G = torch.zeros(sshape + (w, w), dtype=dt, device=dev)
+    G[..., w - 1, w - 1] = 1                     # g_{0,0} = 1
+    gbuf = [torch.zeros(sshape, dtype=dt, device=dev) for _ in range(l)]
+    dlbuf = [torch.zeros(sshape, dtype=dt, device=dev) for _ in range(l)]
+
+    flag = (torch.zeros(sshape, dtype=torch.int32, device=dev)
+            if flags_in is None else flags_in.to(torch.int32))
+    # the entry residual is true by construction: meeting the threshold
+    # here is certified convergence
+    flag = torch.where((flag == ok_c) & met(eta2), conv_c, flag)
+    est = torch.zeros(sshape, dtype=torch.bool, device=dev)
+    if k0 == 0 or hist_in is None:
+        hist = torch.full(sshape + (maxits + 1,), float("nan"), dtype=dt,
+                          device=dev)
+        hist[..., 0] = rr0
+    else:
+        hist = hist_in
+    if batched:
+        ksys = (torch.zeros(sshape, dtype=torch.int32, device=dev)
+                if ksys_in is None else ksys_in.to(torch.int32))
+    kdev = torch.tensor(k0, dtype=torch.int32, device=dev)
+    x = x0.clone()
+    q = torch.zeros_like(b)
+    d_prev = torch.zeros(sshape, dtype=dt, device=dev)
+    zeta_prev = torch.zeros(sshape, dtype=dt, device=dev)
+    rr_est = eta2
+
+    def zlog(p):
+        """The z window's entry p (0 = oldest)."""
+        return Z[(hz + p) % w]
+
+    def live_t():
+        lv = (flag == ok_c) & ~est
+        return lv.any() if batched else lv
+
+    # the host reads a check point's flag one body late, on every device:
+    # the next body is a no-op for a frozen system.  On the card the flag
+    # goes through a pinned copy and an event, so its copy overlaps that
+    # body and the device never waits for the host to launch
+    lag = torch.empty((), dtype=torch.bool, pin_memory=True) \
+        if dev.type == "cuda" else None
+
+    def post(v):
+        """Hand a check point's flag ``v`` to the host."""
+        if lag is None:
+            return v
+        lag.copy_(v, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(dev))
+        return ev
+
+    def read(p):
+        """The flag that ``post`` handed over, on the host."""
+        if lag is None:
+            return bool(p)
+        p.synchronize()
+        return bool(lag)
+
+    pending = None
+
+    k = k0
+    running = k < maxits and (replace_every <= 0 or k - k0 < replace_every)
+    running = running and bool(live_t())
+    while running:
+        t = k - k0                       # x-update index this dispatch
+        active = (flag == ok_c) & ~est
+
+        # 1. pop the l-old block and finalize column c = t+1 of G
+        D = dbuf.pop(0)
+        Gr = torch.zeros_like(G)
+        Gr[..., : w - 1, : w - 1] = G[..., 1:, 1:]
+        col = []
+        for a in range(w - 1):
+            acc = D[..., a]
+            for kk in range(a):
+                acc = acc - col[kk] * Gr[..., kk, a]
+            gaa = Gr[..., a, a]
+            ok = gaa != 0                # rows m < 0 carry zeros: g = 0
+            col.append(torch.where(ok, acc / torch.where(ok, gaa, one),
+                                   zero))
+        gcc2 = D[..., w - 1]
+        for kk in range(w - 1):
+            gcc2 = gcc2 - col[kk] * col[kk]
+        good_g = gcc2 > 0                # the Cholesky diagonal stays SPD
+        gcc = torch.sqrt(torch.clamp(gcc2, min=0))
+        colv = torch.stack(col, dim=-1)
+        Gr[..., : w - 1, w - 1] = colv
+        Gr[..., w - 1, w - 1] = gcc
+        G = Gr
+
+        # 2. the Lanczos coefficients at t from T G = G B: sigma-based
+        # while the fill polynomial's degree still grows, then recurrence
+        if t < l:
+            base, mult = shifts[..., t], one
+        else:
+            base, mult = gbuf[0], dlbuf[0]
+        d_tm1 = dlbuf[l - 1]
+        gii = G[..., w - 2, w - 2]
+        gii_s = torch.where(gii != 0, gii, one)
+        gam_t = base + (col[w - 2] * mult - d_tm1 * G[..., w - 3, w - 2]) \
+            / gii_s
+        del_t = gcc * mult / gii_s
+        gcc_s = torch.where(gcc != 0, gcc, one)
+        # sum_a g_{a,c} v_a over the v ring in order, for v_c below
+        vsum = combine_fn(torch.roll(colv, hv, dims=-1), Vr)
+
+        # 3. the D-Lanczos x-update at t (its residual estimate is free)
+        if t == 0:
+            lam, zeta = torch.zeros_like(d_prev), eta
+        else:
+            lam = d_tm1 / torch.where(d_prev != 0, d_prev, one)
+            zeta = -lam * zeta_prev
+        dd = gam_t - d_tm1 * lam
+        q_new = torch.addcmul(Vr[(hv + w - 2) % (w - 1)], bc(lam), q,
+                              value=-1)
+        dd_s = torch.where(dd != 0, dd, one)
+        x_new = torch.addcmul(x, bc(zeta / dd_s), q_new)
+        rr_new = (del_t * zeta / dd_s) ** 2
+        bad = (dd <= 0) | ~good_g
+        commit = active & ~bad
+        x = torch.where(bc(commit), x_new, x)
+        q = torch.where(bc(commit), q_new, q)
+        d_prev = torch.where(commit, dd, d_prev)
+        zeta_prev = torch.where(commit, zeta, zeta_prev)
+        rr_est = torch.where(commit, rr_new, rr_est)
+        flag = torch.where(active & bad, brk_c, flag)
+        at_check = (k + 1) % check_every == 0
+        if guard and at_check:
+            nonfin = ~(torch.isfinite(rr_new) & torch.isfinite(gcc2))
+            flag = torch.where(active & nonfin, fault_c, flag)
+        if at_check:
+            est = est | (commit & met(rr_new))
+        kdev = kdev + (commit.any() if batched else commit)
+        if batched:
+            hist[:, k + 1] = torch.where(commit, rr_new, nan)
+            ksys = torch.where(commit, k + 1, ksys)
+        else:
+            hist[k + 1] = torch.where(commit, rr_new, hist[k + 1])
+
+        # v_c = (z_c - sum_a g_{a,c} v_a) / g_{c,c} takes the v ring's
+        # oldest slot, which nothing reads from here on
+        v_c = torch.sub(zlog(l + 1), vsum, out=Vr[hv])
+        v_c.mul_(bc(one / gcc_s))
+        hv = (hv + 1) % (w - 1)
+
+        # 4. ONE SpMV and ONE dot block; the new z takes the oldest slot
+        z_top, z_prev = zlog(w - 1), zlog(w - 2)
+        c_s = torch.where(del_t != 0, del_t, one)
+        wv = matvec(z_top)
+        wv.addcmul_(bc(gam_t), z_top, value=-1)
+        wv.addcmul_(bc(d_tm1), z_prev, value=-1)
+        z_new = torch.mul(wv, bc(one / c_s), out=Z[hz])
+        hz = (hz + 1) % w
+        dbuf.append(torch.roll(dots(Z, z_new), -hz, dims=-1))
+        gbuf = gbuf[1:] + [gam_t]
+        dlbuf = dlbuf[1:] + [del_t]
+        k += 1
+        if k >= maxits or (replace_every > 0 and k - k0 >= replace_every):
+            break
+        if pending is not None:
+            running, pending = read(pending), None
+            if not running:
+                break
+        if at_check:
+            pending = post(live_t())
+    # host and device counts agree while a system is live; the extra
+    # bodies a frozen system ran between reads committed nothing
+    k = int(kdev)
+    touched = flag == ok_c
+    if certify:
+        # TRUE-residual certification, once a dispatch: only a fresh
+        # |b - A x|² below the threshold flags _CONVERGED
+        rt = b - matvec(x)
+        rr_true = dot(rt, rt)
+        met_t = met(rr_true)
+        flag = torch.where(touched & met_t, conv_c, flag)
+        drift = touched & est & ~met_t
+        rr_ret = torch.where(touched, rr_true, rr_est)
+        if batched:
+            rows = torch.arange(b.shape[0], device=dev)
+            kk = ksys.long()
+            hist[rows, kk] = torch.where(touched, rr_true, hist[rows, kk])
+        else:
+            hist[k] = torch.where(touched, rr_true, hist[k])
+    else:
+        drift = torch.zeros(sshape, dtype=torch.bool, device=dev)
+        rr_ret = rr_est
+    more_sys = (flag == ok_c) & (k < maxits)
+    more = bool(more_sys.any())
+    kret = ksys if batched else k
+    return x, kret, rr_ret, flag, rr0, hist, k, more, drift

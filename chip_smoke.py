@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``acg_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # needs one card; takes no arguments
+    python3 chip_smoke.py            # needs one card; every phase
+    python3 chip_smoke.py --only sstep-stencil,deep-stencil
+                                     # those phases, the build and the
+                                     # phases they are held against; no
+                                     # kernel line
 
 Phases, each printing one JSON line with its wall time; any failure
 raises and the script exits non-zero:
@@ -104,6 +108,29 @@ raises and the script exits non-zero:
               two launches), and times them beside B calls of the
               one-system kernel; the build phase lists the registers of
               every instantiation of the two kernels;
+11b. solver families
+              sstep-stencil (cg_sstep, s = 4, on the stencil phase's
+              system, rtol 1e-8: no fallback, within s + 2 iterations of
+              classic, certified in float64 on the host within 10 x
+              rtol, stencil_spmv without the dot 2s times a block + 8,
+              µs per iteration and per block), sstep-batched-stencil (the
+              batched phases' 8 systems through stencil_spmv_batched,
+              per-system counts within s + 2 of batched-stencil's, every
+              system certified), sstep-dia-bf16 (256^3 bf16 bands, f32
+              vectors, the windows kernel without the dot, which the
+              kernels phase also holds and times, rtol 1e-4; a fallback
+              to classic CG is allowed and printed), deep-stencil
+              (cg_pipelined_deep, depth 2, replace_every 50, rtol 1e-8:
+              dispatches, iterations beside pipelined-stencil's, the SpMV
+              launches as the dispatch protocol gives them),
+              recycled-stencil (cg_recycled with the 8 lowest Dirichlet
+              eigenvectors of the Laplacian in closed form and W'AW
+              through the port's operator: fewer iterations than classic,
+              the deflation's host seconds), cli-sstep, cli-deep,
+              cli-host, cli-petsc (the CLI's --solver acg-sstep --sstep
+              4, acg-pipelined-deep --pipeline-depth 2
+              --residual-replacement 50, host and petsc on the 48^3
+              .mtx);
 12. unstructured
               fem-sgell (classic CG, f32, rtol 1e-6: rcm+sgell) and
               fem-ell (f64, rtol 1e-8: ell) on fem3d-1m from a
@@ -165,8 +192,8 @@ raises and the script exits non-zero:
               on a shard and the multi-RHS kernels on a shard at B = 8
               against their plain versions;
 15. profile   for the operators of phases 3, 4, 6, batched-stencil,
-              fem-sgell, fem-ell, dia-100m, dist-stencil-rdma and
-              dist-pipelined-stencil-rdma: 50
+              sstep-stencil, deep-stencil, fem-sgell, fem-ell, dia-100m,
+              dist-stencil-rdma and dist-pipelined-stencil-rdma: 50
               iterations under torch.profiler (device time by kernel,
               device idle share of the solve's wall time, kernels per
               iteration), and µs/iter with the host reading the loop flag
@@ -185,6 +212,7 @@ or of the JAX package.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
@@ -232,7 +260,14 @@ def _phase(name: str, fn):
     return info
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="Drive the PyTorch/CUDA port on one NVIDIA GPU.")
+    ap.add_argument("--only", default="", metavar="PHASE[,PHASE...]",
+                    help="run only these phases, with the build and the "
+                         "phases they read or are held against, and print "
+                         "no kernel line")
+    args = ap.parse_args(argv)
     # Poisson edge, varcoef edge, CLI edge, timed reps, bench iterations,
     # right-hand sides of the batched phases
     grid, var_grid, cli_grid, reps, bench_iters = 256, 128, 48, 25, 1000
@@ -249,6 +284,107 @@ def main() -> int:
     # the distributed path: shards of the 256^3 cell on the one card
     nparts = 4
 
+    # (name, run, the earlier phases whose results it reads or is held
+    # against)
+    phases = [
+        ("fem3d-1m", lambda: _fem_setup(fem_points, ctx), ()),
+        ("p3d-464", lambda: _p3d_big_setup(big_grid, ctx), ()),
+        ("p2d-10k", lambda: _p2d_setup(p2d_edge, ctx), ()),
+        ("dist-setup", lambda: _dist_setup(grid, nparts, ctx), ()),
+        ("kernels", lambda: _kernels_phase(grid, nrhs, ctx),
+         ("fem3d-1m", "p3d-464", "p2d-10k", "dist-setup")),
+        ("stencil", lambda: _stencil_solve(grid, ctx), ()),
+        ("dia-bf16-128",
+         lambda: _dia_bf16_solve(bench_grid, bench_iters, ctx), ()),
+        ("dia-bf16", lambda: _dia_bf16_solve(grid, bench_iters, ctx), ()),
+        ("dia-f64", lambda: _dia_f64_solve(var_grid, ctx), ()),
+        ("pipelined-stencil", lambda: _stencil_solve(grid, ctx, True),
+         ("stencil",)),
+        ("pipelined-dia-bf16",
+         lambda: _dia_bf16_solve(grid, bench_iters, ctx, True), ()),
+        ("pipelined-dia-f64", lambda: _dia_f64_solve(var_grid, ctx, True),
+         ()),
+        ("pipelined-replace", lambda: _replace_solve(grid, ctx),
+         ("stencil",)),
+        ("cli", lambda: _cli_phase(cli_grid), ()),
+        ("cli-pipelined", lambda: _cli_phase(cli_grid, "acg-pipelined"),
+         ()),
+        ("batched-stencil", lambda: _batched_stencil(grid, nrhs, ctx),
+         ("stencil",)),
+        ("batched-dia-bf16",
+         lambda: _dia_bf16_solve(grid, bench_iters, ctx, nrhs=nrhs),
+         ("dia-bf16",)),
+        ("batched-dia-f64", lambda: _dia_f64_solve(var_grid, ctx,
+                                                   nrhs=nrhs),
+         ("dia-f64",)),
+        ("batched-pipelined-stencil",
+         lambda: _batched_stencil(grid, nrhs, ctx, pipelined=True),
+         ("pipelined-stencil", "batched-stencil")),
+        ("cli-nrhs", lambda: _cli_phase(cli_grid, nrhs=4), ()),
+        ("sstep-stencil", lambda: _sstep_solve(ctx, "sstep-stencil"),
+         ("stencil",)),
+        ("sstep-batched-stencil",
+         lambda: _sstep_solve(ctx, "sstep-batched-stencil"),
+         ("batched-stencil",)),
+        ("sstep-dia-bf16", lambda: _sstep_dia_bf16(grid, ctx), ()),
+        ("deep-stencil", lambda: _deep_stencil(ctx),
+         ("stencil", "pipelined-stencil")),
+        ("recycled-stencil", lambda: _recycled_stencil(ctx), ("stencil",)),
+        ("cli-sstep", lambda: _cli_solver_phase(cli_grid, "acg-sstep",
+                                                "--sstep", "4"), ()),
+        ("cli-deep", lambda: _cli_solver_phase(
+            cli_grid, "acg-pipelined-deep", "--pipeline-depth", "2",
+            "--residual-replacement", str(_DEEP["replace_every"])), ()),
+        ("cli-host", lambda: _cli_solver_phase(cli_grid, "host"), ()),
+        ("cli-petsc", lambda: _cli_solver_phase(cli_grid, "petsc"), ()),
+        ("fem-sgell", lambda: _fem_solve(ctx, "sgell"), ("fem3d-1m",)),
+        ("fem-ell", lambda: _fem_solve(ctx, "ell"), ("fem3d-1m",)),
+        ("pipelined-fem-sgell", lambda: _fem_solve(ctx, "sgell", True),
+         ("fem-sgell",)),
+        ("pipelined-fem-ell", lambda: _fem_solve(ctx, "ell", True),
+         ("fem-ell",)),
+        ("rcm-dia", lambda: _rcm_dia_phase(tridiag_rows, ctx), ()),
+        ("batched-fem-sgell", lambda: _batched_fem(fem_nrhs, ctx),
+         ("fem-sgell",)),
+        ("cli-fem", lambda: _cli_fem_phase(cli_fem_points), ()),
+    ]
+    for method in ("ppermute", "allgather", "rdma"):
+        phases.append((_dist_name("dist-stencil", method),
+                       lambda m=method: _dist_stencil_solve(ctx, m),
+                       ("dist-setup", "stencil")))
+    phases += [
+        ("dist-dia-bf16", lambda: _dist_dia_solve(bench_iters, ctx),
+         ("dist-setup", "dia-bf16")),
+        ("dist-fem", lambda: _dist_fem_phase(nparts, ctx),
+         ("fem-sgell", "fem-ell")),
+    ]
+    for method in ("ppermute", "allgather", "rdma"):
+        phases.append((_dist_name("dist-pipelined-stencil", method),
+                       lambda m=method: _dist_pipelined_stencil(ctx, m),
+                       ("pipelined-stencil",
+                        _dist_name("dist-stencil", method))))
+    phases += [
+        ("dist-pipelined-dia-bf16",
+         lambda: _dist_pipelined_dia(bench_iters, ctx),
+         ("dist-dia-bf16", "pipelined-dia-bf16")),
+        ("dist-batched-stencil", lambda: _dist_batched_stencil(nrhs, ctx),
+         ("dist-setup", "batched-stencil")),
+        ("dist-batched-pipelined-stencil",
+         lambda: _dist_batched_stencil(nrhs, ctx, pipelined=True),
+         ("dist-setup", "batched-pipelined-stencil")),
+        ("dist-wire", lambda: _dist_wire_phase(ctx), ("dist-setup",)),
+        ("dia-100m", lambda: _dia_100m_solve(ctx, "float32"),
+         ("p3d-464",)),
+        ("dia-100m-f64", lambda: _dia_100m_solve(ctx, "float64"),
+         ("dia-100m",)),
+        ("p2d", lambda: _p2d_solve(p2d_iters, ctx, windows=False),
+         ("p2d-10k",)),
+        ("p2d-windows", lambda: _p2d_solve(p2d_iters, ctx, windows=True),
+         ("p2d-10k",)),
+        ("profile", lambda: _profile_phase(ctx), ()),
+    ]
+    run = _selected(phases, args.only)
+
     import torch
 
     ctx = _context(reps)
@@ -256,61 +392,13 @@ def main() -> int:
         return 2
 
     _phase("build", _build_phase)
-    _phase("fem3d-1m", lambda: _fem_setup(fem_points, ctx))
-    _phase("p3d-464", lambda: _p3d_big_setup(big_grid, ctx))
-    _phase("p2d-10k", lambda: _p2d_setup(p2d_edge, ctx))
-    _phase("dist-setup", lambda: _dist_setup(grid, nparts, ctx))
-    _phase("kernels", lambda: _kernels_phase(grid, nrhs, ctx))
-    _phase("stencil", lambda: _stencil_solve(grid, ctx))
-    _phase("dia-bf16-128",
-           lambda: _dia_bf16_solve(bench_grid, bench_iters, ctx))
-    _phase("dia-bf16", lambda: _dia_bf16_solve(grid, bench_iters, ctx))
-    _phase("dia-f64", lambda: _dia_f64_solve(var_grid, ctx))
-    _phase("pipelined-stencil", lambda: _stencil_solve(grid, ctx, True))
-    _phase("pipelined-dia-bf16",
-           lambda: _dia_bf16_solve(grid, bench_iters, ctx, True))
-    _phase("pipelined-dia-f64", lambda: _dia_f64_solve(var_grid, ctx, True))
-    _phase("pipelined-replace", lambda: _replace_solve(grid, ctx))
-    _phase("cli", lambda: _cli_phase(cli_grid))
-    _phase("cli-pipelined", lambda: _cli_phase(cli_grid, "acg-pipelined"))
-    _phase("batched-stencil", lambda: _batched_stencil(grid, nrhs, ctx))
-    _phase("batched-dia-bf16",
-           lambda: _dia_bf16_solve(grid, bench_iters, ctx, nrhs=nrhs))
-    _phase("batched-dia-f64", lambda: _dia_f64_solve(var_grid, ctx,
-                                                     nrhs=nrhs))
-    _phase("batched-pipelined-stencil",
-           lambda: _batched_stencil(grid, nrhs, ctx, pipelined=True))
-    _phase("cli-nrhs", lambda: _cli_phase(cli_grid, nrhs=4))
-    _phase("fem-sgell", lambda: _fem_solve(ctx, "sgell"))
-    _phase("fem-ell", lambda: _fem_solve(ctx, "ell"))
-    _phase("pipelined-fem-sgell", lambda: _fem_solve(ctx, "sgell", True))
-    _phase("pipelined-fem-ell", lambda: _fem_solve(ctx, "ell", True))
-    _phase("rcm-dia", lambda: _rcm_dia_phase(tridiag_rows, ctx))
-    _phase("batched-fem-sgell", lambda: _batched_fem(fem_nrhs, ctx))
-    _phase("cli-fem", lambda: _cli_fem_phase(cli_fem_points))
-    _phase("dist-stencil", lambda: _dist_stencil_solve(ctx, "ppermute"))
-    _phase("dist-stencil-allgather",
-           lambda: _dist_stencil_solve(ctx, "allgather"))
-    _phase("dist-stencil-rdma", lambda: _dist_stencil_solve(ctx, "rdma"))
-    _phase("dist-dia-bf16", lambda: _dist_dia_solve(bench_iters, ctx))
-    _phase("dist-fem", lambda: _dist_fem_phase(nparts, ctx))
-    _phase("dist-pipelined-stencil",
-           lambda: _dist_pipelined_stencil(ctx, "ppermute"))
-    _phase("dist-pipelined-stencil-allgather",
-           lambda: _dist_pipelined_stencil(ctx, "allgather"))
-    _phase("dist-pipelined-stencil-rdma",
-           lambda: _dist_pipelined_stencil(ctx, "rdma"))
-    _phase("dist-pipelined-dia-bf16",
-           lambda: _dist_pipelined_dia(bench_iters, ctx))
-    _phase("dist-batched-stencil", lambda: _dist_batched_stencil(nrhs, ctx))
-    _phase("dist-batched-pipelined-stencil",
-           lambda: _dist_batched_stencil(nrhs, ctx, pipelined=True))
-    _phase("dist-wire", lambda: _dist_wire_phase(ctx))
-    _phase("dia-100m", lambda: _dia_100m_solve(ctx, "float32"))
-    _phase("dia-100m-f64", lambda: _dia_100m_solve(ctx, "float64"))
-    _phase("p2d", lambda: _p2d_solve(p2d_iters, ctx, windows=False))
-    _phase("p2d-windows", lambda: _p2d_solve(p2d_iters, ctx, windows=True))
-    _phase("profile", lambda: _profile_phase(ctx))
+    for name, fn, _needs in phases:
+        if name in run:
+            _phase(name, fn)
+    if args.only:
+        # a partial run: no kernel line, since not every kernel was driven
+        _emit({"ok": True, "only": [p[0] for p in phases if p[0] in run]})
+        return 0
     lines = _kernel_lines(ctx)
     idle = [k["name"] for k in lines if k["launches"] <= 0]
     if idle:
@@ -321,6 +409,33 @@ def main() -> int:
                                   "kind": torch.cuda.get_device_name(0),
                                   "count": torch.cuda.device_count()}})
     return 0
+
+
+def _dist_name(base: str, method: str) -> str:
+    return base if method == "ppermute" else f"{base}-{method}"
+
+
+def _selected(phases, only: str) -> set:
+    """The names of the phases to run: every phase, or those ``only``
+    names (comma-separated) with the phases they need, transitively."""
+    names = [p[0] for p in phases]
+    for i, (name, _fn, needs) in enumerate(phases):
+        late = sorted(set(needs) - set(names[:i]))
+        if late:
+            raise SystemExit(f"error: phase {name} needs {late}, which do "
+                             f"not run before it")
+    if not only:
+        return set(names)
+    run = set(only.split(","))
+    unknown = sorted(run - set(names))
+    if unknown:
+        raise SystemExit(f"error: unknown phases {unknown}; the phases are "
+                         f"{names}")
+    # a phase needs only earlier phases, so one pass from the end closes
+    for name, _fn, needs in reversed(phases):
+        if name in run:
+            run.update(needs)
+    return run
 
 
 def _context(reps: int):
@@ -1437,6 +1552,352 @@ def _cli_launches(stderr: str):
 
 
 # ---------------------------------------------------------------------------
+# the single-device solver families: s-step, deep-pipelined, recycled CG
+
+# deep-stencil's depth, tolerance and pipeline segment: at 48^3 f64
+# (scripts/torch_sstep_deep.py) both packages' depth-2 solves fall back
+# to classic CG without a bound on the segment, even at rtol 1e-6, and
+# reach 1e-8 without fallback, in the same counts, with replace_every=50
+_DEEP = {"depth": 2, "rtol": 1e-8, "replace_every": 50}
+
+
+def _sstep_blocks(launches: int, s: int, its: int, where: str) -> int:
+    """The blocks of an s-step solve from its SpMV launches, which must be
+    2s a block (the replaced residual, the s P-block and s-1 R-block
+    products) plus 8 (the entry residual, 6 power-iteration products,
+    the certifying product).  Convergence is decided at a block boundary,
+    so the loop ran at least ceil(its / s) blocks and, with one block
+    that certifies the exit and one that resumes a paused estimate, at
+    most two more."""
+    blocks, rest = divmod(launches - 8, 2 * s)
+    lo = -(-its // s)
+    if rest or not lo <= blocks <= lo + 2:
+        raise SystemExit(f"error: {where}: {launches} SpMV launches for "
+                         f"{its} iterations at s = {s}, not 2s x blocks + "
+                         f"8 with {lo} to {lo + 2} blocks")
+    return blocks
+
+
+def _sstep_solve(ctx, phase: str, s: int = 4):
+    """s-step CG (``cg_sstep``) on the stencil phase's 256^3 f64 system
+    (sstep-stencil) or the batched phases' 8 systems
+    (sstep-batched-stencil), rtol 1e-8: no fallback, counts within s + 2
+    of classic CG's (the JAX package's own bound,
+    tests/test_cg_sstep.py:42), every system certified in float64 on the
+    host within 10 x rtol, and the SpMV kernel without the dot launched
+    2s times a block + 8."""
+    import numpy as np
+
+    from acg_torch.config import SolverOptions
+    from acg_torch.solvers.cg import cg_sstep
+
+    batched = phase == "sstep-batched-stencil"
+    op, b, xstar = ctx["batched_case" if batched else "stencil_case"]
+    G = round(op.nrows ** (1 / 3))
+    rtol = 1e-8
+    cg_sstep(op, b, options=SolverOptions(maxits=8, residual_rtol=0.0,
+                                          sstep=s))
+    _reset_counts()
+    res = cg_sstep(op, b, options=SolverOptions(maxits=20000,
+                                                residual_rtol=rtol, sstep=s))
+    launches = _read_counts(ctx, phase)
+    rep = _solve_report(res, launches)
+    kernel = "stencil_spmv_batched" if batched else "stencil_spmv"
+    blocks = _sstep_blocks(launches[kernel], s, res.niterations, phase)
+    rep.update(s=s, blocks=blocks, spmv_launches_per_block=2 * s,
+               **_sstep_block_times(res.stats, blocks, phase))
+    xs, bs = (res.x, b) if batched else (res.x[None], b[None])
+    rep["host_true_relative_residual"] = [
+        _poisson7_residual(G, x, bb) for x, bb in zip(xs, bs)]
+    if batched:
+        ref = np.asarray(ctx["batched_counts"])
+        counts = np.asarray(res.iterations_per_system)
+        rep["classic_batched_iterations"] = ref.tolist()
+        counts_ok = bool(np.all(np.abs(counts - ref) <= s + 2))
+        rep["us_per_system_iter_classic"] = ctx["us_per_system_iter"][
+            "batched-stencil"]
+    else:
+        rep["classic_iterations"] = ctx["classic_iterations"]
+        rep["us_per_iter_classic"] = ctx["us_per_iter"]["stencil"]
+        counts_ok = abs(res.niterations - ctx["classic_iterations"]) <= s + 2
+    ok = ((res.operator_format, res.kernel)
+          == ("stencil", f"cuda-stencil-{'batched' if batched else 'spmv'}")
+          and res.converged and res.kernel_note == "" and counts_ok
+          and max(rep["host_true_relative_residual"]) <= 10 * rtol
+          and np.all(np.isfinite(res.x)) and res.x.shape == np.shape(b))
+    if not ok:
+        raise SystemExit(f"error: {phase} solve failed: {rep}")
+    if batched:
+        _check_batched_launches(rep, launches, kernel, res.niterations, phase)
+    elif any(v for k, v in launches.items() if k != kernel):
+        raise SystemExit(f"error: {phase} launched other kernels: {rep}")
+    ctx.setdefault("us_per_iter", {})[phase] = rep["us_per_iter"]
+    if not batched:
+        ctx["profile_cases"] = ctx.get("profile_cases", []) + [
+            (f"{phase}-f64", op, b, _with_options(cg_sstep, sstep=s))]
+    return rep
+
+
+def _sstep_block_times(stats, blocks: int, where: str) -> dict:
+    """The timed solve's µs a block: all of it, the host's wait for the
+    block's Gram matrix, and the host's work after it (the coefficient
+    recurrences, Ritz step, Leja order and combination launches), as
+    ``cg_sstep_while`` accumulated them in the solve's stats; its block
+    count must be the one the SpMV launches give."""
+    if stats.nsstepblocks != blocks:
+        raise SystemExit(f"error: {where}: the loop ran "
+                         f"{stats.nsstepblocks} blocks, the launches say "
+                         f"{blocks}")
+    return dict(us_per_block=stats.tsolve / blocks * 1e6,
+                gram_wait_us_per_block=stats.tsstepwait / blocks * 1e6,
+                host_us_per_block=stats.tsstephost / blocks * 1e6)
+
+
+def _with_options(solve, **fields):
+    """``solve`` with ``fields`` set in the options it is given (the
+    profile phase's fixed-iteration solves)."""
+    def run(op, b, options):
+        return solve(op, b, options=dataclasses.replace(options, **fields))
+    return run
+
+
+def _sstep_dia_bf16(G: int, ctx, s: int = 4):
+    """s-step CG on the 256^3 bf16-band operator at f32 vectors through
+    the windows kernel without the dot (x past the L2), rtol 1e-4, from
+    dia-bf16's b: certified in float64 within 10 x rtol.  f32 s-step is
+    fragile at size, so a fallback to classic CG is allowed; it is
+    printed, with the iterations folded as the JAX wrapper folds them."""
+    import numpy as np
+    import torch
+
+    from acg_torch.config import SolverOptions
+    from acg_torch.solvers.cg import build_device_operator, cg_sstep
+    from acg_torch.sparse.poisson import poisson3d_7pt_dia
+
+    rtol = 1e-4
+    D = poisson3d_7pt_dia(G, dtype=np.float32)
+    op = build_device_operator(D, dtype=np.float32, fmt="dia")
+    if op.bands.dtype != torch.bfloat16 or op.kind != "hbm":
+        raise SystemExit(f"error: sstep-dia-bf16 planned {op.kind} with "
+                         f"{op.bands.dtype} bands")
+    b = np.random.default_rng(0).standard_normal(D.nrows).astype(np.float32)
+    del D
+    cg_sstep(op, b, options=SolverOptions(maxits=8, residual_rtol=0.0,
+                                          sstep=s))
+    _reset_counts()
+    res = cg_sstep(op, b, options=SolverOptions(maxits=20000,
+                                                residual_rtol=rtol, sstep=s))
+    launches = _read_counts(ctx, "sstep-dia-bf16")
+    rep = _solve_report(res, launches)
+    rep["plan"] = _plan_info(op)
+    rep["fallback"] = "fell back to classic cg" in res.kernel_note
+    if not rep["fallback"]:
+        blocks = _sstep_blocks(launches["dia_spmv_windows"], s,
+                               res.niterations, "sstep-dia-bf16")
+        rep.update(blocks=blocks, **_sstep_block_times(
+            res.stats, blocks, "sstep-dia-bf16"))
+    rep["host_true_relative_residual"] = _poisson7_residual(G, res.x, b)
+    ok = ((res.operator_format, res.kernel) == ("dia", "cuda-dia-hbm")
+          and (res.kernel_note == "" or rep["fallback"])
+          and res.converged
+          and rep["host_true_relative_residual"] <= 10 * rtol
+          and launches["dia_spmv"] == launches["dia_spmv_ring"] == 0
+          and launches["dia_spmv_windows"] > 0
+          and np.all(np.isfinite(res.x)) and res.x.shape == b.shape)
+    if not ok:
+        raise SystemExit(f"error: sstep-dia-bf16 solve failed: {rep}")
+    return rep
+
+
+def _deep_stencil(ctx):
+    """Depth-2 pipelined CG on the stencil phase's 256^3 f64 system at
+    ``_DEEP``'s tolerance and segment, certified in float64 within 10 x
+    rtol.  The SpMV kernel without the dot follows the dispatch
+    protocol: per dispatch, the entry residual, l fill products, one per
+    body and the certifying product; plus 6 for the power prelude, once.
+    The bodies are the iterations, plus at most two a dispatch that
+    commit nothing: one that ended in a breakdown and the one the host
+    runs while it reads the last check point's flag."""
+    import numpy as np
+
+    from acg_torch.config import SolverOptions
+    from acg_torch.solvers.cg import cg_pipelined_deep
+
+    op, b, xstar = ctx["stencil_case"]
+    G = round(op.nrows ** (1 / 3))
+    l, rtol, R = _DEEP["depth"], _DEEP["rtol"], _DEEP["replace_every"]
+    cg_pipelined_deep(op, b, options=SolverOptions(
+        maxits=8, residual_rtol=0.0, pipeline_depth=l))
+    _reset_counts()
+    res = cg_pipelined_deep(op, b, options=SolverOptions(
+        maxits=20000, residual_rtol=rtol, pipeline_depth=l,
+        replace_every=R))
+    launches = _read_counts(ctx, "deep-stencil")
+    rep = _solve_report(res, launches)
+    note = res.kernel_note
+    fallback = "fell back to classic cg" in note
+    ndisp = (None if fallback else int(note.split(", ")[1].split()[0]))
+    rep.update(depth=l, replace_every=R, rtol=rtol, dispatches=ndisp,
+               fallback=fallback,
+               pipelined_iterations=ctx["iterations"]["pipelined-stencil"],
+               classic_iterations=ctx["classic_iterations"],
+               us_per_iter_pipelined=ctx["us_per_iter"]["pipelined-stencil"],
+               host_true_relative_residual=_poisson7_residual(G, res.x, b))
+    ok = ((res.operator_format, res.kernel) == ("stencil",
+                                                 "cuda-stencil-spmv")
+          and res.converged and not fallback
+          and rep["host_true_relative_residual"] <= 10 * rtol
+          and np.all(np.isfinite(res.x)) and res.x.shape == b.shape)
+    if ok:
+        bodies = launches["stencil_spmv"] - 6 - ndisp * (l + 2)
+        rep["bodies"] = bodies
+        ok = (res.niterations <= bodies <= res.niterations + 2 * ndisp
+              and not any(v for k, v in launches.items()
+                          if k != "stencil_spmv"))
+    if not ok:
+        raise SystemExit(f"error: deep-stencil solve failed: {rep}")
+    ctx.setdefault("us_per_iter", {})["deep-stencil"] = rep["us_per_iter"]
+    ctx["profile_cases"] = ctx.get("profile_cases", []) + [
+        ("deep-stencil-f64", op, b,
+         _with_options(cg_pipelined_deep, pipeline_depth=l))]
+    return rep
+
+
+def _laplacian_modes(G: int, k: int):
+    """The k lowest Dirichlet eigenvectors of the 7-point Laplacian on a
+    G^3 grid, unit columns of an (n, k) float64 array: products of sines
+    sin(a pi i / (G+1)) sin(b pi j / (G+1)) sin(c pi m / (G+1)), the modes
+    (a, b, c) ordered by their eigenvalue (a tie at the k-th broken by
+    the modes' order)."""
+    import numpy as np
+
+    lam = np.sin(np.arange(1, 5) * np.pi / (2 * G + 2)) ** 2
+    modes = sorted(((a, b, c) for a in range(4) for b in range(4)
+                    for c in range(4)),
+                   key=lambda m: (lam[m[0]] + lam[m[1]] + lam[m[2]], m))[:k]
+    i = np.arange(1, G + 1)
+    sines = [np.sin((a + 1) * np.pi * i / (G + 1)) for a in range(4)]
+    W = np.empty((G ** 3, k))
+    for j, (a, b, c) in enumerate(modes):
+        w = np.multiply.outer(np.multiply.outer(sines[a], sines[b]),
+                              sines[c]).reshape(-1)
+        W[:, j] = w / np.linalg.norm(w)
+    return W, modes
+
+
+def _recycled_stencil(ctx, k: int = 8):
+    """Deflated CG (``cg_recycled``) on the stencil phase's 256^3 f64
+    system, W the k = 8 lowest Dirichlet eigenvectors of the Laplacian in
+    closed form, W'AW through the port's operator on the card: certified
+    in float64 within 10 x rtol, fewer iterations than the stencil
+    phase's, the fused stencil kernel once an iteration and once for the
+    initial residual (the deflation is host set-up, outside tsolve)."""
+    import numpy as np
+    import torch
+
+    from acg_torch.config import SolverOptions
+    from acg_torch.solvers.cg import cg_recycled
+
+    op, b, xstar = ctx["stencil_case"]
+    G = round(op.nrows ** (1 / 3))
+    rtol = 1e-8
+    t0 = time.perf_counter()
+    W, modes = _laplacian_modes(G, k)
+    basis_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    AW = np.empty_like(W)
+    w = torch.zeros(op.nrows_padded, dtype=torch.float64, device=op.device)
+    for j in range(k):
+        w[: op.nrows] = torch.from_numpy(W[:, j]).to(op.device)
+        AW[:, j] = op.matvec(w)[: op.nrows].cpu().numpy()
+    WtAW = W.T @ AW
+    del AW, w
+    wtaw_s = time.perf_counter() - t0
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = cg_recycled(op, b, W=W, WtAW=WtAW, options=SolverOptions(
+        maxits=20000, residual_rtol=rtol))
+    wall = time.perf_counter() - t0
+    launches = _read_counts(ctx, "recycled-stencil")
+    rep = _solve_report(res, launches)
+    rep.update(k=k, modes=[list(m) for m in modes],
+               ritz_of_WtAW=np.linalg.eigvalsh(WtAW).tolist(),
+               basis_seconds=basis_s, wtaw_seconds=wtaw_s,
+               deflation_setup_seconds=wall - res.stats.tsolve,
+               classic_iterations=ctx["classic_iterations"],
+               host_true_relative_residual=_poisson7_residual(G, res.x, b),
+               error_vs_manufactured=float(np.linalg.norm(res.x - xstar)))
+    del W
+    ok = ((res.operator_format, res.kernel) == ("stencil",
+                                                 "cuda-stencil-fused")
+          and res.converged
+          and rep["host_true_relative_residual"] <= 10 * rtol
+          and res.niterations < ctx["classic_iterations"]
+          and np.all(np.isfinite(res.x)) and res.x.shape == b.shape)
+    if not ok:
+        raise SystemExit(f"error: recycled-stencil solve failed: {rep}")
+    _check_launches(rep, launches, "stencil_spmv", res.niterations, False,
+                    "recycled-stencil")
+    return rep
+
+
+def _cli_solver_phase(G: int, solver: str, *extra: str):
+    """The CLI's ``main`` (``python -m acg_torch.cli``), in this process so
+    that no interpreter start is timed, with ``--solver solver`` on the
+    48^3 Poisson .mtx from a manufactured solution: exit 0 and a stats
+    block; the device solvers launch the stencil kernel without the dot
+    and say so in the kernel line, the host solvers launch nothing and
+    print none."""
+    import contextlib
+    import io
+
+    from acg_torch import cli
+    from acg_torch.io.mtxfile import MtxFile, write_mtx
+    from acg_torch.sparse.poisson import poisson3d_7pt
+
+    A = poisson3d_7pt(G)
+    r, c, v = A.to_coo()
+    (REPO / "build").mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    out, err = io.StringIO(), io.StringIO()
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        path = os.path.join(tmp, "A.mtx")
+        write_mtx(path, MtxFile(nrows=A.nrows, ncols=A.ncols, nnz=A.nnz,
+                                rowidx=r, colidx=c, vals=v))
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main([path, "--solver", solver, *extra,
+                           "--manufactured-solution", "--max-iterations",
+                           "2000", "-v", "-q"])
+    stats, log = out.getvalue(), err.getvalue()
+    launches = _cli_launches(log)
+    kernel = [ln.strip() for ln in stats.splitlines()
+              if ln.strip().startswith("kernel:")]
+    host = solver in ("host", "petsc", "petsc-pipelined")
+    ok = (rc == 0 and "total iterations:" in stats
+          and "floating-point exceptions: none" in stats
+          and launches is not None)
+    if ok and host:
+        ok = not kernel and not any(launches.values())
+    elif ok:
+        # the deep solver's note names its dispatches; a fallback to
+        # classic CG would name the fused kernel and fail here
+        ok = (bool(kernel) and kernel[0].startswith(
+            "kernel: cuda-stencil-spmv") and launches["stencil_spmv"] > 0)
+    if not ok:
+        raise SystemExit(f"error: CLI run failed (exit {rc}):\n{stats}\n"
+                         f"{log}")
+    its = [ln.split(":")[1].strip() for ln in stats.splitlines()
+           if ln.strip().startswith("iterations:")]
+    errline = [ln for ln in stats.splitlines()
+               if ln.startswith("manufactured solution error")]
+    return {"grid": [G, G, G], "solver": solver, "flags": list(extra),
+            "exit": rc, "iterations": int(its[0]),
+            "launches": launches, "kernel_line": kernel[0] if kernel else None,
+            "manufactured_error_line": errline[0] if errline else None,
+            "wall_s": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
 # the unstructured tiers: fem3d-1m, its kernels, solves and CLI
 
 
@@ -1909,15 +2370,17 @@ def _cli_fem_phase(points: int):
 # the HBM tier: x past the card's L2, the ring and clustered-window kernels
 
 
-def _hbm_check(dev, tier, x, ctx, resident_row=False, planned=True):
+def _hbm_check(dev, tier, x, ctx, resident_row=False, planned=True,
+               with_dot=True):
     """The planned HBM kernel of ``dev`` (its ``plan``: ring or windows)
-    with the fused dot, held against its plain version, y bit-equal to
-    ``dia_spmv`` on the same operator, the dot's bits stable; timed
-    beside the bound, the plain version, ``dia_spmv`` and cuSPARSE CSR x
-    on the same matrix.  ``resident_row``: ``dia_spmv`` with the dot on
-    the same operator gets a row of its own beside it.  ``planned``:
-    whether the operator's own plan takes this kernel (else the row runs
-    it on a plan made for it, ``_forced``)."""
+    with the fused dot (or without, ``with_dot=False``: the s-step
+    basis), held against its plain version, y bit-equal to ``dia_spmv``
+    on the same operator, the dot's bits stable; timed beside the bound,
+    the plain version, ``dia_spmv`` and cuSPARSE CSR x on the same
+    matrix.  ``resident_row``: ``dia_spmv`` with the dot on the same
+    operator gets a row of its own beside it.  ``planned``: whether the
+    operator's own plan takes this kernel (else the row runs it on a plan
+    made for it, ``_forced``)."""
     import torch
 
     from acg_torch.ops.dia_kernels import (dia_matvec_ring_plain,
@@ -1934,26 +2397,29 @@ def _hbm_check(dev, tier, x, ctx, resident_row=False, planned=True):
 
     def run():
         return spmv(dev.bands, dev.scales, dev.offsets_t, x, plan,
-                    with_dot=True)
+                    with_dot=with_dot)
 
     def plain():
         y = plain_y(dev.bands, dev.offsets, x, dev.scales, plan)
-        return y, torch.dot(x, y)
+        return (y, torch.dot(x, y)) if with_dot else y
 
     def resident():
         return dia_spmv(dev.bands, dev.scales, dev.offsets_t, x,
-                        with_dot=True, fixed=dev.fixed)
+                        with_dot=with_dot, fixed=dev.fixed)
+
+    def y_of(out):
+        return out[0] if with_dot else out
 
     def extra(row):
-        row["bits_equal_dia_spmv"] = bool(torch.equal(run()[0],
-                                                      resident()[0]))
+        row["bits_equal_dia_spmv"] = bool(torch.equal(y_of(run()),
+                                                      y_of(resident())))
         row["dia_spmv_ms"] = _time_ms(resident, ctx["reps"])
         return row["bits_equal_dia_spmv"]
 
     A = _csr_of(dev, x.dtype)
     nbytes = (D_ * dev.nrows_padded * dev.mat_itemsize
               + 2 * dev.nrows_padded * vb)
-    label = {"name": name, "tier": tier, "with_dot": True, "n": n,
+    label = {"name": name, "tier": tier, "with_dot": with_dot, "n": n,
              "plan": {"tile": plan.tile, "nblocks": plan.nblocks,
                       "smem": plan.smem, "ntiles": plan.ntiles,
                       "planned": planned, "stages": plan.stages,
@@ -1962,7 +2428,8 @@ def _hbm_check(dev, tier, x, ctx, resident_row=False, planned=True):
                           "buflen": plan.buflen})}}
     # the plain versions walk the tiles from Python (the ring one step of
     # the persistent grid at a time): five timed runs
-    _check_kernel(label, run, plain, x, ctx, nbytes, 2 * D_ * n + 2 * n,
+    _check_kernel(label, run, plain, x, ctx, nbytes,
+                  2 * D_ * n + (2 * n if with_dot else 0),
                   lambda: A @ x[:n], extra=extra, plain_reps=5)
     if resident_row:
         from acg_torch.ops.dia_kernels import dia_matvec
@@ -2021,6 +2488,9 @@ def _hbm_kernels(D, ctx):
         x = _padded_x(D.nrows, dev.nrows_padded, getattr(torch, vdt), 9)
         _hbm_check(_forced(dev, "hbm"), f"{tier} 256^3", x, ctx,
                    planned=kind == "hbm")
+        if tier == "bf16/f32":
+            # without the dot: the s-step basis of sstep-dia-bf16
+            _hbm_check(dev, f"{tier} 256^3", x, ctx, with_dot=False)
         del dev, x
     big = ctx["p464"]["op"]
     for vdt in (torch.float32, torch.float64):
@@ -3370,6 +3840,13 @@ def _kernel_lines(ctx) -> list:
              ("dia_spmv_batched", "f64/f64", "batched-dia-f64", True),
              ("stencil_spmv_batched", "matrix-free/float64",
               "batched-pipelined-stencil", False),
+             ("stencil_spmv", "matrix-free/float64", "sstep-stencil", False),
+             ("stencil_spmv_batched", "matrix-free/float64",
+              "sstep-batched-stencil", False),
+             ("dia_spmv_windows", "bf16/f32 256^3", "sstep-dia-bf16", False),
+             ("stencil_spmv", "matrix-free/float64", "deep-stencil", False),
+             ("stencil_spmv", "matrix-free/float64", "recycled-stencil",
+              True),
              ("dia_spmv", "f64/f64", "rcm-dia", True),
              ("cg_pipelined_iter", "f64/f64", "rcm-dia-pipelined", None),
              ("sgell_spmv", "f32/f32 fem3d-1m", "fem-sgell", None),

@@ -89,3 +89,71 @@ def test_cli_default_device_without_cuda_fails(matrix_file):
     r = _run("acg_torch.cli", matrix_file, "-q")
     assert r.returncode == 1
     assert "no CUDA device" in r.stderr
+
+
+def _main_iterations(main, argv, capsys):
+    """Run a CLI's ``main`` in this process: (exit code, iterations or
+    None, stdout, stderr)."""
+    rc = main(argv)
+    out = capsys.readouterr()
+    its = [ln for ln in out.out.splitlines()
+           if ln.strip().startswith("iterations:")]
+    return (rc, int(its[0].split(":")[1]) if its else None, out.out,
+            out.err)
+
+
+@pytest.mark.parametrize("solver,extra", [
+    ("acg-sstep", ["--sstep", "4"]), ("cg-sstep", ["--sstep", "6"]),
+    ("acg-pipelined-deep", ["--pipeline-depth", "2"]),
+    ("cg-pipelined-deep", ["--pipeline-depth", "3"]),
+    ("acg-pipelined-deep", ["--pipeline-depth", "1"])])
+def test_cli_sstep_deep_match_jax_cli(matrix_file, solver, extra, capsys):
+    from acg_torch import cli
+    from acg_tpu import cli as jcli
+
+    flags = [matrix_file, "--solver", solver, *extra,
+             "--manufactured-solution", "--max-iterations", "500", "-q"]
+    rc, its, out, err = _main_iterations(cli.main,
+                                         flags + ["--device", "cpu"], capsys)
+    assert rc == 0, out + err
+    rcj, itsj, outj, errj = _main_iterations(jcli.main, flags, capsys)
+    assert rcj == 0, outj + errj
+    assert abs(its - itsj) <= 1
+    assert "floating-point exceptions: none" in out
+    kernel = [ln.strip() for ln in out.splitlines()
+              if ln.strip().startswith("kernel:")][0]
+    if "deep" in solver and extra[-1] != "1":
+        assert f"(deep pipeline depth {extra[-1]}, " in kernel
+    elif "deep" in solver:
+        assert kernel == "kernel: torch-plain"
+
+
+@pytest.mark.parametrize("args,msg", [
+    (["--solver", "acg-sstep", "--sstep", "1"], "--sstep 1: "),
+    (["--solver", "cg-sstep", "--sstep", "17"], "--sstep 17: "),
+    (["--solver", "acg-pipelined-deep", "--pipeline-depth", "0"],
+     "--pipeline-depth 0: "),
+    (["--solver", "cg-pipelined-deep", "--pipeline-depth", "9"],
+     "--pipeline-depth 9: "),
+    (["--solver", "acg-sstep", "--nparts", "4"],
+     "distributed s-step/deep: not yet ported"),
+    (["--solver", "cg-pipelined-deep", "--nparts", "2"],
+     "distributed s-step/deep: not yet ported")])
+def test_cli_sstep_deep_refusals(matrix_file, args, msg, capsys):
+    from acg_torch import cli
+
+    rc, _, _, err = _main_iterations(
+        cli.main, [matrix_file, "--device", "cpu", "-q", *args], capsys)
+    assert rc == 1
+    assert msg in err and "Traceback" not in err
+
+
+def test_cli_sstep_deep_flags_inert_out_of_mode(matrix_file, capsys):
+    """As in the JAX program, the ranges bind only in their modes."""
+    from acg_torch import cli
+
+    rc, its, _, _ = _main_iterations(
+        cli.main, [matrix_file, "--device", "cpu", "-q", "--sstep", "99",
+                   "--pipeline-depth", "99", "--max-iterations", "500"],
+        capsys)
+    assert rc == 0 and its > 0

@@ -9,11 +9,13 @@ boundary, two k-steps a block, the
 shared-memory ring and clustered-window kernels of the HBM tier (every
 band tier, ragged n, spans of several tiles, offsets past the vector,
 x off a 16-byte boundary; y bit-equal to dia_spmv), the
-wrappers' argument checks and launch counts, and whole classic,
+wrappers' argument checks and launch counts, whole classic,
 pipelined and batched solves on the card against the same solves on
-the CPU.  The JAX package is not
-needed (and not on the machine with the card), so run them without the
-repository's root conftest:
+the CPU, and for the s-step and deep-pipelined solvers the f32 Gram
+never in TF32, the basis's padding rows staying 0 through every SpMV
+tier, and s-step, deep and recycled solves against the CPU's.  The JAX
+package is not needed (and not on the machine with the card), so run
+them without the repository's root conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -1535,3 +1537,150 @@ def test_batched_ghosts_and_wire_on_the_card(card, wire, dtype):
         assert torch.equal(halo.wire_decode(enc, wire, dtype).cpu(),
                            halo.wire_decode(halo.wire_encode(m, wire), wire,
                                             dtype))
+
+
+# ---------------------------------------------------------------------------
+# the s-step and deep-pipelined solvers: the Gram, the basis, the solves
+
+
+def test_gram_f32_never_tf32(card):
+    """The f32 Gram, block_dot and combine run at f32 whatever the global
+    TF32 setting (the s-step decisions stand on them): against the f64
+    products within f32 rounding, where TF32 would be ~1e-3 off; the
+    setting is restored."""
+    from acg_torch.ops import blas1
+
+    g = torch.Generator(device=card).manual_seed(0)
+    V64 = torch.randn((9, 1 << 20), dtype=torch.float64, device=card,
+                      generator=g)
+    V = V64.to(torch.float32)
+    Vb = V64.reshape(9, 4, -1).to(torch.float32)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for got, want in (
+                (blas1.gram(V), blas1.gram(V.double())),
+                (blas1.gram(Vb), blas1.gram(Vb.double())),
+                (blas1.block_dot(V, V[3]), blas1.block_dot(V.double(),
+                                                           V[3].double())),
+                (blas1.combine(V[:, 5], V),
+                 blas1.combine(V[:, 5].double(), V.double()))):
+            err = float((got.double() - want).abs().max())
+            assert err <= 1e-5 * float(want.abs().max()), err
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("vdt", [np.float32, np.float64])
+@pytest.mark.parametrize("tier", ["stencil", "dia", "hbm"])
+def test_sstep_basis_padding_stays_zero(card, tier, vdt):
+    """Every basis vector mv(v) - theta v of an s-step block keeps the
+    padded rows at exactly 0 on grids of nrows % 8 != 0 (the Gram reduces
+    over them), through stencil_spmv, dia_spmv and dia_spmv_windows
+    without the dot; V and G against the same block on the CPU."""
+    from acg_torch.ops import dia_plan
+    from acg_torch.solvers.cg import _sstep_block_fn, build_device_operator
+
+    s = 4
+    A = poisson.poisson3d_7pt(37, 29, 11)            # 11,803 rows
+    n = A.nrows
+    assert n % 8
+    fmt = "stencil" if tier == "stencil" else "dia"
+    op = build_device_operator(A, dtype=vdt, fmt=fmt, device=card)
+    cpu = build_device_operator(A, dtype=vdt, fmt=fmt, device="cpu")
+    if tier == "hbm":
+        vt = getattr(torch, op.vec_dtype)
+        b = dia_plan.device_budgets(card)
+        tile = dia_plan.windows_plan(op.nrows_padded, op.offsets, vt,
+                                     op.bands.dtype, b)
+        op = dataclasses.replace(op, plan=dia_plan.make_plan(
+            "hbm", tile, op.nrows_padded, op.offsets, vt, op.bands.dtype, b,
+            device=card))
+    rng = np.random.default_rng(5)
+    vecs = []
+    for _ in range(3):
+        v = np.zeros(op.nrows_padded, vdt)
+        v[:n] = rng.standard_normal(n)
+        vecs.append(torch.from_numpy(v))
+    shifts = np.array([11.0, 0.5, 7.0, 3.0], vdt)
+    before = dict(st=st.launches, dia=dia_kernels.launches,
+                  win=dia_kernels.windows_launches)
+    V, G = _sstep_block_fn(op.matvec, vecs[0].to(card), s)(
+        vecs[1].to(card), vecs[2].to(card), shifts)
+    Vc, Gc = _sstep_block_fn(cpu.matvec, vecs[0], s)(vecs[1], vecs[2],
+                                                     shifts)
+    assert torch.all(V[:, n:] == 0)
+    launched = {"stencil": st.launches - before["st"],
+                "dia": dia_kernels.launches - before["dia"],
+                "hbm": dia_kernels.windows_launches - before["win"]}
+    assert launched[tier] == 2 * s
+    rtol = 1e-12 if vdt == np.float64 else 1e-5
+    assert float((V.cpu() - Vc).abs().max()) <= rtol * float(Vc.abs().max())
+    assert float((G.cpu() - Gc).abs().max()) <= rtol * float(Gc.abs().max())
+
+
+@pytest.mark.parametrize("solver", ["sstep", "deep", "recycled"])
+@pytest.mark.parametrize("batch", [0, 3])
+def test_sstep_deep_recycled_on_the_card(card, solver, batch):
+    """Whole solves on the card against the same solves on the CPU: the
+    same counts (±1), x within 1e-9, certified; the loops launch only the
+    plain SpMV kernel (the batched one for a batch).  The deep solve
+    restarts every 50 updates, the residual replacement at which both
+    packages reach the same counts in the same dispatches
+    (scripts/torch_sstep_deep.py)."""
+    from acg_torch.solvers.cg import cg_pipelined_deep, cg_recycled, cg_sstep
+
+    A = poisson.poisson3d_7pt(20, 18, 13)
+    rng = np.random.default_rng(2)
+    b = rng.standard_normal((batch, A.nrows) if batch else A.nrows)
+    o = SolverOptions(maxits=2000, residual_rtol=1e-10, sstep=4,
+                      pipeline_depth=2,
+                      replace_every=50 if solver == "deep" else 0)
+    kw = {}
+    if solver == "recycled":
+        W, _ = np.linalg.qr(rng.standard_normal((A.nrows, 4)))
+        kw = dict(W=W, WtAW=W.T @ np.stack([A.matvec(w) for w in W.T], 1))
+    fn = {"sstep": cg_sstep, "deep": cg_pipelined_deep,
+          "recycled": cg_recycled}[solver]
+    before = (st.launches, st.batched_launches, st.pipe_launches)
+    rg = fn(A, b, options=o, device=card, **kw)
+    launched = (st.launches - before[0], st.batched_launches - before[1],
+                st.pipe_launches - before[2])
+    rc = fn(A, b, options=o, device="cpu", **kw)
+    assert rg.converged and rc.converged
+    assert np.all(np.abs(np.asarray(rg.iterations_per_system if batch
+                                    else rg.niterations)
+                         - (rc.iterations_per_system if batch
+                            else rc.niterations)) <= 1)
+    assert np.linalg.norm(rg.x - rc.x) <= 1e-9 * np.linalg.norm(rc.x)
+    body = ("batched" if batch else "fused" if solver == "recycled"
+            else "spmv")
+    assert rg.kernel == f"cuda-stencil-{body}"
+    assert launched[2] == 0
+    assert (launched[1] > 0 and launched[0] == 0) if batch else \
+        (launched[0] > 0 and launched[1] == 0)
+
+
+@pytest.mark.parametrize("batch", [0, 3])
+def test_deep_without_replacement_certifies_on_the_card(card, batch):
+    """The deep solve with no residual replacement at rtol 1e-10: its
+    recurrence drifts from the true residual there in both packages, so
+    its counts are not compared; every exit it claims must be certified,
+    by the solve's own true residual and by one recomputed on the host
+    in float64."""
+    from acg_torch.solvers.cg import cg_pipelined_deep
+
+    A = poisson.poisson3d_7pt(20, 18, 13)
+    rng = np.random.default_rng(2)
+    b = rng.standard_normal((batch, A.nrows) if batch else A.nrows)
+    rtol = 1e-10
+    res = cg_pipelined_deep(A, b, options=SolverOptions(
+        maxits=2000, residual_rtol=rtol, pipeline_depth=2), device=card)
+    assert res.converged
+    rn = res.rnrm2_per_system if batch else np.array([res.rnrm2])
+    r0 = res.r0nrm2_per_system if batch else np.array([res.r0nrm2])
+    assert np.all(rn <= rtol * r0)
+    for x, bb in zip(np.atleast_2d(res.x), np.atleast_2d(b)):
+        true = np.linalg.norm(bb - A.matvec(x)) / np.linalg.norm(bb)
+        assert true <= 2 * rtol, true
