@@ -25,15 +25,21 @@ DIA, RCM+DIA, RCM+sgell or ELL tier, as the matrix allows), ``dia``,
 ``--device`` picks where it runs (default ``cuda``; with no card that
 default is an error, never a silent CPU run).  ``--nparts P`` (P > 1)
 runs distributed CG over P shards (``acg_torch.solvers.cg_dist``:
-classic, or pipelined with ``--solver acg-pipelined``, and with
-``--nrhs K`` K systems in one loop), partitioned by
-``--partition-method`` (auto|chunk|rb) with the halo of ``--halo``
-(ppermute|allgather|rdma, or from ``--comm``) and its messages in the
-encoding of ``--halo-wire`` (f32|bf16|int16-delta; rdma sends f32 only);
-on CUDA the shards take the visible cards, one each (one card and P > 1
-exit 1 with ERR_MESH, as the JAX program does on one chip), and with
-``--device cpu`` they share the CPU; the s-step and deep solvers are not
-yet ported across shards.
+classic; pipelined with ``--solver acg-pipelined``; s-step and
+depth-L pipelined with ``--solver acg-sstep`` / ``acg-pipelined-deep``,
+whose basis runs in deep ghost zones, one depth-s (or depth-L) exchange
+a block or fill chain, on the SpMV kernel without the dot and
+``ell_spmv`` on the deep interface and skin; and with ``--nrhs K`` K
+systems in one loop), partitioned by ``--partition-method``
+(auto|chunk|rb|bfs|kway|multilevel) or read from ``--partition FILE``
+(a part vector as ``acg_torch.tools.mtxpartition`` writes it; binary
+with ``--binary-partition``), with the halo of ``--halo``
+(ppermute|allgather|rdma, or from ``--comm``; the s-step and deep
+solvers take ppermute or allgather) and its messages in the encoding of
+``--halo-wire`` (f32|bf16|int16-delta; rdma sends f32 only); on CUDA the
+shards take the visible cards, one each (one card and P > 1 exit 1 with
+ERR_MESH, as the JAX program does on one chip), and with ``--device
+cpu`` they share the CPU.
 
 Run: ``python -m acg_torch.cli A.mtx --manufactured-solution -v``
 """
@@ -73,20 +79,27 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--binary", action="store_true",
                    help="read Matrix Market files in binary format")
     p.add_argument("--seed", type=int, default=0, help="random seed [0]")
+    p.add_argument("--partition", metavar="FILE", default=None,
+                   help="read the part vector of --nparts > 1 from a "
+                        "Matrix Market file (python -m "
+                        "acg_torch.tools.mtxpartition writes one)")
+    p.add_argument("--binary-partition", action="store_true",
+                   help="read the --partition file in binary format")
     p.add_argument("--partition-method", default="auto",
                    choices=["auto", "chunk", "rb", "bfs", "kway",
                             "multilevel"],
-                   help="graph partitioner for --nparts > 1 [auto]: auto "
-                        "takes exact grid blocks for a stencil, chunk "
-                        "(contiguous row slabs) for other banded "
-                        "matrices, rb (recursive bisection + refinement) "
-                        "otherwise; bfs, kway and multilevel are not yet "
-                        "ported")
+                   help="graph partitioner for --nparts > 1 without "
+                        "--partition [auto]: auto takes exact grid blocks "
+                        "for a stencil, chunk (contiguous row slabs) for "
+                        "other banded matrices, rb (recursive bisection + "
+                        "refinement) otherwise; bfs (greedy BFS growing) "
+                        "and kway (k seeds grown together), each refined; "
+                        "multilevel (the METIS-style V-cycle)")
     p.add_argument("--nparts", type=int, default=1,
                    help="number of row shards [1]; > 1 runs distributed "
-                        "CG (classic or pipelined, one or --nrhs systems), "
-                        "one shard per visible card (or on the CPU with "
-                        "--device cpu)")
+                        "CG (every --solver but host and petsc*, one or "
+                        "--nrhs systems), one shard per visible card (or "
+                        "on the CPU with --device cpu)")
     p.add_argument("--nrhs", type=int, default=1, metavar="K",
                    help="solve K right-hand sides against the one operator "
                         "in a single batched loop (the operator is read "
@@ -239,11 +252,14 @@ def _main(argv=None) -> int:
                        "ordinary pipelined solver)")
     # the host solvers take A as it is read, on one process
     dist = args.nparts > 1 and not host
-    if dist and (sstep_mode or deep_mode):
-        raise AcgError(Status.ERR_NOT_SUPPORTED,
-                       f"--solver {solver} with --nparts {args.nparts}: "
-                       "distributed s-step/deep: not yet ported")
     halo = resolve_halo(args.comm, args.halo)
+    if dist and halo == "rdma" and (sstep_mode or (
+            deep_mode and args.pipeline_depth > 1)):
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"--solver {solver} with --nparts {args.nparts} "
+                       "takes the ppermute or allgather halo (the rdma "
+                       "halo, a put+signal kernel, moves 1-D distance-1 "
+                       "packs, not the deep ghost exchange)")
     if dist and halo == "rdma" and args.halo_wire != "f32":
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        "--halo-wire compresses the ppermute/allgather "
@@ -341,10 +357,30 @@ def _main(argv=None) -> int:
                 return cg_scipy(A, b, x0=x0, options=options)
     elif dist:
         from acg_torch.solvers.cg_dist import (build_sharded, cg_dist,
-                                               cg_pipelined_dist)
-        solve = cg_pipelined_dist if pipelined else cg_dist
+                                               cg_pipelined_deep_dist,
+                                               cg_pipelined_dist,
+                                               cg_sstep_dist)
+        solve = (cg_sstep_dist if sstep_mode
+                 else cg_pipelined_deep_dist if deep_mode
+                 else cg_pipelined_dist if pipelined else cg_dist)
+        part = None
+        if args.partition:
+            # the pinned part vector is honoured exactly: partitioning
+            # again would change the halo and the tiers under the user
+            part = read_mtx(args.partition,
+                            binary=args.binary_partition or None
+                            ).vals.astype(np.int32)
+            if part.shape != (A.nrows,) or part.min(initial=0) < 0 \
+                    or int(part.max(initial=0)) + 1 != args.nparts:
+                raise AcgError(
+                    Status.ERR_INVALID_VALUE,
+                    f"--partition {args.partition}: want a part in [0, "
+                    f"{args.nparts}) for each of the {A.nrows} rows, part "
+                    f"{args.nparts - 1} among them; got {part.shape[0]} "
+                    f"entries in [{part.min(initial=0)}, "
+                    f"{part.max(initial=0)}]")
         dev = build_sharded(
-            A, nparts=args.nparts,
+            A, nparts=args.nparts, part=part,
             devices=None if device.type == "cuda" else [device] * args.nparts,
             dtype=vdt, method=halo,
             partition_method=args.partition_method, seed=args.seed,

@@ -207,14 +207,24 @@ def resolve_local_fmt(ps: PartitionedSystem, fmt: str = "auto",
     return ps, "ell", None
 
 
+def _shard_arg(a, i: int, dev: torch.device):
+    """Shard ``i``'s part of one operand: its tensor for per-shard vectors,
+    a loop scalar moved to ``dev``, anything else as it is."""
+    if isinstance(a, ShardVec):
+        return a[i]
+    return on_device(a, dev) if isinstance(a, torch.Tensor) else a
+
+
 class ShardVec(list):
     """Per-shard vectors, one tensor a shard, carried through the CG loops
     (``acg_torch.solvers.loops``) in place of one tensor: each shard is
-    (n,), or (B, n) for B systems, and the few vector operations the loops
-    use (``-``, ``clone``, ``addcmul_``, ``torch.zeros_like``,
-    ``torch.addcmul``, ``torch.where``) apply shard by shard.  A scalar of
-    the loop (0-d, or per system (B,) and (B, 1)) lives on the first
-    shard's device and is moved to a shard's device where it differs."""
+    (n,), or (B, n) for B systems, and the vector operations the loops
+    use (``-``, ``/`` by a scalar, ``clone``, ``select``, ``copy_``,
+    ``add_``, ``mul_``, ``addcmul_``, ``window``, ``torch.zeros_like``,
+    ``torch.addcmul``, ``torch.where``, ``torch.mul``, ``torch.sub``, the
+    last three also with ``out=``) apply shard by shard.  A scalar of the
+    loop (0-d, or per system (B,) and (B, 1)) lives on the first shard's
+    device and is moved to a shard's device where it differs."""
 
     def dim(self) -> int:
         return self[0].dim()
@@ -230,12 +240,44 @@ class ShardVec(list):
     def clone(self) -> "ShardVec":
         return ShardVec(t.clone() for t in self)
 
+    def select(self, dim: int, i: int) -> "ShardVec":
+        """Every shard's ``select(dim, i)`` (system i of a batch), as
+        views."""
+        return ShardVec(t.select(dim, i) for t in self)
+
+    def window(self, w: int) -> "ShardStack":
+        """w zero vectors shaped like these, one (w, [B,] n) stack a
+        shard."""
+        return ShardStack(torch.zeros((w,) + tuple(t.shape), dtype=t.dtype,
+                                      device=t.device) for t in self)
+
     def __sub__(self, other) -> "ShardVec":
         return ShardVec(a - b for a, b in zip(self, other))
 
-    def addcmul_(self, other, scalar, value=1) -> "ShardVec":
+    def __truediv__(self, scalar) -> "ShardVec":
+        return ShardVec(a / on_device(scalar, a.device) for a in self)
+
+    def copy_(self, other) -> "ShardVec":
         for a, b in zip(self, other):
-            a.addcmul_(b, on_device(scalar, a.device), value=value)
+            a.copy_(b)
+        return self
+
+    def add_(self, other) -> "ShardVec":
+        for a, b in zip(self, other):
+            a.add_(b)
+        return self
+
+    def mul_(self, scalar) -> "ShardVec":
+        for a in self:
+            a.mul_(on_device(scalar, a.device))
+        return self
+
+    def addcmul_(self, t1, t2, value=1) -> "ShardVec":
+        """self += value · t1 · t2, each factor a ShardVec or a loop
+        scalar."""
+        for i, a in enumerate(self):
+            a.addcmul_(_shard_arg(t1, i, a.device),
+                       _shard_arg(t2, i, a.device), value=value)
         return self
 
     @classmethod
@@ -243,19 +285,33 @@ class ShardVec(list):
         kwargs = dict(kwargs or {})
         if func is torch.zeros_like and not kwargs:
             return cls(torch.zeros_like(t) for t in args[0])
-        if func not in (torch.addcmul, torch.where):
+        if func not in (torch.addcmul, torch.where, torch.mul, torch.sub):
             return NotImplemented
         out = kwargs.pop("out", None)
         shards = next(a for a in args if isinstance(a, ShardVec))
         res = cls()
         for i, t in enumerate(shards):
-            a_i = [a[i] if isinstance(a, ShardVec)
-                   else on_device(a, t.device)
-                   if isinstance(a, torch.Tensor) else a for a in args]
+            a_i = [_shard_arg(a, i, t.device) for a in args]
             if out is not None:
                 kwargs["out"] = out[i]
             res.append(func(*a_i, **kwargs))
         return res
+
+
+class ShardStack:
+    """Per-shard stacks of vectors, one (m, [B,] n) tensor a shard (its
+    ``shards``): the s-step basis and the deep-pipelined rings over
+    shards.  ``S[j]`` is row j of every shard, a :class:`ShardVec` of
+    views; ``select(dim, i)`` selects in every shard."""
+
+    def __init__(self, shards):
+        self.shards = tuple(shards)
+
+    def __getitem__(self, j: int) -> ShardVec:
+        return ShardVec(t[j] for t in self.shards)
+
+    def select(self, dim: int, i: int) -> "ShardStack":
+        return ShardStack(t.select(dim, i) for t in self.shards)
 
 
 def sum_in_order(parts, dev: torch.device) -> torch.Tensor:
@@ -286,6 +342,11 @@ class ShardedSystem:
     loffsets: tuple = ()
     rdma: RdmaState | None = None
     forced_fmt: str | None = None   # the format a caller forced, if any
+    # the deep ghost zones built for the shards, by depth
+    # (``parallel/deep.py``); they do not depend on the halo, so every
+    # copy of the system shares them
+    deep_cache: dict = dataclasses.field(default_factory=dict,
+                                         compare=False, repr=False)
 
     @property
     def nparts(self) -> int:
@@ -339,7 +400,8 @@ class ShardedSystem:
         """The same shards with the halo exchanged by ``method``; the
         put+signal transport (RDMA) needs every shard on a CUDA device
         and raises ``ERR_NOT_SUPPORTED`` otherwise, as the JAX package's
-        does off its chips."""
+        does off its chips.  The deep ghost zones built for the shards
+        (``parallel/deep.py``) do not depend on the halo and are shared."""
         method = HaloMethod(method)
         state = None
         if method == HaloMethod.RDMA:

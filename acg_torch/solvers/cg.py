@@ -575,7 +575,7 @@ def _power_lmax(mv, dot, b, iters: int = 6):
     bc = (lambda v: v[:, None]) if b.dim() == 2 else (lambda v: v)
     one = torch.ones((), dtype=b.dtype, device=b.device)
     v = b
-    lam = torch.zeros(b.shape[:-1], dtype=b.dtype, device=b.device)
+    lam = None                  # iters >= 1 sets it
     for _ in range(iters):
         nv = torch.sqrt(dot(v, v))
         v = v / bc(torch.where(nv == 0, one, nv))
@@ -815,6 +815,43 @@ def _cg_pipelined_deep_device(op, b, x0, stop2, depth: int, maxits: int,
         guard=guard)
 
 
+def _deep_dispatches(segment, x0, batched: bool, maxits: int):
+    """The host re-dispatch of deep-pipelined segments, shared by the
+    one-device and distributed wrappers: ``segment(x, k_start, rr0_in,
+    flags_in, hist_in, ksys_in)`` runs one dispatch
+    (``cg_pipelined_deep_while``'s results), re-entered from its own
+    results until no system is live or ``maxits`` is reached, a guard
+    fault surfaces, or ``_DEEP_MAX_BAD`` consecutive dispatches end in a
+    breakdown or a refuted exit.  Returns ``(x, kret, rr, flag, rr0,
+    hist, k, ndisp, why)``: the last dispatch's state, the host update
+    count, the dispatches run, and the reason to fall back to classic CG
+    (None when the solve stands)."""
+    x, k, rr0, flags, hist, ksys = x0, 0, None, None, None, None
+    fails = ndisp = 0
+    while True:
+        (x, kret, rr, flag, rr0, hist, k, _more, drift) = segment(
+            x, k, rr0, flags, hist, ksys)
+        ndisp += 1
+        if batched:
+            ksys = kret
+        flags_h = np.atleast_1d(_host(flag))
+        if np.any(flags_h == _FAULT):
+            break    # the finiteness guard fired: surface it, no restart
+        brk = bool(np.any(flags_h == _BREAKDOWN))
+        fails = fails + 1 if brk or bool(drift.any()) else 0
+        if fails >= _DEEP_MAX_BAD:
+            why = ("indefinite Gram/LDL pivot" if brk
+                   else "certified-exit drift")
+            return x, kret, rr, flag, rr0, hist, k, ndisp, why
+        # restart: a breakdown gets another chance on a fresh basis (the
+        # re-dispatch replaces its residual); drift is still _OK
+        live = bool(np.any((flags_h == _OK) | (flags_h == _BREAKDOWN)))
+        flags = torch.where(flag == _BREAKDOWN, _OK, flag).to(torch.int32)
+        if not (live and k < maxits):
+            break
+    return x, kret, rr, flag, rr0, hist, k, ndisp, None
+
+
 def cg_pipelined_deep(A, b, x0=None,
                       options: SolverOptions = SolverOptions(),
                       dtype=None, fmt: str = "auto", mat_dtype="auto",
@@ -853,50 +890,29 @@ def cg_pipelined_deep(A, b, x0=None,
     t0 = time.perf_counter()
     shifts = torch.from_numpy(_seed_shifts(op, b_pad, l, shifts0)).to(
         op.device)
-    # the restart operands of the dispatch protocol
-    x_op, k_op, rr0_op, flags_op, hist_op, ksys_op = (x0_pad, 0, None, None,
-                                                      None, None)
-    fails = ndisp = 0
-    while True:
-        (x_op, kret, rr, flag, rr0_op, hist_op, k_op, more,
-         drift) = _cg_pipelined_deep_device(
-            op, b_pad, x_op, stop2, l, o.maxits, o.check_every,
-            o.replace_every, certify, shifts, k_start=k_op, rr0_in=rr0_op,
-            flags_in=flags_op, hist_in=hist_op, ksys_in=ksys_op,
-            guard=o.guard_nonfinite)
-        ndisp += 1
-        if batched:
-            ksys_op = kret
-        flags_h = np.atleast_1d(_host(flag))
-        if np.any(flags_h == _FAULT):
-            break    # the finiteness guard fired: surface it, no restart
-        brk = bool(np.any(flags_h == _BREAKDOWN))
-        fails = fails + 1 if brk or bool(drift.any()) else 0
-        if fails >= _DEEP_MAX_BAD:
-            # never silently wrong: classic CG re-solves from the last
-            # safe iterate
-            why = ("indefinite Gram/LDL pivot" if brk
-                   else "certified-exit drift")
-            rr_h, rr0_h = _host(rr), _host(rr0_op)
-            x_part = _sstep_fallback_x0(_host_x(op, x_op, perm), x0, rr_h,
-                                        rr0_h)
-            o2 = dataclasses.replace(o, pipeline_depth=1,
-                                     maxits=max(o.maxits - k_op, 0))
-            return _sstep_fallback(
-                lambda: cg(A, b, x0=x_part, options=o2, dtype=dtype,
-                           fmt=fmt, mat_dtype=mat_dtype, stats=stats,
-                           device=device,
-                           atol2_floor=_sstep_fallback_stop(o, rr0_h)),
-                k_op, _host(kret) if batched else None, l, why,
-                spent_flops=k_op * cg_flops_per_iter(op.nnz, op.nrows,
-                                                     pipelined=True),
-                label=f"cg-pipelined-deep(l={l})")
-        # restart: a breakdown gets another chance on a fresh basis (the
-        # re-dispatch replaces its residual); drift is still _OK
-        live = bool(np.any((flags_h == _OK) | (flags_h == _BREAKDOWN)))
-        flags_op = torch.where(flag == _BREAKDOWN, _OK, flag).to(torch.int32)
-        if not (live and k_op < o.maxits):
-            break
+    (x_op, kret, rr, flag, rr0_op, hist_op, k_op, ndisp,
+     why) = _deep_dispatches(
+        lambda x, *restart: _cg_pipelined_deep_device(
+            op, b_pad, x, stop2, l, o.maxits, o.check_every,
+            o.replace_every, certify, shifts, *restart,
+            guard=o.guard_nonfinite), x0_pad, batched, o.maxits)
+    if why is not None:
+        # never silently wrong: classic CG re-solves from the last safe
+        # iterate
+        rr_h, rr0_h = _host(rr), _host(rr0_op)
+        x_part = _sstep_fallback_x0(_host_x(op, x_op, perm), x0, rr_h,
+                                    rr0_h)
+        o2 = dataclasses.replace(o, pipeline_depth=1,
+                                 maxits=max(o.maxits - k_op, 0))
+        return _sstep_fallback(
+            lambda: cg(A, b, x0=x_part, options=o2, dtype=dtype,
+                       fmt=fmt, mat_dtype=mat_dtype, stats=stats,
+                       device=device,
+                       atol2_floor=_sstep_fallback_stop(o, rr0_h)),
+            k_op, _host(kret) if batched else None, l, why,
+            spent_flops=k_op * cg_flops_per_iter(op.nnz, op.nrows,
+                                                 pipelined=True),
+            label=f"cg-pipelined-deep(l={l})")
     _sync(op.device)
     tsolve = time.perf_counter() - t0
     name, kernel, note = _describe_path(op, fmt, batch=b_pad.shape[0]

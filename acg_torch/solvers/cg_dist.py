@@ -44,6 +44,7 @@ and the halo (``cuda-stencil-fused+rdma``, ``cuda-dia-pipe+ppermute``).
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -51,17 +52,26 @@ import torch
 
 from acg_torch.config import HaloMethod, SolverOptions
 from acg_torch.errors import AcgError, Status
-from acg_torch.ops.blas1 import batched_dot
+from acg_torch.ops.blas1 import batched_dot, block_dot, combine, gram
+from acg_torch.parallel.deep import build_deep_device
 from acg_torch.parallel.halo import check_wire, on_device
 from acg_torch.parallel.mesh import make_mesh
-from acg_torch.parallel.sharded import (ShardedSystem, ShardVec,
-                                        resolve_local_fmt, sum_in_order)
+from acg_torch.parallel.sharded import (ShardedSystem, ShardStack,
+                                        ShardVec, resolve_local_fmt,
+                                        sum_in_order)
 from acg_torch.partition.graph import PartitionedSystem, partition_system
 from acg_torch.partition.partitioner import partition_graph
-from acg_torch.solvers.base import (SolveStats, conform_x0_batch,
+from acg_torch.solvers.base import (SolveStats, cg_flops_per_iter,
+                                    conform_x0_batch,
                                     kernel_disengagement_note, path_names)
-from acg_torch.solvers.cg import _deflate_x0, _finish
-from acg_torch.solvers.loops import cg_pipelined_while, cg_while
+from acg_torch.solvers.cg import (_cheb_leja_nodes, _deep_dispatches,
+                                  _deep_validate, _deflate_x0, _finish,
+                                  _host, _power_lmax, _sstep_certify,
+                                  _sstep_fallback, _sstep_fallback_stop,
+                                  _sstep_fallback_x0, _sstep_validate)
+from acg_torch.solvers.loops import (_GRAM_BAD, cg_pipelined_deep_while,
+                                     cg_pipelined_while, cg_sstep_while,
+                                     cg_while)
 from acg_torch.utils.timing import host_step
 
 
@@ -136,7 +146,8 @@ def _dist_fused_plan(ss: ShardedSystem):
 
 
 def _describe_path(ss: ShardedSystem, pipelined: bool = False,
-                   replace_every: int = 0, batch: int = 0) -> tuple:
+                   replace_every: int = 0, batch: int = 0,
+                   deep=None) -> tuple:
     """(operator_format, kernel, note): the local tier's loop kernel with
     the halo appended (``cuda-stencil-fused+rdma``), and the note naming a
     format the system's builder was forced to and a single-kernel
@@ -145,10 +156,15 @@ def _describe_path(ss: ShardedSystem, pipelined: bool = False,
     classic loop runs the fused SpMV, the pipelined loop the single-kernel
     iteration (``pipe``) unless ``replace_every`` or a (batch, n) solve
     disengages it (``spmv``), a batch the multi-RHS SpMV (``batched``); a
-    DIA loop on a one-vector SpMV names the kernel of the shards' plan."""
+    DIA loop on a one-vector SpMV names the kernel of the shards' plan.
+    ``deep`` (the s-step and deep-pipelined solvers' :class:`DeepDevice`)
+    names the loop's SpMV without the dot (``spmv``, or ``batched``) and
+    adds the deep ghost zones to the note: their depth and the rounds of
+    their exchange."""
     has_pipe = ss.local_fmt in ("stencil", "dia")
     engaged = pipelined and has_pipe and replace_every == 0 and not batch
     body = ("spmv" if not has_pipe else "batched" if batch
+            else "spmv" if deep is not None
             else "fused" if not pipelined else "pipe" if engaged
             else "spmv")
     if ss.local_fmt == "dia" and body in ("fused", "spmv"):
@@ -161,6 +177,10 @@ def _describe_path(ss: ShardedSystem, pipelined: bool = False,
                                      forced_fmt=ss.forced_fmt,
                                      stencil=ss.local_fmt == "stencil",
                                      batch=batch, has_pipe=has_pipe)
+    if deep is not None:
+        note = "; ".join(filter(None, (
+            f"deep ghost zones depth {deep.depth} ({deep.nrounds} "
+            "exchange rounds, interface and skin on ell_spmv)", note)))
     return name, f"{kernel}+{ss.method.value}", note
 
 
@@ -255,12 +275,123 @@ def _sync(devices) -> None:
             torch.cuda.synchronize(d)
 
 
-def _solve_dist(pipelined: bool, A, b, x0, options: SolverOptions,
-                stats: SolveStats | None, build_kw: dict):
-    """The driver of both solvers (``acg_tpu``'s ``_solve_dist``): the
-    refusals, the shards, the loop and the result."""
+def _shard_dot(dev0: torch.device):
+    """The distributed dot: per-shard partials (per system for a batch)
+    added in shard order on ``dev0``."""
+    def dot(a, c):
+        return sum_in_order([batched_dot(u, v) for u, v in zip(a, c)], dev0)
+
+    return dot
+
+
+def _seed_shifts_dist(matvec, dot, b, n: int, hdt) -> np.ndarray:
+    """The first block's (or the fill chain's) Newton shifts, ([B,] n)
+    on the host: the Leja-ordered Chebyshev nodes scaled by the power
+    iteration's estimate through the distributed operator, as
+    ``cg.py``'s ``_seed_shifts`` forms them on one device."""
+    lam = _host(_power_lmax(matvec, dot, b))
+    return (lam[..., None] * _cheb_leja_nodes(n).astype(hdt)).astype(hdt)
+
+
+def _sstep_block_dist(ss: ShardedSystem, deep, b, s: int, wire: str,
+                      dev0: torch.device):
+    """The s-step basis over shards (``acg_tpu``'s distributed
+    ``block_fn``, ``cg_dist.py:435-490``): ONE deep exchange of the
+    stacked (x, p) seeds, then on each shard, in the extended domain
+    [owned | deep ghosts], the replaced residual b - A x and the 2s - 1
+    Newton-shifted applications (:meth:`DeepDevice.ext_shifted`), with
+    no further exchange; the per-shard Gram of the owned rows added in
+    shard order (the block's ONE reduction).  ``b``'s deep ghosts are
+    exchanged once, here.  Each shard's extended basis is allocated once
+    and rewritten every block; the basis handed to the loop is its owned
+    part (a :class:`ShardStack` of views)."""
+    batched = b.dim() == 2
+    m = 2 * s + 1
+    b_ext = [torch.cat([bb, g], dim=-1)
+             for bb, g in zip(b, deep.exchange(ss, b, wire))]
+    Ve = [torch.empty((m,) + tuple(e.shape), dtype=e.dtype,
+                      device=e.device) for e in b_ext]
+    xe = [torch.empty_like(e) for e in b_ext]
+    V = ShardStack(v[..., :n] for v, n in zip(Ve, deep.nown))
+
+    def block_fn(x, p, shifts):
+        th = torch.from_numpy(np.ascontiguousarray(shifts)).to(dev0)
+        if batched:
+            th = th[:, None, :]
+        gh = deep.exchange(ss, [torch.stack([xi, pi]) for xi, pi in
+                                zip(x, p)], wire)
+        for i, n in enumerate(deep.nown):
+            v, e = Ve[i], xe[i]
+            e[..., :n].copy_(x[i])
+            e[..., n:].copy_(gh[i][0])
+            v[0][..., :n].copy_(p[i])
+            v[0][..., n:].copy_(gh[i][1])
+            deep.ext_shifted(ss, i, e, v[s + 1], minuend=b_ext[i])
+            for j in range(s):
+                deep.ext_shifted(ss, i, v[j], v[j + 1], th[..., j])
+            for j in range(s - 1):
+                deep.ext_shifted(ss, i, v[s + 1 + j], v[s + 2 + j],
+                                 th[..., j])
+        return V, sum_in_order([gram(t) for t in V.shards], dev0)
+
+    return block_fn
+
+
+def _combine_shards(c, V: ShardStack) -> ShardVec:
+    """The basis combination over shards: each shard's ``combine``."""
+    return ShardVec(combine(on_device(c, t.device), t) for t in V.shards)
+
+
+def _block_dot_shards(dev0: torch.device):
+    """The deep loop's dot block over shards: each shard's ``block_dot``
+    of its ring against its vector, added in shard order (the body's
+    ONE reduction)."""
+    def dots(Z: ShardStack, v):
+        return sum_in_order([block_dot(t, u) for t, u in zip(Z.shards, v)],
+                            dev0)
+
+    return dots
+
+
+def _deep_fill(ss: ShardedSystem, deep, shifts, wire: str):
+    """The deep-pipelined fill chain over shards (``acg_tpu``'s
+    ``cg_dist.py:843-856``): ONE depth-l exchange of z_0, then on each
+    shard the l shifted extended applications z_{j+1} = (A - sigma_j)
+    z_j in the skin, their owned rows written into the ring slots."""
+    batched = shifts.dim() == 2
+    l = deep.depth
+
+    def fill(zs):
+        gh = deep.exchange(ss, zs[0], wire)
+        for i, n in enumerate(deep.nown):
+            cur = torch.cat([zs[0][i], gh[i]], dim=-1)
+            nxt = torch.empty_like(cur)
+            sh = on_device(shifts, cur.device)
+            for j in range(l):
+                deep.ext_shifted(ss, i, cur, nxt,
+                                 sh[:, j, None] if batched else sh[j])
+                zs[j + 1][i].copy_(nxt[..., :n])
+                cur, nxt = nxt, cur
+
+    return fill
+
+
+def _solve_dist(kind: str, A, b, x0, options: SolverOptions,
+                stats: SolveStats | None, build_kw: dict,
+                atol2_floor=None):
+    """What every distributed solver runs (``acg_tpu``'s
+    ``_solve_dist``): ``kind`` "cg", "cg-pipelined", "cg-sstep" or
+    "cg-pipelined-deep"; the refusals, the shards (and for the last two
+    their deep ghost zones), the loop and the result.  ``atol2_floor``
+    (the s-step and deep fallbacks) is a squared absolute threshold, a
+    scalar or per system, folded into the atol term."""
     o = options
-    if o.segment_iters or o.monitor_every:
+    pipelined = kind in ("cg-pipelined", "cg-pipelined-deep")
+    if kind == "cg-sstep":
+        s = _sstep_validate(o)
+    elif kind == "cg-pipelined-deep":
+        l = _deep_validate(o)
+    elif o.segment_iters or o.monitor_every:
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        "segment_iters / monitor_every: not yet ported")
     if pipelined and (o.diffatol > 0 or o.diffrtol > 0):
@@ -277,6 +408,13 @@ def _solve_dist(pipelined: bool, A, b, x0, options: SolverOptions,
     # them before its program is traced
     method = (A.method if isinstance(A, ShardedSystem)
               else HaloMethod(build_kw.get("method", HaloMethod.PPERMUTE)))
+    if kind in ("cg-sstep", "cg-pipelined-deep") \
+            and method == HaloMethod.RDMA:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"{'s-step' if kind == 'cg-sstep' else 'deep-pipelined'}"
+                       " solves support the ppermute/allgather halo tiers "
+                       "(the rdma halo, a put+signal kernel, moves 1-D "
+                       "distance-1 packs, not the deep ghost exchange)")
     if batch and method == HaloMethod.RDMA:
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        "multi-RHS solves support the ppermute/allgather "
@@ -303,6 +441,8 @@ def _solve_dist(pipelined: bool, A, b, x0, options: SolverOptions,
     dev0 = ss.devices[0]
     vdt = getattr(torch, ss.vec_dtype)
     wire = o.halo_wire
+    deep = (build_deep_device(ss, s if kind == "cg-sstep" else l)
+            if kind in ("cg-sstep", "cg-pipelined-deep") else None)
     b_sh = ss.to_sharded(b)
     x0_sh = (ss.to_sharded(x0) if x0 is not None
              else ShardVec(torch.zeros_like(v) for v in b_sh))
@@ -310,18 +450,61 @@ def _solve_dist(pipelined: bool, A, b, x0, options: SolverOptions,
     def scalar(v):
         return torch.tensor(v, dtype=vdt, device=dev0)
 
-    def dot(a, c):
-        return sum_in_order([batched_dot(u, v) for u, v in zip(a, c)], dev0)
+    dot = _shard_dot(dev0)
 
     def matvec(v):
         return ss.matvec(v, wire)
 
-    stop2 = (scalar(o.residual_atol ** 2), scalar(o.residual_rtol ** 2))
+    atol2 = (o.residual_atol ** 2 if atol2_floor is None
+             else np.maximum(o.residual_atol ** 2, atol2_floor))
+    stop2 = (scalar(atol2), scalar(o.residual_rtol ** 2))
     on_pipe = ss.local_fmt in ("stencil", "dia")
     track_diff = o.diffatol > 0 or o.diffrtol > 0
+    st = stats if stats is not None else SolveStats()
+    certify = o.residual_atol > 0 or o.residual_rtol > 0
+    sstep = 0
+    ndisp = why = None
     _sync(ss.devices)
     t0 = time.perf_counter()
-    if pipelined:
+    if kind == "cg-sstep":
+        sstep = s
+        hdt = np.dtype(ss.vec_dtype)
+        r0 = b_sh - matvec(x0_sh)
+        rr0 = np.atleast_1d(_host(dot(r0, r0)))
+        shifts0 = _seed_shifts_dist(matvec, dot, b_sh, s, hdt).reshape(
+            batch or 1, s)
+        hstop2 = (hdt.type(o.residual_atol ** 2),
+                  hdt.type(o.residual_rtol ** 2))
+        x, k, _rr, flag, hist, _ = cg_sstep_while(
+            _sstep_block_dist(ss, deep, b_sh, s, wire, dev0),
+            _combine_shards, b_sh, x0_sh, r0, rr0, shifts0, hstop2, s,
+            o.maxits, stats=st)
+        # every exit certified by a fresh |b - A x|² through the
+        # ordinary distributed operator
+        rT = b_sh - matvec(x)
+        rr = np.atleast_1d(_host(dot(rT, rT)))
+        flag, hist = _sstep_certify(rr, k, flag, hist, hstop2, rr0)
+        if not batch:
+            k, rr, flag, rr0, hist = (int(k[0]), rr[0], int(flag[0]),
+                                      rr0[0], hist[0])
+        dxx = None
+    elif kind == "cg-pipelined-deep":
+        shifts = torch.from_numpy(_seed_shifts_dist(
+            matvec, dot, b_sh, l, np.dtype(ss.vec_dtype))).to(dev0)
+        cert = (lambda v: ss.matvec(v, "f32")) if wire != "f32" else None
+        fill = _deep_fill(ss, deep, shifts, wire)
+        dots = _block_dot_shards(dev0)
+        (x, k, rr, flag, rr0, hist, kall, ndisp,
+         why) = _deep_dispatches(
+            lambda xx, *restart: cg_pipelined_deep_while(
+                matvec, dots, _combine_shards, dot, b_sh, xx, stop2, l,
+                shifts, o.maxits, o.check_every, o.replace_every, certify,
+                *restart, guard=o.guard_nonfinite, fill=fill,
+                cert_matvec=cert), x0_sh, bool(batch), o.maxits)
+        if not batch:
+            flag = int(flag)
+        dxx = None
+    elif pipelined:
         def dot2(a1, b1, a2, b2):
             return dot(a1, b1), dot(a2, b2)
 
@@ -331,8 +514,7 @@ def _solve_dist(pipelined: bool, A, b, x0, options: SolverOptions,
         x, k, rr, flag, rr0, hist = cg_pipelined_while(
             matvec, dot2, b_sh, x0_sh, stop2, maxits=o.maxits,
             check_every=o.check_every, replace_every=o.replace_every,
-            certify=o.residual_atol > 0 or o.residual_rtol > 0,
-            iter_step=iter_step, guard=o.guard_nonfinite)
+            certify=certify, iter_step=iter_step, guard=o.guard_nonfinite)
         dxx = None
     else:
         diffstop = o.diffatol ** 2
@@ -358,13 +540,41 @@ def _solve_dist(pipelined: bool, A, b, x0, options: SolverOptions,
         nnz = ss.nnz
 
     x_global = torch.from_numpy(ss.from_sharded(x))
+    if why is not None or (kind == "cg-sstep"
+                           and np.any(np.atleast_1d(flag) == _GRAM_BAD)):
+        # classic distributed CG re-solves from the last good iterate,
+        # under each system's own criterion (and re-diagnoses a truly
+        # indefinite operator); the deep fallback at the full-width wire,
+        # since a compressed exchange may be why the basis drifted
+        kdone = int(np.max(_host(k))) if kind == "cg-sstep" else kall
+        rr_h, rr0_h = _host(rr), _host(rr0)
+        x_part = _sstep_fallback_x0(x_global.numpy(), x0, rr_h, rr0_h)
+        o2 = dataclasses.replace(
+            o, maxits=max(o.maxits - kdone, 0),
+            **(dict(sstep=0) if kind == "cg-sstep"
+               else dict(pipeline_depth=1, halo_wire="f32")))
+        return _sstep_fallback(
+            lambda: _solve_dist("cg", ss, b, x_part, o2, st, {},
+                                atol2_floor=_sstep_fallback_stop(o, rr0_h)),
+            kdone, _host(k) if batch else None, sstep or l,
+            why or "indefinite/non-finite Gram matrix",
+            spent_flops=kdone * cg_flops_per_iter(
+                ss.nnz, ss.nrows, pipelined=kind != "cg-sstep",
+                sstep=sstep),
+            label=None if kind == "cg-sstep"
+            else f"cg-pipelined-deep(l={l})")
+    name, kernel, note = _describe_path(
+        ss, pipelined and deep is None,
+        o.replace_every if pipelined else 0, batch, deep)
+    if ndisp is not None:
+        note = (f"deep pipeline depth {l}, {ndisp} dispatch(es), "
+                f"wire={wire}; " + note)
     return _finish(_Meta, x_global, k, rr, flag, rr0, o, tsolve,
                    np.linalg.norm(b, axis=-1),
-                   dxx=dxx if track_diff else None, stats=stats,
-                   path=_describe_path(ss, pipelined,
-                                       o.replace_every if pipelined else 0,
-                                       batch),
-                   hist=hist, pipelined=pipelined)
+                   dxx=dxx if track_diff else None, stats=st,
+                   path=(name, kernel, note), hist=hist,
+                   pipelined=pipelined, sstep=sstep,
+                   solver=kind if deep is not None else None)
 
 
 def cg_dist(A, b, x0=None, options: SolverOptions = SolverOptions(),
@@ -381,7 +591,7 @@ def cg_dist(A, b, x0=None, options: SolverOptions = SolverOptions(),
     breakdown or non-convergence), and ``ERR_NOT_SUPPORTED`` for a batch
     or a compressed ``halo_wire`` under the rdma halo and for what is not
     yet ported here: ``segment_iters`` and ``monitor_every``."""
-    return _solve_dist(False, A, b, x0, options, stats, build_kw)
+    return _solve_dist("cg", A, b, x0, options, stats, build_kw)
 
 
 def cg_pipelined_dist(A, b, x0=None,
@@ -396,7 +606,52 @@ def cg_pipelined_dist(A, b, x0=None,
     ``b`` or ELL and sgell shards run the open-coded body.  Arguments,
     results and errors as :func:`cg_dist`; residual criteria only (the
     diff criteria raise ``ERR_NOT_SUPPORTED``)."""
-    return _solve_dist(True, A, b, x0, options, stats, build_kw)
+    return _solve_dist("cg-pipelined", A, b, x0, options, stats, build_kw)
+
+
+def cg_sstep_dist(A, b, x0=None, options: SolverOptions = SolverOptions(),
+                  stats: SolveStats | None = None, recycle=None,
+                  **build_kw):
+    """Distributed s-step CG (``acg_tpu.solvers.cg_dist.cg_sstep_dist``):
+    per ``options.sstep`` iterations ONE deep exchange (the stacked x and
+    p seeds, depth s) and ONE reduction (the shards' Gram matrices added
+    in shard order); the 2s basis applications run on each shard in its
+    deep ghost zones (``acg_torch/parallel/deep.py``, built once and
+    cached on the system), through the local tier's SpMV kernel without
+    the dot and ``ell_spmv`` on the deep interface and the skin.  The
+    loop is :func:`acg_torch.solvers.loops.cg_sstep_while`; every exit is
+    certified through the ordinary distributed operator, and an
+    indefinite or non-finite Gram falls back to classic :func:`cg_dist`
+    from the last good iterate under each system's own criterion (said in
+    ``kernel_note``).  The rdma halo raises ``ERR_NOT_SUPPORTED``; so
+    does ``recycle`` (not yet ported).  Arguments, results and other
+    errors as :func:`cg_dist`; residual criteria only."""
+    if recycle is not None:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       "recycle (a RecycleState): not yet ported")
+    return _solve_dist("cg-sstep", A, b, x0, options, stats, build_kw)
+
+
+def cg_pipelined_deep_dist(A, b, x0=None,
+                           options: SolverOptions = SolverOptions(),
+                           stats: SolveStats | None = None, **build_kw):
+    """Distributed depth-l pipelined CG, l = ``options.pipeline_depth``
+    (``acg_tpu.solvers.cg_dist.cg_pipelined_deep_dist``): one halo and
+    ONE reduction a body (the shards' (2l+1)-dot partials added in shard
+    order), l reductions in flight.  Each dispatch's fill chain is one
+    depth-l deep exchange feeding l extended applications in the skin;
+    the entry residual and the certifier run the distributed operator at
+    the full-width wire when ``options.halo_wire`` compresses the loop's.
+    The host re-dispatches as :func:`acg_torch.solvers.cg.cg_pipelined_deep`
+    does, and ``_DEEP_MAX_BAD`` bad dispatches fall back to classic
+    :func:`cg_dist` at the full-width wire.  Depth 1 IS
+    :func:`cg_pipelined_dist`.  The rdma halo raises
+    ``ERR_NOT_SUPPORTED``.  Arguments, results and other errors as
+    :func:`cg_dist`; residual criteria only."""
+    if options.pipeline_depth <= 1:
+        return cg_pipelined_dist(A, b, x0, options, stats, **build_kw)
+    return _solve_dist("cg-pipelined-deep", A, b, x0, options, stats,
+                       build_kw)
 
 
 def cg_recycled_dist(A, b, x0=None,

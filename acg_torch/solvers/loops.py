@@ -575,7 +575,9 @@ def cg_sstep_while(block_fn, combine_fn, b, x0, p0, rr0, shifts0, stop2,
     shifts (its Ritz values, Leja-ordered) when they are finite and
     positive.
 
-    ``b``/``x0``/``p0`` are device tensors, (n,) or (B, n); ``rr0`` and
+    ``b``/``x0``/``p0`` are device tensors, (n,) or (B, n), or per-shard
+    vectors (``acg_torch.parallel.sharded.ShardVec``, with ``V`` then a
+    ``ShardStack`` and ``combine_fn`` applied shard by shard); ``rr0`` and
     ``shifts0`` host arrays ((B,) / (B, s), B = 1 for one system) in the
     vector dtype, ``stop2`` the host (atol², rtol²).  Returns ``(x, kiter,
     rr, flag, hist, shifts)`` with x on the device and the rest host
@@ -692,11 +694,14 @@ def cg_sstep_while(block_fn, combine_fn, b, x0, p0, rr0, shifts0, stop2,
                 cdev = torch.from_numpy(np.stack([xc[moved], pc[moved]],
                                                  axis=1)).to(x.device)
             for j, i in enumerate(moved):
-                xi, pi = (x[i], p[i]) if batched else (x, p)
+                # system i of a batch through ``select``, which shard
+                # vectors and basis stacks apply shard by shard
+                xi, pi = ((x.select(0, i), p.select(0, i)) if batched
+                          else (x, p))
                 # both combinations from one read of the basis
-                xp = combine_fn(cdev[j], V[:, i] if batched else V)
-                xi.add_(xp[0])
-                pi.copy_(xp[1])
+                xp = combine_fn(cdev[j], V.select(1, i) if batched else V)
+                xi.add_(xp.select(0, 0))
+                pi.copy_(xp.select(0, 1))
             # on-the-fly Ritz refinement: a complete block's (alpha, beta)
             # is a Lanczos tridiagonal whose eigenvalues shift the next block
             a = np.stack(alphas, axis=-1)
@@ -730,12 +735,23 @@ def cg_sstep_while(block_fn, combine_fn, b, x0, p0, rr0, shifts0, stop2,
 # depth-l pipelined CG
 
 
+def _window(b, w: int):
+    """w zero vectors shaped like ``b``, as one stack: a (w, [B,] n)
+    tensor, or for per-shard vectors their ``window`` (one stack a
+    shard)."""
+    if isinstance(b, torch.Tensor):
+        return torch.zeros((w,) + tuple(b.shape), dtype=b.dtype,
+                           device=b.device)
+    return b.window(w)
+
+
 def cg_pipelined_deep_while(matvec, dots, combine_fn, dot, b, x0, stop2,
                             depth: int, shifts, maxits: int,
                             check_every: int = 1, replace_every: int = 0,
                             certify: bool = True, k_start: int = 0,
                             rr0_in=None, flags_in=None, hist_in=None,
-                            ksys_in=None, guard: bool = False):
+                            ksys_in=None, guard: bool = False, fill=None,
+                            cert_matvec=None):
     """Depth-l pipelined CG, l reductions in flight: ONE pipeline segment
     (dispatch) of the port of ``acg_tpu.solvers.loops``
     ``cg_pipelined_deep_while`` (p(l)-CG, Cornelis/Cools/Vanroose
@@ -775,6 +791,18 @@ def cg_pipelined_deep_while(matvec, dots, combine_fn, dot, b, x0, stop2,
     the system with ``_BREAKDOWN`` and no commit; ``guard`` flags a
     non-finite estimate or pivot ``_FAULT`` at the check points.
 
+    ``fill(zs)`` writes the fill chain z_{j+1} = (A - sigma_j) z_j into
+    ``zs[1:]`` (the l ring slots after ``zs[0]`` = z_0); None runs it
+    through ``matvec``, and the distributed caller passes the deep-ghost
+    chain instead (one depth-l exchange feeding l extended SpMVs,
+    ``acg_torch/parallel/deep.py``).  ``cert_matvec`` is the operator of
+    the entry residual and of the certifier (None: ``matvec``); the
+    distributed caller passes the full-width exchange there when the
+    loop's halo runs a compressed wire.  ``b`` and ``x0`` may be per-shard
+    vectors (``ShardVec``), the rings then one stack a shard
+    (``ShardStack``), which ``dots`` and ``combine_fn`` read shard by
+    shard.
+
     ``shifts`` ([B,] l) is a device tensor.  Returns ``(x, kret, rr, flag,
     rr0, hist, k, more, drift)``: ``rr`` the certified |r|² (or the last
     estimate without ``certify``), ``k`` the host update count to pass
@@ -794,7 +822,8 @@ def cg_pipelined_deep_while(matvec, dots, combine_fn, dot, b, x0, stop2,
     atol2, rtol2 = stop2
     k0 = int(k_start)
 
-    r = b - matvec(x0)
+    cmv = matvec if cert_matvec is None else cert_matvec
+    r = b - cmv(x0)
     eta2 = dot(r, r)
     rr0 = eta2 if rr0_in is None else torch.where(rr0_in > 0, rr0_in, eta2)
     thresh2 = torch.maximum(atol2, rtol2 * rr0)
@@ -816,11 +845,15 @@ def cg_pipelined_deep_while(matvec, dots, combine_fn, dot, b, x0, stop2,
     # the z window, a ring of 2l+1 slots: z_{-l}..z_l after the fill
     # chain z_{j+1} = (A - sigma_j) z_j; z_{<0} are zero rows, so their
     # dots come out exactly 0 (the band mask, for free)
-    Z = torch.zeros((w,) + tuple(b.shape), dtype=dt, device=dev)
+    if fill is None:
+        def fill(zs):
+            for j in range(l):
+                torch.addcmul(matvec(zs[j]), bc(shifts[..., j]), zs[j],
+                              value=-1, out=zs[j + 1])
+
+    Z = _window(b, w)
     torch.mul(r, bc(inv_eta), out=Z[l])
-    for j in range(l):
-        torch.addcmul(matvec(Z[l + j]), bc(shifts[..., j]), Z[l + j],
-                      value=-1, out=Z[l + j + 1])
+    fill([Z[l + j] for j in range(l + 1)])
     # the first l dot blocks: D_j = (z_{j+1-2l+a}, z_{j+1}), a = 0..2l
     dbuf = []
     for j in range(l):
@@ -830,7 +863,7 @@ def cg_pipelined_deep_while(matvec, dots, combine_fn, dot, b, x0, stop2,
         dbuf.append(torch.cat([pad, Dz[..., : j + l + 2]], dim=-1))
     hz = 0                                       # the ring's oldest slot
     # the v window, a ring of the 2l vectors the bodies read: v_0 = z_0
-    Vr = torch.zeros((w - 1,) + tuple(b.shape), dtype=dt, device=dev)
+    Vr = _window(b, w - 1)
     Vr[w - 2].copy_(Z[l])
     hv = 0
     sshape = tuple(eta2.shape)
@@ -1006,14 +1039,14 @@ def cg_pipelined_deep_while(matvec, dots, combine_fn, dot, b, x0, stop2,
     if certify:
         # TRUE-residual certification, once a dispatch: only a fresh
         # |b - A x|² below the threshold flags _CONVERGED
-        rt = b - matvec(x)
+        rt = b - cmv(x)
         rr_true = dot(rt, rt)
         met_t = met(rr_true)
         flag = torch.where(touched & met_t, conv_c, flag)
         drift = touched & est & ~met_t
         rr_ret = torch.where(touched, rr_true, rr_est)
         if batched:
-            rows = torch.arange(b.shape[0], device=dev)
+            rows = torch.arange(ksys.shape[0], device=dev)
             kk = ksys.long()
             hist[rows, kk] = torch.where(touched, rr_true, hist[rows, kk])
         else:

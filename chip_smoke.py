@@ -176,24 +176,38 @@ raises and the script exits non-zero:
               iteration), dist-pipelined-dia-bf16 (1000 fixed iterations
               on the bf16 DIA shards, cg_pipelined_iter once a shard an
               iteration, the true residual in an f32 drift window of the
-              classic dist-dia-bf16's); (B, n) solves, B = 8, the batched
-              phases' systems: dist-batched-stencil (classic, ppermute)
-              and dist-batched-pipelined-stencil (allgather), per-system
-              counts within 1 of the single-device batched phases',
-              every system certified, stencil_spmv_batched once a shard
-              per SpMV and the halo once per SpMV for all 8 systems;
+              classic dist-dia-bf16's); (B, n) solves, B = 4, the first
+              four of the batched phases' systems: dist-batched-stencil
+              (classic, ppermute) and dist-batched-pipelined-stencil
+              (allgather), per-system counts within 1 of the
+              single-device batched phases', every system certified,
+              stencil_spmv_batched once a shard per SpMV and the halo
+              once per SpMV for all 4 systems;
               dist-wire (the bf16 DIA shards through ppermute under the
               bf16 and int16-delta wires, classic and pipelined with
               replace_every=10, certified below 1e-2 and 1e-3, pipelined
               under bf16 certified or reported not converged; the
               ghosts of both halos under each wire bit-equal to the same
-              exchange on the CPU; each wire's message bytes); the
-              kernels phase also holds the pipelined-iteration kernels
-              on a shard and the multi-RHS kernels on a shard at B = 8
-              against their plain versions;
+              exchange on the CPU; each wire's message bytes);
+              dist-sstep-stencil (cg_sstep_dist, s = 4, ppermute, rtol
+              1e-8: no fallback, within s + 2 iterations of
+              dist-stencil's, certified within 10 x rtol, one deep
+              exchange and one Gram sum a block, stencil_spmv without
+              the dot and ell_spmv on the deep interface and skin 2s
+              times a block a shard, the first block's basis bit-equal
+              under allgather, the deep layer's host seconds) and
+              dist-deep-stencil (cg_pipelined_deep_dist, depth 2,
+              replace_every 50: within 1 iteration of deep-stencil's,
+              one depth-2 exchange a dispatch, certified); the kernels
+              phase also holds the pipelined-iteration kernels on a
+              shard, the multi-RHS kernels on a shard at B = 8,
+              stencil_spmv on a shard without the dot and ell_spmv on a
+              shard's deep interface and skin at depths 4 and 2 against
+              their plain versions;
 15. profile   for the operators of phases 3, 4, 6, batched-stencil,
               sstep-stencil, deep-stencil, fem-sgell, fem-ell, dia-100m,
-              dist-stencil-rdma and dist-pipelined-stencil-rdma: 50
+              dist-stencil-rdma, dist-pipelined-stencil-rdma and
+              dist-sstep-stencil: 50
               iterations under torch.profiler (device time by kernel,
               device idle share of the solve's wall time, kernels per
               iteration), and µs/iter with the host reading the loop flag
@@ -281,8 +295,11 @@ def main(argv=None) -> int:
     # right-hand sides on the sgell tier
     fem_points, cli_fem_points, tridiag_rows, fem_nrhs = (
         1_000_000, 50_000, 1_000_000, 4)
-    # the distributed path: shards of the 256^3 cell on the one card
-    nparts = 4
+    # the distributed path: shards of the 256^3 cell on the one card, and
+    # the systems of its batched phases (the first 4 of the batched
+    # phases' 8: B = 8 took 38 s of the run's time budget there), the
+    # width the kernels phase holds the shards' multi-RHS kernels at
+    nparts, dist_nrhs = 4, 4
 
     # (name, run, the earlier phases whose results it reads or is held
     # against)
@@ -291,7 +308,7 @@ def main(argv=None) -> int:
         ("p3d-464", lambda: _p3d_big_setup(big_grid, ctx), ()),
         ("p2d-10k", lambda: _p2d_setup(p2d_edge, ctx), ()),
         ("dist-setup", lambda: _dist_setup(grid, nparts, ctx), ()),
-        ("kernels", lambda: _kernels_phase(grid, nrhs, ctx),
+        ("kernels", lambda: _kernels_phase(grid, nrhs, dist_nrhs, ctx),
          ("fem3d-1m", "p3d-464", "p2d-10k", "dist-setup")),
         ("stencil", lambda: _stencil_solve(grid, ctx), ()),
         ("dia-bf16-128",
@@ -367,12 +384,18 @@ def main(argv=None) -> int:
         ("dist-pipelined-dia-bf16",
          lambda: _dist_pipelined_dia(bench_iters, ctx),
          ("dist-dia-bf16", "pipelined-dia-bf16")),
-        ("dist-batched-stencil", lambda: _dist_batched_stencil(nrhs, ctx),
+        ("dist-batched-stencil",
+         lambda: _dist_batched_stencil(dist_nrhs, ctx),
          ("dist-setup", "batched-stencil")),
         ("dist-batched-pipelined-stencil",
-         lambda: _dist_batched_stencil(nrhs, ctx, pipelined=True),
+         lambda: _dist_batched_stencil(dist_nrhs, ctx, pipelined=True),
          ("dist-setup", "batched-pipelined-stencil")),
         ("dist-wire", lambda: _dist_wire_phase(ctx), ("dist-setup",)),
+        ("dist-sstep-stencil", lambda: _dist_sstep_stencil(ctx),
+         ("dist-setup", "stencil", "dist-stencil")),
+        ("dist-deep-stencil", lambda: _dist_deep_stencil(ctx),
+         ("dist-setup", "stencil", "pipelined-stencil", "deep-stencil",
+          "dist-stencil")),
         ("dia-100m", lambda: _dia_100m_solve(ctx, "float32"),
          ("p3d-464",)),
         ("dia-100m-f64", lambda: _dia_100m_solve(ctx, "float64"),
@@ -714,7 +737,7 @@ def _csr_of(dev, dtype):
         return torch.sparse_csr_tensor(crow, cols, vals, size=(n, n))
 
 
-def _kernels_phase(G: int, nrhs: int, ctx):
+def _kernels_phase(G: int, nrhs: int, dist_nrhs: int, ctx):
     import torch
 
     from acg_torch.ops.dia import DeviceDia
@@ -813,8 +836,9 @@ def _kernels_phase(G: int, nrhs: int, ctx):
     _batched_kernels(D, G, nrhs, ctx)
     _unstructured_kernels(ctx)
     _hbm_kernels(D, ctx)
-    _dist_kernels(nrhs, ctx)
+    _dist_kernels(dist_nrhs, ctx)
     return {"grid": [G, G, G], "n": n, "nrhs": nrhs,
+            "dist_nrhs": dist_nrhs,
             "configurations": len(ctx["rows"]),
             "launches_while_checking": _counts()}
 
@@ -1757,6 +1781,7 @@ def _deep_stencil(ctx):
     if not ok:
         raise SystemExit(f"error: deep-stencil solve failed: {rep}")
     ctx.setdefault("us_per_iter", {})["deep-stencil"] = rep["us_per_iter"]
+    ctx.setdefault("iterations", {})["deep-stencil"] = res.niterations
     ctx["profile_cases"] = ctx.get("profile_cases", []) + [
         ("deep-stencil-f64", op, b,
          _with_options(cg_pipelined_deep, pipeline_depth=l))]
@@ -1962,14 +1987,16 @@ def _fem_setup(points: int, ctx):
                     "sliced": _layout(op64.sliced, 8, "ell_spmv")}}
 
 
-def _layout(op, vec_bytes: int, kernel: str) -> dict:
+def _layout(op, vec_bytes: int, kernel: str,
+            xcols: int | None = None) -> dict:
     """What a sliced operator streams (values, columns, slice offsets and
     row order) against the work's bytes: stored entries x (value + 4)
-    plus x and y at ``vec_bytes`` an entry; with the unroll the library
-    of ``kernel`` was built with."""
+    plus x (its ``xcols`` columns read, ``_work_bytes``) and y at
+    ``vec_bytes`` an entry; with the unroll the library of ``kernel``
+    was built with."""
     from acg_torch.ops import sliced
 
-    work = _work_bytes(op, vec_bytes)
+    work = _work_bytes(op, vec_bytes, xcols)
     return {"stored_entries": op.nnz, "layout_fill": op.fill,
             "sigma": op.sigma,
             "unroll": sliced.unroll(kernel), "slices": op.nslices,
@@ -1978,11 +2005,14 @@ def _layout(op, vec_bytes: int, kernel: str) -> dict:
             / (op.nnz * (op.vals.element_size() + 4))}
 
 
-def _work_bytes(op, vec_bytes: int) -> int:
+def _work_bytes(op, vec_bytes: int, xcols: int | None = None) -> int:
     """The least bytes a sliced product moves: each stored value and int32
-    column once, x (ncols) read once and y (nrows) written once."""
+    column once, x read once and y (nrows) written once.  x counts its
+    ``xcols`` columns that hold an entry (default all ``ncols``: a
+    rectangular operator may read only a few of its columns)."""
+    xcols = op.ncols if xcols is None else xcols
     return (op.nnz * (op.vals.element_size() + 4)
-            + (op.ncols + op.nrows) * vec_bytes)
+            + (xcols + op.nrows) * vec_bytes)
 
 
 def _torch_csr(A, dtype):
@@ -2904,29 +2934,43 @@ def _dist_kernels(nrhs: int, ctx):
               (1, 1, 2)):
         w[(0, 0) + c] = -1.0
 
-    _stencil_row(spec, x, True, "matrix-free/float64 256^3/4 shard",
-                 lambda: torch.nn.functional.conv3d(
-                     x[:n].view(1, 1, *spec.grid), w, padding=1), ctx)
+    for with_dot in (True, False):
+        _stencil_row(spec, x, with_dot, "matrix-free/float64 256^3/4 shard",
+                     lambda: torch.nn.functional.conv3d(
+                         x[:n].view(1, 1, *spec.grid), w, padding=1), ctx)
     # the interface operator of shard 0: its border rows over its ghost
     # slots
     _iface_check(ss, 0, "bf16/f64 interface 256^3/4", ctx)
+    # the deep ghost zones' operators of shard 0 at the depths of the
+    # distributed s-step (4) and deep-pipelined (2) phases: the deep
+    # interface (border rows x deep ghost slots) and the skin
+    # (ghost-interior rows x [owned | deep ghosts])
+    for depth in (4, 2):
+        dd, _secs = _deep_layer(ctx, ss, depth)
+        for which in ("interface", "skin"):
+            _deep_ell_check(dd, 0, which, ctx)
     # shard 0's DIA bands, bf16 at f32 vectors, with the dot
     dop = ss_dia.local_ops[0]
     xf = torch.randn(dop.nrows_padded, generator=gen, device="cuda")
 
-    def plain_dia():
-        y = dia_matvec(dop.bands, dop.offsets, xf, dop.scales)
-        return y, torch.dot(xf, y)
-
     D_, nd = len(dop.offsets), dop.nrows_padded
     csr32 = _csr_of(dop, torch.float32)
-    _check_kernel({"name": "dia_spmv", "tier": "bf16/f32 256^3/4 shard",
-                   "with_dot": True, "plan": dop.kind},
-                  lambda: dia_spmv(dop.bands, dop.scales, dop.offsets_t, xf,
-                                   with_dot=True, fixed=dop.fixed),
-                  plain_dia, xf, ctx,
-                  D_ * nd * 2 + 2 * nd * 4, 2 * D_ * nd + 2 * nd,
-                  lambda: csr32 @ xf)
+    # with the dot (classic CG's fused step) and without (the distributed
+    # s-step and deep-pipelined bases)
+    for wd in (True, False):
+        def plain_dia(wd=wd):
+            y = dia_matvec(dop.bands, dop.offsets, xf, dop.scales)
+            return (y, torch.dot(xf, y)) if wd else y
+
+        _check_kernel({"name": "dia_spmv", "tier": "bf16/f32 256^3/4 shard",
+                       "with_dot": wd, "plan": dop.kind},
+                      lambda wd=wd: dia_spmv(dop.bands, dop.scales,
+                                             dop.offsets_t, xf, with_dot=wd,
+                                             fixed=dop.fixed),
+                      plain_dia, xf, ctx,
+                      D_ * nd * 2 + 2 * nd * 4,
+                      2 * D_ * nd + (2 * nd if wd else 0),
+                      lambda: csr32 @ xf)
     # the shards' pipelined iterations (the distributed pipelined loop's
     # kernels) and multi-RHS SpMVs at B = nrhs (the distributed batched
     # loops'), f64 stencil and bf16/f32 DIA
@@ -3063,23 +3107,37 @@ def _iface_check(ss, i: int, tier: str, ctx):
     on the same rows' ELL rectangle on the card (``_ell_check``'s
     tolerances) and bit for bit against ``sliced_matvec``, timed beside
     cuSPARSE CSR on the same rows."""
+    import torch
+
+    from acg_torch.parallel.sharded import border_rows
+
+    p = ss.ps.parts[i]
+    op, _ = ss.iface[i]
+    _rect_ell_check(op, border_rows(p.A_iface)[1],
+                    getattr(torch, ss.vec_dtype), tier,
+                    {"shard": i, "ghosts": p.nghost}, 8 + i, ctx)
+
+
+def _rect_ell_check(op, B, vdt, tier: str, label: dict, seed: int, ctx):
+    """``ell_spmv`` on a rectangular sliced operator ``op`` made of the
+    rows of the host CSR ``B``: against ``ell_matvec`` on B's ELL
+    rectangle (``_ell_check``'s tolerances) and bit for bit against
+    ``sliced_matvec``, timed beside cuSPARSE CSR on B.  Its bound reads
+    x only at the columns that hold an entry (``columns_read``): the
+    deep skin reads a few of its [owned | deep ghosts] columns, the deep
+    interface only its distance-1 ghosts."""
     import numpy as np
     import torch
 
     from acg_torch.ops.sliced import sliced_matvec
     from acg_torch.ops.spmv import ell_matvec, ell_spmv
-    from acg_torch.parallel.sharded import border_rows
     from acg_torch.sparse.ell import EllMatrix
 
-    p = ss.ps.parts[i]
-    op, _ = ss.iface[i]
-    vdt = getattr(torch, ss.vec_dtype)
-    m = p.nghost
-    gh = _padded_x(m, m, vdt, 8 + i).to(op.device)
-    B = border_rows(p.A_iface)[1]
+    m = op.ncols
+    gh = _padded_x(m, m, vdt, seed).to(op.device)
     lib = _torch_csr(B, vdt)
     E = EllMatrix.from_csr(B, row_align=1)
-    ivals = torch.from_numpy(E.vals.astype(np.dtype(ss.vec_dtype))).to(
+    ivals = torch.from_numpy(E.vals.astype(str(vdt)[6:])).to(
         op.vals.dtype).to(op.device)
     icols = torch.from_numpy(E.colidx.astype(np.int32)).to(op.device)
 
@@ -3089,15 +3147,52 @@ def _iface_check(ss, i: int, tier: str, ctx):
         return row["bits_equal_sliced_matvec"]
 
     word = gh.element_size()
+    xcols = int(np.unique(B.colidx[:B.rowptr[-1]]).size)
     _check_kernel({"name": "ell_spmv", "tier": tier, "with_dot": None,
-                   "shard": i, "rows": op.nrows, "ghosts": m,
+                   **label, "rows": op.nrows, "columns": m,
+                   "columns_read": xcols,
                    "width": E.width, "values": str(op.vals.dtype)[6:],
-                   **_layout(op, word, "ell_spmv")},
+                   **_layout(op, word, "ell_spmv", xcols)},
                   lambda: ell_spmv(op, gh),
                   lambda: ell_matvec(ivals, icols, gh), gh, ctx,
-                  _work_bytes(op, word), 2 * op.nnz, lambda: lib @ gh,
+                  _work_bytes(op, word, xcols), 2 * op.nnz,
+                  lambda: lib @ gh,
                   extra=bits,
                   tol=(1e-5 if vdt == torch.float32 else 1e-13, 0.0, None))
+
+
+def _deep_layer(ctx, ss, depth: int):
+    """(the deep ghost zones of the distributed cell's shards at
+    ``depth``, the host seconds of their build): built once on the shards
+    (``build_deep_device`` caches them, for every halo of the shards)."""
+    from acg_torch.parallel.deep import build_deep_device
+
+    secs = ctx["dist"].setdefault("deep_seconds", {})
+    t = {}
+    dd = build_deep_device(ss, depth, timings=t)
+    if t:
+        secs[depth] = t
+    return dd, secs[depth]
+
+
+def _deep_ell_check(dd, i: int, which: str, ctx):
+    """``ell_spmv`` on shard ``i``'s deep ``which`` operator ("interface"
+    or "skin") at the layer's depth: against its plain version on the
+    same rows' ELL rectangle and bit for bit against ``sliced_matvec``,
+    timed beside cuSPARSE CSR on the same rows (``_iface_check``'s
+    protocol)."""
+    import torch
+
+    from acg_torch.parallel.sharded import border_rows
+
+    op, _rows = (dd.iface if which == "interface" else dd.skin)[i]
+    M = (dd.host.iface if which == "interface" else dd.host.skin)[i]
+    vals = {torch.bfloat16: "bf16", torch.float32: "f32",
+            torch.float64: "f64"}[op.vals.dtype]
+    _rect_ell_check(op, border_rows(M)[1], torch.float64,
+                    f"{vals}/f64 deep {which} d{dd.depth} 256^3/4",
+                    {"shard": i, "depth": dd.depth,
+                     "deep_ghosts": dd.nghost[i]}, 20 + i, ctx)
 
 
 def _poisson7_residual(G: int, x, b) -> float:
@@ -3526,7 +3621,8 @@ def _dist_pipelined_dia(iters: int, ctx):
 
 def _dist_batched_stencil(nrhs: int, ctx, pipelined: bool = False):
     """A (B, n) solve on the 256^3/4 stencil shards, B = ``nrhs`` (the
-    batched phases' 8 manufactured systems), rtol 1e-8: classic through
+    first ``nrhs`` of the batched phases' manufactured systems), rtol
+    1e-8: classic through
     ppermute (cg_dist), pipelined through allgather (cg_pipelined_dist,
     the open-coded batched body).  Each system's count within 1 of the
     single-device batched-stencil / batched-pipelined-stencil phase's,
@@ -3546,6 +3642,7 @@ def _dist_batched_stencil(nrhs: int, ctx, pipelined: bool = False):
     solve = cg_pipelined_dist if pipelined else cg_dist
     ss = ctx["dist"]["ss"].with_halo(method)
     _, b, xstar = ctx["batched_case"]
+    b, xstar = b[:nrhs], xstar[:nrhs]
     rtol = 1e-8
     solve(ss, b, options=SolverOptions(maxits=20, residual_rtol=0.0))
     calls = _counted_exchange(ss)
@@ -3559,7 +3656,7 @@ def _dist_batched_stencil(nrhs: int, ctx, pipelined: bool = False):
     rep = _solve_report(res, launches)
     its, P = res.niterations, ss.nparts
     single = np.asarray(ctx["batched_pipelined_counts" if pipelined
-                            else "batched_counts"])
+                            else "batched_counts"])[:nrhs]
     counts = np.asarray(res.iterations_per_system)
     base = "batched-pipelined-stencil" if pipelined else "batched-stencil"
     rep.update(certified_relative_residual=cert, rtol=rtol,
@@ -3687,6 +3784,191 @@ def _dist_wire_phase(ctx):
 
 # ---------------------------------------------------------------------------
 # phase 7
+
+
+def _dist_sstep_stencil(ctx, s: int = 4):
+    """cg_sstep_dist (s = 4, ppermute) on the 256^3/4 stencil shards to
+    the stencil phase's rtol from its right-hand side: no fallback, the
+    count within s + 2 of dist-stencil's, certified in float64 on the
+    host within 10 x rtol.  Counted: ONE deep exchange a block (plus b's
+    once) and ONE Gram sum a block (a gram a shard); stencil_spmv
+    without the dot 2s a block a shard plus the 8 ordinary operator
+    applications a shard (the entry residual, six power-iteration
+    products, the certificate), ell_spmv on the deep interface and the
+    skin 2 x 2s a block a shard plus the ordinary interface's 8 a shard,
+    nothing else.  The first block's basis and Gram from the allgather
+    halo bit-equal to ppermute's.  Beside it: µs/iter against
+    dist-stencil's, hand-kernel launches an iteration, the deep layer's
+    host seconds (BFS and tables, their upload, the operators)."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from acg_torch.config import SolverOptions
+    from acg_torch.solvers.cg import _cheb_leja_nodes
+
+    cgd = importlib.import_module("acg_torch.solvers.cg_dist")
+    ss = ctx["dist"]["ss"].with_halo("ppermute")
+    P = ss.nparts
+    _, b, _xstar = ctx["stencil_case"]
+    rtol = 1e-8
+    dd, deep_s = _deep_layer(ctx, ss, s)
+    cgd.cg_sstep_dist(ss, b, options=SolverOptions(
+        maxits=8, residual_rtol=0.0, sstep=s))
+    calls = {"exchange": 0, "gram": 0}
+    exchange, gram = dd.exchange, cgd.gram
+
+    def counted_exchange(*a, **k):
+        calls["exchange"] += 1
+        return exchange(*a, **k)
+
+    def counted_gram(V):
+        calls["gram"] += 1
+        return gram(V)
+
+    dd.exchange, cgd.gram = counted_exchange, counted_gram
+    try:
+        _reset_counts()
+        res = cgd.cg_sstep_dist(ss, b, options=SolverOptions(
+            maxits=20000, residual_rtol=rtol, sstep=s))
+        launches = _read_counts(ctx, "dist-sstep-stencil")
+    finally:
+        del dd.exchange
+        cgd.gram = gram
+    rep = _solve_report(res, launches)
+    its, blocks = res.niterations, res.stats.nsstepblocks
+    classic = ctx["dist"]["stencil_x"][1]
+    cert = _poisson7_residual(ctx["dist"]["grid"], res.x, b)
+    want = {"stencil_spmv": P * (2 * s * blocks + 8),
+            "ell_spmv": P * (2 * 2 * s * blocks + 8)}
+    others = {k: v for k, v in launches.items() if k not in want and v}
+    # the first block from one (x, p) under both halos
+    gen = np.random.default_rng(11)
+    b_sh = ss.to_sharded(b)
+    x_sh = ss.to_sharded(gen.standard_normal(ss.nrows))
+    p_sh = b_sh - ss.matvec(x_sh)
+    shifts = (12.0 * _cheb_leja_nodes(s)).astype(np.float64)
+    first = {}
+    for m in ("ppermute", "allgather"):
+        V, G = cgd._sstep_block_dist(ss.with_halo(m), dd, b_sh, s, "f32",
+                                     ss.devices[0])(x_sh, p_sh, shifts)
+        first[m] = ([v.clone() for v in V.shards], G.clone())
+    first_bits = (all(torch.equal(a, c) for a, c in
+                      zip(first["ppermute"][0], first["allgather"][0]))
+                  and torch.equal(first["ppermute"][1],
+                                  first["allgather"][1]))
+    del first, b_sh, x_sh, p_sh
+    rep.update(s=s, blocks=blocks, rtol=rtol,
+               certified_relative_residual=cert,
+               certified_by="float64 7-point product on the host",
+               dist_stencil_iterations=classic,
+               dist_stencil_us_per_iter=ctx["us_per_iter"]["dist-stencil"],
+               us_per_iter_over_dist_stencil=rep["us_per_iter"]
+               / ctx["us_per_iter"]["dist-stencil"],
+               deep_exchanges=calls["exchange"], gram_calls=calls["gram"],
+               deep_ghosts_per_shard=list(dd.nghost),
+               deep_rounds=dd.nrounds, deep_host_seconds=deep_s,
+               hand_kernels_per_iter=sum(launches.values()) / its,
+               first_block_bits_equal_allgather=first_bits,
+               **_sstep_block_times(res.stats, blocks,
+                                    "dist-sstep-stencil"))
+    ok = ((res.operator_format, res.kernel)
+          == ("stencil", "cuda-stencil-spmv+ppermute") and res.converged
+          and "fell back" not in res.kernel_note
+          and abs(its - classic) <= s + 2 and cert <= 10 * rtol
+          and calls["exchange"] == blocks + 1
+          and calls["gram"] == P * blocks
+          and all(launches[k] == v for k, v in want.items()) and not others
+          and first_bits and np.all(np.isfinite(res.x))
+          and res.x.shape == b.shape)
+    if not ok:
+        raise SystemExit(f"error: dist-sstep-stencil failed: {rep}")
+    ctx.setdefault("us_per_iter", {})["dist-sstep-stencil"] = \
+        rep["us_per_iter"]
+    ctx["profile_cases"] = ctx.get("profile_cases", []) + [
+        ("dist-sstep-stencil-f64", ss, b,
+         _with_options(cgd.cg_sstep_dist, sstep=s))]
+    return rep
+
+
+def _dist_deep_stencil(ctx):
+    """cg_pipelined_deep_dist (depth 2, ``replace_every=50``, ppermute) on
+    the 256^3/4 stencil shards at deep-stencil's tolerance: no fallback,
+    the count within 1 of deep-stencil's on one device, certified in
+    float64 on the host within 10 x rtol.  Each dispatch's fill chain is
+    ONE depth-l deep exchange (counted) feeding l extended applications:
+    stencil_spmv launches P x (6 + 2 a dispatch + the bodies) + P x l a
+    dispatch, ell_spmv the same plus P x l a dispatch more (the deep
+    interface and the skin), the bodies between the iterations and two
+    more a dispatch.  Beside it: dispatches, µs/iter against
+    deep-stencil's and dist-stencil's, the deep layer's host seconds."""
+    import importlib
+
+    import numpy as np
+
+    from acg_torch.config import SolverOptions
+
+    cgd = importlib.import_module("acg_torch.solvers.cg_dist")
+    ss = ctx["dist"]["ss"].with_halo("ppermute")
+    P = ss.nparts
+    _, b, _xstar = ctx["stencil_case"]
+    l, rtol, R = _DEEP["depth"], _DEEP["rtol"], _DEEP["replace_every"]
+    dd, deep_s = _deep_layer(ctx, ss, l)
+    cgd.cg_pipelined_deep_dist(ss, b, options=SolverOptions(
+        maxits=8, residual_rtol=0.0, pipeline_depth=l))
+    calls = [0]
+    exchange = dd.exchange
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return exchange(*a, **k)
+
+    dd.exchange = counted
+    try:
+        _reset_counts()
+        res = cgd.cg_pipelined_deep_dist(ss, b, options=SolverOptions(
+            maxits=20000, residual_rtol=rtol, pipeline_depth=l,
+            replace_every=R))
+        launches = _read_counts(ctx, "dist-deep-stencil")
+    finally:
+        del dd.exchange
+    rep = _solve_report(res, launches)
+    note = res.kernel_note
+    fallback = "fell back to classic cg" in note
+    ndisp = None if fallback else int(note.split(", ")[1].split()[0])
+    its = res.niterations
+    cert = _poisson7_residual(ctx["dist"]["grid"], res.x, b)
+    rep.update(depth=l, replace_every=R, rtol=rtol, dispatches=ndisp,
+               fallback=fallback, certified_relative_residual=cert,
+               certified_by="float64 7-point product on the host",
+               deep_stencil_iterations=ctx["iterations"]["deep-stencil"],
+               deep_stencil_us_per_iter=ctx["us_per_iter"]["deep-stencil"],
+               dist_stencil_us_per_iter=ctx["us_per_iter"]["dist-stencil"],
+               fill_exchanges=calls[0], deep_ghosts_per_shard=list(
+                   dd.nghost), deep_rounds=dd.nrounds,
+               deep_host_seconds=deep_s,
+               hand_kernels_per_iter=sum(launches.values()) / its)
+    ok = ((res.operator_format, res.kernel)
+          == ("stencil", "cuda-stencil-spmv+ppermute") and res.converged
+          and not fallback and cert <= 10 * rtol
+          and abs(its - ctx["iterations"]["deep-stencil"]) <= 1
+          and np.all(np.isfinite(res.x)) and res.x.shape == b.shape)
+    if ok:
+        bodies = (launches["stencil_spmv"] - P * l * ndisp) // P \
+            - 6 - 2 * ndisp
+        rep["bodies"] = bodies
+        ok = (calls[0] == ndisp
+              and launches["ell_spmv"] - launches["stencil_spmv"]
+              == P * l * ndisp
+              and its <= bodies <= its + 2 * ndisp
+              and not any(v for k, v in launches.items()
+                          if k not in ("stencil_spmv", "ell_spmv")))
+    if not ok:
+        raise SystemExit(f"error: dist-deep-stencil failed: {rep}")
+    ctx.setdefault("us_per_iter", {})["dist-deep-stencil"] = \
+        rep["us_per_iter"]
+    return rep
 
 
 def _device_us(evt) -> float:
@@ -3882,7 +4164,23 @@ def _kernel_lines(ctx) -> list:
              ("stencil_spmv_batched", "matrix-free/float64 256^3/4 shard",
               "dist-batched-stencil", True),
              ("stencil_spmv_batched", "matrix-free/float64 256^3/4 shard",
-              "dist-batched-pipelined-stencil", False))
+              "dist-batched-pipelined-stencil", False),
+             ("stencil_spmv", "matrix-free/float64 256^3/4 shard",
+              "dist-sstep-stencil", False),
+             ("ell_spmv", "bf16/f64 deep interface d4 256^3/4",
+              "dist-sstep-stencil", None),
+             ("ell_spmv", "bf16/f64 deep skin d4 256^3/4",
+              "dist-sstep-stencil", None),
+             ("ell_spmv", "bf16/f64 interface 256^3/4",
+              "dist-sstep-stencil", None),
+             ("stencil_spmv", "matrix-free/float64 256^3/4 shard",
+              "dist-deep-stencil", False),
+             ("ell_spmv", "bf16/f64 deep interface d2 256^3/4",
+              "dist-deep-stencil", None),
+             ("ell_spmv", "bf16/f64 deep skin d2 256^3/4",
+              "dist-deep-stencil", None),
+             ("ell_spmv", "bf16/f64 interface 256^3/4",
+              "dist-deep-stencil", None))
     out = []
     for kernel, tier, phase, with_dot in paths:
         row = next(r for r in ctx["rows"] if r["name"] == kernel
@@ -3912,7 +4210,8 @@ def _kernel_lines(ctx) -> list:
                     "ghosts_bit_equal_plain_ppermute_allgather", "halo_ms",
                     "halo_ms_queued", "halo_bound_ms",
                     "library", "grid", "rows", "ghosts", "route",
-                    "bits_equal_generic"):
+                    "bits_equal_generic", "depth", "deep_ghosts",
+                    "columns", "columns_read"):
             if key in row:
                 entry[key] = row[key]
         # one counter a kernel: two configurations of it in one phase

@@ -50,6 +50,9 @@ def test_no_arguments_runs_every_phase(monkeypatch):
      ["dist-setup", "stencil", "pipelined-stencil", "dist-stencil-rdma",
       "dist-pipelined-stencil-rdma"]),
     ("dia-100m-f64", ["p3d-464", "dia-100m", "dia-100m-f64"]),
+    ("dist-sstep-stencil,dist-deep-stencil",
+     ["dist-setup", "stencil", "pipelined-stencil", "deep-stencil",
+      "dist-stencil", "dist-sstep-stencil", "dist-deep-stencil"]),
 ])
 def test_only_adds_what_a_phase_is_held_against(monkeypatch, only, want):
     rc, run, _every = _run(monkeypatch, ["--only", only])

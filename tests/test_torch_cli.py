@@ -135,10 +135,10 @@ def test_cli_sstep_deep_match_jax_cli(matrix_file, solver, extra, capsys):
      "--pipeline-depth 0: "),
     (["--solver", "cg-pipelined-deep", "--pipeline-depth", "9"],
      "--pipeline-depth 9: "),
-    (["--solver", "acg-sstep", "--nparts", "4"],
-     "distributed s-step/deep: not yet ported"),
-    (["--solver", "cg-pipelined-deep", "--nparts", "2"],
-     "distributed s-step/deep: not yet ported")])
+    (["--solver", "acg-sstep", "--nparts", "4", "--halo", "rdma"],
+     "takes the ppermute or allgather halo"),
+    (["--solver", "cg-pipelined-deep", "--nparts", "2", "--comm",
+      "nvshmem"], "takes the ppermute or allgather halo")])
 def test_cli_sstep_deep_refusals(matrix_file, args, msg, capsys):
     from acg_torch import cli
 
@@ -157,3 +157,90 @@ def test_cli_sstep_deep_flags_inert_out_of_mode(matrix_file, capsys):
                    "--pipeline-depth", "99", "--max-iterations", "500"],
         capsys)
     assert rc == 0 and its > 0
+
+
+@pytest.fixture(scope="module")
+def part_files(matrix_file, tmp_path_factory):
+    """The 16^3 matrix's kway part vector in 4 parts, as a text and a
+    binary Matrix Market file."""
+    from acg_torch.partition.partitioner import partition_graph
+    from acg_torch.sparse.csr import csr_from_mtx
+
+    A = csr_from_mtx(read_mtx(matrix_file))
+    part = partition_graph(A, 4, method="kway")
+    d = tmp_path_factory.mktemp("parts")
+    m = MtxFile(object="vector", format="array", field="integer",
+                nrows=len(part), ncols=1, nnz=len(part),
+                vals=part.astype(np.float64))
+    write_mtx(str(d / "p.mtx"), m)
+    write_mtx(str(d / "p.bin.mtx"), m, binary=True)
+    return A, part, str(d / "p.mtx"), str(d / "p.bin.mtx"), matrix_file
+
+
+@pytest.mark.parametrize("binary", [False, True])
+def test_cli_partition_file_gives_cg_dist_x(part_files, tmp_path, binary,
+                                            capsys):
+    """--partition FILE (text, or binary with --binary-partition) runs the
+    distributed solve on that part vector: the written solution is the
+    library's cg_dist(part=...) solution."""
+    from acg_torch import cli
+    from acg_torch.config import SolverOptions
+    from acg_torch.solvers.cg_dist import cg_dist
+
+    A, part, text, binf, path = part_files
+    out = str(tmp_path / "x.mtx")
+    args = [binf, "--binary-partition"] if binary else [text]
+    rc, its, stdout, err = _main_iterations(
+        cli.main, [path, "--device", "cpu", "--nparts", "4",
+                   "--partition", *args, "--max-iterations", "500",
+                   "--output-solution", out, "--numfmt", "%.17g", "-q"],
+        capsys)
+    assert rc == 0, stdout + err
+    res = cg_dist(A, np.ones(A.nrows), options=SolverOptions(
+        maxits=500, residual_rtol=1e-9), part=part, devices=["cpu"] * 4)
+    assert its == res.niterations
+    np.testing.assert_array_equal(read_mtx(out).vals, res.x)
+
+
+def test_cli_partition_file_refuses_a_wrong_vector(part_files, tmp_path,
+                                                   capsys):
+    from acg_torch import cli
+
+    A, part, _text, _binf, path = part_files
+    bad = str(tmp_path / "bad.mtx")
+    write_mtx(bad, MtxFile(object="vector", format="array",
+                           field="integer", nrows=A.nrows - 1, ncols=1,
+                           nnz=A.nrows - 1,
+                           vals=part[:-1].astype(np.float64)))
+    rc, _, _, err = _main_iterations(
+        cli.main, [path, "--device", "cpu", "--nparts", "4",
+                   "--partition", bad, "-q"], capsys)
+    assert rc == 1 and "--partition" in err and "Traceback" not in err
+
+
+@pytest.mark.parametrize("solver,extra", [
+    ("acg-sstep", ["--sstep", "4"]),
+    ("acg-pipelined-deep", ["--pipeline-depth", "2",
+                            "--residual-replacement", "50"])])
+@pytest.mark.parametrize("halo", ["ppermute", "allgather"])
+def test_cli_sstep_deep_nparts_match_jax_cli(matrix_file, solver, extra,
+                                             halo, capsys):
+    """The s-step and deep solvers over 4 CPU shards: the JAX program's
+    count (±1) on the same part vector (its CPU mesh), the deep-ghost
+    path named in the kernel line."""
+    from acg_torch import cli
+    from acg_tpu import cli as jcli
+
+    flags = [matrix_file, "--solver", solver, *extra, "--nparts", "4",
+             "--halo", halo, "--manufactured-solution",
+             "--max-iterations", "500", "-q"]
+    rc, its, out, err = _main_iterations(cli.main,
+                                         flags + ["--device", "cpu"], capsys)
+    assert rc == 0, out + err
+    rcj, itsj, outj, errj = _main_iterations(jcli.main, flags, capsys)
+    assert rcj == 0, outj + errj
+    assert abs(its - itsj) <= 1
+    kernel = [ln.strip() for ln in out.splitlines()
+              if ln.strip().startswith("kernel:")][0]
+    assert kernel.startswith(f"kernel: torch-plain+{halo} (")
+    assert "deep ghost zones depth" in kernel

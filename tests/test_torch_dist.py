@@ -42,6 +42,7 @@ from acg_torch.config import HaloMethod, SolverOptions
 from acg_torch.convert import partitioned_system_from_arrays
 from acg_torch.errors import AcgError, Status
 from acg_torch.io.mtxfile import MtxFile, write_mtx
+from acg_torch.partition import partitioner as tpartitioner
 from acg_torch.solvers.cg_dist import build_sharded, cg_dist
 from acg_torch.sparse import mesh as tmesh
 from acg_torch.sparse import poisson as tpoisson
@@ -259,9 +260,12 @@ def test_unported_options_raise():
         with pytest.raises(AcgError, match="not yet ported") as e:
             cg_dist(A, b, options=opts, **kw)
         assert e.value.status == Status.ERR_NOT_SUPPORTED
-    with pytest.raises(AcgError, match="not yet ported") as e:
-        cg_dist(A, b, partition_method="kway", **kw)
-    assert e.value.status == Status.ERR_NOT_SUPPORTED
+    # the kway partitioner, refused until it was ported, now partitions
+    res = cg_dist(A, b, partition_method="kway", **kw)
+    ref = cg_dist(A, b, part=tpartitioner.partition_graph(A, 2, "kway"),
+                  **kw)
+    assert res.converged and res.niterations == ref.niterations
+    np.testing.assert_array_equal(res.x, ref.x)
     # the put+signal halo moves one system at full width: a batch and a
     # compressed wire are refused before the shards are built
     with pytest.raises(AcgError, match="multi-RHS solves support") as e:
@@ -355,12 +359,12 @@ def test_cli_nparts_errors(matrix_file, monkeypatch, capsys):
     for extra in (["--comm", "nvshmem"], ["--halo", "rdma"],
                   ["--halo", "rdma", "--nrhs", "2"],
                   ["--halo", "rdma", "--halo-wire", "bf16"],
-                  ["--solver", "acg-sstep"],
-                  ["--partition-method", "kway"]):
+                  ["--solver", "acg-sstep", "--halo", "rdma"],
+                  ["--partition-method", "kway", "--halo", "rdma"]):
         assert cli.main([matrix_file, "--device", "cpu", "--nparts", "4",
                          "-q", *extra]) == 1
         err = capsys.readouterr().err
-        assert "rdma" in err or "not yet ported" in err, err
+        assert "rdma" in err, err
     # one visible card and the default device list: ERR_MESH, exit 1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)

@@ -153,12 +153,16 @@ def test_detect_grid_and_bfs_equal_jax():
 
 @pytest.mark.parametrize("method", ["bfs", "kway", "multilevel"])
 def test_unported_methods_raise(method):
-    _, TA = _pair(("p2d", (8, 8)))
-    with pytest.raises(AcgError, match="not yet ported") as e:
-        partitioner.partition_graph(TA, 4, method=method)
-    assert e.value.status == Status.ERR_NOT_SUPPORTED
-    with pytest.raises(AcgError, match="not yet ported"):
-        partitioner.nd_order(TA)
+    """These methods were refused until they were ported; they now give
+    the JAX package's part vectors and ordering (the wider sweep is
+    tests/test_torch_partition_ml.py), and an unknown method still
+    raises."""
+    JA, TA = _pair(("p2d", (8, 8)))
+    np.testing.assert_array_equal(
+        partitioner.partition_graph(TA, 4, method=method),
+        jpart.partition_graph(JA, 4, method=method))
+    np.testing.assert_array_equal(partitioner.nd_order(TA),
+                                  jpart.nd_order(JA))
     with pytest.raises(AcgError) as e:
         partitioner.partition_graph(TA, 4, method="nope")
     assert e.value.status == Status.ERR_INVALID_VALUE

@@ -46,7 +46,8 @@ def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys; import acg_torch, acg_torch.solvers.cg, "
             "acg_torch.solvers.cg_host, acg_torch.solvers.baseline, "
             "acg_torch.solvers.cg_dist, acg_torch.cli, acg_torch.convert, "
-            "acg_torch._build, acg_torch.sparse.mesh, acg_torch.sparse.rcm; "
+            "acg_torch._build, acg_torch.sparse.mesh, acg_torch.sparse.rcm, "
+            "acg_torch.parallel.deep, acg_torch.tools.mtxpartition; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -598,11 +598,12 @@ def test_cli_residual_replacement(matrix_file):
 @pytest.mark.parametrize("solver", ["acg-sstep", "cg-pipelined-deep",
                                     "acg-pipelined-deep"])
 def test_cli_unported_solver_exits_1(matrix_file, solver):
-    """Every --solver runs on one device; what is not yet ported is the
-    s-step and deep solvers over shards."""
+    """Every --solver runs on one device and over shards; what the s-step
+    and deep solvers over shards refuse is the rdma halo (they were
+    refused over shards until they were ported)."""
     r = _cli(matrix_file, "--device", "cpu", "--solver", solver,
-             "--nparts", "4", "-q")
+             "--nparts", "4", "--halo", "rdma", "-q")
     assert r.returncode == 1
-    assert (f"--solver {solver} with --nparts 4: distributed s-step/deep: "
-            "not yet ported") in r.stderr
+    assert (f"--solver {solver} with --nparts 4 takes the ppermute or "
+            "allgather halo") in r.stderr
     assert "Traceback" not in r.stderr
