@@ -7,9 +7,9 @@
 // The TPU kernels sum their per-tile partials in grid order into one
 // scalar, because the TPU grid runs in order on one core.  On this card
 // blocks run in any order, so each block writes its own partial and a
-// second one-block kernel adds the partials in a fixed tree order.
-// There are no float atomics: the same inputs give the same bits on
-// every run.
+// second one-block kernel (or the last block of the same kernel,
+// last_block_sum2) adds the partials in a fixed tree order.  There are
+// no float atomics: the same inputs give the same bits on every run.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -118,13 +118,11 @@ inline int chunk_width(int64_t nsys) {
   return nsys <= 1 ? 1 : nsys <= 2 ? 2 : nsys <= 4 ? 4 : 8;
 }
 
-// The two-scalar form (the pipelined iteration's gamma and delta): both
-// sums in the same fixed tree; thread 0 writes out_a[blockIdx.x] and
-// out_b[blockIdx.x].
+// The two-scalar form (the pipelined iteration's gamma and delta): a
+// and b summed over the block, both in the fixed tree of
+// block_sum_store; the totals are left in a and b of thread 0 only.
 template <typename V, int N>
-__device__ __forceinline__ void block_sum2_store(V a, V b,
-                                                 V* __restrict__ out_a,
-                                                 V* __restrict__ out_b) {
+__device__ __forceinline__ void block_sum2(V& a, V& b) {
   __shared__ V buf[2][N];
   buf[0][threadIdx.x] = a;
   buf[1][threadIdx.x] = b;
@@ -138,8 +136,20 @@ __device__ __forceinline__ void block_sum2_store(V a, V b,
     __syncthreads();
   }
   if (threadIdx.x == 0) {
-    out_a[blockIdx.x] = buf[0][0];
-    out_b[blockIdx.x] = buf[1][0];
+    a = buf[0][0];
+    b = buf[1][0];
+  }
+}
+
+// block_sum2, then thread 0 writes out_a[blockIdx.x] and out_b[blockIdx.x].
+template <typename V, int N>
+__device__ __forceinline__ void block_sum2_store(V a, V b,
+                                                 V* __restrict__ out_a,
+                                                 V* __restrict__ out_b) {
+  block_sum2<V, N>(a, b);
+  if (threadIdx.x == 0) {
+    out_a[blockIdx.x] = a;
+    out_b[blockIdx.x] = b;
   }
 }
 
@@ -163,6 +173,62 @@ inline cudaError_t launch_sum_partials2(const void* partials, int64_t m,
   sum_partials2_kernel<V><<<1, kReduceThreads, 0, s>>>(
       static_cast<const V*>(partials), m, static_cast<V*>(out));
   return cudaGetLastError();
+}
+
+// The same two sums at the end of the kernel that wrote the partials,
+// so that one launch does both passes: after block_sum2_store, every
+// block takes a ticket from ``counter`` (an integer in device memory,
+// 0 between launches) behind a __threadfence(), and the block that
+// takes the last one sums partials[0..m) and partials[m..2m), m =
+// gridDim.x, into out[0] and out[1] and sets the counter back to 0.
+// Its N threads play the kReduceThreads threads of
+// sum_partials2_kernel, kReduceThreads / N each: each such thread's
+// strided sum, the tree's first levels in registers, then the rest of
+// the tree in block_sum2.  Every addition has the operands and order it
+// has there, so out holds sum_partials2_kernel's bits; no float atomics.
+template <typename V, int N>
+__device__ __forceinline__ void last_block_sum2(const V* partials,
+                                                unsigned* counter,
+                                                V* __restrict__ out) {
+  static_assert(kReduceThreads % N == 0, "N must divide kReduceThreads");
+  constexpr int W = kReduceThreads / N;
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    __threadfence();  // this block's partials before its ticket
+    last = atomicAdd(counter, 1u) == gridDim.x - 1;
+    if (last) __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;
+  const int64_t m = gridDim.x;
+  V a[W], b[W];
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    a[j] = V(0);
+    b[j] = V(0);
+    // thread threadIdx.x + j*N of sum_partials2_kernel; __ldcg reads the
+    // other blocks' partials from the L2, not a stale L1 line
+    for (int64_t k = threadIdx.x + j * N; k < m; k += kReduceThreads) {
+      a[j] += __ldcg(partials + k);
+      b[j] += __ldcg(partials + m + k);
+    }
+  }
+  // the levels s = kReduceThreads/2 .. N of its tree: thread u = t + j*N
+  // takes u + s = t + (j + h)*N for u < s, i.e. j < h
+#pragma unroll
+  for (int h = W / 2; h > 0; h >>= 1) {
+#pragma unroll
+    for (int j = 0; j < h; ++j) {
+      a[j] += a[j + h];
+      b[j] += b[j + h];
+    }
+  }
+  block_sum2<V, N>(a[0], b[0]);
+  if (threadIdx.x == 0) {
+    out[0] = a[0];
+    out[1] = b[0];
+    *counter = 0u;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -430,28 +496,44 @@ __device__ __forceinline__ V stencil_row(const StencilArgs& a,
 // z, p, s, x and r are read and written at index i only, so they are
 // updated in place; w is read at neighbour offsets by other threads'
 // q = A w, so w' goes to a separate buffer.
+//
+// pipe_arith is the arithmetic on values already loaded (wi = w[i], ...;
+// on return zi, pi, si, xi, ri and wi hold z', p', s', x', r', w' at i);
+// pipe_update loads and stores around it.
+template <typename V>
+__device__ __forceinline__ void pipe_arith(V q, V alpha, V beta, V& wi,
+                                           V& zi, V& ri, V& pi, V& si,
+                                           V& xi, V& gsum, V& dsum) {
+  const V z2 = q + beta * zi;
+  const V p2 = ri + beta * pi;
+  const V s2 = wi + beta * si;
+  const V x2 = xi + alpha * p2;
+  const V r2 = ri - alpha * s2;
+  const V w2 = wi - alpha * z2;
+  zi = z2;
+  pi = p2;
+  si = s2;
+  xi = x2;
+  ri = r2;
+  wi = w2;
+  gsum += r2 * r2;
+  dsum += w2 * r2;
+}
+
 template <typename V>
 __device__ __forceinline__ void pipe_update(
     int64_t i, V q, V alpha, V beta, const V* __restrict__ w,
     V* __restrict__ w_out, V* __restrict__ z, V* __restrict__ r,
     V* __restrict__ p, V* __restrict__ s, V* __restrict__ x, V& gsum,
     V& dsum) {
-  const V wi = w[i];
-  const V ri = r[i];
-  const V z2 = q + beta * z[i];
-  const V p2 = ri + beta * p[i];
-  const V s2 = wi + beta * s[i];
-  const V x2 = x[i] + alpha * p2;
-  const V r2 = ri - alpha * s2;
-  const V w2 = wi - alpha * z2;
-  z[i] = z2;
-  p[i] = p2;
-  s[i] = s2;
-  x[i] = x2;
-  r[i] = r2;
-  w_out[i] = w2;
-  gsum += r2 * r2;
-  dsum += w2 * r2;
+  V wi = w[i], zi = z[i], ri = r[i], pi = p[i], si = s[i], xi = x[i];
+  pipe_arith<V>(q, alpha, beta, wi, zi, ri, pi, si, xi, gsum, dsum);
+  z[i] = zi;
+  p[i] = pi;
+  s[i] = si;
+  x[i] = xi;
+  r[i] = ri;
+  w_out[i] = wi;
 }
 
 }  // namespace acg

@@ -24,7 +24,7 @@ from acg_torch.ops.dia_kernels import (cg_pipelined_iter, dia_matvec,
                                        dia_spmv, dia_spmv_batched,
                                        dia_spmv_ring, dia_spmv_windows)
 from acg_torch.ops.dia_plan import (Budgets, HbmPlan, device_budgets,
-                                    fused_plan_for, make_plan,
+                                    fused_plan_for, make_plan, pipe_fixed,
                                     resident_fixed)
 from acg_torch.sparse.csr import CsrMatrix
 
@@ -151,7 +151,8 @@ class DeviceDia:
     fused_plan_for` on the device's budgets, made once here); ``fixed``
     whether the resident kernel runs with its band count fixed
     (:func:`acg_torch.ops.dia_plan.resident_fixed`, on the same
-    budgets)."""
+    budgets); ``pipe_fixed`` whether the pipelined iteration does
+    (:func:`acg_torch.ops.dia_plan.pipe_fixed`)."""
 
     bands: torch.Tensor
     scales: torch.Tensor | None
@@ -163,6 +164,7 @@ class DeviceDia:
     vec_dtype: str
     plan: HbmPlan | None = None
     fixed: bool = False
+    pipe_fixed: bool = False
 
     @classmethod
     def from_bands(cls, bands: torch.Tensor, scales, offsets, nrows: int,
@@ -191,7 +193,9 @@ class DeviceDia:
                    nrows=int(nrows), ncols=int(ncols), nnz=int(nnz),
                    vec_dtype=str(vdt).removeprefix("torch."), plan=plan,
                    fixed=resident_fixed(n, len(offsets), vdt, bands.dtype,
-                                        budgets))
+                                        budgets),
+                   pipe_fixed=pipe_fixed(n, len(offsets), vdt, bands.dtype,
+                                         budgets))
 
     @classmethod
     def from_dia(cls, D: DiaMatrix, dtype=None, mat_dtype="auto",
@@ -292,9 +296,11 @@ class DeviceDia:
         return self._spmv(x, True)
 
     def pipelined_iter(self, w, z, r, p, s, x, alpha, beta, w_out=None):
-        """One pipelined-CG iteration (:func:`cg_pipelined_iter`)."""
+        """One pipelined-CG iteration (:func:`cg_pipelined_iter`), on the
+        kernel the plan chose (``pipe_fixed``)."""
         return cg_pipelined_iter(self.bands, self.scales, self.offsets_t, w,
-                                 z, r, p, s, x, alpha, beta, w_out=w_out)
+                                 z, r, p, s, x, alpha, beta, w_out=w_out,
+                                 fixed=self.pipe_fixed)
 
 
 def dia_efficiency(A: CsrMatrix, offsets=None) -> float:

@@ -7,11 +7,12 @@ fused in).  On a CUDA tensor it launches the hand-written kernel of
 ``acg_torch/csrc/dia_spmv.cu``; on a CPU tensor it runs
 :func:`dia_matvec`, the plain PyTorch version of the same function.
 :func:`cg_pipelined_iter` is the port of ``cg_pipelined_iter_pallas``
-(one whole pipelined-CG iteration, ``acg_torch/csrc/dia_pipe.cu``), with
-:func:`cg_pipelined_iter_plain` beside it.  :func:`dia_spmv_batched` is
-the port of ``dia_matvec_pallas_2d_padded_batched`` (B systems against
-one operator, ``acg_torch/csrc/dia_spmv_batched.cu``), whose plain
-version is :func:`dia_matvec` on a ``(B, n)`` tensor.
+(one whole pipelined-CG iteration in one launch,
+``acg_torch/csrc/dia_pipe.cu``), with :func:`cg_pipelined_iter_plain`
+beside it.  :func:`dia_spmv_batched` is the port of
+``dia_matvec_pallas_2d_padded_batched`` (B systems against one
+operator, ``acg_torch/csrc/dia_spmv_batched.cu``), whose plain version
+is :func:`dia_matvec` on a ``(B, n)`` tensor.
 :func:`dia_spmv_ring` and :func:`dia_spmv_windows` are the ports of
 ``dia_matvec_pallas_hbm2d_ring`` and ``dia_matvec_pallas_hbm2d`` (the
 SpMV for x past the on-chip store, x staged through shared memory:
@@ -318,14 +319,32 @@ def _load_pipe():
         lib.acg_dia_pipe.argtypes = (
             [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int64] + [ctypes.c_void_p] * 9
-            + [ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-               ctypes.c_void_p, ctypes.c_void_p])
+            + [ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+               ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.c_void_p])
         _pipe_lib = lib
     return _pipe_lib
 
 
+# (device index, stream handle) -> (ticket counter, partials): the
+# pipelined kernel's scratch, made once per stream (the counter zeroed
+# then; the kernel leaves it at 0), so a call launches nothing else
+_pipe_scratch: dict = {}
+
+
+def _pipe_scratch_for(device: torch.device, stream: int):
+    key = (device.index, stream)
+    got = _pipe_scratch.get(key)
+    if got is None:
+        counter = torch.zeros(1, dtype=torch.int32, device=device)
+        partials = torch.empty(2 * MAX_BLOCKS, dtype=torch.float64,
+                               device=device)
+        got = _pipe_scratch[key] = (counter, partials)
+    return got
+
+
 def cg_pipelined_iter(bands, scales, offsets, w, z, r, p, s, x, alpha, beta,
-                      w_out=None):
+                      w_out=None, fixed: bool = False):
     """One whole pipelined-CG iteration (``cg_pipelined_iter_pallas``):
     q = DIA(bands, offsets) @ w, the 6-vector update and (gamma, delta)
     in one pass.  Returns ``(z', p', s', x', r', w', gamma, delta)``,
@@ -336,8 +355,11 @@ def cg_pipelined_iter(bands, scales, offsets, w, z, r, p, s, x, alpha, beta,
     from device memory.  On a CUDA tensor the kernel updates z, p, s, x
     and r IN PLACE (the returned tensors are those) and writes w' into
     ``w_out`` (allocated when None; it must not share memory with w or
-    the other vectors).  CPU tensors take :func:`cg_pipelined_iter_plain`,
-    which returns new tensors."""
+    the other vectors), in one launch.  ``fixed``: launch the kernel with
+    the band count fixed (D in ``dia_plan.FIXED_BANDS``, else it raises;
+    ``DeviceDia.pipe_fixed`` says when the plan takes it); the same bits
+    either way.  CPU tensors take :func:`cg_pipelined_iter_plain`, which
+    returns new tensors."""
     global pipe_launches
     if w.device.type == "cpu":
         return cg_pipelined_iter_plain(bands, scales, offsets.tolist(), w, z,
@@ -353,7 +375,8 @@ def cg_pipelined_iter(bands, scales, offsets, w, z, r, p, s, x, alpha, beta,
     lib = _load_pipe()
     n = w.shape[0]
     nblocks = grid_blocks(n)
-    partials = torch.empty(2 * nblocks, dtype=w.dtype, device=w.device)
+    stream = torch.cuda.current_stream(w.device).cuda_stream
+    counter, partials = _pipe_scratch_for(w.device, stream)
     gd = torch.empty(2, dtype=w.dtype, device=w.device)
     with kernel_device(w):
         rc = lib.acg_dia_pipe(
@@ -362,13 +385,12 @@ def cg_pipelined_iter(bands, scales, offsets, w, z, r, p, s, x, alpha, beta,
             offsets.data_ptr(), bands.shape[0], alpha.data_ptr(),
             beta.data_ptr(), w.data_ptr(), w_out.data_ptr(), z.data_ptr(),
             r.data_ptr(), p.data_ptr(), s.data_ptr(), x.data_ptr(),
-            _VEC_CODES[w.dtype], n, partials.data_ptr(), nblocks,
-            gd.data_ptr(),
-            torch.cuda.current_stream(w.device).cuda_stream)
+            _VEC_CODES[w.dtype], n, int(fixed), partials.data_ptr(), nblocks,
+            counter.data_ptr(), gd.data_ptr(), stream)
     if rc != 0:
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        f"cg_pipelined_iter: kernel launch failed (CUDA error "
-                       f"{rc})")
+                       f"{rc}{', fixed band count' if fixed else ''})")
     pipe_launches += 1
     return z, p, s, x, r, w_out, gd[0], gd[1]
 

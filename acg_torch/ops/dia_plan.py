@@ -46,10 +46,10 @@ import torch
 __all__ = ["Budgets", "HbmPlan", "SLACK", "STAGES", "RING_STAGES", "TILES",
            "THREADS", "WINDOWS_THREADS", "WINDOW_TILES", "FIXED_BANDS",
            "blocks_per_sm", "cluster_windows", "device_budgets",
-           "fused_plan_for", "hbm_kernel_plan", "make_plan",
-           "resident_fixed", "ring_bytes", "ring_plan", "ring_span",
-           "ring_slots", "ring_stages", "run_bounds", "wave_tiles",
-           "window_layout", "windows_bytes", "windows_plan",
+           "fused_plan_for", "hbm_kernel_plan", "make_plan", "pipe_bytes",
+           "PIPE_FIXED", "pipe_fixed", "resident_fixed", "ring_bytes",
+           "ring_plan", "ring_span", "ring_slots", "ring_stages", "run_bounds",
+           "wave_tiles", "window_layout", "windows_bytes", "windows_plan",
            "windows_stages"]
 
 SLACK = 1024                    # JAX's 8 rows x 128 lanes, in elements
@@ -66,8 +66,9 @@ RING_STAGES = (4, 3, 2)         # row tiles in flight the ring plan tries,
 WINDOW_TILES = (1024, 512, 256)  # both HBM plans' tiles, largest first
 #                                  (2048 ran slower than 1024 at every
 #                                  depth of the windows, PERF.md)
-FIXED_BANDS = (3, 5, 7, 27)     # the band counts dia_spmv's fixed kernel
-#                                 is compiled for
+FIXED_BANDS = (3, 5, 7, 27)     # the band counts the fixed kernels of
+#                                 dia_spmv and cg_pipelined_iter are
+#                                 compiled for
 MAX_THREADS_PER_SM = 2048
 _COPY_BYTES = 16                # one cp.async chunk
 
@@ -346,6 +347,61 @@ def resident_fixed(n: int, ndiags: int, vec_dtype, band_dtype,
     nbytes = (ndiags * n * _itemsize(band_dtype)
               + 2 * n * _itemsize(vec_dtype))
     return nbytes > budgets.l2_bytes
+
+
+def pipe_bytes(n: int, ndiags: int, vec_dtype, band_dtype) -> int:
+    """Bytes one pipelined iteration must move (``dia_pipe.cu``): the
+    bands once at their storage width, six vectors read and six
+    written."""
+    return (ndiags * n * _itemsize(band_dtype)
+            + 12 * n * _itemsize(vec_dtype))
+
+
+# (band count, band type) at f32 vectors past the L2 where the pipelined
+# iteration's fixed kernel measured no slower than the generic one
+# (pipe_fixed's docstring)
+PIPE_FIXED = frozenset({(3, torch.bfloat16), (3, torch.int8),
+                        (3, torch.float32), (5, torch.bfloat16),
+                        (5, torch.int8), (7, torch.bfloat16),
+                        (7, torch.int8), (7, torch.float32),
+                        (27, torch.int8)})
+
+
+def pipe_fixed(n: int, ndiags: int, vec_dtype, band_dtype,
+               budgets: Budgets | None) -> bool:
+    """Whether the pipelined iteration ``cg_pipelined_iter`` runs the
+    kernel with the band count fixed at compile time, streaming loads
+    and stores and two rows a loop step (``dia_pipe.cu``): at f32
+    vectors, for a band count and band type of ``PIPE_FIXED``, and a
+    call whose bytes (:func:`pipe_bytes`) exceed the L2.  On an H100
+    (80GB HBM3, 700 W; ms a call, 25 queued back to back, fixed against
+    generic, ``scripts/torch_dia_ab.py``) it measured:
+
+    - D = 7: 256^3 bf16 bands 0.422-0.429 against 0.492-0.501, int8
+      0.388-0.393 against 0.557-0.560, f32 0.485 against 0.527; the
+      256^3/4 shard's size, bf16, 0.114-0.116 against 0.129-0.130;
+    - D = 3, a 10^7-row tridiagonal: bf16 0.208 against 0.250, int8
+      0.198 against 0.238, f32 0.225 against 0.259;
+    - D = 5, the 2-D 5-point operator on 2048^2: bf16 0.1057-0.1059
+      against 0.1085-0.1087, int8 0.100 against 0.127; f32 bands
+      0.1173-0.1180 against 0.1153-0.1165, so the generic kernel there;
+    - D = 27, the 27-point operator on 128^3: int8 0.155 against 0.203;
+      bf16 0.152 against 0.122 and f32 0.168 against 0.141 (224
+      registers, one block an SM), so the generic kernel there.
+
+    At f64 vectors the generic kernel was faster (256^3 f64/f64
+    0.904-0.926 against 0.965-0.993, the varcoef 128^3 operator 0.120-
+    0.122 against 0.139-0.141); on rcm-dia-pipelined's 10^6-row
+    tridiagonal (bf16/f64) the fixed kernel took 0.060-0.071 against
+    0.065-0.077, both the host's time a call, so the f64 rule keeps the
+    generic kernel there too.  Inside the L2 (64^3, a 10^5-row
+    tridiagonal, 256^2, 32^3 at 27 bands) both took the host's time,
+    0.04-0.09 ms, with neither ahead in every turn, so the generic
+    kernel stays (PERF.md).  None budgets (the CPU): False."""
+    if (budgets is None or vec_dtype != torch.float32
+            or (ndiags, band_dtype) not in PIPE_FIXED):
+        return False
+    return pipe_bytes(n, ndiags, vec_dtype, band_dtype) > budgets.l2_bytes
 
 
 def run_bounds(b: int, nblocks: int, ntiles: int) -> tuple[int, int]:

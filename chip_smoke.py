@@ -42,7 +42,11 @@ raises and the script exits non-zero:
               without the fused dot; the pipelined-iteration kernels
               with their padding rows checked exactly zero and beside the
               open-coded body (SpMV kernel, torch updates and dots),
-              as no single library call computes a pipelined iteration;
+              as no single library call computes a pipelined iteration,
+              timed one call and queued (ms_queued); each DIA one names
+              the kernel the plan took (pipe_fixed) and holds the fixed
+              and the generic kernel, forced on the same inputs, bit for
+              bit (six vectors, gamma, delta: bits_equal_generic);
               every stencil_spmv row names the kernel the plan routes
               it to (route: fixed-5, fixed-7, fixed-27 or generic) and
               holds y and the dot bit for bit against the generic
@@ -629,12 +633,14 @@ def _check_kernel(label, run, plain, x, ctx, nbytes, flops, library,
 
 
 def _check_pipe(label, run, plain, composed, vecs, ab, n, ctx, nbytes,
-                flops):
+                flops, bodies=None):
     """Hold one pipelined-iteration configuration against its plain
     version: the six vectors at ``_tolerances``, gamma and delta relative
     to |r'|^2 and |w'|·|r'|, padding rows exactly zero, every output
-    bit-identical across two runs; then time the kernel, the plain
-    version and the open-coded body (``composed``)."""
+    bit-identical across two runs; with ``bodies`` (``{"generic": f,
+    "fixed": f}``, the DIA kernel with each body forced) the two bodies'
+    outputs bit for bit equal; then time the kernel (one call, and
+    queued), the plain version and the open-coded body (``composed``)."""
     import torch
 
     rtol, atol, dot_rtol = _tolerances(vecs[0].dtype)
@@ -663,11 +669,23 @@ def _check_pipe(label, run, plain, composed, vecs, ab, n, ctx, nbytes,
           and row["gamma_abs_err"] <= dot_rtol * gscale
           and row["delta_abs_err"] <= dot_rtol * dscale
           and row["padding_zero"] and row["bits_stable"])
+    if bodies is not None:
+        # the fixed and the generic body: the six vectors, gamma and
+        # delta bit for bit
+        outs = {k: f(*[v.clone() for v in vecs], *ab,
+                     w_out=torch.empty_like(vecs[0]))
+                for k, f in bodies.items()}
+        row["bits_equal_generic"] = all(
+            torch.equal(a, b) for a, b in zip(outs["fixed"],
+                                              outs["generic"]))
+        ok = ok and row["bits_equal_generic"]
+        del outs
     # timed on a state of its own, updated in place call after call, as
     # the solver loop does (two w buffers alternate there; one here)
     state = [v.clone() for v in vecs]
     w_out = torch.empty_like(vecs[0])
     row["ms"] = _time_ms(lambda: run(*state, *ab, w_out=w_out), ctx["reps"])
+    row["ms_queued"] = _queued_ms(lambda: run(*state, *ab, w_out=w_out))
     row["plain_ms"] = _time_ms(lambda: plain(*vecs, *ab), ctx["reps"])
     row["composed_ms"] = _time_ms(lambda: composed(*vecs, *ab), ctx["reps"])
     row["library_ms"] = None     # no single PyTorch call computes it
@@ -692,6 +710,19 @@ def _pipe_inputs(n, npad, dtype, seed=1):
         vecs.append(v)
     return vecs, (torch.tensor(0.37, dtype=dtype, device="cuda"),
                   torch.tensor(1.21, dtype=dtype, device="cuda"))
+
+
+def _pipe_bodies(dev):
+    """The DIA pipelined iteration on ``dev`` with each kernel forced
+    (the fixed one where its band count is compiled)."""
+    from acg_torch.ops.dia_kernels import cg_pipelined_iter
+    from acg_torch.ops.dia_plan import FIXED_BANDS
+
+    if len(dev.offsets) not in FIXED_BANDS:
+        return None
+    return {k: (lambda *a, f=f, **kw: cg_pipelined_iter(
+        dev.bands, dev.scales, dev.offsets_t, *a, fixed=f, **kw))
+        for k, f in (("generic", False), ("fixed", True))}
 
 
 def _composed(matvec):
@@ -743,6 +774,7 @@ def _kernels_phase(G: int, nrhs: int, dist_nrhs: int, ctx):
     from acg_torch.ops.dia import DeviceDia
     from acg_torch.ops.dia_kernels import (cg_pipelined_iter_plain,
                                            dia_matvec, dia_spmv)
+    from acg_torch.ops.dia_plan import pipe_bytes
     from acg_torch.ops.stencil import (cg_pipelined_iter_stencil,
                                        cg_pipelined_iter_stencil_plain,
                                        recognize_stencil, stencil_spmv)
@@ -786,7 +818,8 @@ def _kernels_phase(G: int, nrhs: int, dist_nrhs: int, ctx):
                           lambda A=A, x=x: A @ x)
         # the pipelined iteration: 12 vector streams plus the bands
         vecs, ab = _pipe_inputs(n, D.nrows_padded, vdt)
-        _check_pipe({"name": "cg_pipelined_iter", "tier": tier},
+        _check_pipe({"name": "cg_pipelined_iter", "tier": tier,
+                     "pipe_fixed": dev.pipe_fixed},
                     dev.pipelined_iter,
                     lambda *a, dev=dev: cg_pipelined_iter_plain(
                         dev.bands, dev.scales, dev.offsets, *a),
@@ -794,8 +827,8 @@ def _kernels_phase(G: int, nrhs: int, dist_nrhs: int, ctx):
                         dev.bands, dev.scales, dev.offsets_t, v,
                         fixed=dev.fixed)),
                     vecs, ab, n, ctx,
-                    D_ * n * dev.mat_itemsize + 12 * n * vb,
-                    2 * D_ * n + 16 * n)
+                    pipe_bytes(n, D_, vdt, dev.bands.dtype),
+                    2 * D_ * n + 16 * n, bodies=_pipe_bodies(dev))
         del dev, vecs
     del csr
     torch.cuda.empty_cache()
@@ -1191,13 +1224,16 @@ def _plan_info(op) -> dict:
     """The one-vector SpMV plan a DIA operator took: its kernel and, for
     ``dia_spmv``, whether it runs with the band count fixed, for an HBM
     kernel the tile, grid, shared memory, ring depth (row tiles in
-    flight) and, for the ring, its span."""
+    flight) and, for the ring, its span; and whether its pipelined
+    iteration runs the kernel with the band count fixed
+    (``pipe_fixed``)."""
     p = op.plan
     if p is None:
-        return {"kind": "resident", "kernel": "dia_spmv", "fixed": op.fixed}
+        return {"kind": "resident", "kernel": "dia_spmv", "fixed": op.fixed,
+                "pipe_fixed": op.pipe_fixed}
     return {"kind": p.kind, "kernel": _DIA_ONE_VECTOR[p.kind],
             "tile": p.tile, "nblocks": p.nblocks, "smem": p.smem,
-            "stages": p.stages,
+            "stages": p.stages, "pipe_fixed": op.pipe_fixed,
             **({} if p.kind == "hbm" else {"span": [p.lo, p.hi]})}
 
 
@@ -2914,6 +2950,7 @@ def _dist_kernels(nrhs: int, ctx):
     from acg_torch.ops.dia_kernels import (cg_pipelined_iter_plain,
                                            dia_matvec, dia_spmv,
                                            dia_spmv_batched)
+    from acg_torch.ops.dia_plan import pipe_bytes
     from acg_torch.ops.stencil import (cg_pipelined_iter_stencil,
                                        cg_pipelined_iter_stencil_plain,
                                        stencil_matvec, stencil_spmv,
@@ -2985,15 +3022,17 @@ def _dist_kernels(nrhs: int, ctx):
                 2 * len(spec.offsets) * n0 + 16 * n0)
     vecs, ab = _pipe_inputs(nr, nd, torch.float32, seed=6)
     _check_pipe({"name": "cg_pipelined_iter",
-                 "tier": "bf16/f32 256^3/4 shard"},
+                 "tier": "bf16/f32 256^3/4 shard",
+                 "pipe_fixed": dop.pipe_fixed},
                 dop.pipelined_iter,
                 lambda *a: cg_pipelined_iter_plain(dop.bands, dop.scales,
                                                    dop.offsets, *a),
                 _composed(lambda v: dia_spmv(dop.bands, dop.scales,
                                              dop.offsets_t, v,
                                              fixed=dop.fixed)),
-                vecs, ab, nr, ctx, D_ * nr * 2 + 12 * nr * 4,
-                2 * D_ * nr + 16 * nr)
+                vecs, ab, nr, ctx,
+                pipe_bytes(nr, D_, torch.float32, dop.bands.dtype),
+                2 * D_ * nr + 16 * nr, bodies=_pipe_bodies(dop))
     del vecs
     X = torch.zeros(nrhs, np0, dtype=torch.float64, device="cuda")
     X[:, :n0] = torch.randn(nrhs, n0, generator=gen, dtype=torch.float64,
@@ -4210,7 +4249,8 @@ def _kernel_lines(ctx) -> list:
                     "ghosts_bit_equal_plain_ppermute_allgather", "halo_ms",
                     "halo_ms_queued", "halo_bound_ms",
                     "library", "grid", "rows", "ghosts", "route",
-                    "bits_equal_generic", "depth", "deep_ghosts",
+                    "bits_equal_generic", "pipe_fixed", "depth",
+                    "deep_ghosts",
                     "columns", "columns_read"):
             if key in row:
                 entry[key] = row[key]

@@ -383,6 +383,129 @@ def test_dia_pipe_matches_plain(card, n, offsets, mat, vdt):
     assert dia_kernels.pipe_launches == before + 2
 
 
+def _pipe_forced(dev, fixed):
+    """cg_pipelined_iter on ``dev`` with the kernel ``fixed`` forced."""
+    return lambda *a, **k: dia_kernels.cg_pipelined_iter(
+        dev.bands, dev.scales, dev.offsets_t, *a, fixed=fixed, **k)
+
+
+def _pipe_bits_equal(dev, vecs, ab):
+    """The fixed and the generic kernel on copies of the same inputs:
+    the six vectors, gamma and delta bit for bit."""
+    outs = [_pipe_forced(dev, f)(*[v.clone() for v in vecs], *ab)
+            for f in (False, True)]
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+# the band counts the fixed kernel is compiled for, every band tier, both
+# vector types; n below one block, not a multiple of 256, and every row
+# within max|offset| of an end at n = 100 (the widest offsets then take
+# the edge body on every row)
+@pytest.mark.parametrize("vdt", ["float32", "float64"])
+@pytest.mark.parametrize("mat", ["auto", "int8", None, "float32"])
+@pytest.mark.parametrize("offsets", [
+    (-1, 0, 1), (-33, -1, 0, 1, 33), (-1100, -33, -1, 0, 1, 33, 1100),
+    _O27])
+@pytest.mark.parametrize("n", [100, 5001, 70_001])
+def test_dia_pipe_fixed_equals_generic(card, n, offsets, mat, vdt):
+    """Both kernels of cg_pipelined_iter give the same bits, and the
+    fixed one matches the plain version within _TOL (one launch a call:
+    the counter adds one a call)."""
+    D = _tiered(_random_dia(n, offsets, seed=len(offsets)), mat)
+    dev = DeviceDia.from_dia(D, dtype=vdt, mat_dtype=mat, device=card)
+    vecs, ab = _pipe_inputs(n, n, getattr(torch, vdt), card, seed=3)
+    _pipe_bits_equal(dev, vecs, ab)
+    before = dia_kernels.pipe_launches
+    _check_pipe(_pipe_forced(dev, True),
+                lambda *a: dia_kernels.cg_pipelined_iter_plain(
+                    dev.bands, dev.scales, dev.offsets, *a),
+                vecs, ab, n)
+    assert dia_kernels.pipe_launches == before + 2
+
+
+@pytest.mark.parametrize("vdt", ["float32", "float64"])
+@pytest.mark.parametrize("mat", ["auto", None])
+@pytest.mark.parametrize("offsets", [(-70_000, -257, -1, 0, 1, 257, 70_000),
+                                     _O27])
+def test_dia_pipe_fixed_equals_generic_several_rows_a_thread(card, offsets,
+                                                             mat, vdt):
+    """Past 256 x 4096 rows every thread updates several rows and sums
+    them into its gamma and delta partials (the 256^3 solves' shape):
+    both kernels give the same bits."""
+    n = 256 * 4096 * 2 + 777
+    D = _tiered(_random_dia(n, offsets, seed=9), mat)
+    dev = DeviceDia.from_dia(D, dtype=vdt, mat_dtype=mat, device=card)
+    vecs, ab = _pipe_inputs(n, n, getattr(torch, vdt), card, seed=4)
+    _pipe_bits_equal(dev, vecs, ab)
+
+
+def test_dia_pipe_fixed_is_refused_off_its_band_counts(card):
+    """Four bands: the generic kernel runs, the fixed one raises (no
+    fallback)."""
+    n = 5001
+    dev = DeviceDia.from_dia(_random_dia(n, (-2, 0, 1, 5)), dtype="float64",
+                             mat_dtype=None, device=card)
+    assert not dev.pipe_fixed
+    vecs, ab = _pipe_inputs(n, n, torch.float64, card)
+    _pipe_forced(dev, False)(*vecs, *ab)
+    with pytest.raises(AcgError):
+        _pipe_forced(dev, True)(*vecs, *ab)
+
+
+def test_dia_pipe_one_launch_a_call(card):
+    """Each call of cg_pipelined_iter, with either kernel, is one kernel
+    on the card and no memset (torch.profiler), once its library and its
+    stream's scratch exist."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 70_001
+    dev = DeviceDia.from_dia(_random_dia(n, (-1100, -33, -1, 0, 1, 33,
+                                             1100)),
+                             dtype="float32", mat_dtype=None, device=card)
+    vecs, ab = _pipe_inputs(n, n, torch.float32, card)
+    w_out = torch.empty_like(vecs[0])
+    for fixed in (False, True):
+        run = _pipe_forced(dev, fixed)
+        run(*vecs, *ab, w_out=w_out)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                run(*vecs, *ab, w_out=w_out)
+            torch.cuda.synchronize()
+        on_card = [(e.key, e.count) for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        assert sum(c for _, c in on_card) == 2, on_card
+        assert all("dia_pipe" in k for k, _ in on_card), on_card
+
+
+def test_dia_pipe_counter_back_at_zero_on_two_streams(card):
+    """Calls on two streams of their own give the default stream's bits,
+    and each stream's ticket counter is back at 0 after them."""
+    n = 70_001
+    dev = DeviceDia.from_dia(_random_dia(n, (-1, 0, 1)), dtype="float32",
+                             mat_dtype=None, device=card)
+    vecs, ab = _pipe_inputs(n, n, torch.float32, card)
+    inputs = [[v.clone() for v in vecs] for _ in range(2)]
+    want = dev.pipelined_iter(*[v.clone() for v in vecs], *ab)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for st, ins in zip(streams, inputs):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append(dev.pipelined_iter(*ins, *ab))
+    torch.cuda.synchronize()
+    for out in outs:
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+    for st in streams:
+        counter, _ = dia_kernels._pipe_scratch[(vecs[0].device.index,
+                                                st.cuda_stream)]
+        assert int(counter) == 0
+
+
 @pytest.mark.parametrize("vdt", [torch.float32, torch.float64])
 @pytest.mark.parametrize("gen", [
     lambda: poisson.poisson2d_5pt(1, 37),
