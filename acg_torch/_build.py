@@ -24,7 +24,8 @@ from acg_torch.errors import AcgError, Status
 
 SOURCES = ("dia_spmv", "stencil_spmv", "dia_pipe", "stencil_pipe",
            "dia_spmv_batched", "stencil_spmv_batched", "ell_spmv",
-           "sgell_spmv", "dia_hbm_ring", "dia_hbm_windows", "rdma_halo")
+           "sgell_spmv", "dia_hbm_ring", "dia_hbm_windows", "rdma_halo",
+           "cg_update")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parent.parent / "build"
              / "acg_torch_kernels")

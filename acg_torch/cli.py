@@ -141,6 +141,12 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--check-every", type=int, default=1, metavar="K",
                    help="test convergence every K iterations; the host "
                         "reads the device loop's flag only then [1]")
+    p.add_argument("--monitor-every", type=int, default=0, metavar="K",
+                   help="stream one 'iteration k: rnrm2 ...' line to "
+                        "stderr every K iterations of a device solver, "
+                        "emitted when the loop reads the device (the "
+                        "reference's verbose per-iteration residuals); "
+                        "-vv enables it with K=1 [0 = off]")
     p.add_argument("--residual-replacement", type=int, default=0,
                    metavar="R",
                    help="pipelined CG: recompute r/w/s/z from their "
@@ -250,6 +256,10 @@ def _main(argv=None) -> int:
                        f"--pipeline-depth {args.pipeline_depth}: the "
                        "pipeline depth must be in [1, 8] (depth 1 is the "
                        "ordinary pipelined solver)")
+    # -vv turns on the live residual stream of the device solvers
+    # (reference verbose mode); an explicit --monitor-every K sets it
+    if args.verbose >= 2 and args.monitor_every == 0 and not host:
+        args.monitor_every = 1
     # the host solvers take A as it is read, on one process
     dist = args.nparts > 1 and not host
     halo = resolve_halo(args.comm, args.halo)
@@ -331,7 +341,7 @@ def _main(argv=None) -> int:
                        if pipelined or deep_mode else 0),
         sstep=args.sstep if sstep_mode else 0,
         pipeline_depth=args.pipeline_depth if deep_mode else 1,
-        halo_wire=args.halo_wire)
+        halo_wire=args.halo_wire, monitor_every=args.monitor_every)
     mat_dtype = {"auto": "auto", "same": None}.get(
         args.mat_precision, args.mat_precision)
 
@@ -400,16 +410,20 @@ def _main(argv=None) -> int:
                + "".join(f"; {k} {v:.3f} s" for k, v in steps.items())
                + ")")
     try:
+        from acg_torch.obs.monitor import muted
         for _ in range(options.warmup):
-            # a warmup that does not converge still warmed everything
+            # a warmup that does not converge still warmed everything;
+            # its monitor lines reach the sinks but not the printer
             try:
-                solve(dev, b, x0=x0, options=options, fmt=args.format)
+                with muted():
+                    solve(dev, b, x0=x0, options=options, fmt=args.format)
             except AcgError as e:
                 if getattr(e, "result", None) is None:
                     raise
-        from acg_torch.ops import dia_kernels, sgell, spmv, stencil
+        from acg_torch.ops import (cg_update, dia_kernels, sgell, spmv,
+                                   stencil)
         from acg_torch.parallel import rdma_halo
-        rdma_halo.launches = 0
+        rdma_halo.launches = cg_update.launches = 0
         dia_kernels.launches = stencil.launches = 0
         dia_kernels.pipe_launches = stencil.pipe_launches = 0
         dia_kernels.batched_launches = stencil.batched_launches = 0
@@ -426,7 +440,12 @@ def _main(argv=None) -> int:
                    f"sgell_spmv {sgell.launches}, dia_spmv_ring "
                    f"{dia_kernels.ring_launches}, dia_spmv_windows "
                    f"{dia_kernels.windows_launches}, rdma_exchange "
-                   f"{rdma_halo.launches}")
+                   f"{rdma_halo.launches}, cg_update {cg_update.launches}")
+        if res.stats is not None and res.loop:
+            st = res.stats
+            _log(args, f"loop: {res.loop} ({st.ncaptures} graph captures "
+                       f"in {st.tcapture:.3f} s, {st.nreplays} replays, "
+                       f"{st.nloopopen} blocks launched from the host)")
     except AcgError as e:
         res = getattr(e, "result", None)
         print(f"error: {e}", file=sys.stderr)

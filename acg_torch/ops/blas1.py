@@ -62,6 +62,24 @@ def pipelined_update(q, w, z, r, p, s, x, alpha, beta):
     return z2, p2, s2, x2, r2, w2
 
 
+def pipelined_update_(q, w, z, r, p, s, x, alpha, beta) -> None:
+    """:func:`pipelined_update` in place: each vector takes its new value
+    in its own buffer, in the order z, p, s, x, r, w, in which every
+    operand read is not yet overwritten (x' reads p', r' reads the old r
+    and s', w' the old w and z'), so the bits are those of the new
+    tensors.  ``q`` must not share memory with the six vectors.  The
+    vectors may be per-shard vectors (``ShardVec``), updated shard by
+    shard."""
+    if alpha.dim() == 1:
+        alpha, beta = alpha[:, None], beta[:, None]
+    torch.addcmul(q, beta, z, out=z)
+    torch.addcmul(r, beta, p, out=p)
+    torch.addcmul(w, beta, s, out=s)
+    torch.addcmul(x, alpha, p, out=x)
+    torch.addcmul(r, alpha, s, value=-1, out=r)
+    torch.addcmul(w, alpha, z, value=-1, out=w)
+
+
 @contextlib.contextmanager
 def _full_precision_matmul():
     """f32 products at f32, never TF32, whatever the global setting: the

@@ -49,6 +49,13 @@ class SolveStats:
     nsstepblocks: int = 0
     tsstepwait: float = 0.0
     tsstephost: float = 0.0
+    # the loop's blocks (solvers/graphs.py): CUDA graphs captured, their
+    # replays, blocks run as Python (open, or a graph's warm-up block),
+    # and the host seconds of the captures (inside tsolve)
+    ncaptures: int = 0
+    nreplays: int = 0
+    nloopopen: int = 0
+    tcapture: float = 0.0
 
     def iterations_per_sec(self) -> float:
         if self.tsolve <= 0:
@@ -78,6 +85,9 @@ class SolveResult:
     kernel: str = ""
     # why the tier is what it is when the caller constrained it, else ""
     kernel_note: str = ""
+    # how the loop ran: "graph" (its blocks replayed as CUDA graphs),
+    # "open" (every kernel launched from the host)
+    loop: str = ""
     # |r_k|^2 for k = 0..niterations (entry 0 = |r0|^2); a multi-RHS solve
     # records a (nrhs, niterations+1) row per system, NaN past each
     # system's own exit

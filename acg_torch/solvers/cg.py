@@ -33,8 +33,10 @@ import torch
 
 from acg_torch.config import SolverOptions
 from acg_torch.errors import AcgError, Status
+from acg_torch.obs.monitor import LoopMonitor
 from acg_torch.ops.blas1 import (batched_dot, block_dot, combine, ddot,
                                  dnrm2, gram)
+from acg_torch.ops.cg_update import cg_update
 from acg_torch.ops.dia import DeviceDia, DiaMatrix, dia_efficiency
 from acg_torch.ops.sgell import (DeviceSgell, build_device_sgell,
                                  sgell_require_available)
@@ -260,6 +262,41 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def resolve_loop(loop, devices) -> bool:
+    """Whether a classic or pipelined loop runs its blocks as CUDA graphs
+    (``solvers/graphs.py``): ``loop`` "graph" or "open", None for the
+    default, the graph loop when every vector lies on one CUDA device.
+    Shards on several cards keep the open loop (a capture is one
+    device's); "graph" there, or off CUDA, raises."""
+    devs = {torch.device(d) for d in devices}
+    can = len(devs) == 1 and next(iter(devs)).type == "cuda"
+    if loop is None:
+        return can
+    if loop not in ("graph", "open"):
+        raise AcgError(Status.ERR_INVALID_VALUE,
+                       f"loop must be 'graph' or 'open', not {loop!r}")
+    if loop == "graph" and not can:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       "the graph loop captures one CUDA device's work; "
+                       f"these vectors lie on {sorted(map(str, devs))}")
+    return loop == "graph"
+
+
+# why the s-step and deep loops launch every kernel from the host
+SSTEP_OPEN = "s-step: the coefficient recurrences on the host a block"
+DEEP_OPEN = "deep pipeline: the scalar chain on the host's launches"
+
+
+def open_loop_note(why: str, device_type: str) -> str:
+    """The path report's word for a loop on the card that launches every
+    kernel from the host: ``open loop (<why>)``; nothing off the card."""
+    return f"open loop ({why})" if device_type == "cuda" else ""
+
+
+def _join_note(*notes) -> str:
+    return "; ".join(n for n in notes if n)
+
+
 def _host(a) -> np.ndarray:
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
@@ -278,7 +315,7 @@ def _finish(op, x, k, rr, flag, rr0, options: SolverOptions,
             tsolve: float, bnrm2, dxx=None, stats=None,
             path=("", "", ""), hist=None, pipelined: bool = False,
             perm=None, sstep: int = 0,
-            solver: str | None = None) -> SolveResult:
+            solver: str | None = None, loop: str = "") -> SolveResult:
     """Assemble the SolveResult and raise the classified errors, as
     ``acg_tpu.solvers.cg._finish`` does.  A multi-RHS solve (``x`` of
     shape (B, n); ``k``, ``flag`` and the norms per system) is summarized
@@ -288,7 +325,8 @@ def _finish(op, x, k, rr, flag, rr0, options: SolverOptions,
     converged"; flops count each system's own iterations.  ``perm``
     (new_to_old) un-permutes the solution into the caller's ordering.
     ``sstep`` prices the iterations with the s-step block model;
-    ``solver`` names the solver in the non-convergence message.  ``k``,
+    ``solver`` names the solver in the non-convergence message; ``loop``
+    says how the loop ran ("graph" or "open").  ``k``,
     ``flag`` and the norms may be tensors or host arrays."""
     batched = x.dim() == 2
     x_host = _host_x(op, x, perm)
@@ -331,6 +369,7 @@ def _finish(op, x, k, rr, flag, rr0, options: SolverOptions,
                              and np.all(np.isfinite(x_host)))
                   else "non-finite values in solution or residual"),
         operator_format=path[0], kernel=path[1], kernel_note=path[2],
+        loop=loop,
         residual_history=(_host(hist)[..., : k + 1].astype(np.float64)
                           if hist is not None else None))
     if batched:
@@ -378,7 +417,7 @@ def _finish(op, x, k, rr, flag, rr0, options: SolverOptions,
 def cg(A, b, x0=None, options: SolverOptions = SolverOptions(),
        dtype=None, fmt: str = "auto", mat_dtype="auto",
        stats: SolveStats | None = None, device=None,
-       atol2_floor=None) -> SolveResult:
+       atol2_floor=None, loop: str | None = None) -> SolveResult:
     """Classic CG on one device (``acg_tpu.solvers.cg.cg``).
 
     ``A`` is a host CsrMatrix, DiaMatrix or EllMatrix, or an operator
@@ -398,13 +437,20 @@ def cg(A, b, x0=None, options: SolverOptions = SolverOptions(),
     on breakdown or non-convergence, as the JAX solver does.
     ``atol2_floor`` (the s-step and deep fallbacks) is a squared absolute
     threshold, a scalar or per system (B,), folded into the atol term, so
-    each system keeps its own original criterion."""
+    each system keeps its own original criterion.
+
+    Each iteration's x and r updates and |r|² (and |p|² for the diff
+    criteria) are one kernel pass (``acg_torch/ops/cg_update.py``).  On
+    the card the loop's blocks run as CUDA graphs (``loop="graph"``, the
+    default there; ``"open"`` launches every kernel from the host, with
+    the same bits; ``SolveStats.tcapture`` holds the captures' host
+    seconds, inside ``tsolve``).  ``options.segment_iters`` ends a block
+    every that many iterations (the same bits); ``options.monitor_every``
+    streams ``iteration k: rnrm2`` lines (``acg_torch/obs/monitor.py``)."""
     o = options
-    if o.segment_iters or o.monitor_every:
-        raise AcgError(Status.ERR_NOT_SUPPORTED,
-                       "segment_iters / monitor_every: not yet ported")
     op, b_pad, x0_pad, perm = _prepare(A, b, x0, dtype, fmt, mat_dtype,
                                        device)
+    graph = resolve_loop(loop, [op.device])
     vdt = b_pad.dtype
     batch = b_pad.shape[0] if b_pad.dim() == 2 else 0
 
@@ -431,18 +477,24 @@ def cg(A, b, x0=None, options: SolverOptions = SolverOptions(),
         t, ptap = op.matvec_dot(p)
         return p, t, ptap
 
+    def update(x, r, p, t, alpha):
+        return cg_update(x, r, p, t, alpha, track_diff)
+
+    st = stats if stats is not None else SolveStats()
     _sync(op.device)
     t0 = time.perf_counter()
     x, k, rr, dxx, flag, rr0, hist = cg_while(
         op.matvec, ddot, b_pad, x0_pad, stop2, diffstop,
         maxits=o.maxits, track_diff=track_diff, check_every=o.check_every,
-        coupled_step=coupled, guard=o.guard_nonfinite)
+        coupled_step=coupled, guard=o.guard_nonfinite, update=update,
+        segment=o.segment_iters, monitor_every=o.monitor_every,
+        graph=graph, stats=st)
     _sync(op.device)
     tsolve = time.perf_counter() - t0
     return _finish(op, x, k, rr, flag, rr0, o, tsolve, bnrm2,
-                   dxx=dxx if track_diff else None, stats=stats,
+                   dxx=dxx if track_diff else None, stats=st,
                    path=_describe_path(op, fmt, batch=batch, perm=perm),
-                   hist=hist, perm=perm)
+                   hist=hist, perm=perm, loop="graph" if graph else "open")
 
 
 def _dot2(a1, b1, a2, b2):
@@ -454,15 +506,10 @@ def _dot2(a1, b1, a2, b2):
 
 def _pipe_step(op):
     """The loop's ``iter_step`` over the operator's single-kernel
-    pipelined iteration.  The kernel writes w' beside w, so two w buffers
-    alternate: the w a step consumed is the next step's output buffer."""
-    spare = [None]
-
-    def step(z, r, p, w, s, x, alpha, beta):
-        out = op.pipelined_iter(w, z, r, p, s, x, alpha, beta,
-                                w_out=spare[0])
-        spare[0] = w
-        return out
+    pipelined iteration.  The kernel writes w' beside w, into the buffer
+    the loop hands it (the loop alternates two; None: a new one)."""
+    def step(z, r, p, w, s, x, alpha, beta, w_out=None):
+        return op.pipelined_iter(w, z, r, p, s, x, alpha, beta, w_out=w_out)
 
     return step
 
@@ -470,7 +517,7 @@ def _pipe_step(op):
 def cg_pipelined(A, b, x0=None, options: SolverOptions = SolverOptions(),
                  dtype=None, fmt: str = "auto", mat_dtype="auto",
                  stats: SolveStats | None = None,
-                 device=None) -> SolveResult:
+                 device=None, loop: str | None = None) -> SolveResult:
     """Pipelined CG on one device (``acg_tpu.solvers.cg.cg_pipelined``):
     one fused (gamma, delta) reduction per iteration, and on the card the
     whole iteration in one hand-written kernel (``cuda-stencil-pipe`` /
@@ -484,16 +531,15 @@ def cg_pipelined(A, b, x0=None, options: SolverOptions = SolverOptions(),
     kernel, torch updates and dots) with residual replacement, and says
     so in ``kernel_note``.  A (B, n) ``b`` runs the open-coded body too,
     its SpMVs through the batched kernel (``cuda-*-batched``; the
-    single-kernel iteration is not batched, as in the JAX package)."""
+    single-kernel iteration is not batched, as in the JAX package).
+    ``loop``, ``segment_iters`` and ``monitor_every`` as :func:`cg`."""
     o = options
     if o.diffatol > 0 or o.diffrtol > 0:
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        "pipelined CG supports residual-based stopping only")
-    if o.segment_iters or o.monitor_every:
-        raise AcgError(Status.ERR_NOT_SUPPORTED,
-                       "segment_iters / monitor_every: not yet ported")
     op, b_pad, x0_pad, perm = _prepare(A, b, x0, dtype, fmt, mat_dtype,
                                        device)
+    graph = resolve_loop(loop, [op.device])
     vdt = b_pad.dtype
     batch = b_pad.shape[0] if b_pad.dim() == 2 else 0
     stop2 = (torch.tensor(o.residual_atol ** 2, dtype=vdt, device=op.device),
@@ -503,18 +549,22 @@ def cg_pipelined(A, b, x0=None, options: SolverOptions = SolverOptions(),
     certify = o.residual_atol > 0 or o.residual_rtol > 0
     iter_step = (_pipe_step(op) if hasattr(op, "pipelined_iter")
                  and o.replace_every == 0 and not batch else None)
+    st = stats if stats is not None else SolveStats()
     _sync(op.device)
     t0 = time.perf_counter()
     x, k, rr, flag, rr0, hist = cg_pipelined_while(
         op.matvec, _dot2, b_pad, x0_pad, stop2, maxits=o.maxits,
         check_every=o.check_every, replace_every=o.replace_every,
-        certify=certify, iter_step=iter_step, guard=o.guard_nonfinite)
+        certify=certify, iter_step=iter_step, guard=o.guard_nonfinite,
+        segment=o.segment_iters, monitor_every=o.monitor_every,
+        graph=graph, stats=st)
     _sync(op.device)
     tsolve = time.perf_counter() - t0
-    return _finish(op, x, k, rr, flag, rr0, o, tsolve, bnrm2, stats=stats,
+    return _finish(op, x, k, rr, flag, rr0, o, tsolve, bnrm2, stats=st,
                    path=_describe_path(op, fmt, True, o.replace_every,
                                        batch, perm=perm),
-                   hist=hist, pipelined=True, perm=perm)
+                   hist=hist, pipelined=True, perm=perm,
+                   loop="graph" if graph else "open")
 
 
 # ---------------------------------------------------------------------------
@@ -599,7 +649,7 @@ def _seed_shifts(op, b, n: int, shifts0):
 
 
 def _cg_sstep_device(op, b, x0, stop2, s: int, maxits: int, shifts0=None,
-                     stats=None):
+                     stats=None, monitor_every: int = 0):
     """s-step CG on the device operator (``acg_tpu.solvers.cg``
     ``_cg_sstep_device``): the entry residual, the shift seeds, the loop,
     and the certification of every exit by a fresh |b - A x|².  Host
@@ -611,7 +661,7 @@ def _cg_sstep_device(op, b, x0, stop2, s: int, maxits: int, shifts0=None,
     shifts0 = _seed_shifts(op, b, s, shifts0).reshape(rr0.shape[0], s)
     x, kiter, _rr, flag, hist, _shifts = cg_sstep_while(
         _sstep_block_fn(op.matvec, b, s), combine, b, x0, r0, rr0, shifts0,
-        stop2, s, maxits, stats=stats)
+        stop2, s, maxits, stats=stats, monitor_every=monitor_every)
     rT = b - op.matvec(x)
     rrT = np.atleast_1d(_host(batched_dot(rT, rT)))
     flag, hist = _sstep_certify(rrT, kiter, flag, hist, stop2, rr0)
@@ -633,7 +683,10 @@ def _sstep_certify(rrT, kiter, flag, hist, stop2, rr0):
     return flag, hist
 
 
-def _refuse_unported(o: SolverOptions, name: str) -> None:
+def _refuse_unsupported(o: SolverOptions, name: str) -> None:
+    """What the s-step and deep wrappers refuse, as the JAX package
+    does: the diff criteria and ``segment_iters`` (their own dispatches
+    already bound a program: a block, a pipeline segment)."""
     if o.diffatol > 0 or o.diffrtol > 0:
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        f"{name} CG supports residual-based stopping only")
@@ -641,9 +694,6 @@ def _refuse_unported(o: SolverOptions, name: str) -> None:
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        "segment_iters is supported by the classic and "
                        f"pipelined solvers, not by {name} CG")
-    if o.monitor_every:
-        raise AcgError(Status.ERR_NOT_SUPPORTED,
-                       "monitor_every: not yet ported")
 
 
 def _sstep_validate(o: SolverOptions) -> int:
@@ -652,7 +702,7 @@ def _sstep_validate(o: SolverOptions) -> int:
         raise AcgError(Status.ERR_INVALID_VALUE,
                        "cg_sstep requires SolverOptions.sstep >= 2 "
                        "(the s-step block size; --sstep on the CLI)")
-    _refuse_unported(o, "s-step")
+    _refuse_unsupported(o, "s-step")
     return o.sstep
 
 
@@ -754,7 +804,8 @@ def cg_sstep(A, b, x0=None, options: SolverOptions = SolverOptions(),
     _sync(op.device)
     t0 = time.perf_counter()
     x, k, rr, flag, rr0, hist = _cg_sstep_device(
-        op, b_pad, x0_pad, stop2, s, o.maxits, shifts0, stats=st)
+        op, b_pad, x0_pad, stop2, s, o.maxits, shifts0, stats=st,
+        monitor_every=o.monitor_every)
     _sync(op.device)
     tsolve = time.perf_counter() - t0
     if not batched:
@@ -775,10 +826,12 @@ def cg_sstep(A, b, x0=None, options: SolverOptions = SolverOptions(),
             "indefinite/non-finite Gram matrix",
             spent_flops=k_done * cg_flops_per_iter(op.nnz, op.nrows,
                                                    sstep=s))
+    name, kernel, note = _describe_path(op, fmt, batch=len(k) if batched
+                                        else 0, perm=perm, open_coded=True)
+    note = _join_note(note, open_loop_note(SSTEP_OPEN, op.device.type))
     return _finish(op, x, k, rr, flag, rr0, o, tsolve, bnrm2, stats=st,
-                   path=_describe_path(op, fmt, batch=len(k) if batched
-                                       else 0, perm=perm, open_coded=True),
-                   hist=hist, perm=perm, sstep=s, solver="cg-sstep")
+                   path=(name, kernel, note), hist=hist, perm=perm, sstep=s,
+                   solver="cg-sstep", loop="open")
 
 
 # ---------------------------------------------------------------------------
@@ -794,7 +847,7 @@ _DEEP_MAX_BAD = 3
 def _deep_validate(o: SolverOptions) -> int:
     """The rejections of the deep-pipelined wrapper; returns the depth
     (>= 2: depth 1 is dispatched to :func:`cg_pipelined` first)."""
-    _refuse_unported(o, "deep-pipelined")
+    _refuse_unsupported(o, "deep-pipelined")
     return o.pipeline_depth
 
 
@@ -802,7 +855,8 @@ def _cg_pipelined_deep_device(op, b, x0, stop2, depth: int, maxits: int,
                               check_every: int, replace_every: int,
                               certify: bool, shifts, k_start: int = 0,
                               rr0_in=None, flags_in=None, hist_in=None,
-                              ksys_in=None, guard: bool = False):
+                              ksys_in=None, guard: bool = False,
+                              monitor=None):
     """One deep-pipelined dispatch (pipeline segment) on the device
     operator: the fill chain, the bodies and the true-residual
     certification (:func:`acg_torch.solvers.loops.cg_pipelined_deep_while`),
@@ -812,7 +866,7 @@ def _cg_pipelined_deep_device(op, b, x0, stop2, depth: int, maxits: int,
         shifts, maxits, check_every=check_every,
         replace_every=replace_every, certify=certify, k_start=k_start,
         rr0_in=rr0_in, flags_in=flags_in, hist_in=hist_in, ksys_in=ksys_in,
-        guard=guard)
+        guard=guard, monitor=monitor)
 
 
 def _deep_dispatches(segment, x0, batched: bool, maxits: int):
@@ -890,12 +944,15 @@ def cg_pipelined_deep(A, b, x0=None,
     t0 = time.perf_counter()
     shifts = torch.from_numpy(_seed_shifts(op, b_pad, l, shifts0)).to(
         op.device)
+    mon = (LoopMonitor(o.monitor_every, o.maxits, vdt, op.device)
+           if o.monitor_every > 0 else None)
     (x_op, kret, rr, flag, rr0_op, hist_op, k_op, ndisp,
      why) = _deep_dispatches(
         lambda x, *restart: _cg_pipelined_deep_device(
             op, b_pad, x, stop2, l, o.maxits, o.check_every,
             o.replace_every, certify, shifts, *restart,
-            guard=o.guard_nonfinite), x0_pad, batched, o.maxits)
+            guard=o.guard_nonfinite, monitor=mon), x0_pad, batched,
+        o.maxits)
     if why is not None:
         # never silently wrong: classic CG re-solves from the last safe
         # iterate
@@ -918,12 +975,12 @@ def cg_pipelined_deep(A, b, x0=None,
     name, kernel, note = _describe_path(op, fmt, batch=b_pad.shape[0]
                                         if batched else 0, perm=perm,
                                         open_coded=True)
-    note = (f"deep pipeline depth {l}, {ndisp} dispatch(es)"
-            + ("; " + note if note else ""))
+    note = _join_note(f"deep pipeline depth {l}, {ndisp} dispatch(es)",
+                      note, open_loop_note(DEEP_OPEN, op.device.type))
     return _finish(op, x_op, kret, rr, flag if batched else int(flag), rr0_op,
                    o, tsolve, bnrm2, stats=stats, path=(name, kernel, note),
                    hist=hist_op, pipelined=True, perm=perm,
-                   solver="cg-pipelined-deep")
+                   solver="cg-pipelined-deep", loop="open")
 
 
 # ---------------------------------------------------------------------------

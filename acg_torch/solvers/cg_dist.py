@@ -52,7 +52,9 @@ import torch
 
 from acg_torch.config import HaloMethod, SolverOptions
 from acg_torch.errors import AcgError, Status
+from acg_torch.obs.monitor import LoopMonitor
 from acg_torch.ops.blas1 import batched_dot, block_dot, combine, gram
+from acg_torch.ops.cg_update import cg_update
 from acg_torch.parallel.deep import build_deep_device
 from acg_torch.parallel.halo import check_wire, on_device
 from acg_torch.parallel.mesh import make_mesh
@@ -64,11 +66,14 @@ from acg_torch.partition.partitioner import partition_graph
 from acg_torch.solvers.base import (SolveStats, cg_flops_per_iter,
                                     conform_x0_batch,
                                     kernel_disengagement_note, path_names)
-from acg_torch.solvers.cg import (_cheb_leja_nodes, _deep_dispatches,
+from acg_torch.solvers.cg import (DEEP_OPEN, SSTEP_OPEN, _cheb_leja_nodes,
+                                  _deep_dispatches,
                                   _deep_validate, _deflate_x0, _finish,
-                                  _host, _power_lmax, _sstep_certify,
-                                  _sstep_fallback, _sstep_fallback_stop,
-                                  _sstep_fallback_x0, _sstep_validate)
+                                  _host, _join_note, _power_lmax,
+                                  _sstep_certify, _sstep_fallback,
+                                  _sstep_fallback_stop, _sstep_fallback_x0,
+                                  _sstep_validate, open_loop_note,
+                                  resolve_loop)
 from acg_torch.solvers.loops import (_GRAM_BAD, cg_pipelined_deep_while,
                                      cg_pipelined_while, cg_sstep_while,
                                      cg_while)
@@ -228,6 +233,24 @@ def _split_step(ss: ShardedSystem, dot, wire: str):
     return coupled
 
 
+def _update_step(dev0: torch.device, want_pp: bool):
+    """The classic loop's ``update`` over shards: each shard's one-pass
+    x += alpha p, r -= alpha t with its |r|² (and |p|²) partials
+    (``acg_torch/ops/cg_update.py``), the partials summed in shard
+    order."""
+    def update(x, r, p, t, alpha):
+        rrs, pps = [], []
+        for xi, ri, pi, ti in zip(x, r, p, t):
+            rr, pp = cg_update(xi, ri, pi, ti, on_device(alpha, xi.device),
+                               want_pp)
+            rrs.append(rr)
+            pps.append(pp)
+        return (sum_in_order(rrs, dev0),
+                sum_in_order(pps, dev0) if want_pp else None)
+
+    return update
+
+
 def _pipe_step(ss: ShardedSystem, dev0: torch.device, wire: str):
     """The pipelined loop's ``iter_step`` on stencil and DIA shards: the
     halo of w, then on each shard its single-kernel pipelined iteration
@@ -236,11 +259,10 @@ def _pipe_step(ss: ShardedSystem, dev0: torch.device, wire: str):
     which is exact since the update is linear in q: z' += I, w' -=
     alpha I, delta -= alpha <I, r'> (p', s', x', r' and gamma do not
     depend on q).  The partials of gamma and delta are summed in shard
-    order.  The kernel writes w' beside w, so each shard's two w buffers
-    alternate (``cg.py``'s ``_pipe_step``)."""
-    spare = [None] * ss.nparts
-
-    def step(z, r, p, w, s, x, alpha, beta):
+    order.  The kernel writes w' beside w, into the shards of ``w_out``
+    (the loop alternates two, ``cg.py``'s ``_pipe_step``; None: new
+    ones)."""
+    def step(z, r, p, w, s, x, alpha, beta, w_out=None):
         ghosts = ss.exchange(w, wire)
         outs = tuple(ShardVec() for _ in range(6))
         gammas, deltas = [], []
@@ -249,8 +271,8 @@ def _pipe_step(ss: ShardedSystem, dev0: torch.device, wire: str):
             a = on_device(alpha, dev)
             *vecs, g, d = op.pipelined_iter(
                 w[i], z[i], r[i], p[i], s[i], x[i], a,
-                on_device(beta, dev), w_out=spare[i])
-            spare[i] = w[i]
+                on_device(beta, dev),
+                w_out=None if w_out is None else w_out[i])
             iface = ss.iface_product(i, ghosts[i])
             if iface is not None:
                 rows, q = iface
@@ -378,22 +400,21 @@ def _deep_fill(ss: ShardedSystem, deep, shifts, wire: str):
 
 def _solve_dist(kind: str, A, b, x0, options: SolverOptions,
                 stats: SolveStats | None, build_kw: dict,
-                atol2_floor=None):
+                atol2_floor=None, loop: str | None = None):
     """What every distributed solver runs (``acg_tpu``'s
     ``_solve_dist``): ``kind`` "cg", "cg-pipelined", "cg-sstep" or
     "cg-pipelined-deep"; the refusals, the shards (and for the last two
     their deep ghost zones), the loop and the result.  ``atol2_floor``
     (the s-step and deep fallbacks) is a squared absolute threshold, a
-    scalar or per system, folded into the atol term."""
+    scalar or per system, folded into the atol term.  ``loop`` as
+    :func:`acg_torch.solvers.cg.cg` (classic and pipelined only: the
+    graph loop where every shard is on one card)."""
     o = options
     pipelined = kind in ("cg-pipelined", "cg-pipelined-deep")
     if kind == "cg-sstep":
         s = _sstep_validate(o)
     elif kind == "cg-pipelined-deep":
         l = _deep_validate(o)
-    elif o.segment_iters or o.monitor_every:
-        raise AcgError(Status.ERR_NOT_SUPPORTED,
-                       "segment_iters / monitor_every: not yet ported")
     if pipelined and (o.diffatol > 0 or o.diffrtol > 0):
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        "pipelined CG supports residual-based stopping only")
@@ -441,6 +462,10 @@ def _solve_dist(kind: str, A, b, x0, options: SolverOptions,
     dev0 = ss.devices[0]
     vdt = getattr(torch, ss.vec_dtype)
     wire = o.halo_wire
+    graph = (resolve_loop(loop, ss.devices)
+             if kind in ("cg", "cg-pipelined") else False)
+    mon = (LoopMonitor(o.monitor_every, o.maxits, vdt, dev0)
+           if o.monitor_every > 0 else None)
     deep = (build_deep_device(ss, s if kind == "cg-sstep" else l)
             if kind in ("cg-sstep", "cg-pipelined-deep") else None)
     b_sh = ss.to_sharded(b)
@@ -478,7 +503,7 @@ def _solve_dist(kind: str, A, b, x0, options: SolverOptions,
         x, k, _rr, flag, hist, _ = cg_sstep_while(
             _sstep_block_dist(ss, deep, b_sh, s, wire, dev0),
             _combine_shards, b_sh, x0_sh, r0, rr0, shifts0, hstop2, s,
-            o.maxits, stats=st)
+            o.maxits, stats=st, monitor_every=o.monitor_every)
         # every exit certified by a fresh |b - A x|² through the
         # ordinary distributed operator
         rT = b_sh - matvec(x)
@@ -500,7 +525,8 @@ def _solve_dist(kind: str, A, b, x0, options: SolverOptions,
                 matvec, dots, _combine_shards, dot, b_sh, xx, stop2, l,
                 shifts, o.maxits, o.check_every, o.replace_every, certify,
                 *restart, guard=o.guard_nonfinite, fill=fill,
-                cert_matvec=cert), x0_sh, bool(batch), o.maxits)
+                cert_matvec=cert, monitor=mon), x0_sh, bool(batch),
+            o.maxits)
         if not batch:
             flag = int(flag)
         dxx = None
@@ -514,7 +540,9 @@ def _solve_dist(kind: str, A, b, x0, options: SolverOptions,
         x, k, rr, flag, rr0, hist = cg_pipelined_while(
             matvec, dot2, b_sh, x0_sh, stop2, maxits=o.maxits,
             check_every=o.check_every, replace_every=o.replace_every,
-            certify=certify, iter_step=iter_step, guard=o.guard_nonfinite)
+            certify=certify, iter_step=iter_step, guard=o.guard_nonfinite,
+            segment=o.segment_iters, monitor_every=o.monitor_every,
+            graph=graph, stats=st)
         dxx = None
     else:
         diffstop = o.diffatol ** 2
@@ -530,7 +558,9 @@ def _solve_dist(kind: str, A, b, x0, options: SolverOptions,
         x, k, rr, dxx, flag, rr0, hist = cg_while(
             matvec, dot, b_sh, x0_sh, stop2, diffstop, maxits=o.maxits,
             track_diff=track_diff, check_every=o.check_every,
-            coupled_step=coupled, guard=o.guard_nonfinite)
+            coupled_step=coupled, guard=o.guard_nonfinite,
+            update=_update_step(dev0, track_diff), segment=o.segment_iters,
+            monitor_every=o.monitor_every, graph=graph, stats=st)
     _sync(ss.devices)
     tsolve = time.perf_counter() - t0
     ss.check_transport()
@@ -569,16 +599,25 @@ def _solve_dist(kind: str, A, b, x0, options: SolverOptions,
     if ndisp is not None:
         note = (f"deep pipeline depth {l}, {ndisp} dispatch(es), "
                 f"wire={wire}; " + note)
+    if not graph:
+        ncards = len({d for d in ss.devices if d.type == "cuda"})
+        note = _join_note(note, open_loop_note(
+            SSTEP_OPEN if kind == "cg-sstep" else
+            DEEP_OPEN if kind == "cg-pipelined-deep" else
+            f"shards on {ncards} cards" if ncards > 1 else "asked",
+            dev0.type))
     return _finish(_Meta, x_global, k, rr, flag, rr0, o, tsolve,
                    np.linalg.norm(b, axis=-1),
                    dxx=dxx if track_diff else None, stats=st,
                    path=(name, kernel, note), hist=hist,
                    pipelined=pipelined, sstep=sstep,
-                   solver=kind if deep is not None else None)
+                   solver=kind if deep is not None else None,
+                   loop="graph" if graph else "open")
 
 
 def cg_dist(A, b, x0=None, options: SolverOptions = SolverOptions(),
-            stats: SolveStats | None = None, **build_kw):
+            stats: SolveStats | None = None, loop: str | None = None,
+            **build_kw):
     """Distributed classic CG (``acg_tpu.solvers.cg_dist.cg_dist``): one
     halo exchange and two shard-ordered sums per iteration.  ``A`` and
     ``build_kw`` as :func:`build_sharded` (a built system is taken as it
@@ -589,14 +628,21 @@ def cg_dist(A, b, x0=None, options: SolverOptions = SolverOptions(),
     (:meth:`ShardedSystem.check_transport`).  Raises as
     :func:`acg_torch.solvers.cg.cg` does (``.result`` attached on
     breakdown or non-convergence), and ``ERR_NOT_SUPPORTED`` for a batch
-    or a compressed ``halo_wire`` under the rdma halo and for what is not
-    yet ported here: ``segment_iters`` and ``monitor_every``."""
-    return _solve_dist("cg", A, b, x0, options, stats, build_kw)
+    or a compressed ``halo_wire`` under the rdma halo.  Every shard's x
+    and r updates and |r|² partial are one kernel pass
+    (``ops/cg_update.py``).  With every shard on one card the loop's
+    blocks run as CUDA graphs (``loop`` as :func:`acg_torch.solvers.cg.cg`);
+    shards on several cards run the open loop, which ``kernel_note``
+    says.  ``options.segment_iters`` and ``options.monitor_every`` as in
+    :func:`acg_torch.solvers.cg.cg` (one monitor stream for the whole
+    mesh)."""
+    return _solve_dist("cg", A, b, x0, options, stats, build_kw, loop=loop)
 
 
 def cg_pipelined_dist(A, b, x0=None,
                       options: SolverOptions = SolverOptions(),
-                      stats: SolveStats | None = None, **build_kw):
+                      stats: SolveStats | None = None,
+                      loop: str | None = None, **build_kw):
     """Distributed pipelined CG (``acg_tpu.solvers.cg_dist``
     ``cg_pipelined_dist``): one halo exchange and ONE reduction point (the
     two shard-ordered sums of gamma and delta) per iteration.  On stencil
@@ -604,9 +650,10 @@ def cg_pipelined_dist(A, b, x0=None,
     a shard with the interface folded in (``cuda-stencil-pipe+<halo>``,
     ``cuda-dia-pipe+<halo>``); ``options.replace_every`` > 0, a (B, n)
     ``b`` or ELL and sgell shards run the open-coded body.  Arguments,
-    results and errors as :func:`cg_dist`; residual criteria only (the
-    diff criteria raise ``ERR_NOT_SUPPORTED``)."""
-    return _solve_dist("cg-pipelined", A, b, x0, options, stats, build_kw)
+    results and errors as :func:`cg_dist` (``loop`` too); residual
+    criteria only (the diff criteria raise ``ERR_NOT_SUPPORTED``)."""
+    return _solve_dist("cg-pipelined", A, b, x0, options, stats, build_kw,
+                       loop=loop)
 
 
 def cg_sstep_dist(A, b, x0=None, options: SolverOptions = SolverOptions(),

@@ -2,12 +2,26 @@
 
 The port of ``acg_tpu.solvers.loops`` ``cg_while`` (classic) and
 ``cg_pipelined_while`` (pipelined).  JAX runs the whole solve as one
-``lax.while_loop``; here it is a Python loop whose state stays on the
-device: the scalars (``rr``, ``alpha``, ``beta``, ``p'Ap``, the flag, the
-iteration count) are 0-d tensors, and breakdown and convergence are
-decided with tensor ops exactly as the JAX loop body decides them.  The
-host reads the flag only at the ``check_every`` points (and at
-``maxits``), so between checks nothing waits for the device.
+``lax.while_loop``; here the loop's state stays on the device: the
+scalars (``rr``, ``alpha``, ``beta``, ``p'Ap``, the flag, the iteration
+count) are 0-d tensors, and breakdown and convergence are decided with
+tensor ops exactly as the JAX loop body decides them.  The history is
+written through a device index.  The host reads the device only at the
+``check_every`` points (and at ``maxits`` and the ``segment`` ends), so
+between two reads nothing waits for the device.
+
+The iterations between two reads are a BLOCK, a fixed sequence of
+kernel launches whose carried tensors live in buffers that the block
+reads at its start and writes at its end.  ``graph=True`` (a CUDA
+device) captures each distinct block once as a CUDA graph and replays it
+(``acg_torch/solvers/graphs.py``); ``graph=False`` runs the same block
+as Python.  What the host decides between blocks (the exit test,
+pipelined certification, the restart) runs eagerly in both, so the two
+give the same bits.  ``segment`` > 0 ends a block every ``segment``
+iterations as well (``SolverOptions.segment_iters``, the JAX package's
+re-dispatch), which changes no result.  ``monitor_every`` > 0 keeps the
+scalar each iteration reports on the device and emits the lines at the
+reads (``acg_torch/obs/monitor.py``).
 
 Between two checks the loop cannot stop, so an iteration that breaks
 down FREEZES the state instead: the flag is sticky, alpha becomes 0 (x
@@ -29,11 +43,14 @@ iteration) only take finite values no result reads.
 from __future__ import annotations
 
 import time
+import types
 
 import numpy as np
 import torch
 
-from acg_torch.ops.blas1 import pipelined_update
+from acg_torch.obs.monitor import LoopMonitor, emit_residual_line
+from acg_torch.ops.blas1 import pipelined_update_
+from acg_torch.solvers.graphs import BlockRunner
 
 _OK, _CONVERGED, _BREAKDOWN, _FAULT = 0, 1, 2, 3
 # s-step only: the Gram factorization went indefinite or non-finite (an
@@ -43,9 +60,80 @@ _OK, _CONVERGED, _BREAKDOWN, _FAULT = 0, 1, 2, 3
 _GRAM_BAD = 4
 
 
+def block_plan(k: int, maxits: int, check_every: int, segment: int = 0,
+               replace_every: int = 0) -> tuple:
+    """The block that starts after ``k`` iterations: ``(length, ends at a
+    check point, ends at a scheduled replacement)``.  It runs to the next
+    ``check_every`` point, ``segment`` end, ``replace_every`` point or
+    ``maxits``, whichever comes first."""
+    end = min(maxits, (k // check_every + 1) * check_every)
+    if segment > 0:
+        end = min(end, (k // segment + 1) * segment)
+    if replace_every > 0:
+        end = min(end, (k // replace_every + 1) * replace_every)
+    return (end - k, end % check_every == 0,
+            replace_every > 0 and end % replace_every == 0)
+
+
+def _keep(dst, src) -> None:
+    """``src``'s values into ``dst``'s buffer where they are different
+    tensors (shard by shard for per-shard vectors)."""
+    if isinstance(dst, torch.Tensor):
+        if dst is not src:
+            dst.copy_(src)
+        return
+    for a, c in zip(dst, src):
+        if a is not c:
+            a.copy_(c)
+
+
+class _Buffers:
+    """The buffers a block reads its carried tensors from: those ``names``
+    of ``carry`` hold when the loop starts.  With ``graph`` (a capture
+    reads and writes fixed addresses), :meth:`commit` copies every value
+    a name was rebound to back into its buffer, in ``names`` order (a
+    name that may hold another's buffer comes before it); it runs at the
+    end of every block and before every block, after the host's eager
+    work between two.  Without ``graph`` nothing is copied."""
+
+    def __init__(self, carry, names, graph: bool):
+        self.carry, self.names, self.graph = carry, names, graph
+        self.bufs = {n: getattr(carry, n) for n in names}
+
+    def commit(self) -> None:
+        if not self.graph:
+            return
+        for n in self.names:
+            v, buf = getattr(self.carry, n), self.bufs[n]
+            if v is not buf:
+                _keep(buf, v)
+                setattr(self.carry, n, buf)
+
+    def block(self, body):
+        """``body`` as a block: run, then commit."""
+        def run():
+            body()
+            self.commit()
+        return run
+
+
+def _reader(mon):
+    """The host's read at a read point: ``read(pred, hi)`` is
+    ``bool(pred)``; with a monitor, its values through iteration ``hi``
+    come in the same copy and are emitted."""
+    if mon is None:
+        return lambda pred, hi: bool(pred)
+    return mon.read
+
+
+def _monitor(every: int, maxits: int, dt, dev):
+    return LoopMonitor(every, maxits, dt, dev) if every > 0 else None
+
+
 def cg_while(matvec, dot, b, x0, stop2, diffstop, maxits: int,
              track_diff: bool, check_every: int = 1, coupled_step=None,
-             guard: bool = False):
+             guard: bool = False, update=None, segment: int = 0,
+             monitor_every: int = 0, graph: bool = False, stats=None):
     """Classic CG (ref acg/cg.c:534-637 / acg/cgcuda.c:845-1020).
 
     Returns ``(x, k, rr, dxx, flag, rr0, hist)``: ``x`` the iterate,
@@ -62,8 +150,14 @@ def cg_while(matvec, dot, b, x0, stop2, diffstop, maxits: int,
     BETA-FIRST rotation: p = r + βp opens the iteration and is followed at
     once by t = Ap and p'Ap, so ``coupled_step(r, p, beta) -> (p, t,
     p'Ap)`` can run them as one fused kernel pass.  ``coupled_step=None``
-    derives the default from ``matvec``/``dot``.  ``guard`` tests |r|² and
-    p'Ap for finiteness at the check points."""
+    derives the default from ``matvec``/``dot``.  ``update(x, r, p, t,
+    alpha) -> (rr, pp)`` moves x and r in place and returns the new |r|²
+    (and |p|² when ``track_diff``, else None): one kernel pass
+    (``acg_torch/ops/cg_update.py``); None runs ``addcmul_`` twice and
+    ``dot``.  ``guard`` tests |r|² and p'Ap for finiteness at the check
+    points.  ``segment``, ``monitor_every``, ``graph``: see the module
+    docstring; ``stats`` (a ``SolveStats``) gets the block counts and
+    the capture seconds."""
     batched = b.dim() == 2
     # a (B,) per-system scalar against (B, n) vectors; identity in 1-D
     bc = (lambda v: v[:, None]) if batched else (lambda v: v)
@@ -72,6 +166,13 @@ def cg_while(matvec, dot, b, x0, stop2, diffstop, maxits: int,
             p = r + bc(beta) * p
             t = matvec(p)
             return p, t, dot(p, t)
+    if update is None:
+        def update(x, r, p, t, alpha):
+            a = bc(alpha)
+            x.addcmul_(p, a)
+            pp = dot(p, p) if track_diff else None
+            r.addcmul_(t, a, value=-1)
+            return dot(r, r), pp
 
     dev, dt = b.device, b.dtype
     zero = torch.zeros((), dtype=dt, device=dev)
@@ -102,69 +203,94 @@ def cg_while(matvec, dot, b, x0, stop2, diffstop, maxits: int,
 
     ok, conv_c, brk, fault = (code(c) for c in
                               (_OK, _CONVERGED, _BREAKDOWN, _FAULT))
-    flag = torch.where(met(rr0), conv_c, ok)
     x = x0.clone()
-    p = torch.zeros_like(r)
-    rr, beta = rr0, torch.zeros_like(rr0)
-    dxx = torch.full_like(rr0, float("inf"))
     hist = torch.full(rr0.shape + (maxits + 1,), float("nan"), dtype=dt,
                       device=dev)
     hist[..., 0] = rr0
-    kdev = torch.zeros(rr0.shape, dtype=torch.int32, device=dev)
-    k = 0
-    running = maxits > 0 and bool((flag == ok).any())
-    while running:
-        active = flag == ok
-        p, t, ptap = coupled_step(r, p, beta)
+    hdim = hist.dim() - 1
+    # the carried state: x and r move in place; the rest is rebound by a
+    # block and (graph) copied back into these buffers at its end
+    c = types.SimpleNamespace(
+        p=torch.zeros_like(r), rr=rr0.clone(), beta=torch.zeros_like(rr0),
+        dxx=torch.full_like(rr0, float("inf")),
+        flag=torch.where(met(rr0), conv_c, ok),
+        kdev=torch.zeros(rr0.shape, dtype=torch.int32, device=dev),
+        kit=torch.zeros((), dtype=torch.int64, device=dev))
+    bufs = _Buffers(c, ("p", "rr", "beta", "dxx", "flag"), graph)
+    mon = _monitor(monitor_every, maxits, dt, dev)
+    read = _reader(mon)
+    runner = BlockRunner(dev, graph, stats)
+
+    def body(check: bool):
+        active = c.flag == ok
+        p, t, ptap = coupled_step(r, c.p, c.beta)
         # indefiniteness witness: for SPD A, p'Ap > 0 whenever r != 0;
         # p'Ap == 0 with rr == 0 is exact convergence (alpha = 0, no flag)
-        indefinite = (ptap < 0) | ((ptap == 0) & (rr > 0))
+        indefinite = (ptap < 0) | ((ptap == 0) & (c.rr > 0))
         safe = ptap > 0
         alpha = torch.where(safe & active,
-                            rr / torch.where(safe, ptap, one), zero)
-        x.addcmul_(p, bc(alpha))
+                            c.rr / torch.where(safe, ptap, one), zero)
+        rr_new, pp = update(x, r, p, t, alpha)
         if track_diff:
-            dxx = torch.where(active, alpha * alpha * dot(p, p), dxx)
-        r.addcmul_(t, bc(alpha), value=-1)
-        rr_new = dot(r, r)
+            c.dxx = torch.where(active, alpha * alpha * pp, c.dxx)
+        c.kit += 1
         # a finished system's history stops advancing (NaN past its exit;
         # a 1-D solve's count ends its history instead)
-        hist[..., k + 1] = (torch.where(active, rr_new, nan) if batched
-                            else rr_new)
-        at_check = (k + 1) % check_every == 0
+        hist.index_copy_(hdim, c.kit.reshape(1), (
+            torch.where(active, rr_new, nan) if batched
+            else rr_new).unsqueeze(-1))
         status = torch.where(indefinite, brk, ok)
-        if at_check:
+        if check:
             converged = met(rr_new)
             if track_diff:
-                converged = converged | ((ds > 0) & (dxx < ds))
+                converged = converged | ((ds > 0) & (c.dxx < ds))
             status = torch.where(indefinite, brk,
                                  torch.where(converged, conv_c, ok))
             if guard:
                 nonfin = ~(torch.isfinite(rr_new) & torch.isfinite(ptap))
                 status = torch.where(nonfin, fault, status)
-        flag = torch.where(active, status, flag)
-        kdev += active
-        beta = rr_new / torch.where(rr == 0, one, rr)
+        c.flag = torch.where(active, status, c.flag)
+        c.kdev += active
+        beta = rr_new / torch.where(c.rr == 0, one, c.rr)
         if batched:
             # a finished system's next direction is its frozen r: finite
             # and fixed, and never used, since its alpha is 0
-            beta = torch.where(flag == ok, beta, zero)
-        rr = torch.where(active, rr_new, rr)
-        k += 1
-        if at_check or k == maxits:
-            running = k < maxits and bool((flag == ok).any())
+            beta = torch.where(c.flag == ok, beta, zero)
+        c.beta = beta
+        c.rr = torch.where(active, rr_new, c.rr)
+        c.p = p
+        if mon is not None:
+            mon.put(c.kit, c.rr.amax() if batched else c.rr,
+                    active.any() if batched else active)
+
+    k = 0
+    running = maxits > 0 and bool((c.flag == ok).any())
+    while running:
+        n, check, _ = block_plan(k, maxits, check_every, segment)
+
+        def block(n=n, check=check):
+            for i in range(n):
+                body(check and i == n - 1)
+
+        runner.run((n, check), bufs.block(block))
+        k += n
+        running = k < maxits and read((c.flag == ok).any(), k)
+    if mon is not None:
+        mon.flush(k)
     # tolerance met at exit IS convergence, whatever the flag: with
     # check_every > 1 the loop may pass the unobserved convergence point
-    flag = torch.where(met(rr), conv_c, flag)
+    flag = torch.where(met(c.rr), conv_c, c.flag)
     if batched:
-        return x, kdev, rr, dxx, flag, rr0, hist
-    return x, int(kdev), rr, dxx, int(flag), rr0, hist
+        return x, c.kdev, c.rr, c.dxx, flag, rr0, hist
+    return x, int(c.kdev), c.rr, c.dxx, int(flag), rr0, hist
 
 
 def cg_pipelined_while(matvec, dot2, b, x0, stop2, maxits: int,
                        check_every: int = 1, replace_every: int = 0,
                        certify: bool = True, iter_step=None,
-                       guard: bool = False):
+                       guard: bool = False, segment: int = 0,
+                       monitor_every: int = 0, graph: bool = False,
+                       stats=None):
     """Pipelined CG (Ghysels/Vanroose; ref acg/cgcuda.c:1676-1788) with
     ONE fused reduction point per iteration: ``dot2(a1, b1, a2, b2)``
     returns (a1·b1, a2·b2).  The port of
@@ -176,13 +302,17 @@ def cg_pipelined_while(matvec, dot2, b, x0, stop2, maxits: int,
     the ``(maxits+1,)`` history of the recurred gamma, NaN past ``k``,
     holding the true residual at certification points.
 
-    ``iter_step(z, r, p, w, s, x, alpha, beta) -> (z', p', s', x', r',
-    w', gamma, delta)``, when given, runs the WHOLE body (q = A w, the
-    6-vector update, both dots) as one kernel; it requires
-    ``replace_every == 0``.  Otherwise the body is open-coded: ``matvec``,
-    :func:`pipelined_update`, ``dot2``, and every ``replace_every``
-    iterations (a host-known schedule) r = b - A x, w = A r, s = A p,
-    z = A s are recomputed from their definitions.
+    ``iter_step(z, r, p, w, s, x, alpha, beta, w_out) -> (z', p', s',
+    x', r', w', gamma, delta)``, when given, runs the WHOLE body (q = A
+    w, the 6-vector update, both dots) as one kernel, z, p, s, x and r in
+    their buffers and w' into ``w_out``; it requires ``replace_every ==
+    0``.  The loop keeps two w buffers and alternates them, so a block of
+    an odd length ends with w in the other buffer: a block's key carries
+    the parity it starts on.  Otherwise the body is open-coded:
+    ``matvec``, the in-place 6-vector update, ``dot2``, and every
+    ``replace_every`` iterations (a host-known schedule, where a block
+    ends) r = b - A x, w = A r, s = A p, z = A s are recomputed from
+    their definitions.
 
     Restart: a non-positive recurred denominator freezes the step
     (alpha = beta = 0) and the next one re-derives the directions from
@@ -202,9 +332,10 @@ def cg_pipelined_while(matvec, dot2, b, x0, stop2, maxits: int,
     returns (a sticky flag; x, gamma, the history and the count stop
     advancing), and the count is JAX's.
 
-    A (B, n) ``b`` runs the batched loop (:func:`_cg_pipelined_batched`),
-    which takes the open-coded body only: ``iter_step`` is not
-    batched."""
+    ``segment``, ``monitor_every``, ``graph``, ``stats``: as
+    :func:`cg_while`.  A (B, n) ``b`` runs the batched loop
+    (:func:`_cg_pipelined_batched`), which takes the open-coded body
+    only: ``iter_step`` is not batched."""
     if iter_step is not None and replace_every > 0:
         raise ValueError("iter_step requires replace_every == 0")
     if b.dim() == 2:
@@ -214,7 +345,8 @@ def cg_pipelined_while(matvec, dot2, b, x0, stop2, maxits: int,
                              "off for multi-RHS solves")
         return _cg_pipelined_batched(matvec, dot2, b, x0, stop2, maxits,
                                      check_every, replace_every, certify,
-                                     guard)
+                                     guard, segment, monitor_every, graph,
+                                     stats)
     dev, dt = b.device, b.dtype
     zero = torch.zeros((), dtype=dt, device=dev)
     one = torch.ones((), dtype=dt, device=dev)
@@ -230,12 +362,13 @@ def cg_pipelined_while(matvec, dot2, b, x0, stop2, maxits: int,
         m = g < thresh2
         return (m | (g == 0)) if any_crit else m
 
-    def replace_state(x, p):
-        """r, w, s, z recomputed from their definitions."""
-        r = b - matvec(x)
-        w = matvec(r)
-        s = matvec(p)
-        return r, w, s, matvec(s)
+    def replace_state():
+        """r, w, s, z recomputed from their definitions, into their
+        buffers."""
+        torch.sub(b, matvec(c.x), out=c.r)
+        _keep(c.w, matvec(c.r))
+        _keep(c.s, matvec(c.p))
+        _keep(c.z, matvec(c.s))
 
     def finite(g, d):
         return torch.isfinite(g) & torch.isfinite(d)
@@ -252,87 +385,153 @@ def cg_pipelined_while(matvec, dot2, b, x0, stop2, maxits: int,
         alpha = torch.where(bad, zero, gamma / torch.where(bad, one, denom))
         return alpha, torch.where(bad, zero, beta), bad
 
-    def advance(k, gamma_new, delta_new, gamma, alpha, bad):
-        """Record step k's gamma and form the next step's coefficients.
-        Queued before the host waits on the exit candidate, so the device
-        has them when the next kernel is launched."""
-        hist[k] = gamma_new
+    def advance(gamma_new, delta_new, gamma, alpha, bad):
+        """Record this step's gamma and form the next step's
+        coefficients."""
+        hist.index_copy_(0, c.kit.reshape(1), gamma_new.reshape(1))
         return coefficients(gamma_new, delta_new, gamma, alpha, bad)
 
-    # separate buffers: the kernel updates z, p, s, x and r in place
-    x = x0.clone()
-    p, s, z = (torch.zeros_like(b) for _ in range(3))
-    gamma, delta = gamma0, delta0
     fresh = torch.ones((), dtype=torch.bool, device=dev)
-    coef = coefficients(gamma0, delta0, gamma0, zero, fresh)
-    certified = True                       # gamma0 is a true residual
+    alpha0, beta0, bad0 = coefficients(gamma0, delta0, gamma0, zero, fresh)
     hist = torch.full((maxits + 1,), float("nan"), dtype=dt, device=dev)
     hist[0] = gamma0
+    # the carried state: the vectors move in their buffers (w between two
+    # under iter_step); the scalars are rebound by a block and (graph)
+    # copied back at its end.  a_i, bad_i, g_i: the coefficients and
+    # gamma a step started from (a redo after certification needs them)
+    c = types.SimpleNamespace(
+        x=x0.clone(), p=torch.zeros_like(b), s=torch.zeros_like(b),
+        z=torch.zeros_like(b), r=r, w=w, gamma=gamma0.clone(),
+        delta=delta0.clone(), alpha=alpha0, beta=beta0, bad=bad0,
+        a_i=zero.clone(), bad_i=fresh.clone(), g_i=gamma0.clone(),
+        gn=gamma0.clone(), dn=delta0.clone(), cand=~fresh,
+        kit=torch.zeros((), dtype=torch.int64, device=dev))
+    names = ("a_i", "bad_i", "g_i", "gn", "dn", "cand", "alpha", "beta",
+             "bad", "gamma", "delta")
+    wbuf = [w, torch.zeros_like(b)] if iter_step is not None else None
     running = ~met(gamma0)
     if guard:
         # what the loop returns, frozen at the first non-finite pair
-        alive = finite(gamma0, delta0)
-        x_keep = x.clone()
-        kdev = torch.zeros((), dtype=torch.int32, device=dev)
         nan = torch.full((), float("nan"), dtype=dt, device=dev)
-        cert_t = fresh.clone()
-        cert_c = (cert_t.clone(), ~cert_t)  # certified: True, False
-        running = running & alive
+        cert_c = (fresh.clone(), ~fresh)    # certified: True, False
+        c.alive = finite(gamma0, delta0)
+        c.x_keep = c.x.clone()
+        c.kdev = torch.zeros((), dtype=torch.int32, device=dev)
+        c.cert_t = fresh.clone()
+        names += ("cert_t", "alive")
+        running = running & c.alive
+    bufs = _Buffers(c, names, graph)
+    mon = _monitor(monitor_every, maxits, dt, dev)
+    read = _reader(mon)
+    runner = BlockRunner(dev, graph, stats)
+
+    def head(check: bool, rep: bool, w_out):
+        """A step up to its exit test: the update, a scheduled
+        replacement, the dots; without the guard the speculative
+        coefficients of the next step (redone after a certification)."""
+        alpha, beta, bad = c.alpha, c.beta, c.bad
+        c.a_i, c.bad_i, c.g_i = alpha, bad, c.gamma
+        if iter_step is not None:
+            out = iter_step(c.z, c.r, c.p, c.w, c.s, c.x, alpha, beta,
+                            w_out)
+            for name, v in zip(("z", "p", "s", "x", "r"), out[:5]):
+                _keep(getattr(c, name), v)
+            _keep(w_out, out[5])
+            c.w = w_out
+            gamma_new, delta_new = out[6], out[7]
+        else:
+            pipelined_update_(matvec(c.w), c.w, c.z, c.r, c.p, c.s, c.x,
+                              alpha, beta)
+            if rep:
+                replace_state()
+            gamma_new, delta_new = dot2(c.r, c.r, c.w, c.r)
+        c.kit += 1
+        if certify and check:
+            c.cand = met(gamma_new)
+        c.gn, c.dn = gamma_new, delta_new
+        if not guard:
+            c.alpha, c.beta, c.bad = advance(gamma_new, delta_new, c.gamma,
+                                             alpha, bad)
+            c.gamma, c.delta = gamma_new, delta_new
+            if mon is not None:
+                mon.put(c.kit, gamma_new)
+
+    def tail(certified: bool):
+        """The guard's end of a step: freeze what the loop returns at the
+        first non-finite pair."""
+        live = c.alive
+        torch.where(live, c.x, c.x_keep, out=c.x_keep)
+        c.cert_t = torch.where(live, cert_c[0] if certified else cert_c[1],
+                               c.cert_t)
+        gamma_new = torch.where(live, c.gn, c.gamma)
+        delta_new = torch.where(live, c.dn, c.delta)
+        c.alpha, c.beta, c.bad = advance(
+            torch.where(live, gamma_new, nan), delta_new, c.gamma, c.a_i,
+            c.bad_i)
+        c.kdev += live
+        c.alive = live & finite(gamma_new, delta_new)
+        c.gamma, c.delta = gamma_new, delta_new
+        if mon is not None:
+            mon.put(c.kit, gamma_new, live)
+
     k = 0
+    parity = 0
+    certified = True                       # gamma0 is a true residual
     running = maxits > 0 and bool(running)
     while running:
-        live = alive if guard else None
-        alpha, beta, bad = coef
-        just_replaced = False
-        if iter_step is not None:
-            z, p, s, x, r, w, gamma_new, delta_new = iter_step(
-                z, r, p, w, s, x, alpha, beta)
-        else:
-            z, p, s, x, r, w = pipelined_update(matvec(w), w, z, r, p, s, x,
-                                                alpha, beta)
-            if replace_every > 0 and (k + 1) % replace_every == 0:
-                just_replaced = True
-                r, w, s, z = replace_state(x, p)
-            gamma_new, delta_new = dot2(r, r, w, r)
-        k += 1
-        at_check = k % check_every == 0
-        cand_t = met(gamma_new) if certify and at_check else None
-        if not guard:
-            coef = advance(k, gamma_new, delta_new, gamma, alpha, bad)
+        n, check, rep = block_plan(k, maxits, check_every, segment,
+                                   replace_every)
+        cert = certify and check
+        # with the guard, the step that waits on the certification read
+        # ends after that read
+        late = guard and cert
+
+        def block(n=n, check=check, rep=rep, parity=parity, late=late):
+            for i in range(n):
+                last = i == n - 1
+                head(check and last, rep and last,
+                     wbuf[(parity + i + 1) % 2] if wbuf else None)
+                if guard and not (late and last):
+                    tail(rep and last)
+
+        bufs.commit()
+        runner.run((n, check, rep, parity), bufs.block(block))
+        k += n
+        if wbuf:
+            parity = (parity + n) % 2
         cand = False
-        if cand_t is not None:
-            cand = bool(cand_t & live) if guard else bool(cand_t)
-            if cand and not just_replaced:
-                r, w, s, z = replace_state(x, p)
-                gamma_new, delta_new = dot2(r, r, w, r)
+        if cert:
+            # this step's monitor value waits for the redo below
+            cand = read((c.cand & c.alive) if guard else c.cand, k - 1)
+            if cand and not rep:
+                replace_state()
+                gamma_new, delta_new = dot2(c.r, c.r, c.w, c.r)
+                c.gn, c.dn = gamma_new, delta_new
                 if not guard:
-                    coef = advance(k, gamma_new, delta_new, gamma, alpha,
-                                   bad)
-        certified = cand or just_replaced
-        if guard:
-            torch.where(live, x, x_keep, out=x_keep)
-            cert_t = torch.where(live, cert_c[0] if certified else cert_c[1],
-                                 cert_t)
-            gamma_new = torch.where(live, gamma_new, gamma)
-            delta_new = torch.where(live, delta_new, delta)
-            coef = advance(k, torch.where(live, gamma_new, nan), delta_new,
-                           gamma, alpha, bad)
-            kdev += live
-            alive = live & finite(gamma_new, delta_new)
-        gamma, delta = gamma_new, delta_new
+                    c.alpha, c.beta, c.bad = advance(
+                        gamma_new, delta_new, c.g_i, c.a_i, c.bad_i)
+                    c.gamma, c.delta = gamma_new, delta_new
+                    if mon is not None:
+                        mon.put(c.kit, gamma_new)
+        certified = cand or rep
+        if late:
+            tail(certified)
         if k >= maxits:
             break
-        if at_check:
+        if check:
             # a certified candidate exits on its true gamma
-            stop = cand and (just_replaced or bool(met(gamma)))
-            running = not stop and (not guard or bool(alive))
+            stop = cand and (rep or read(met(c.gamma), k))
+            running = not stop and (not guard or read(c.alive, k))
+    if mon is not None:
+        mon.flush(k)
+    x, gamma, delta = c.x, c.gamma, c.delta
     if guard:
-        x, k = x_keep, int(kdev)
+        x, k = c.x_keep, int(c.kdev)
     if certify:
         # the maxits door, off the check schedule, can leave an
         # uncertified gamma below the threshold: certify that one too
         # (|b - A x|^2; JAX also forms w = A r, which gamma does not use)
-        need = ((met(gamma) & ~cert_t) if guard
+        need = ((met(gamma) & ~c.cert_t) if guard
                 else not certified and bool(met(gamma)))
         if bool(need):
             rt = b - matvec(x)
@@ -348,7 +547,9 @@ def cg_pipelined_while(matvec, dot2, b, x0, stop2, maxits: int,
 
 def _cg_pipelined_batched(matvec, dot2, b, x0, stop2, maxits: int,
                           check_every: int, replace_every: int,
-                          certify: bool, guard: bool):
+                          certify: bool, guard: bool, segment: int = 0,
+                          monitor_every: int = 0, graph: bool = False,
+                          stats=None):
     """Pipelined CG for B systems against one operator (``b`` and ``x0``
     of shape (B, n)), the port of ``acg_tpu.solvers.loops``
     ``cg_pipelined_while`` in batched mode (``:669-922``) through the
@@ -370,7 +571,8 @@ def _cg_pipelined_batched(matvec, dot2, b, x0, stop2, maxits: int,
     under ``guard`` x is also selected per system, since a faulted
     system's non-finite p would reach x through 0·p.  The host reads at
     the check points: whether any system is a candidate, then whether
-    all are done."""
+    all are done.  Blocks as in :func:`cg_while`; the step that waits on
+    a certification read ends after it."""
     dev, dt = b.device, b.dtype
     zero = torch.zeros((), dtype=dt, device=dev)
     one = torch.ones((), dtype=dt, device=dev)
@@ -393,80 +595,128 @@ def _cg_pipelined_batched(matvec, dot2, b, x0, stop2, maxits: int,
         s = matvec(p)
         return r, w, s, matvec(s)
 
-    x = x0.clone()
-    p, s, z = (torch.zeros_like(b) for _ in range(3))
-    gamma, delta = gamma0, delta0
-    gamma_prev, alpha_prev = gamma0, torch.zeros_like(gamma0)
     fresh = torch.ones_like(gamma0, dtype=torch.bool)
-    certified = fresh.clone()              # gamma0 is a true residual
     hist = torch.full(gamma0.shape + (maxits + 1,), float("nan"), dtype=dt,
                       device=dev)
     hist[:, 0] = gamma0
     # systems converged at x0 are done before the first iteration
-    done = met(gamma0)
-    ksys = torch.zeros(gamma0.shape, dtype=torch.int32, device=dev)
-    k = 0
-    running = maxits > 0 and not bool(done.all())
-    while running:
-        active = ~done
-        beta = torch.where(fresh, zero, gamma / torch.where(
-            gamma_prev == 0, one, gamma_prev))
-        denom = torch.where(fresh, delta, delta - beta * gamma / torch.where(
-            alpha_prev == 0, one, alpha_prev))
+    c = types.SimpleNamespace(
+        x=x0.clone(), p=torch.zeros_like(b), s=torch.zeros_like(b),
+        z=torch.zeros_like(b), r=r, w=w, gamma=gamma0.clone(),
+        delta=delta0.clone(), gamma_prev=gamma0.clone(),
+        alpha_prev=torch.zeros_like(gamma0), fresh=fresh,
+        certified=fresh.clone(),             # gamma0 is a true residual
+        done=met(gamma0),
+        ksys=torch.zeros(gamma0.shape, dtype=torch.int32, device=dev),
+        kit=torch.zeros((), dtype=torch.int64, device=dev),
+        gn=gamma0.clone(), dn=delta0.clone(), active=~fresh, cand=~fresh,
+        alpha_i=torch.zeros_like(gamma0), bad_i=fresh.clone())
+    names = ("gn", "dn", "active", "cand", "alpha_i", "bad_i", "gamma",
+             "delta", "gamma_prev", "alpha_prev", "fresh", "certified",
+             "done", "ksys")
+    if guard:
+        c.x_old = torch.zeros_like(b)
+    bufs = _Buffers(c, names, graph)
+    mon = _monitor(monitor_every, maxits, dt, dev)
+    read = _reader(mon)
+    runner = BlockRunner(dev, graph, stats)
+
+    def head(check: bool, rep: bool):
+        """A step up to its exit candidates."""
+        active = ~c.done
+        beta = torch.where(c.fresh, zero, c.gamma / torch.where(
+            c.gamma_prev == 0, one, c.gamma_prev))
+        denom = torch.where(c.fresh, c.delta, c.delta - beta * c.gamma
+                            / torch.where(c.alpha_prev == 0, one,
+                                          c.alpha_prev))
         # unusable denominator -> restart: freeze this step, re-derive the
         # directions from r, w on the next one
-        bad = (denom <= 0) | (~fresh & (gamma_prev == 0))
-        alpha = torch.where(bad, zero, gamma / torch.where(bad, one, denom))
-        stop = bad | done
-        x_old = x
-        z, p, s, x, r, w = pipelined_update(
-            matvec(w), w, z, r, p, s, x, torch.where(done, zero, alpha),
-            torch.where(stop, zero, beta))
-        just_replaced = replace_every > 0 and (k + 1) % replace_every == 0
-        if just_replaced:
-            r, w, s, z = replace_state(x, p)
-        gamma_new, delta_new = dot2(r, r, w, r)
-        k += 1
-        at_check = k % check_every == 0
-        cand = torch.zeros_like(active)
-        if certify and at_check:
-            cand = met(gamma_new) & active
-            # a just-replaced gamma IS the true residual
-            if not just_replaced and bool(cand.any()):
-                rc, wc, sc, zc = replace_state(x, p)
-                gc, dc = dot2(rc, rc, wc, rc)
-                m = cand[:, None]
-                r, w, s, z = (torch.where(m, new, old) for new, old in
-                              ((rc, r), (wc, w), (sc, s), (zc, z)))
-                gamma_new = torch.where(cand, gc, gamma_new)
-                delta_new = torch.where(cand, dc, delta_new)
+        bad = (denom <= 0) | (~c.fresh & (c.gamma_prev == 0))
+        alpha = torch.where(bad, zero, c.gamma / torch.where(bad, one, denom))
+        stop = bad | c.done
         if guard:
-            x = torch.where(active[:, None], x, x_old)
-        gamma_new = torch.where(active, gamma_new, gamma)
-        delta_new = torch.where(active, delta_new, delta)
-        gamma_prev = torch.where(active, gamma, gamma_prev)
-        alpha_prev = torch.where(active, alpha, alpha_prev)
-        fresh = torch.where(active, bad, fresh)
-        certified = torch.where(active, cand | just_replaced, certified)
-        hist[:, k] = torch.where(active, gamma_new, nan)
-        if at_check:
+            _keep(c.x_old, c.x)
+        pipelined_update_(matvec(c.w), c.w, c.z, c.r, c.p, c.s, c.x,
+                          torch.where(c.done, zero, alpha),
+                          torch.where(stop, zero, beta))
+        if rep:
+            for name, v in zip(("r", "w", "s", "z"), replace_state(c.x, c.p)):
+                _keep(getattr(c, name), v)
+        c.gn, c.dn = dot2(c.r, c.r, c.w, c.r)
+        c.kit += 1
+        c.cand = (met(c.gn) & active if certify and check
+                  else torch.zeros_like(active))
+        c.active, c.alpha_i, c.bad_i = active, alpha, bad
+
+    def certify_candidates():
+        """A just-replaced gamma IS the true residual; else the
+        candidates take the replacement, blended in."""
+        rc, wc, sc, zc = replace_state(c.x, c.p)
+        gc, dc = dot2(rc, rc, wc, rc)
+        m = c.cand[:, None]
+        for new, old in ((rc, c.r), (wc, c.w), (sc, c.s), (zc, c.z)):
+            torch.where(m, new, old, out=old)
+        c.gn = torch.where(c.cand, gc, c.gn)
+        c.dn = torch.where(c.cand, dc, c.dn)
+
+    def tail(check: bool, rep: bool):
+        """The rest of a step: per-system freezing, history, exit."""
+        active = c.active
+        if guard:
+            torch.where(active[:, None], c.x, c.x_old, out=c.x)
+        gamma_new = torch.where(active, c.gn, c.gamma)
+        delta_new = torch.where(active, c.dn, c.delta)
+        c.gamma_prev = torch.where(active, c.gamma, c.gamma_prev)
+        c.alpha_prev = torch.where(active, c.alpha_i, c.alpha_prev)
+        c.fresh = torch.where(active, c.bad_i, c.fresh)
+        c.certified = torch.where(active, c.cand | rep, c.certified)
+        hist.index_copy_(1, c.kit.reshape(1),
+                         torch.where(active, gamma_new, nan)[:, None])
+        if check:
             # the exit decision per system, on the (certified) gamma
-            done = done | (active & met(gamma_new))
+            c.done = c.done | (active & met(gamma_new))
         if guard:
-            done = done | (active & ~(torch.isfinite(gamma_new)
-                                      & torch.isfinite(delta_new)))
-        ksys = torch.where(active, k, ksys)
-        gamma, delta = gamma_new, delta_new
+            c.done = c.done | (active & ~(torch.isfinite(gamma_new)
+                                          & torch.isfinite(delta_new)))
+        c.ksys = torch.where(active, c.kit.to(torch.int32), c.ksys)
+        c.gamma, c.delta = gamma_new, delta_new
+        if mon is not None:
+            mon.put(c.kit, gamma_new.amax(), active.any())
+
+    k = 0
+    running = maxits > 0 and not bool(c.done.all())
+    while running:
+        n, check, rep = block_plan(k, maxits, check_every, segment,
+                                   replace_every)
+        cert = certify and check
+
+        def block(n=n, check=check, rep=rep, cert=cert):
+            for i in range(n):
+                last = i == n - 1
+                head(check and last, rep and last)
+                if not (cert and last):
+                    tail(check and last, rep and last)
+
+        bufs.commit()
+        runner.run((n, check, rep), bufs.block(block))
+        k += n
+        if cert:
+            if not rep and read(c.cand.any(), k - 1):
+                certify_candidates()
+            tail(True, rep)
         if k >= maxits:
             break
-        if at_check:
-            running = not bool(done.all())
+        if check:
+            running = not read(c.done.all(), k)
+    if mon is not None:
+        mon.flush(k)
+    gamma, ksys = c.gamma, c.ksys
     if certify:
         # the maxits door, off the check schedule, can leave an
         # uncertified gamma below the threshold: certify those too
-        need = met(gamma) & ~certified
+        need = met(gamma) & ~c.certified
         if bool(need.any()):
-            rt = b - matvec(x)
+            rt = b - matvec(c.x)
             g, _ = dot2(rt, rt, rt, rt)
             gamma = torch.where(need, g, gamma)
         # each system's last sample is its certified exit value
@@ -475,9 +725,9 @@ def _cg_pipelined_batched(matvec, dot2, b, x0, stop2, maxits: int,
     else:
         flag = torch.full(gamma.shape, _OK, dtype=torch.int32, device=dev)
     if guard:
-        flag = torch.where(torch.isfinite(gamma) & torch.isfinite(delta),
+        flag = torch.where(torch.isfinite(gamma) & torch.isfinite(c.delta),
                            flag, _FAULT).to(torch.int32)
-    return x, ksys, gamma, flag, gamma0, hist
+    return c.x, ksys, gamma, flag, gamma0, hist
 
 
 # ---------------------------------------------------------------------------
@@ -542,7 +792,7 @@ def _history_init(rr0: np.ndarray, maxits: int) -> np.ndarray:
 
 
 def cg_sstep_while(block_fn, combine_fn, b, x0, p0, rr0, shifts0, stop2,
-                   s: int, maxits: int, stats=None):
+                   s: int, maxits: int, stats=None, monitor_every: int = 0):
     """s-step (communication-reduced) CG, one Gram reduction per s
     iterations (arXiv:2501.03743; the port of
     ``acg_tpu.solvers.loops.cg_sstep_while``).
@@ -629,6 +879,10 @@ def cg_sstep_while(block_fn, combine_fn, b, x0, p0, rr0, shifts0, stop2,
             flag = np.where(active0 & (~gfin | difn), _GRAM_BAD,
                             np.where(active0 & met(rr_true), _CONVERGED, flag))
             hist_put(kiter, active0 & gfin, rr_true)
+            kmon = int(np.max(kiter))
+            if monitor_every > 0 and kmon % monitor_every == 0:
+                emit_residual_line(kmon, np.max(np.where(active0, rr_true,
+                                                         rr)))
             active = flag == _OK
             Bmat = _newton_basis_matrix(shifts, s)
             kiter0 = kiter.copy()
@@ -751,7 +1005,7 @@ def cg_pipelined_deep_while(matvec, dots, combine_fn, dot, b, x0, stop2,
                             certify: bool = True, k_start: int = 0,
                             rr0_in=None, flags_in=None, hist_in=None,
                             ksys_in=None, guard: bool = False, fill=None,
-                            cert_matvec=None):
+                            cert_matvec=None, monitor=None):
     """Depth-l pipelined CG, l reductions in flight: ONE pipeline segment
     (dispatch) of the port of ``acg_tpu.solvers.loops``
     ``cg_pipelined_deep_while`` (p(l)-CG, Cornelis/Cools/Vanroose
@@ -802,6 +1056,12 @@ def cg_pipelined_deep_while(matvec, dots, combine_fn, dot, b, x0, stop2,
     vectors (``ShardVec``), the rings then one stack a shard
     (``ShardStack``), which ``dots`` and ``combine_fn`` read shard by
     shard.
+
+    ``monitor`` (a ``LoopMonitor``, one for the whole solve) takes each
+    live body's report, the update count k + 1 and the residual estimate
+    (a batch's worst system), as the JAX body passes them; the host reads
+    them with the flag at the dispatch's end.  A body that committed
+    nothing reports k + 1 again in the next dispatch, as in the JAX loop.
 
     ``shifts`` ([B,] l) is a device tensor.  Returns ``(x, kret, rr, flag,
     rr0, hist, k, more, drift)``: ``rr`` the certified |r|² (or the last
@@ -888,6 +1148,8 @@ def cg_pipelined_deep_while(matvec, dots, combine_fn, dot, b, x0, stop2,
         ksys = (torch.zeros(sshape, dtype=torch.int32, device=dev)
                 if ksys_in is None else ksys_in.to(torch.int32))
     kdev = torch.tensor(k0, dtype=torch.int32, device=dev)
+    if monitor is not None:
+        monitor.emitted = monitor.read_hi = k0
     x = x0.clone()
     q = torch.zeros_like(b)
     d_prev = torch.zeros(sshape, dtype=dt, device=dev)
@@ -999,6 +1261,9 @@ def cg_pipelined_deep_while(matvec, dots, combine_fn, dot, b, x0, stop2,
             flag = torch.where(active & nonfin, fault_c, flag)
         if at_check:
             est = est | (commit & met(rr_new))
+        if monitor is not None:
+            monitor.put(kdev + 1, rr_est.amax() if batched else rr_est,
+                        active.any() if batched else active)
         kdev = kdev + (commit.any() if batched else commit)
         if batched:
             hist[:, k + 1] = torch.where(commit, rr_new, nan)
@@ -1055,6 +1320,7 @@ def cg_pipelined_deep_while(matvec, dots, combine_fn, dot, b, x0, stop2,
         drift = torch.zeros(sshape, dtype=torch.bool, device=dev)
         rr_ret = rr_est
     more_sys = (flag == ok_c) & (k < maxits)
-    more = bool(more_sys.any())
+    more = (bool(more_sys.any()) if monitor is None
+            else monitor.read(more_sys.any(), k + 1))
     kret = ksys if batched else k
     return x, kret, rr_ret, flag, rr0, hist, k, more, drift

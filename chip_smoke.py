@@ -231,6 +231,7 @@ or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -270,12 +271,28 @@ def _emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+_PHASE_SECONDS: dict = {}
+
+
 def _phase(name: str, fn):
     t0 = time.perf_counter()
     info = fn()
-    _emit({"phase": name, "seconds": round(time.perf_counter() - t0, 3),
-           **info})
+    dt = round(time.perf_counter() - t0, 3)
+    _PHASE_SECONDS[name] = dt
+    _emit({"phase": name, "seconds": dt, **info})
     return info
+
+
+def _mesh_job(points: int):
+    """fem3d-1m's mesh in a worker process: (the host CSR, its seconds).
+    Generating it is host-bound (the Delaunay triangulation of a million
+    points), so the run starts it first and overlaps it with the card's
+    set-up phases."""
+    from acg_torch.sparse.mesh import fem_delaunay_spd
+
+    t0 = time.perf_counter()
+    A = fem_delaunay_spd(points, dim=3, seed=0, shuffle=True)
+    return A, time.perf_counter() - t0
 
 
 def main(argv=None) -> int:
@@ -308,10 +325,11 @@ def main(argv=None) -> int:
     # (name, run, the earlier phases whose results it reads or is held
     # against)
     phases = [
-        ("fem3d-1m", lambda: _fem_setup(fem_points, ctx), ()),
         ("p3d-464", lambda: _p3d_big_setup(big_grid, ctx), ()),
         ("p2d-10k", lambda: _p2d_setup(p2d_edge, ctx), ()),
         ("dist-setup", lambda: _dist_setup(grid, nparts, ctx), ()),
+        # its mesh is made in a worker started with the run, meanwhile
+        ("fem3d-1m", lambda: _fem_setup(fem_points, ctx), ()),
         ("kernels", lambda: _kernels_phase(grid, nrhs, dist_nrhs, ctx),
          ("fem3d-1m", "p3d-464", "p2d-10k", "dist-setup")),
         ("stencil", lambda: _stencil_solve(grid, ctx), ()),
@@ -408,6 +426,9 @@ def main(argv=None) -> int:
          ("p2d-10k",)),
         ("p2d-windows", lambda: _p2d_solve(p2d_iters, ctx, windows=True),
          ("p2d-10k",)),
+        ("graph-loop", lambda: _graph_phase(ctx),
+         ("stencil", "pipelined-dia-bf16", "batched-stencil",
+          "dist-setup")),
         ("profile", lambda: _profile_phase(ctx), ()),
     ]
     run = _selected(phases, args.only)
@@ -418,10 +439,25 @@ def main(argv=None) -> int:
     if ctx is None:
         return 2
 
-    _phase("build", _build_phase)
-    for name, fn, _needs in phases:
-        if name in run:
-            _phase(name, fn)
+    pool = None
+    if "fem3d-1m" in run:
+        # the mesh is host work with no card in it: a worker process
+        # makes it while the card's set-up phases run
+        import multiprocessing
+
+        pool = multiprocessing.get_context("spawn").Pool(1)
+        ctx["fem_mesh"] = pool.apply_async(_mesh_job, (fem_points,))
+    try:
+        _phase("build", _build_phase)
+        for name, fn, _needs in phases:
+            if name in run:
+                _phase(name, fn)
+    finally:
+        if pool is not None:
+            pool.terminate()
+            pool.join()
+    _emit({"phase_seconds": _PHASE_SECONDS,
+           "phases_total_seconds": round(sum(_PHASE_SECONDS.values()), 3)})
     if args.only:
         # a partial run: no kernel line, since not every kernel was driven
         _emit({"ok": True, "only": [p[0] for p in phases if p[0] in run]})
@@ -866,6 +902,7 @@ def _kernels_phase(G: int, nrhs: int, dist_nrhs: int, ctx):
     del xs
     torch.cuda.empty_cache()
     _stencil_shapes(ctx)
+    _cg_update_rows(G, nrhs, ctx)
     _batched_kernels(D, G, nrhs, ctx)
     _unstructured_kernels(ctx)
     _hbm_kernels(D, ctx)
@@ -874,6 +911,84 @@ def _kernels_phase(G: int, nrhs: int, dist_nrhs: int, ctx):
             "dist_nrhs": dist_nrhs,
             "configurations": len(ctx["rows"]),
             "launches_while_checking": _counts()}
+
+
+def _cg_update_rows(G: int, nrhs: int, ctx, big: int = 464):
+    """The classic loop's fused update (``ops/cg_update.py``) at the
+    shapes the solve phases give it: 256^3 f64 (stencil), the 256^3/4
+    shard f64 (dist-stencil-rdma), B = 8 systems of 256^3 f64
+    (batched-stencil) and 464^3 f32 (dia-100m).  x and r are held bit for
+    bit against the plain version (two addcmul_), the dots against
+    torch.dot to rounding and bit-stable across runs, each row of the
+    batch bit-equal to the one-system call; timed beside the plain
+    version (the composed addcmul_ x 2 + torch.dot, which no single
+    PyTorch call replaces: library_ms null) and its bound, 6 vector
+    streams (4 read, 2 written)."""
+    import torch
+
+    from acg_torch.ops.cg_update import cg_update, cg_update_plain
+
+    cases = (("f64 256^3", torch.float64, (G ** 3,)),
+             ("f64 256^3/4 shard", torch.float64, (G ** 3 // 4,)),
+             (f"f64 256^3 B={nrhs}", torch.float64, (nrhs, G ** 3)),
+             (f"f32 {big}^3", torch.float32, (big ** 3,)))
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for tier, vdt, shape in cases:
+        x, r, p, t = (torch.randn(shape, generator=gen, device="cuda",
+                                  dtype=vdt) for _ in range(4))
+        alpha = torch.rand(shape[:-1], generator=gen, device="cuda",
+                           dtype=vdt)
+        xk, rk, xp, rp = x.clone(), r.clone(), x.clone(), r.clone()
+        rr1, _ = cg_update(xk, rk, p, t, alpha)
+        rr1 = rr1.clone()
+        xk2, rk2 = x.clone(), r.clone()
+        rr2, _ = cg_update(xk2, rk2, p, t, alpha)
+        rrp, _ = cg_update_plain(xp, rp, p, t, alpha)
+        torch.cuda.synchronize()
+        xbits = bool(torch.equal(xk, xp))
+        rbits = bool(torch.equal(rk, rp))
+        err = max(float((xk - xp).abs().max()), float((rk - rp).abs().max()))
+        rtol = 1e-12 if vdt == torch.float64 else 2e-5
+        derr = float(((rr1 - rrp).abs() / rrp.abs()).max())
+        rows_equal = None
+        if len(shape) == 2:
+            rows_equal = True
+            for i in range(shape[0]):
+                x1, r1 = x[i].clone(), r[i].clone()
+                d1, _ = cg_update(x1, r1, p[i], t[i], alpha[i].contiguous())
+                rows_equal = rows_equal and bool(
+                    torch.equal(x1, xk[i]) and torch.equal(r1, rk[i])
+                    and torch.equal(d1, rr1[i]))
+        row = {"name": "cg_update", "tier": tier, "with_dot": None,
+               "shape": list(shape), "max_abs_err": err,
+               "bits_equal_plain": xbits and rbits,
+               "dot_rel_err": derr, "dot_rtol": rtol,
+               "dot_bits_stable": bool(torch.equal(rr1, rr2)),
+               "per_system_bits_equal_1d": rows_equal}
+
+        def run(x=xk, r=rk, p=p, t=t, a=alpha):
+            return cg_update(x, r, p, t, a)
+
+        def plain(x=xp, r=rp, p=p, t=t, a=alpha):
+            return cg_update_plain(x, r, p, t, a)
+
+        row["ms"] = _time_ms(run, ctx["reps"])
+        row["ms_queued"] = _queued_ms(run)
+        row["plain_ms"] = _time_ms(plain, ctx["reps"])
+        row["composed_ms"] = row["plain_ms"]
+        row["library_ms"] = None
+        nel = x.numel()
+        row["bound_ms"], row["bound_by"] = _bound(
+            6 * nel * x.element_size(), 6 * nel, vdt, ctx)
+        ctx["rows"].append(row)
+        _emit({"kernel_check": row})
+        ok = (row["bits_equal_plain"] and derr <= rtol
+              and row["dot_bits_stable"] and rows_equal is not False)
+        if not ok:
+            raise SystemExit(f"error: cg_update disagrees with its plain "
+                             f"version: {json.dumps(row)}")
+        del x, r, p, t, xk, rk, xp, rp, xk2, rk2
+        torch.cuda.empty_cache()
 
 
 def _stencil_row(spec, x, with_dot, tier, library, ctx):
@@ -1124,10 +1239,11 @@ def _batched_kernels(D, G: int, nrhs: int, ctx):
 
 
 def _counts() -> dict:
-    from acg_torch.ops import dia_kernels, sgell, spmv, stencil
+    from acg_torch.ops import cg_update, dia_kernels, sgell, spmv, stencil
     from acg_torch.parallel import rdma_halo
 
-    return {"dia_spmv": dia_kernels.launches,
+    return {"cg_update": cg_update.launches,
+            "dia_spmv": dia_kernels.launches,
             "stencil_spmv": stencil.launches,
             "cg_pipelined_iter": dia_kernels.pipe_launches,
             "cg_pipelined_iter_stencil": stencil.pipe_launches,
@@ -1140,10 +1256,10 @@ def _counts() -> dict:
 
 
 def _reset_counts():
-    from acg_torch.ops import dia_kernels, sgell, spmv, stencil
+    from acg_torch.ops import cg_update, dia_kernels, sgell, spmv, stencil
     from acg_torch.parallel import rdma_halo
 
-    rdma_halo.launches = 0
+    rdma_halo.launches = cg_update.launches = 0
     dia_kernels.launches = dia_kernels.pipe_launches = 0
     stencil.launches = stencil.pipe_launches = 0
     dia_kernels.batched_launches = stencil.batched_launches = 0
@@ -1388,6 +1504,7 @@ def _dia_bf16_solve(G: int, iters: int, ctx, pipelined: bool = False,
         rep["recurrence_relative_residual"] = res.rnrm2 / res.bnrm2
         ctx["pipelined_dia_bf16_ref"] = dict(
             rep, history=res.residual_history, bnrm2=res.bnrm2)
+        ctx["pipelined_dia_bf16_case"] = (op, b)
     if not pipelined and not nrhs and G == 256:
         ctx["profile_cases"] = ctx.get("profile_cases", []) + [
             ("dia-bf16-f32", op, b, solve)]
@@ -1619,6 +1736,10 @@ def _cli_launches(stderr: str):
 # to classic CG without a bound on the segment, even at rtol 1e-6, and
 # reach 1e-8 without fallback, in the same counts, with replace_every=50
 _DEEP = {"depth": 2, "rtol": 1e-8, "replace_every": 50}
+# the path report of an s-step solve on the card: its loop launches
+# every kernel from the host (acg_torch.solvers.cg.SSTEP_OPEN)
+_SSTEP_NOTE = ("open loop (s-step: the coefficient recurrences on the host "
+               "a block)")
 
 
 def _sstep_blocks(launches: int, s: int, its: int, where: str) -> int:
@@ -1682,7 +1803,7 @@ def _sstep_solve(ctx, phase: str, s: int = 4):
         counts_ok = abs(res.niterations - ctx["classic_iterations"]) <= s + 2
     ok = ((res.operator_format, res.kernel)
           == ("stencil", f"cuda-stencil-{'batched' if batched else 'spmv'}")
-          and res.converged and res.kernel_note == "" and counts_ok
+          and res.converged and res.kernel_note == _SSTEP_NOTE and counts_ok
           and max(rep["host_true_relative_residual"]) <= 10 * rtol
           and np.all(np.isfinite(res.x)) and res.x.shape == np.shape(b))
     if not ok:
@@ -1758,7 +1879,7 @@ def _sstep_dia_bf16(G: int, ctx, s: int = 4):
             res.stats, blocks, "sstep-dia-bf16"))
     rep["host_true_relative_residual"] = _poisson7_residual(G, res.x, b)
     ok = ((res.operator_format, res.kernel) == ("dia", "cuda-dia-hbm")
-          and (res.kernel_note == "" or rep["fallback"])
+          and (res.kernel_note == _SSTEP_NOTE or rep["fallback"])
           and res.converged
           and rep["host_true_relative_residual"] <= 10 * rtol
           and launches["dia_spmv"] == launches["dia_spmv_ring"] == 0
@@ -1981,8 +2102,12 @@ def _fem_setup(points: int, ctx):
     from acg_torch.sparse.mesh import fem_delaunay_spd
 
     t0 = time.perf_counter()
-    A = fem_delaunay_spd(points, dim=3, seed=0, shuffle=True)
-    gen_s = time.perf_counter() - t0
+    if "fem_mesh" in ctx:
+        A, gen_s = ctx.pop("fem_mesh").get()
+    else:
+        A, gen_s = fem_delaunay_spd(points, dim=3, seed=0, shuffle=True), None
+    waited = time.perf_counter() - t0
+    gen_s = waited if gen_s is None else gen_s
     steps, ops, held = {}, {}, {}
     for label, vdt in (("f32", np.float32), ("f64", np.float64)):
         steps[label] = {}
@@ -2007,7 +2132,8 @@ def _fem_setup(points: int, ctx):
     per_tile = torch.diff(sg.tile_start).cpu().numpy()
     return {"points": points, "dim": 3, "n": A.nrows, "nnz": A.nnz,
             "max_row_entries": int(A.rowlens.max()),
-            "host_seconds": {"mesh_generation": gen_s, **steps},
+            "host_seconds": {"mesh_generation": gen_s,
+                             "mesh_wait_in_phase": waited, **steps},
             "setup_seconds": gen_s + sum(v["total"] for v in steps.values()),
             "device_bytes_held": held,
             "sgell": {"S": sg.S, "ntiles": sg.ntiles, "fill": sg.fill,
@@ -2247,12 +2373,15 @@ def _fem_solve(ctx, tier: str, pipelined: bool = False):
     rep["true_relative_residual"] = _host_true_residual(A, res.x, b)
     rep["error_vs_manufactured"] = float(np.linalg.norm(
         res.x.astype(np.float64) - xstar))
-    others = {k: v for k, v in launches.items() if k != kernel and v}
+    # classic CG's update and |r|^2: one cg_update launch an iteration
+    others = {k: v for k, v in launches.items()
+              if k not in (kernel, "cg_update") and v}
     ok = ((res.operator_format, res.kernel, res.kernel_note)
           == (fmt, f"cuda-{tier}-spmv", "") and res.converged
           and rep["true_relative_residual"] <= 10 * rtol
           and np.all(np.isfinite(res.x)) and res.x.shape == (A.nrows,)
-          and not others)
+          and not others and launches["cg_update"]
+          == (0 if pipelined else res.niterations))
     key = f"fem-{tier}"
     ctx.setdefault("us_per_iter", {})[phase] = rep["us_per_iter"]
     if pipelined:
@@ -3291,7 +3420,8 @@ def _dist_stencil_solve(ctx, method: str):
                single_device_error_vs_manufactured=ctx["stencil_error"])
     spmvs = its + 1
     want = {"stencil_spmv": P * spmvs, "ell_spmv": P * spmvs,
-            "rdma_exchange": spmvs if method == "rdma" else 0}
+            "rdma_exchange": spmvs if method == "rdma" else 0,
+            "cg_update": P * its}
     others = {k: v for k, v in launches.items() if k not in want and v}
     ok = ((res.operator_format, res.kernel)
           == ("stencil", f"cuda-stencil-fused+{method}") and res.converged
@@ -3373,7 +3503,7 @@ def _dist_dia_solve(iters: int, ctx):
                single_device_recurrence_relative_residual=ref[
                    "recurrence_relative_residual"])
     want = {"dia_spmv": P * (iters + 1), "ell_spmv": P * (iters + 1),
-            "rdma_exchange": iters + 1}
+            "rdma_exchange": iters + 1, "cg_update": P * iters}
     others = {k: v for k, v in launches.items() if k not in want and v}
     ok = ((res.operator_format, res.kernel) == ("dia", "cuda-dia-fused+rdma")
           and res.kernel_note == "format forced: dia"
@@ -3450,7 +3580,8 @@ def _dist_fem_phase(nparts: int, ctx):
                    single_device_iterations=ctx["iterations"][f"fem-{tier}"])
         # the interface product is ELL on every shard; on the ELL tier the
         # local SpMV is ell_spmv too
-        want = {kern: nparts * spmvs, "rdma_exchange": spmvs}
+        want = {kern: nparts * spmvs, "rdma_exchange": spmvs,
+                "cg_update": nparts * (spmvs - 1)}
         want["ell_spmv"] = nparts * spmvs * (2 if tier == "ell" else 1)
         others = {k: v for k, v in launches.items() if k not in want and v}
         fmt_name = "rcm+sgell" if tier == "sgell" else "ell"
@@ -3480,18 +3611,37 @@ def _dist_fem_phase(nparts: int, ctx):
 # the distributed pipelined, multi-RHS and compressed-wire paths
 
 
+# halo exchanges through _counted_exchange's wrapper
+_HALO_CALLS = 0
+
+
+@contextlib.contextmanager
 def _counted_exchange(ss):
-    """Wrap ``ss.exchange`` (on this instance only) with a call counter:
-    the halo is not a kernel, so it has no launch count of its own."""
-    calls = [0]
+    """Wrap ``ss.exchange`` (on this instance, while the block runs) with
+    a call counter, ``_HALO_CALLS`` from 0: the halo is not a kernel, so
+    it has no launch count of its own.  The counter joins the launch
+    counters the graph loop's runner replays
+    (``acg_torch.solvers.graphs.COUNTERS``), so a replayed block counts
+    its exchanges as it counts its kernels."""
+    global _HALO_CALLS
+    from acg_torch.solvers import graphs
+
     exchange = ss.exchange
 
     def counted(xs, wire="f32"):
-        calls[0] += 1
+        global _HALO_CALLS
+        _HALO_CALLS += 1
         return exchange(xs, wire)
 
+    saved = graphs.COUNTERS
     ss.exchange = counted
-    return calls
+    graphs.COUNTERS = saved + ((__name__, "_HALO_CALLS"),)
+    _HALO_CALLS = 0
+    try:
+        yield
+    finally:
+        graphs.COUNTERS = saved
+        del ss.exchange
 
 
 def _dist_pipelined_stencil(ctx, method: str):
@@ -3684,12 +3834,12 @@ def _dist_batched_stencil(nrhs: int, ctx, pipelined: bool = False):
     b, xstar = b[:nrhs], xstar[:nrhs]
     rtol = 1e-8
     solve(ss, b, options=SolverOptions(maxits=20, residual_rtol=0.0))
-    calls = _counted_exchange(ss)
-    _reset_counts()
-    res = solve(ss, b, options=SolverOptions(maxits=20000,
-                                             residual_rtol=rtol))
-    launches = _read_counts(ctx, phase)
-    halos = calls[0]
+    with _counted_exchange(ss):
+        _reset_counts()
+        res = solve(ss, b, options=SolverOptions(maxits=20000,
+                                                 residual_rtol=rtol))
+        launches = _read_counts(ctx, phase)
+        halos = _HALO_CALLS
     G = ctx["dist"]["grid"]
     cert = [_poisson7_residual(G, res.x[s], b[s]) for s in range(nrhs)]
     rep = _solve_report(res, launches)
@@ -3707,7 +3857,8 @@ def _dist_batched_stencil(nrhs: int, ctx, pipelined: bool = False):
                error_vs_manufactured=[float(np.linalg.norm(
                    res.x[s] - xstar[s])) for s in range(nrhs)])
     want = {"stencil_spmv_batched": P * halos,
-            "ell_spmv": P * nrhs * halos}
+            "ell_spmv": P * nrhs * halos,
+            "cg_update": 0 if pipelined else P * its}
     others = {k: v for k, v in launches.items() if k not in want and v}
     note = (f"stencil pipe disengaged: nrhs={nrhs} (the single-kernel "
             "iteration is not batched)" if pipelined else "")
@@ -4010,6 +4161,119 @@ def _dist_deep_stencil(ctx):
     return rep
 
 
+def _graph_phase(ctx):
+    """The device-resident loop (``solvers/graphs.py``) against the open
+    loop on the same card: each case solved both ways through the same
+    entry point (``loop="open"`` / ``"graph"``), at its phase's full
+    width, and held bit for bit: x, the count, the exit, the histories
+    (per system for a batch), and the launch counters, which a replay
+    moves by what its capture recorded.  The cases: stencil 256^3 f64
+    classic (the stencil phase's solve), pipelined-dia-bf16 (200 fixed
+    iterations), batched-stencil B = 8 (60 fixed iterations),
+    pipelined-replace (replace_every=50, to rtol 1e-8), dist-stencil-rdma
+    and dist-pipelined-stencil-rdma (the 256^3/4 shards, to rtol 1e-8),
+    a segment_iters=7 solve against its unsegmented twin (graph both),
+    and a monitor_every=25 solve whose lines are held to its history.
+    Each case reports both µs/iter, the captures, their host seconds and
+    the replays."""
+    import numpy as np
+
+    from acg_torch.config import SolverOptions
+    from acg_torch.errors import AcgError
+    from acg_torch.obs import monitor
+    from acg_torch.solvers.cg import cg, cg_pipelined
+    from acg_torch.solvers.cg_dist import cg_dist, cg_pipelined_dist
+
+    op, b, _ = ctx["stencil_case"]
+    pop, pb = ctx["pipelined_dia_bf16_case"]
+    bop, bb, _ = ctx["batched_case"]
+    ss = ctx["dist"]["ss"].with_halo("rdma")
+    fixed = dict(residual_rtol=1e-30)
+    full = dict(maxits=20000, residual_rtol=1e-8)
+    cases = (
+        ("stencil", cg, op, b, full),
+        ("pipelined-dia-bf16", cg_pipelined, pop, pb,
+         dict(maxits=200, residual_rtol=0.0)),
+        ("batched-stencil", cg, bop, bb, dict(maxits=60, **fixed)),
+        ("pipelined-replace", cg_pipelined, op, b,
+         dict(full, replace_every=50)),
+        ("dist-stencil-rdma", cg_dist, ss, b, full),
+        ("dist-pipelined-stencil-rdma", cg_pipelined_dist, ss, b, full),
+    )
+
+    def solve(fn, A, rhs, o, loop):
+        _reset_counts()
+        try:
+            res = fn(A, rhs, options=SolverOptions(**o), loop=loop)
+        except AcgError as e:
+            if e.result is None:
+                raise
+            res = e.result
+        return res, _counts()
+
+    out, bad = {}, []
+    for name, fn, A, rhs, o in cases:
+        solve(fn, A, rhs, dict(o, maxits=20), "graph")      # warm-up
+        ro, co = solve(fn, A, rhs, o, "open")
+        rg, cg_ = solve(fn, A, rhs, o, "graph")
+        st = rg.stats
+        its = max(rg.niterations, 1)
+        same = {
+            "x": bool(np.array_equal(rg.x, ro.x)),
+            "iterations": rg.niterations == ro.niterations,
+            "flag": (rg.converged, rg.status) == (ro.converged, ro.status),
+            "history": bool(np.array_equal(
+                rg.residual_history, ro.residual_history, equal_nan=True)),
+            "per_system": (ro.iterations_per_system is None or bool(
+                np.array_equal(rg.iterations_per_system,
+                               ro.iterations_per_system))),
+            "launches": co == cg_}
+        out[name] = {"iterations": rg.niterations, "loop": rg.loop,
+                     "kernel": rg.kernel, "bits_equal": same,
+                     "launches_open": co, "launches_graph": cg_,
+                     "us_per_iter_open": ro.stats.tsolve / its * 1e6,
+                     "us_per_iter_graph": st.tsolve / its * 1e6,
+                     "captures": st.ncaptures, "replays": st.nreplays,
+                     "blocks_from_the_host": st.nloopopen,
+                     "capture_seconds": st.tcapture}
+        if not (all(same.values()) and rg.loop == "graph"
+                and ro.loop == "open" and st.ncaptures >= 1
+                and st.nreplays >= 1):
+            bad.append(name)
+    # segment_iters: the same bits as the unsegmented solve
+    seg, _ = solve(cg, op, b, dict(full, segment_iters=7), "graph")
+    plain, _ = solve(cg, op, b, full, "graph")
+    out["segment_iters=7"] = {
+        "iterations": seg.niterations, "replays": seg.stats.nreplays,
+        "bits_equal_unsegmented": bool(np.array_equal(seg.x, plain.x))
+        and seg.niterations == plain.niterations}
+    if not out["segment_iters=7"]["bits_equal_unsegmented"]:
+        bad.append("segment_iters=7")
+    # monitor_every: the lines are the history's values at their counts
+    lines = []
+
+    def sink(k, rr):
+        lines.append((int(k), float(rr)))
+
+    monitor.add_monitor_sink(sink)
+    try:
+        with monitor.muted():
+            mon, _ = solve(cg, op, b, dict(full, monitor_every=25), "graph")
+    finally:
+        monitor.remove_monitor_sink(sink)
+    ks = [k for k, _ in lines]
+    agree = (ks == list(range(25, mon.niterations + 1, 25)) and all(
+        rr == mon.residual_history[k] for k, rr in lines))
+    out["monitor_every=25"] = {"lines": len(lines), "first": lines[:2],
+                               "lines_match_history": agree}
+    if not agree:
+        bad.append("monitor_every=25")
+    if bad:
+        raise SystemExit(f"error: graph loop differs from the open loop "
+                         f"in {bad}: {json.dumps(out, default=str)}")
+    return out
+
+
 def _device_us(evt) -> float:
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         v = getattr(evt, attr, None)
@@ -4018,18 +4282,26 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _fixed_solve(solve, op, b, its: int, every: int = 1):
+def _takes_loop(solve) -> bool:
+    import inspect
+
+    return "loop" in inspect.signature(solve).parameters
+
+
+def _fixed_solve(solve, op, b, its: int, every: int = 1, loop=None):
     """A solve of exactly ``its`` iterations that still tests for
     convergence (rtol 1e-30 is never met), so the host reads the loop's
     flag every ``every`` iterations as a solve to a tolerance does (with
     every criterion off the pipelined loop has no exit to test and never
-    reads it)."""
+    reads it).  ``loop``: "graph" or "open" (None: the solver's
+    default)."""
     from acg_torch.config import SolverOptions
     from acg_torch.errors import AcgError, Status
 
+    kw = {} if loop is None else {"loop": loop}
     try:
         res = solve(op, b, options=SolverOptions(
-            maxits=its, residual_rtol=1e-30, check_every=every))
+            maxits=its, residual_rtol=1e-30, check_every=every), **kw)
     except AcgError as e:
         res = getattr(e, "result", None)
         if e.status != Status.ERR_NOT_CONVERGED or res is None:
@@ -4060,9 +4332,13 @@ def _profile_phase(ctx):
                                  ProfilerActivity.CUDA]) as prof:
             res = _fixed_solve(solve, op, b_dev, 50)
         # device-side events only: the CPU ops that launched them carry
-        # the same time again
-        per_name, copies, nkernels = {}, 0.0, 0
+        # the same time again; the host's launches are the runtime calls
+        # that launch a kernel or a graph
+        per_name, copies, nkernels, host = {}, 0.0, 0, {}
         for e in prof.key_averages():
+            if e.key.startswith(("cudaLaunch", "cuLaunch",
+                                 "cudaGraphLaunch")):
+                host[e.key] = host.get(e.key, 0) + e.count
             if not (str(getattr(e, "device_type", "")).endswith("CUDA")
                     and _device_us(e) > 0):
                 continue
@@ -4074,18 +4350,30 @@ def _profile_phase(ctx):
             nkernels += e.count
         its = res.niterations
         busy = sum(per_name.values())
-        wall = res.stats.tsolve * 1e6
+        # the captures' host seconds are set-up the card waits through:
+        # the idle share is of the loop's own time
+        wall = (res.stats.tsolve - res.stats.tcapture) * 1e6
         rate = {}
-        for every in (1, 16):
-            r = _fixed_solve(solve, op, b_dev, 160, every)
-            rate[f"check_every={every}"] = r.stats.tsolve / 160 * 1e6
+        loops = ("graph", "open") if _takes_loop(solve) else (None,)
+        for loop in loops:
+            for every in (1, 16):
+                r = _fixed_solve(solve, op, b_dev, 100, every, loop)
+                key = (f"check_every={every}" if loop is None
+                       else f"{loop}, check_every={every}")
+                rate[key] = {"us_per_iter": r.stats.tsolve / 100 * 1e6,
+                             "capture_s": r.stats.tcapture}
         out[name] = {
             "iterations": its,
+            "loop": res.loop,
             "wall_us_per_iter": wall / its,
             "kernel_busy_us_per_iter": busy / its,
             "device_idle_share": 1.0 - busy / wall,
             "copies_us_total": copies,
             "kernel_launches_per_iter": nkernels / its,
+            "host_launches_per_iter": sum(host.values()) / its,
+            "host_launch_calls": host,
+            "graph_captures": res.stats.ncaptures,
+            "capture_seconds": res.stats.tcapture,
             "kernel_us_per_iter": {
                 k: v / its for k, v in sorted(per_name.items(),
                                               key=lambda kv: -kv[1])},
@@ -4115,7 +4403,9 @@ def _kernel_lines(ctx) -> list:
     of that phase alone, beside the phase-2 numbers of the configuration
     its loop runs (the phase's band and vector types; the fused dot in
     classic CG, none in the open-coded pipelined body)."""
-    meta = {"dia_spmv": ("acg_torch/csrc/dia_spmv.cu",
+    meta = {"cg_update": ("acg_torch/csrc/cg_update.cu",
+                          "acg_tpu/solvers/loops.py:222", None),
+            "dia_spmv": ("acg_torch/csrc/dia_spmv.cu",
                          "acg_tpu/ops/pallas_kernels.py:189",
                          "acg_tpu/ops/pallas_kernels.py:97"),
             "stencil_spmv": ("acg_torch/csrc/stencil_spmv.cu",
@@ -4145,7 +4435,11 @@ def _kernel_lines(ctx) -> list:
     # (kernel, phase-2 tier, solve phase, with_dot of the loop's calls;
     # None for the pipelined-iteration and unstructured kernels, which have
     # no such row key)
-    paths = (("stencil_spmv", "matrix-free/float64", "stencil", True),
+    paths = (("cg_update", "f64 256^3", "stencil", None),
+             ("cg_update", "f64 256^3 B=8", "batched-stencil", None),
+             ("cg_update", "f64 256^3/4 shard", "dist-stencil-rdma", None),
+             ("cg_update", "f32 464^3", "dia-100m", None),
+             ("stencil_spmv", "matrix-free/float64", "stencil", True),
              ("dia_spmv", "bf16/f32 128^3", "dia-bf16-128", True),
              ("dia_spmv_windows", "bf16/f32 256^3", "dia-bf16", True),
              ("dia_spmv_windows", "bf16/f32 256^3", "pipelined-dia-bf16",
@@ -4237,6 +4531,9 @@ def _kernel_lines(ctx) -> list:
                                  f"phase {phase}")}
         if also:
             entry["also_replaces"] = also
+        if kernel == "cg_update":
+            entry["note"] = ("no Pallas counterpart: XLA fused x + alpha p, "
+                             "r - alpha t and dot(r, r) into the JAX loop")
         for key in ("composed_ms", "nrhs", "one_system_calls_ms",
                     "per_system_bits_equal_1d", "S", "fill", "width",
                     "bits_equal_plain", "bits_equal_sliced_matvec",
@@ -4251,7 +4548,8 @@ def _kernel_lines(ctx) -> list:
                     "library", "grid", "rows", "ghosts", "route",
                     "bits_equal_generic", "pipe_fixed", "depth",
                     "deep_ghosts",
-                    "columns", "columns_read"):
+                    "columns", "columns_read", "shape", "dot_rel_err",
+                    "dot_bits_stable"):
             if key in row:
                 entry[key] = row[key]
         # one counter a kernel: two configurations of it in one phase

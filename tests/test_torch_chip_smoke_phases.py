@@ -53,6 +53,11 @@ def test_no_arguments_runs_every_phase(monkeypatch):
     ("dist-sstep-stencil,dist-deep-stencil",
      ["dist-setup", "stencil", "pipelined-stencil", "deep-stencil",
       "dist-stencil", "dist-sstep-stencil", "dist-deep-stencil"]),
+    ("graph-loop",
+     ["dist-setup", "stencil", "pipelined-dia-bf16", "batched-stencil",
+      "graph-loop"]),
+    ("kernels",
+     ["p3d-464", "p2d-10k", "dist-setup", "fem3d-1m", "kernels"]),
 ])
 def test_only_adds_what_a_phase_is_held_against(monkeypatch, only, want):
     rc, run, _every = _run(monkeypatch, ["--only", only])

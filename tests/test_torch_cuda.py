@@ -1874,3 +1874,241 @@ def test_sstep_deep_dist_on_the_card_match_cpu(card, solver):
     assert launched[0] > 0 and launched[1] > 0
     assert np.linalg.norm(b - A.matvec(rg.x)) <= 10 * 1e-10 * \
         np.linalg.norm(b)
+
+
+# ---------------------------------------------------------------------------
+# the fused classic-CG update and the device-resident (graph) loop
+
+
+@pytest.mark.parametrize("vdt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 257, 100_003, 1_048_576 + 5])
+@pytest.mark.parametrize("nsys", [0, 3])
+@pytest.mark.parametrize("want_pp", [False, True])
+def test_cg_update_matches_plain(card, vdt, n, nsys, want_pp):
+    """x and r bit for bit against the two addcmul_ of the plain
+    version; the dots in the kernel's own fixed order, within rounding of
+    torch.dot and the same on every run; every row of a (B, n) call
+    bit-equal to the one-system call on that row; one launch a call and
+    the ticket counters back at 0."""
+    from acg_torch.ops import cg_update as cu
+
+    shape = (nsys, n) if nsys else (n,)
+    g = torch.Generator(device="cpu").manual_seed(n + nsys)
+    x, r, p, t = (torch.randn(shape, generator=g, dtype=torch.float64)
+                  .to(vdt).to(card) for _ in range(4))
+    alpha = (torch.rand(nsys or (), generator=g, dtype=torch.float64)
+             .to(vdt).to(card))
+    xp, rp = x.clone(), r.clone()
+    rr_p, pp_p = cu.cg_update_plain(xp, rp, p, t, alpha, want_pp)
+    runs = []
+    for _ in range(2):
+        xk, rk = x.clone(), r.clone()
+        before = cu.launches
+        rr, pp = cu.cg_update(xk, rk, p, t, alpha, want_pp)
+        assert cu.launches == before + 1
+        runs.append((xk, rk, rr.clone(), None if pp is None else pp.clone()))
+    xk, rk, rr, pp = runs[0]
+    assert torch.equal(xk, xp) and torch.equal(rk, rp)
+    assert torch.equal(rr, runs[1][2])
+    tol = 1e-12 if vdt == torch.float64 else 2e-5
+    assert torch.allclose(rr, rr_p, rtol=tol, atol=0)
+    if want_pp:
+        assert torch.equal(pp, runs[1][3])
+        assert torch.allclose(pp, pp_p, rtol=tol, atol=0)
+    else:
+        assert pp is None
+    if nsys:
+        for i in range(nsys):
+            x1, r1 = x[i].clone(), r[i].clone()
+            rr1, pp1 = cu.cg_update(x1, r1, p[i].contiguous(),
+                                    t[i].contiguous(),
+                                    alpha[i].contiguous(), want_pp)
+            assert torch.equal(x1, xk[i]) and torch.equal(r1, rk[i])
+            assert torch.equal(rr1, rr[i])
+            if want_pp:
+                assert torch.equal(pp1, pp[i])
+    torch.cuda.synchronize()
+    for counter, _ in cu._scratch.values():
+        assert int(counter.abs().sum()) == 0
+
+
+def test_cg_update_rejects_what_the_kernel_does_not_take(card):
+    from acg_torch.ops.cg_update import cg_update
+
+    v = torch.zeros(64, dtype=torch.float64, device=card)
+    a = torch.zeros((), dtype=torch.float64, device=card)
+    with pytest.raises(AcgError):
+        cg_update(v, v.clone(), v, v[:32], a)             # shapes
+    with pytest.raises(AcgError):
+        cg_update(v, v.clone(), v, v, a.float())          # alpha dtype
+    with pytest.raises(AcgError):
+        cg_update(v, v, v, v, a)                          # x is r
+    with pytest.raises(AcgError):
+        cg_update(v.half(), v.half(), v.half(), v.half(), a.half())
+    w = torch.zeros((2, 64), dtype=torch.float64, device=card)
+    with pytest.raises(AcgError):
+        cg_update(w, w.clone(), w, w, a)                  # alpha per system
+
+
+def _both_loops(solve, *args, **kw):
+    """The same solve with the open loop and the graph loop, each with
+    the launch counters it moved."""
+    from acg_torch.solvers import graphs
+
+    out = {}
+    for loop in ("open", "graph"):
+        before = graphs.counts()
+        try:
+            res = solve(*args, loop=loop, **kw)
+        except AcgError as e:
+            res = e.result
+        out[loop] = (res, [a - b for a, b in
+                           zip(graphs.counts(), before)])
+    return out
+
+
+def _same_bits(out):
+    (ro, co), (rg, cg_) = out["open"], out["graph"]
+    assert ro.loop == "open" and rg.loop == "graph"
+    assert rg.niterations == ro.niterations
+    assert np.array_equal(rg.x, ro.x)
+    assert np.array_equal(rg.residual_history, ro.residual_history,
+                          equal_nan=True)
+    assert rg.rnrm2 == ro.rnrm2 and rg.converged == ro.converged
+    if ro.iterations_per_system is not None:
+        assert np.array_equal(rg.iterations_per_system,
+                              ro.iterations_per_system)
+    assert cg_ == co                       # replays counted
+    assert rg.stats.ncaptures >= 1 and rg.stats.nreplays >= 1
+    assert rg.stats.tcapture > 0
+
+
+_GRAPH_CASES = {
+    # name: (solver, fmt, dtype, nrhs, options)
+    "classic-stencil-f64": ("cg", "auto", np.float64, 0,
+                            dict(maxits=400, residual_rtol=1e-10)),
+    "classic-dia-f32-check3": ("cg", "dia", np.float32, 0,
+                               dict(maxits=400, residual_rtol=1e-5,
+                                    check_every=3)),
+    "classic-diff": ("cg", "auto", np.float64, 0,
+                     dict(maxits=400, residual_rtol=0.0, diffatol=1e-9)),
+    "pipelined-stencil-check3": ("cg_pipelined", "auto", np.float64, 0,
+                                 dict(maxits=400, residual_rtol=1e-10,
+                                      check_every=3)),
+    "pipelined-dia-bf16": ("cg_pipelined", "dia", np.float32, 0,
+                           dict(maxits=100, residual_rtol=0.0)),
+    "pipelined-replace": ("cg_pipelined", "auto", np.float64, 0,
+                          dict(maxits=400, residual_rtol=1e-10,
+                               replace_every=10, check_every=4)),
+    "pipelined-guard": ("cg_pipelined", "auto", np.float64, 0,
+                        dict(maxits=400, residual_rtol=1e-10,
+                             guard_nonfinite=True, check_every=5)),
+    "batched-classic": ("cg", "auto", np.float64, 3,
+                        dict(maxits=400, residual_rtol=1e-10)),
+    "batched-pipelined": ("cg_pipelined", "dia", np.float64, 3,
+                          dict(maxits=400, residual_rtol=1e-10,
+                               check_every=2, replace_every=6,
+                               guard_nonfinite=True)),
+    "segmented": ("cg", "auto", np.float64, 0,
+                  dict(maxits=400, residual_rtol=1e-10, segment_iters=7,
+                       check_every=16)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_GRAPH_CASES))
+def test_graph_loop_equals_open_loop(card, case):
+    """Each block captured once and replayed gives the open loop's bits:
+    x, the count, the history, the exit; the launch counters move by
+    the same counts (a replay adds the counts its capture recorded)."""
+    solvers = {"cg": cg, "cg_pipelined": cg_pipelined}
+    solver, fmt, dtype, nrhs, o = _GRAPH_CASES[case]
+    A = poisson.poisson3d_7pt(14)
+    rng = np.random.default_rng(7)
+    b = np.stack([A.matvec(v) for v in
+                  rng.standard_normal((max(nrhs, 1), A.nrows))])
+    b = b[0] if not nrhs else b
+    kw = dict(mat_dtype="bfloat16") if case == "pipelined-dia-bf16" else {}
+    out = _both_loops(solvers[solver], A, b,
+                      options=SolverOptions(**o), dtype=dtype, fmt=fmt,
+                      **kw)
+    _same_bits(out)
+
+
+@pytest.mark.parametrize("method", ["ppermute", "allgather", "rdma"])
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_graph_loop_equals_open_loop_on_shards(card, method, pipelined):
+    """Four shards on the one card, each halo (the put+signal kernel's
+    cooperative launch inside the capture): graph against open, bit for
+    bit, rdma_exchange counted once per replayed exchange."""
+    from acg_torch.solvers.cg_dist import (build_sharded, cg_dist,
+                                           cg_pipelined_dist)
+
+    A = poisson.poisson3d_7pt(12)
+    b = A.matvec(np.random.default_rng(4).standard_normal(A.nrows))
+    ss = build_sharded(A, nparts=4, devices=[card] * 4, method=method)
+    o = SolverOptions(maxits=600, residual_rtol=1e-10, check_every=4)
+    out = _both_loops(cg_pipelined_dist if pipelined else cg_dist, ss, b,
+                      options=o)
+    _same_bits(out)
+    assert "open loop" not in out["graph"][0].kernel_note
+
+
+def test_graph_loop_monitor_and_segments(card):
+    """monitor_every through the graph loop: the lines the open loop
+    emits, the history's values at their iterations; segment_iters
+    changes no bit."""
+    from acg_torch.obs import monitor
+
+    A = poisson.poisson3d_7pt(12)
+    b = A.matvec(np.random.default_rng(2).standard_normal(A.nrows))
+    lines = {}
+    for loop in ("open", "graph"):
+        got = []
+
+        def sink(k, rr, got=got):
+            got.append((k, rr))
+
+        monitor.add_monitor_sink(sink)
+        try:
+            with monitor.muted():
+                res = cg(A, b, options=SolverOptions(
+                    maxits=500, residual_rtol=1e-10, monitor_every=3,
+                    check_every=5), loop=loop)
+        finally:
+            monitor.remove_monitor_sink(sink)
+        lines[loop] = got
+        ks = [k for k, _ in got]
+        assert ks == list(range(3, res.niterations + 1, 3))
+        for k, rr in got:
+            assert rr == res.residual_history[k]
+    assert lines["open"] == lines["graph"]
+    seg = cg(A, b, options=SolverOptions(maxits=500, residual_rtol=1e-10,
+                                         segment_iters=7), loop="graph")
+    plain = cg(A, b, options=SolverOptions(maxits=500, residual_rtol=1e-10),
+               loop="graph")
+    assert np.array_equal(seg.x, plain.x)
+    assert seg.niterations == plain.niterations
+
+
+def test_graph_capture_failure_raises(card):
+    """A block that reads the device inside cannot be captured: the
+    runner raises (no quiet fall back to launching from the host) and
+    leaves the counters as they were."""
+    from acg_torch.ops import cg_update as cu
+    from acg_torch.solvers.graphs import BlockRunner
+
+    v = torch.ones(8, device=card)
+
+    def block():
+        cu.launches += 1
+        float(v.sum())                     # a host read
+
+    runner = BlockRunner(card, graph=True)
+    runner.run("k", block)                 # the eager warm-up block
+    before = cu.launches
+    with pytest.raises(AcgError, match="capture"):
+        runner.run("k", block)
+    assert cu.launches == before
+    torch.cuda.synchronize()
+    with pytest.raises(AcgError):
+        BlockRunner("cpu", graph=True)

@@ -212,11 +212,17 @@ def test_deep_option_validation():
     b = np.ones(At.nrows)
     for o in (SolverOptions(pipeline_depth=2, diffatol=1e-8,
                             residual_rtol=0.0),
-              SolverOptions(pipeline_depth=2, segment_iters=4),
-              SolverOptions(pipeline_depth=2, monitor_every=2)):
+              SolverOptions(pipeline_depth=2, segment_iters=4)):
         with pytest.raises(AcgError) as ei:
             cg_pipelined_deep(At, b, options=o, device="cpu")
         assert ei.value.status == Status.ERR_NOT_SUPPORTED
+    # monitor_every runs (as in the JAX package) and changes no bit
+    ref = cg_pipelined_deep(At, b, options=SolverOptions(pipeline_depth=2),
+                            device="cpu")
+    got = cg_pipelined_deep(At, b, options=SolverOptions(
+        pipeline_depth=2, monitor_every=2), device="cpu")
+    assert got.niterations == ref.niterations
+    np.testing.assert_array_equal(got.x, ref.x)
     for bad in (0, 9):
         with pytest.raises(ValueError):
             SolverOptions(pipeline_depth=bad)

@@ -255,11 +255,14 @@ def test_unported_options_raise():
     A = tpoisson.poisson2d_5pt(8)
     _, b = manufactured_rhs(A, seed=0)
     kw = dict(nparts=2, devices=_cpu(2))
+    # segment_iters and monitor_every run (since the device-resident
+    # loop), and give the plain solve's bits
+    plain = cg_dist(A, b, **kw)
     for opts in (SolverOptions(segment_iters=4),
                  SolverOptions(monitor_every=2)):
-        with pytest.raises(AcgError, match="not yet ported") as e:
-            cg_dist(A, b, options=opts, **kw)
-        assert e.value.status == Status.ERR_NOT_SUPPORTED
+        got = cg_dist(A, b, options=opts, **kw)
+        assert got.niterations == plain.niterations
+        np.testing.assert_array_equal(got.x, plain.x)
     # the kway partitioner, refused until it was ported, now partitions
     res = cg_dist(A, b, partition_method="kway", **kw)
     ref = cg_dist(A, b, part=tpartitioner.partition_graph(A, 2, "kway"),

@@ -327,10 +327,14 @@ def test_refusals():
     with pytest.raises(AcgError, match="residual-based stopping") as e:
         cg_pipelined_dist(TA, b, options=SolverOptions(diffatol=1e-3), **kw)
     assert e.value.status == Status.ERR_NOT_SUPPORTED
+    # segment_iters and monitor_every run (since the device-resident
+    # loop), and give the plain solve's bits
+    ref = cg_pipelined_dist(TA, b, **kw)
     for opts in (SolverOptions(segment_iters=4),
                  SolverOptions(monitor_every=2)):
-        with pytest.raises(AcgError, match="not yet ported"):
-            cg_pipelined_dist(TA, b, options=opts, **kw)
+        got = cg_pipelined_dist(TA, b, options=opts, **kw)
+        assert got.niterations == ref.niterations
+        np.testing.assert_array_equal(got.x, ref.x)
     with pytest.raises(AcgError, match="multi-RHS solves support") as e:
         cg_pipelined_dist(TA, np.stack([b, b]), method="rdma", **kw)
     assert e.value.status == Status.ERR_NOT_SUPPORTED

@@ -379,9 +379,9 @@ def test_fixed_iterations_past_the_floor_restart(maxits):
     alphas = []
     step = _pipe_step(op)
 
-    def recording_step(z, r, p, w, s, x, alpha, beta):
+    def recording_step(z, r, p, w, s, x, alpha, beta, w_out):
         alphas.append(float(alpha))
-        return step(z, r, p, w, s, x, alpha, beta)
+        return step(z, r, p, w, s, x, alpha, beta, w_out)
 
     zero = torch.zeros((), dtype=torch.float32)
     x, k, gamma, flag, _, hist = loops.cg_pipelined_while(
@@ -431,8 +431,8 @@ def test_guard_freezes_at_the_first_nonfinite_pair(check_every):
     step = _pipe_step(op)
     calls = []
 
-    def faulty(z, r, p, w, s, x, alpha, beta):
-        out = list(step(z, r, p, w, s, x, alpha, beta))
+    def faulty(z, r, p, w, s, x, alpha, beta, w_out):
+        out = list(step(z, r, p, w, s, x, alpha, beta, w_out))
         calls.append(1)
         if len(calls) == 5:
             out[7] = out[7] * float("nan")          # delta
@@ -464,11 +464,19 @@ def test_refusals():
                      device="cpu")
     assert int(et.value.status) == int(ej.value.status) == \
         int(Status.ERR_NOT_SUPPORTED)
-    for bad in (dict(segment_iters=10), dict(monitor_every=5),
-                dict(diffrtol=1e-3)):
-        with pytest.raises(AcgError) as e:
-            cg_pipelined(At, b, options=SolverOptions(**bad), device="cpu")
-        assert e.value.status == Status.ERR_NOT_SUPPORTED
+    with pytest.raises(AcgError) as e:
+        cg_pipelined(At, b, options=SolverOptions(diffrtol=1e-3),
+                     device="cpu")
+    assert e.value.status == Status.ERR_NOT_SUPPORTED
+    # segment_iters and monitor_every run (since the device-resident
+    # loop), and give the plain solve's bits
+    ref = cg_pipelined(At, b, options=SolverOptions(maxits=1000),
+                       device="cpu")
+    for opts in (dict(segment_iters=10), dict(monitor_every=5)):
+        got = cg_pipelined(At, b, options=SolverOptions(maxits=1000, **opts),
+                           device="cpu")
+        assert got.niterations == ref.niterations
+        np.testing.assert_array_equal(got.x, ref.x)
     with pytest.raises(AcgError) as e:       # (B, n) runs; (B, C, n) not
         cg_pipelined(At, np.stack([[b, b]]), device="cpu")
     assert e.value.status == Status.ERR_INVALID_VALUE

@@ -101,8 +101,6 @@ def test_sstep_option_validation():
               Status.ERR_NOT_SUPPORTED, {}),
              (SolverOptions(maxits=10, sstep=2, diffatol=1e-8,
                             residual_rtol=0.0), Status.ERR_NOT_SUPPORTED, {}),
-             (SolverOptions(maxits=10, sstep=2, monitor_every=2),
-              Status.ERR_NOT_SUPPORTED, {}),
              (SolverOptions(maxits=10, sstep=2), Status.ERR_NOT_SUPPORTED,
               {"recycle": object()})]
     for o, status, kw in cases:
@@ -112,6 +110,13 @@ def test_sstep_option_validation():
     for bad in (1, 17):
         with pytest.raises(ValueError):
             SolverOptions(sstep=bad)
+    # monitor_every runs (as in the JAX package) and changes no bit
+    o = dict(maxits=200, sstep=2, residual_rtol=1e-6)
+    ref = cg_sstep(At, b, options=SolverOptions(**o), device="cpu")
+    got = cg_sstep(At, b, options=SolverOptions(monitor_every=2, **o),
+                   device="cpu")
+    assert got.niterations == ref.niterations
+    np.testing.assert_array_equal(got.x, ref.x)
 
 
 # ---------------------------------------------------------------------------
