@@ -420,10 +420,11 @@ def _main(argv=None) -> int:
             except AcgError as e:
                 if getattr(e, "result", None) is None:
                     raise
-        from acg_torch.ops import (cg_update, dia_kernels, sgell, spmv,
-                                   stencil)
+        from acg_torch.ops import (cg_update, deep_coeffs, dia_kernels,
+                                   sgell, spmv, sstep_coeffs, stencil)
         from acg_torch.parallel import rdma_halo
         rdma_halo.launches = cg_update.launches = 0
+        sstep_coeffs.launches = deep_coeffs.launches = 0
         dia_kernels.launches = stencil.launches = 0
         dia_kernels.pipe_launches = stencil.pipe_launches = 0
         dia_kernels.batched_launches = stencil.batched_launches = 0
@@ -440,7 +441,9 @@ def _main(argv=None) -> int:
                    f"sgell_spmv {sgell.launches}, dia_spmv_ring "
                    f"{dia_kernels.ring_launches}, dia_spmv_windows "
                    f"{dia_kernels.windows_launches}, rdma_exchange "
-                   f"{rdma_halo.launches}, cg_update {cg_update.launches}")
+                   f"{rdma_halo.launches}, cg_update {cg_update.launches}, "
+                   f"sstep_coeffs {sstep_coeffs.launches}, deep_coeffs "
+                   f"{deep_coeffs.launches}")
         if res.stats is not None and res.loop:
             st = res.stats
             _log(args, f"loop: {res.loop} ({st.ncaptures} graph captures "

@@ -43,9 +43,9 @@ class SolveStats:
     allreduce: OpCounters = dataclasses.field(default_factory=OpCounters)
     halo: OpCounters = dataclasses.field(default_factory=OpCounters)
     nhalomsgs: int = 0
-    # s-step blocks, and the host seconds they spent waiting for each
-    # block's Gram matrix and then on its coefficient recurrences, Ritz
-    # step, Leja order and combination launches (cg_sstep)
+    # s-step blocks, the host seconds of each block's one status read
+    # (the wait for the card to finish the block) and of the rest of the
+    # block on the host: its replay or launches and the monitor (cg_sstep)
     nsstepblocks: int = 0
     tsstepwait: float = 0.0
     tsstephost: float = 0.0

@@ -48,7 +48,7 @@ from acg_torch.solvers.base import (SolveResult, SolveStats,
 from acg_torch.solvers.loops import (_BREAKDOWN, _CONVERGED, _FAULT,
                                      _GRAM_BAD, _OK, cg_pipelined_deep_while,
                                      cg_pipelined_while, cg_sstep_while,
-                                     cg_while)
+                                     cg_while, deep_buffers)
 from acg_torch.sparse.csr import CsrMatrix
 from acg_torch.sparse.ell import EllMatrix
 from acg_torch.sparse.rcm import permute_symmetric, rcm_order
@@ -263,7 +263,7 @@ def _sync(device: torch.device) -> None:
 
 
 def resolve_loop(loop, devices) -> bool:
-    """Whether a classic or pipelined loop runs its blocks as CUDA graphs
+    """Whether a solver's loop runs its blocks as CUDA graphs
     (``solvers/graphs.py``): ``loop`` "graph" or "open", None for the
     default, the graph loop when every vector lies on one CUDA device.
     Shards on several cards keep the open loop (a capture is one
@@ -280,11 +280,6 @@ def resolve_loop(loop, devices) -> bool:
                        "the graph loop captures one CUDA device's work; "
                        f"these vectors lie on {sorted(map(str, devs))}")
     return loop == "graph"
-
-
-# why the s-step and deep loops launch every kernel from the host
-SSTEP_OPEN = "s-step: the coefficient recurrences on the host a block"
-DEEP_OPEN = "deep pipeline: the scalar chain on the host's launches"
 
 
 def open_loop_note(why: str, device_type: str) -> str:
@@ -601,7 +596,8 @@ def _sstep_block_fn(mv, b, s: int):
     V = torch.empty((m,) + tuple(b.shape), dtype=b.dtype, device=b.device)
 
     def block_fn(x, p, shifts):
-        th = torch.from_numpy(np.ascontiguousarray(shifts)).to(b.device)
+        # the loop's device shifts as they are (a host array is uploaded)
+        th = torch.as_tensor(shifts, device=b.device)
         if batched:
             th = th[:, None, :]
         torch.sub(b, mv(x), out=V[s + 1])
@@ -649,19 +645,20 @@ def _seed_shifts(op, b, n: int, shifts0):
 
 
 def _cg_sstep_device(op, b, x0, stop2, s: int, maxits: int, shifts0=None,
-                     stats=None, monitor_every: int = 0):
+                     stats=None, monitor_every: int = 0, graph: bool = False):
     """s-step CG on the device operator (``acg_tpu.solvers.cg``
-    ``_cg_sstep_device``): the entry residual, the shift seeds, the loop,
-    and the certification of every exit by a fresh |b - A x|².  Host
-    arrays of leading axis B (1 for one system) come back beside x:
-    ``(x, kiter, rr_true, flag, rr0, hist)``; ``stats`` gets the loop's
-    block times."""
+    ``_cg_sstep_device``): the entry residual, the shift seeds, the loop
+    (its blocks as CUDA graphs with ``graph``), and the certification of
+    every exit by a fresh |b - A x|².  Host arrays of leading axis B (1
+    for one system) come back beside x: ``(x, kiter, rr_true, flag, rr0,
+    hist)``; ``stats`` gets the loop's block times."""
     r0 = b - op.matvec(x0)
     rr0 = np.atleast_1d(_host(batched_dot(r0, r0)))
     shifts0 = _seed_shifts(op, b, s, shifts0).reshape(rr0.shape[0], s)
     x, kiter, _rr, flag, hist, _shifts = cg_sstep_while(
         _sstep_block_fn(op.matvec, b, s), combine, b, x0, r0, rr0, shifts0,
-        stop2, s, maxits, stats=stats, monitor_every=monitor_every)
+        stop2, s, maxits, stats=stats, monitor_every=monitor_every,
+        graph=graph)
     rT = b - op.matvec(x)
     rrT = np.atleast_1d(_host(batched_dot(rT, rT)))
     flag, hist = _sstep_certify(rrT, kiter, flag, hist, stop2, rr0)
@@ -774,7 +771,7 @@ def _sstep_fallback(solve_classic, k_done, ksys, s: int, why: str,
 def cg_sstep(A, b, x0=None, options: SolverOptions = SolverOptions(),
              dtype=None, fmt: str = "auto", mat_dtype="auto",
              stats: SolveStats | None = None, device=None, shifts0=None,
-             recycle=None) -> SolveResult:
+             recycle=None, loop: str | None = None) -> SolveResult:
     """s-step (communication-reduced) CG on one device
     (``acg_tpu.solvers.cg.cg_sstep``): one Gram reduction per
     ``options.sstep`` iterations (the loop contract is
@@ -784,6 +781,12 @@ def cg_sstep(A, b, x0=None, options: SolverOptions = SolverOptions(),
     the last good iterate, said in ``kernel_note``.  Each block's 2s
     SpMVs run the operator's kernel without the dot (``cuda-*-spmv``,
     ``cuda-dia-hbm*`` past the L2, ``cuda-*-batched`` for a (B, n) b).
+    A block is a fixed launch sequence: the basis, the Gram, one launch of
+    the coefficient kernel (``acg_torch/ops/sstep_coeffs.py``) and the
+    gated combinations; the host reads its status rows once a block.  On
+    the card the block runs as a CUDA graph (``loop="graph"``, the
+    default there; ``"open"`` launches every kernel from the host, with
+    the same bits).
 
     ``shifts0`` ((s,) or (B, s)) overrides the power-iteration /
     Chebyshev Newton-shift seeds.  ``recycle`` (the serve stack's
@@ -796,6 +799,7 @@ def cg_sstep(A, b, x0=None, options: SolverOptions = SolverOptions(),
                        "recycle (a RecycleState): not yet ported")
     op, b_pad, x0_pad, perm = _prepare(A, b, x0, dtype, fmt, mat_dtype,
                                        device)
+    graph = resolve_loop(loop, [op.device])
     batched = b_pad.dim() == 2
     vdt = np.dtype(op.vec_dtype)
     stop2 = (vdt.type(o.residual_atol ** 2), vdt.type(o.residual_rtol ** 2))
@@ -805,7 +809,7 @@ def cg_sstep(A, b, x0=None, options: SolverOptions = SolverOptions(),
     t0 = time.perf_counter()
     x, k, rr, flag, rr0, hist = _cg_sstep_device(
         op, b_pad, x0_pad, stop2, s, o.maxits, shifts0, stats=st,
-        monitor_every=o.monitor_every)
+        monitor_every=o.monitor_every, graph=graph)
     _sync(op.device)
     tsolve = time.perf_counter() - t0
     if not batched:
@@ -821,17 +825,18 @@ def cg_sstep(A, b, x0=None, options: SolverOptions = SolverOptions(),
         return _sstep_fallback(
             lambda: cg(A, b, x0=x_part, options=o2, dtype=dtype, fmt=fmt,
                        mat_dtype=mat_dtype, stats=st, device=device,
-                       atol2_floor=_sstep_fallback_stop(o, rr0)),
+                       atol2_floor=_sstep_fallback_stop(o, rr0), loop=loop),
             k_done, k if batched else None, s,
             "indefinite/non-finite Gram matrix",
             spent_flops=k_done * cg_flops_per_iter(op.nnz, op.nrows,
                                                    sstep=s))
     name, kernel, note = _describe_path(op, fmt, batch=len(k) if batched
                                         else 0, perm=perm, open_coded=True)
-    note = _join_note(note, open_loop_note(SSTEP_OPEN, op.device.type))
+    if not graph:
+        note = _join_note(note, open_loop_note("asked", op.device.type))
     return _finish(op, x, k, rr, flag, rr0, o, tsolve, bnrm2, stats=st,
                    path=(name, kernel, note), hist=hist, perm=perm, sstep=s,
-                   solver="cg-sstep", loop="open")
+                   solver="cg-sstep", loop="graph" if graph else "open")
 
 
 # ---------------------------------------------------------------------------
@@ -856,17 +861,21 @@ def _cg_pipelined_deep_device(op, b, x0, stop2, depth: int, maxits: int,
                               certify: bool, shifts, k_start: int = 0,
                               rr0_in=None, flags_in=None, hist_in=None,
                               ksys_in=None, guard: bool = False,
-                              monitor=None):
+                              monitor=None, graph: bool = False,
+                              buffers=None, stats=None):
     """One deep-pipelined dispatch (pipeline segment) on the device
     operator: the fill chain, the bodies and the true-residual
     certification (:func:`acg_torch.solvers.loops.cg_pipelined_deep_while`),
-    the dot block as one matrix-vector product over the z ring."""
+    the dot block as one matrix-vector product over the z ring;
+    ``buffers`` (``loops.deep_buffers``) carry the solve's vectors and
+    block runner across dispatches."""
     return cg_pipelined_deep_while(
         op.matvec, block_dot, combine, batched_dot, b, x0, stop2, depth,
         shifts, maxits, check_every=check_every,
         replace_every=replace_every, certify=certify, k_start=k_start,
         rr0_in=rr0_in, flags_in=flags_in, hist_in=hist_in, ksys_in=ksys_in,
-        guard=guard, monitor=monitor)
+        guard=guard, monitor=monitor, graph=graph, buffers=buffers,
+        stats=stats)
 
 
 def _deep_dispatches(segment, x0, batched: bool, maxits: int):
@@ -910,7 +919,7 @@ def cg_pipelined_deep(A, b, x0=None,
                       options: SolverOptions = SolverOptions(),
                       dtype=None, fmt: str = "auto", mat_dtype="auto",
                       stats: SolveStats | None = None, device=None,
-                      shifts0=None) -> SolveResult:
+                      shifts0=None, loop: str | None = None) -> SolveResult:
     """Depth-l pipelined CG on one device, l = ``options.pipeline_depth``
     reductions in flight (``acg_tpu.solvers.cg.cg_pipelined_deep``; the
     loop contract is
@@ -922,18 +931,25 @@ def cg_pipelined_deep(A, b, x0=None,
     certified against a fresh true residual, and ``_DEEP_MAX_BAD``
     consecutive dispatches ending in breakdown or certified drift fall
     back to classic CG from the last safe iterate (said in
-    ``kernel_note``).  The shift seeds (six SpMVs of power iteration, or
-    ``shifts0`` ((l,) or (B, l))) are formed once and serve every
-    dispatch.  ``pipeline_depth == 1`` is :func:`cg_pipelined`,
-    unchanged.  Other arguments and errors as :func:`cg`; residual
-    criteria only."""
+    ``kernel_note``).  A body's scalar chain is one kernel launch
+    (``acg_torch/ops/deep_coeffs.py``); on the card the bodies between two
+    host reads run as a CUDA graph, one set of captures for every
+    dispatch (``loop="graph"``, the default there; ``"open"`` launches
+    every kernel from the host, with the same bits).  The shift seeds
+    (six SpMVs of power iteration, or ``shifts0`` ((l,) or (B, l))) are
+    formed once and serve every dispatch.  ``pipeline_depth == 1`` is
+    :func:`cg_pipelined`, unchanged.  Other arguments and errors as
+    :func:`cg`; residual criteria only."""
     o = options
     if o.pipeline_depth == 1:
         return cg_pipelined(A, b, x0, options=o, dtype=dtype, fmt=fmt,
-                            mat_dtype=mat_dtype, stats=stats, device=device)
+                            mat_dtype=mat_dtype, stats=stats, device=device,
+                            loop=loop)
     l = _deep_validate(o)
     op, b_pad, x0_pad, perm = _prepare(A, b, x0, dtype, fmt, mat_dtype,
                                        device)
+    graph = resolve_loop(loop, [op.device])
+    st = stats if stats is not None else SolveStats()
     batched = b_pad.dim() == 2
     vdt = b_pad.dtype
     stop2 = (torch.tensor(o.residual_atol ** 2, dtype=vdt, device=op.device),
@@ -946,12 +962,14 @@ def cg_pipelined_deep(A, b, x0=None,
         op.device)
     mon = (LoopMonitor(o.monitor_every, o.maxits, vdt, op.device)
            if o.monitor_every > 0 else None)
+    bufs = deep_buffers(b_pad, l, o.maxits, graph, st)
     (x_op, kret, rr, flag, rr0_op, hist_op, k_op, ndisp,
      why) = _deep_dispatches(
         lambda x, *restart: _cg_pipelined_deep_device(
             op, b_pad, x, stop2, l, o.maxits, o.check_every,
             o.replace_every, certify, shifts, *restart,
-            guard=o.guard_nonfinite, monitor=mon), x0_pad, batched,
+            guard=o.guard_nonfinite, monitor=mon, graph=graph,
+            buffers=bufs, stats=st), x0_pad, batched,
         o.maxits)
     if why is not None:
         # never silently wrong: classic CG re-solves from the last safe
@@ -963,9 +981,9 @@ def cg_pipelined_deep(A, b, x0=None,
                                  maxits=max(o.maxits - k_op, 0))
         return _sstep_fallback(
             lambda: cg(A, b, x0=x_part, options=o2, dtype=dtype,
-                       fmt=fmt, mat_dtype=mat_dtype, stats=stats,
+                       fmt=fmt, mat_dtype=mat_dtype, stats=st,
                        device=device,
-                       atol2_floor=_sstep_fallback_stop(o, rr0_h)),
+                       atol2_floor=_sstep_fallback_stop(o, rr0_h), loop=loop),
             k_op, _host(kret) if batched else None, l, why,
             spent_flops=k_op * cg_flops_per_iter(op.nnz, op.nrows,
                                                  pipelined=True),
@@ -976,11 +994,13 @@ def cg_pipelined_deep(A, b, x0=None,
                                         if batched else 0, perm=perm,
                                         open_coded=True)
     note = _join_note(f"deep pipeline depth {l}, {ndisp} dispatch(es)",
-                      note, open_loop_note(DEEP_OPEN, op.device.type))
+                      note, "" if graph
+                      else open_loop_note("asked", op.device.type))
     return _finish(op, x_op, kret, rr, flag if batched else int(flag), rr0_op,
-                   o, tsolve, bnrm2, stats=stats, path=(name, kernel, note),
+                   o, tsolve, bnrm2, stats=st, path=(name, kernel, note),
                    hist=hist_op, pipelined=True, perm=perm,
-                   solver="cg-pipelined-deep", loop="open")
+                   solver="cg-pipelined-deep",
+                   loop="graph" if graph else "open")
 
 
 # ---------------------------------------------------------------------------

@@ -66,8 +66,7 @@ from acg_torch.partition.partitioner import partition_graph
 from acg_torch.solvers.base import (SolveStats, cg_flops_per_iter,
                                     conform_x0_batch,
                                     kernel_disengagement_note, path_names)
-from acg_torch.solvers.cg import (DEEP_OPEN, SSTEP_OPEN, _cheb_leja_nodes,
-                                  _deep_dispatches,
+from acg_torch.solvers.cg import (_cheb_leja_nodes, _deep_dispatches,
                                   _deep_validate, _deflate_x0, _finish,
                                   _host, _join_note, _power_lmax,
                                   _sstep_certify, _sstep_fallback,
@@ -76,7 +75,7 @@ from acg_torch.solvers.cg import (DEEP_OPEN, SSTEP_OPEN, _cheb_leja_nodes,
                                   resolve_loop)
 from acg_torch.solvers.loops import (_GRAM_BAD, cg_pipelined_deep_while,
                                      cg_pipelined_while, cg_sstep_while,
-                                     cg_while)
+                                     cg_while, deep_buffers)
 from acg_torch.utils.timing import host_step
 
 
@@ -326,7 +325,8 @@ def _sstep_block_dist(ss: ShardedSystem, deep, b, s: int, wire: str,
     shard order (the block's ONE reduction).  ``b``'s deep ghosts are
     exchanged once, here.  Each shard's extended basis is allocated once
     and rewritten every block; the basis handed to the loop is its owned
-    part (a :class:`ShardStack` of views)."""
+    part (a :class:`ShardStack` of views).  The shifts are the loop's
+    device tensor on ``dev0`` (a host array is uploaded)."""
     batched = b.dim() == 2
     m = 2 * s + 1
     b_ext = [torch.cat([bb, g], dim=-1)
@@ -337,7 +337,7 @@ def _sstep_block_dist(ss: ShardedSystem, deep, b, s: int, wire: str,
     V = ShardStack(v[..., :n] for v, n in zip(Ve, deep.nown))
 
     def block_fn(x, p, shifts):
-        th = torch.from_numpy(np.ascontiguousarray(shifts)).to(dev0)
+        th = torch.as_tensor(shifts, device=dev0)
         if batched:
             th = th[:, None, :]
         gh = deep.exchange(ss, [torch.stack([xi, pi]) for xi, pi in
@@ -407,8 +407,9 @@ def _solve_dist(kind: str, A, b, x0, options: SolverOptions,
     their deep ghost zones), the loop and the result.  ``atol2_floor``
     (the s-step and deep fallbacks) is a squared absolute threshold, a
     scalar or per system, folded into the atol term.  ``loop`` as
-    :func:`acg_torch.solvers.cg.cg` (classic and pipelined only: the
-    graph loop where every shard is on one card)."""
+    :func:`acg_torch.solvers.cg.cg`: the graph loop where every shard is
+    on one card; shards on several cards run the open loop, with the
+    s-step and deep coefficient kernels on the first shard's card."""
     o = options
     pipelined = kind in ("cg-pipelined", "cg-pipelined-deep")
     if kind == "cg-sstep":
@@ -462,8 +463,7 @@ def _solve_dist(kind: str, A, b, x0, options: SolverOptions,
     dev0 = ss.devices[0]
     vdt = getattr(torch, ss.vec_dtype)
     wire = o.halo_wire
-    graph = (resolve_loop(loop, ss.devices)
-             if kind in ("cg", "cg-pipelined") else False)
+    graph = resolve_loop(loop, ss.devices)
     mon = (LoopMonitor(o.monitor_every, o.maxits, vdt, dev0)
            if o.monitor_every > 0 else None)
     deep = (build_deep_device(ss, s if kind == "cg-sstep" else l)
@@ -503,7 +503,7 @@ def _solve_dist(kind: str, A, b, x0, options: SolverOptions,
         x, k, _rr, flag, hist, _ = cg_sstep_while(
             _sstep_block_dist(ss, deep, b_sh, s, wire, dev0),
             _combine_shards, b_sh, x0_sh, r0, rr0, shifts0, hstop2, s,
-            o.maxits, stats=st, monitor_every=o.monitor_every)
+            o.maxits, stats=st, monitor_every=o.monitor_every, graph=graph)
         # every exit certified by a fresh |b - A x|² through the
         # ordinary distributed operator
         rT = b_sh - matvec(x)
@@ -519,13 +519,15 @@ def _solve_dist(kind: str, A, b, x0, options: SolverOptions,
         cert = (lambda v: ss.matvec(v, "f32")) if wire != "f32" else None
         fill = _deep_fill(ss, deep, shifts, wire)
         dots = _block_dot_shards(dev0)
+        bufs = deep_buffers(b_sh, l, o.maxits, graph, st)
         (x, k, rr, flag, rr0, hist, kall, ndisp,
          why) = _deep_dispatches(
             lambda xx, *restart: cg_pipelined_deep_while(
                 matvec, dots, _combine_shards, dot, b_sh, xx, stop2, l,
                 shifts, o.maxits, o.check_every, o.replace_every, certify,
                 *restart, guard=o.guard_nonfinite, fill=fill,
-                cert_matvec=cert, monitor=mon), x0_sh, bool(batch),
+                cert_matvec=cert, monitor=mon, graph=graph, buffers=bufs,
+                stats=st), x0_sh, bool(batch),
             o.maxits)
         if not batch:
             flag = int(flag)
@@ -585,7 +587,8 @@ def _solve_dist(kind: str, A, b, x0, options: SolverOptions,
                else dict(pipeline_depth=1, halo_wire="f32")))
         return _sstep_fallback(
             lambda: _solve_dist("cg", ss, b, x_part, o2, st, {},
-                                atol2_floor=_sstep_fallback_stop(o, rr0_h)),
+                                atol2_floor=_sstep_fallback_stop(o, rr0_h),
+                                loop=loop),
             kdone, _host(k) if batch else None, sstep or l,
             why or "indefinite/non-finite Gram matrix",
             spent_flops=kdone * cg_flops_per_iter(
@@ -602,8 +605,6 @@ def _solve_dist(kind: str, A, b, x0, options: SolverOptions,
     if not graph:
         ncards = len({d for d in ss.devices if d.type == "cuda"})
         note = _join_note(note, open_loop_note(
-            SSTEP_OPEN if kind == "cg-sstep" else
-            DEEP_OPEN if kind == "cg-pipelined-deep" else
             f"shards on {ncards} cards" if ncards > 1 else "asked",
             dev0.type))
     return _finish(_Meta, x_global, k, rr, flag, rr0, o, tsolve,
@@ -658,7 +659,7 @@ def cg_pipelined_dist(A, b, x0=None,
 
 def cg_sstep_dist(A, b, x0=None, options: SolverOptions = SolverOptions(),
                   stats: SolveStats | None = None, recycle=None,
-                  **build_kw):
+                  loop: str | None = None, **build_kw):
     """Distributed s-step CG (``acg_tpu.solvers.cg_dist.cg_sstep_dist``):
     per ``options.sstep`` iterations ONE deep exchange (the stacked x and
     p seeds, depth s) and ONE reduction (the shards' Gram matrices added
@@ -670,18 +671,24 @@ def cg_sstep_dist(A, b, x0=None, options: SolverOptions = SolverOptions(),
     certified through the ordinary distributed operator, and an
     indefinite or non-finite Gram falls back to classic :func:`cg_dist`
     from the last good iterate under each system's own criterion (said in
-    ``kernel_note``).  The rdma halo raises ``ERR_NOT_SUPPORTED``; so
-    does ``recycle`` (not yet ported).  Arguments, results and other
-    errors as :func:`cg_dist`; residual criteria only."""
+    ``kernel_note``).  The Gram sum stays in shard order and the
+    coefficient kernel (``ops/sstep_coeffs.py``) runs on the first
+    shard's card; with every shard on one card a block replays as one
+    CUDA graph (``loop`` as :func:`cg_dist`).  The rdma halo raises
+    ``ERR_NOT_SUPPORTED``; so does ``recycle`` (not yet ported).
+    Arguments, results and other errors as :func:`cg_dist`; residual
+    criteria only."""
     if recycle is not None:
         raise AcgError(Status.ERR_NOT_SUPPORTED,
                        "recycle (a RecycleState): not yet ported")
-    return _solve_dist("cg-sstep", A, b, x0, options, stats, build_kw)
+    return _solve_dist("cg-sstep", A, b, x0, options, stats, build_kw,
+                       loop=loop)
 
 
 def cg_pipelined_deep_dist(A, b, x0=None,
                            options: SolverOptions = SolverOptions(),
-                           stats: SolveStats | None = None, **build_kw):
+                           stats: SolveStats | None = None,
+                           loop: str | None = None, **build_kw):
     """Distributed depth-l pipelined CG, l = ``options.pipeline_depth``
     (``acg_tpu.solvers.cg_dist.cg_pipelined_deep_dist``): one halo and
     ONE reduction a body (the shards' (2l+1)-dot partials added in shard
@@ -692,13 +699,17 @@ def cg_pipelined_deep_dist(A, b, x0=None,
     The host re-dispatches as :func:`acg_torch.solvers.cg.cg_pipelined_deep`
     does, and ``_DEEP_MAX_BAD`` bad dispatches fall back to classic
     :func:`cg_dist` at the full-width wire.  Depth 1 IS
-    :func:`cg_pipelined_dist`.  The rdma halo raises
-    ``ERR_NOT_SUPPORTED``.  Arguments, results and other errors as
-    :func:`cg_dist`; residual criteria only."""
+    :func:`cg_pipelined_dist`.  A body's scalar chain is one launch of
+    ``ops/deep_coeffs.py`` on the first shard's card; with every shard on
+    one card the bodies between two host reads replay as CUDA graphs,
+    one set of captures for every dispatch (``loop`` as :func:`cg_dist`).
+    The rdma halo raises ``ERR_NOT_SUPPORTED``.  Arguments, results and
+    other errors as :func:`cg_dist`; residual criteria only."""
     if options.pipeline_depth <= 1:
-        return cg_pipelined_dist(A, b, x0, options, stats, **build_kw)
+        return cg_pipelined_dist(A, b, x0, options, stats, loop=loop,
+                                 **build_kw)
     return _solve_dist("cg-pipelined-deep", A, b, x0, options, stats,
-                       build_kw)
+                       build_kw, loop=loop)
 
 
 def cg_recycled_dist(A, b, x0=None,

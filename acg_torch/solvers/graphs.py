@@ -51,6 +51,8 @@ COUNTERS = (
     ("acg_torch.ops.sgell", "launches"),
     ("acg_torch.parallel.rdma_halo", "launches"),
     ("acg_torch.ops.cg_update", "launches"),
+    ("acg_torch.ops.sstep_coeffs", "launches"),
+    ("acg_torch.ops.deep_coeffs", "launches"),
 )
 
 # one capture stream a device, shared by every solve on it, so the
@@ -188,6 +190,7 @@ class BlockRunner:
                 gc.enable()
         if err is not None:
             _set(before)
+            self._drop_pool()
             raise AcgError(Status.ERR_NOT_SUPPORTED,
                            f"CUDA graph capture of a loop block failed: "
                            f"{type(err).__name__}: {err}") from err
@@ -199,6 +202,22 @@ class BlockRunner:
         self._count("ncaptures", 1)
         self._count("tcapture", dt)
         return graph, delta
+
+    def _drop_pool(self) -> None:
+        """After a failed capture: the allocator may still be routing this
+        stream's allocations to the pool (a capture that ends in an error
+        does not end that), and a later capture into the same pool would
+        be refused; the device's pool is released and a new one made for
+        every later solve."""
+        idx = self.device.index
+        end = getattr(torch._C, "_cuda_endAllocateToPool", None)
+        if end is not None:
+            try:
+                end(idx, self._pool)
+            except (RuntimeError, TypeError):
+                pass
+        _POOLS.pop(idx, None)
+        self._pool = _pool(idx, self._stream)
 
     def _count(self, name: str, v) -> None:
         if self.stats is not None:

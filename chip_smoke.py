@@ -208,10 +208,21 @@ raises and the script exits non-zero:
               stencil_spmv on a shard without the dot and ell_spmv on a
               shard's deep interface and skin at depths 4 and 2 against
               their plain versions;
+    graph-loop the device-resident loop against the open loop: each
+              case solved with loop="open" and loop="graph" and held bit
+              for bit (x, counts, flags, histories, launch counters), with
+              µs/iter both ways, the captures and their host seconds: the
+              classic and pipelined cases, and the s-step and deep ones,
+              whose coefficient work is one kernel a block / body
+              (sstep_coeffs, deep_coeffs; the kernels phase holds both
+              against their plain versions on the card): sstep-stencil,
+              sstep-batched-stencil (60 fixed iterations), deep-stencil,
+              dist-sstep-stencil and dist-deep-stencil at full size;
 15. profile   for the operators of phases 3, 4, 6, batched-stencil,
               sstep-stencil, deep-stencil, fem-sgell, fem-ell, dia-100m,
               dist-stencil-rdma, dist-pipelined-stencil-rdma and
-              dist-sstep-stencil: 50
+              dist-sstep-stencil (each in the solver's default loop, the
+              graph loop on one card): 50
               iterations under torch.profiler (device time by kernel,
               device idle share of the solve's wall time, kernels per
               iteration), and µs/iter with the host reading the loop flag
@@ -903,6 +914,7 @@ def _kernels_phase(G: int, nrhs: int, dist_nrhs: int, ctx):
     torch.cuda.empty_cache()
     _stencil_shapes(ctx)
     _cg_update_rows(G, nrhs, ctx)
+    _coeff_rows(nrhs, ctx)
     _batched_kernels(D, G, nrhs, ctx)
     _unstructured_kernels(ctx)
     _hbm_kernels(D, ctx)
@@ -989,6 +1001,194 @@ def _cg_update_rows(G: int, nrhs: int, ctx, big: int = 464):
                              f"version: {json.dumps(row)}")
         del x, r, p, t, xk, rk, xp, rp, xk2, rk2
         torch.cuda.empty_cache()
+
+
+def _sstep_inputs(s: int, nsys: int, maxits: int, dtype=None,
+                  edge: int = 32):
+    """One s-step block's coefficient state at the main path's shapes
+    (the kernel sees (B, 2s+1, 2s+1) Gram matrices, whatever n): the Gram
+    matrices of real bases (a 32^3 Poisson operator on the card at the
+    vector dtype, f64 by default; random right-hand sides, the Chebyshev
+    seeds at 12), fresh flags and counts, a criterion no block meets
+    (rtol 0), so every call does a whole block's work."""
+    import numpy as np
+    import torch
+
+    from acg_torch.solvers.cg import (_cheb_leja_nodes, _sstep_block_fn,
+                                      build_device_operator)
+    from acg_torch.sparse.poisson import poisson3d_7pt
+
+    tdt = torch.float64 if dtype is None else dtype
+    A = poisson3d_7pt(edge)
+    op = build_device_operator(
+        A, dtype=np.float64 if tdt == torch.float64 else np.float32,
+        device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    th = torch.tensor(12.0 * _cheb_leja_nodes(s), dtype=tdt, device="cuda")
+    grams = []
+    for _ in range(nsys):
+        b = torch.zeros(op.nrows_padded, dtype=tdt, device="cuda")
+        b[: A.nrows] = torch.randn(A.nrows, generator=gen, device="cuda",
+                                   dtype=tdt)
+        _, G = _sstep_block_fn(op.matvec, b, s)(torch.zeros_like(b),
+                                                b.clone(), th)
+        grams.append(G.clone())
+    G = torch.stack(grams)
+    m = 2 * s + 1
+    rr0 = G[:, s + 1, s + 1].clone()
+
+    def state():
+        return dict(G=G, shifts=th.repeat(nsys, 1).contiguous(),
+                    rr=rr0.clone(), rr0=rr0, thresh2=torch.zeros_like(rr0),
+                    kiter=torch.zeros(nsys, dtype=torch.int64,
+                                      device="cuda"),
+                    flag=torch.zeros(nsys, dtype=torch.int32, device="cuda"),
+                    hist=torch.full((nsys, maxits + 1), float("nan"),
+                                    dtype=tdt, device="cuda"),
+                    coef=torch.zeros((nsys, 2, m), dtype=tdt,
+                                     device="cuda"),
+                    changed=torch.zeros(nsys, dtype=torch.bool,
+                                        device="cuda"),
+                    status=torch.zeros((nsys, 3), dtype=torch.float64,
+                                       device="cuda"))
+    return state
+
+
+def _deep_inputs(l: int, seed: int = 5):
+    """One deep body's buffers at the main path's shape (one system,
+    f64): G upper triangular with a positive diagonal, a dot block with
+    a positive last entry (a committing body), gamma/delta rings."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    w = 2 * l + 1
+
+    def t(a, dt=torch.float64):
+        return torch.tensor(np.asarray(a), dtype=dt, device="cuda")
+
+    G = np.triu(rng.standard_normal((w, w)) * 0.1)
+    G[np.arange(w), np.arange(w)] = 1.0 + rng.random(w)
+    D = rng.standard_normal(w) * 0.1
+    D[w - 1] = 4.0
+    return dict(
+        D=t(D), G=t(G), shifts=t(2.0 + rng.random(l)),
+        gring=t(1.0 + rng.random(l)), dring=t(0.5 + rng.random(l)),
+        sc=t([1.5, 1.2, 0.3, 0.5, 1e-300]),
+        flag=t(0, torch.int32), est=t(False, torch.bool),
+        kdev=t(0, torch.int32), ksys=t(0, torch.int32),
+        kit=t(0, torch.int64),
+        hist=torch.full((100001,), float("nan"), dtype=torch.float64,
+                        device="cuda"),
+        co=torch.zeros(w + 5, dtype=torch.float64, device="cuda"),
+        commit=t(False, torch.bool), act=t(False, torch.bool),
+        live=t(False, torch.bool), kmon=t(0, torch.int32))
+
+
+def _coeff_rows(nrhs: int, ctx, s: int = 4, l: int = 2):
+    """The s-step and deep loops' coefficient kernels
+    (``ops/sstep_coeffs.py``, ``ops/deep_coeffs.py``) at the shapes and
+    types the solve phases give them: sstep_coeffs at s = 4, f64, one
+    system (sstep-stencil, dist-sstep-stencil) and B systems (sstep-
+    batched-stencil), and f32, one system (sstep-dia-bf16's f32
+    vectors); deep_coeffs at l = 2, f64, one system (deep-stencil,
+    dist-deep-stencil).  Each is held against its plain version on the
+    card on the same inputs (sstep_coeffs: flags, counts and ``changed``
+    equal, the rest within 1e-12 (f64) / 1e-5 (f32) of its scale;
+    deep_coeffs: every buffer bit for bit over ten bodies), then timed
+    one call and queued beside the plain version.  Both are latency-bound: the bound (their few
+    hundred bytes over the memory rate, their operations over the f64
+    peak) is nanoseconds; no single PyTorch call computes either
+    (library_ms null)."""
+    import torch
+
+    from acg_torch.ops import deep_coeffs as dc
+    from acg_torch.ops import sstep_coeffs as sc
+
+    maxits = 100000
+    m = 2 * s + 1
+    for tdt, nsys, tol in ((torch.float64, 1, 1e-12),
+                           (torch.float64, nrhs, 1e-12),
+                           (torch.float32, 1, 1e-5)):
+        state = _sstep_inputs(s, nsys, maxits, tdt)
+        got, want = state(), state()
+        sc.sstep_coeffs(**got, s=s, maxits=maxits, any_crit=False)
+        sc.sstep_coeffs_plain(**want, s=s, maxits=maxits, any_crit=False)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(got[k], want[k])
+                    for k in ("flag", "kiter", "changed"))
+        err, bits = 0.0, True
+        for k in ("coef", "rr", "shifts", "hist"):
+            a, b = got[k].nan_to_num(), want[k].nan_to_num()
+            scale = float(b.abs().max())
+            err = max(err, float((a - b).abs().max()) / scale)
+            bits = bits and torch.equal(a, b)
+        tier = f"{'f64' if tdt == torch.float64 else 'f32'} s={s} B={nsys}"
+        row = {"name": "sstep_coeffs", "tier": tier, "with_dot": None,
+               "max_abs_err": err, "err_relative_to": "each output's scale",
+               "tolerance": tol,
+               "flags_counts_changed_equal": exact,
+               "bits_equal_plain": bits, "blocks_committed": int(
+                   got["changed"].sum())}
+        st1, st2 = state(), state()
+        row["ms"] = _time_ms(lambda: sc.sstep_coeffs(
+            **st1, s=s, maxits=maxits, any_crit=False), ctx["reps"])
+        row["ms_queued"] = _queued_ms(lambda: sc.sstep_coeffs(
+            **st1, s=s, maxits=maxits, any_crit=False))
+        row["plain_ms"] = _time_ms(lambda: sc.sstep_coeffs_plain(
+            **st2, s=s, maxits=maxits, any_crit=False), 5, warmup=1)
+        row["library_ms"] = None
+        # operations a system: s inner steps (two G products, four
+        # m-sums, the coefficient updates), the bisection's halvings of
+        # s Sturm counts, the Leja order
+        flops = nsys * (s * (4 * m * m + 16 * m)
+                        + sc.HALVINGS[tdt] * s * 4 * s
+                        + 3 * s * s)
+        size = torch.empty((), dtype=tdt).element_size()
+        nbytes = nsys * (size * (m * m + 2 * m + 3 * s + 3) + 8 + 4 + 1
+                         + 8 * 3)
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, tdt, ctx)
+        ctx["rows"].append(row)
+        _emit({"kernel_check": row})
+        if not (exact and err <= tol and row["blocks_committed"] == nsys):
+            raise SystemExit(f"error: sstep_coeffs disagrees with its "
+                             f"plain version: {json.dumps(row)}")
+    w = 2 * l + 1
+    got, want = _deep_inputs(l), _deep_inputs(l)
+    bits = True
+    for t in range(10):
+        kw = dict(l=l, t=t, hh=t % l, hv=t % (w - 1), at_check=t % 3 == 2,
+                  guard=True, any_crit=True)
+        dc.deep_coeffs(**got, **kw)
+        dc.deep_coeffs_plain(**want, **kw)
+        torch.cuda.synchronize()
+        for k in want:
+            a, b = got[k], want[k]
+            if a.is_floating_point():
+                bits = bits and torch.equal(torch.isnan(a), torch.isnan(b))
+                a, b = a.nan_to_num(), b.nan_to_num()
+            bits = bits and torch.equal(a, b)
+    err = float((got["co"] - want["co"]).abs().max())
+    row = {"name": "deep_coeffs", "tier": f"f64 l={l} B=1", "with_dot": None,
+           "max_abs_err": err, "bits_equal_plain": bits, "bodies_checked": 10}
+    st1, st2 = _deep_inputs(l), _deep_inputs(l)
+    kw = dict(l=l, t=l + 1, hh=1, hv=3, at_check=False, guard=False,
+              any_crit=True)
+    row["ms"] = _time_ms(lambda: dc.deep_coeffs(**st1, **kw), ctx["reps"])
+    row["ms_queued"] = _queued_ms(lambda: dc.deep_coeffs(**st1, **kw))
+    row["plain_ms"] = _time_ms(lambda: dc.deep_coeffs_plain(**st2, **kw),
+                               ctx["reps"])
+    row["library_ms"] = None
+    flops = (w - 1) * (w - 1) + 2 * (w - 1) + 40
+    nbytes = 8 * (w * w + w + 2 * l + 8 + w + 5) + 16
+    row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, torch.float64,
+                                              ctx)
+    ctx["rows"].append(row)
+    _emit({"kernel_check": row})
+    if not bits:
+        raise SystemExit(f"error: deep_coeffs disagrees with its plain "
+                         f"version: {json.dumps(row)}")
+    torch.cuda.empty_cache()
 
 
 def _stencil_row(spec, x, with_dot, tier, library, ctx):
@@ -1242,7 +1442,11 @@ def _counts() -> dict:
     from acg_torch.ops import cg_update, dia_kernels, sgell, spmv, stencil
     from acg_torch.parallel import rdma_halo
 
+    from acg_torch.ops import deep_coeffs, sstep_coeffs
+
     return {"cg_update": cg_update.launches,
+            "sstep_coeffs": sstep_coeffs.launches,
+            "deep_coeffs": deep_coeffs.launches,
             "dia_spmv": dia_kernels.launches,
             "stencil_spmv": stencil.launches,
             "cg_pipelined_iter": dia_kernels.pipe_launches,
@@ -1259,7 +1463,10 @@ def _reset_counts():
     from acg_torch.ops import cg_update, dia_kernels, sgell, spmv, stencil
     from acg_torch.parallel import rdma_halo
 
+    from acg_torch.ops import deep_coeffs, sstep_coeffs
+
     rdma_halo.launches = cg_update.launches = 0
+    sstep_coeffs.launches = deep_coeffs.launches = 0
     dia_kernels.launches = dia_kernels.pipe_launches = 0
     stencil.launches = stencil.pipe_launches = 0
     dia_kernels.batched_launches = stencil.batched_launches = 0
@@ -1736,10 +1943,6 @@ def _cli_launches(stderr: str):
 # to classic CG without a bound on the segment, even at rtol 1e-6, and
 # reach 1e-8 without fallback, in the same counts, with replace_every=50
 _DEEP = {"depth": 2, "rtol": 1e-8, "replace_every": 50}
-# the path report of an s-step solve on the card: its loop launches
-# every kernel from the host (acg_torch.solvers.cg.SSTEP_OPEN)
-_SSTEP_NOTE = ("open loop (s-step: the coefficient recurrences on the host "
-               "a block)")
 
 
 def _sstep_blocks(launches: int, s: int, its: int, where: str) -> int:
@@ -1801,16 +2004,19 @@ def _sstep_solve(ctx, phase: str, s: int = 4):
         rep["classic_iterations"] = ctx["classic_iterations"]
         rep["us_per_iter_classic"] = ctx["us_per_iter"]["stencil"]
         counts_ok = abs(res.niterations - ctx["classic_iterations"]) <= s + 2
+    rep["loop"] = res.loop
     ok = ((res.operator_format, res.kernel)
           == ("stencil", f"cuda-stencil-{'batched' if batched else 'spmv'}")
-          and res.converged and res.kernel_note == _SSTEP_NOTE and counts_ok
+          and res.converged and res.kernel_note == "" and res.loop == "graph"
+          and launches["sstep_coeffs"] == blocks and counts_ok
           and max(rep["host_true_relative_residual"]) <= 10 * rtol
           and np.all(np.isfinite(res.x)) and res.x.shape == np.shape(b))
     if not ok:
         raise SystemExit(f"error: {phase} solve failed: {rep}")
     if batched:
         _check_batched_launches(rep, launches, kernel, res.niterations, phase)
-    elif any(v for k, v in launches.items() if k != kernel):
+    elif any(v for k, v in launches.items()
+             if k not in (kernel, "sstep_coeffs")):
         raise SystemExit(f"error: {phase} launched other kernels: {rep}")
     ctx.setdefault("us_per_iter", {})[phase] = rep["us_per_iter"]
     if not batched:
@@ -1820,23 +2026,25 @@ def _sstep_solve(ctx, phase: str, s: int = 4):
 
 
 def _sstep_block_times(stats, blocks: int, where: str) -> dict:
-    """The timed solve's µs a block: all of it, the host's wait for the
-    block's Gram matrix, and the host's work after it (the coefficient
-    recurrences, Ritz step, Leja order and combination launches), as
-    ``cg_sstep_while`` accumulated them in the solve's stats; its block
-    count must be the one the SpMV launches give."""
+    """The timed solve's µs a block: all of it, the host's wait in the
+    block's one status read (the card finishing the block), and the rest
+    of the block on the host (the replay's launch, or every launch of
+    the open loop, and the monitor), as ``cg_sstep_while`` accumulated
+    them in the solve's stats; its block count must be the one the SpMV
+    launches give."""
     if stats.nsstepblocks != blocks:
         raise SystemExit(f"error: {where}: the loop ran "
                          f"{stats.nsstepblocks} blocks, the launches say "
                          f"{blocks}")
     return dict(us_per_block=stats.tsolve / blocks * 1e6,
-                gram_wait_us_per_block=stats.tsstepwait / blocks * 1e6,
+                status_read_us_per_block=stats.tsstepwait / blocks * 1e6,
                 host_us_per_block=stats.tsstephost / blocks * 1e6)
 
 
 def _with_options(solve, **fields):
     """``solve`` with ``fields`` set in the options it is given (the
-    profile phase's fixed-iteration solves)."""
+    profile phase's fixed-iteration solves, in the solver's default
+    loop; the graph-loop phase compares both loops)."""
     def run(op, b, options):
         return solve(op, b, options=dataclasses.replace(options, **fields))
     return run
@@ -1845,9 +2053,10 @@ def _with_options(solve, **fields):
 def _sstep_dia_bf16(G: int, ctx, s: int = 4):
     """s-step CG on the 256^3 bf16-band operator at f32 vectors through
     the windows kernel without the dot (x past the L2), rtol 1e-4, from
-    dia-bf16's b: certified in float64 within 10 x rtol.  f32 s-step is
-    fragile at size, so a fallback to classic CG is allowed; it is
-    printed, with the iterations folded as the JAX wrapper folds them."""
+    dia-bf16's b: certified in float64 within 10 x rtol, the f32
+    coefficient kernel once a block.  f32 s-step is fragile at size, so
+    a fallback to classic CG is allowed; it is printed, with the
+    iterations folded as the JAX wrapper folds them."""
     import numpy as np
     import torch
 
@@ -1872,6 +2081,7 @@ def _sstep_dia_bf16(G: int, ctx, s: int = 4):
     rep = _solve_report(res, launches)
     rep["plan"] = _plan_info(op)
     rep["fallback"] = "fell back to classic cg" in res.kernel_note
+    blocks = None
     if not rep["fallback"]:
         blocks = _sstep_blocks(launches["dia_spmv_windows"], s,
                                res.niterations, "sstep-dia-bf16")
@@ -1879,11 +2089,13 @@ def _sstep_dia_bf16(G: int, ctx, s: int = 4):
             res.stats, blocks, "sstep-dia-bf16"))
     rep["host_true_relative_residual"] = _poisson7_residual(G, res.x, b)
     ok = ((res.operator_format, res.kernel) == ("dia", "cuda-dia-hbm")
-          and (res.kernel_note == _SSTEP_NOTE or rep["fallback"])
+          and (res.kernel_note == "" or rep["fallback"])
           and res.converged
           and rep["host_true_relative_residual"] <= 10 * rtol
           and launches["dia_spmv"] == launches["dia_spmv_ring"] == 0
           and launches["dia_spmv_windows"] > 0
+          and launches["sstep_coeffs"] > 0
+          and (rep["fallback"] or launches["sstep_coeffs"] == blocks)
           and np.all(np.isfinite(res.x)) and res.x.shape == b.shape)
     if not ok:
         raise SystemExit(f"error: sstep-dia-bf16 solve failed: {rep}")
@@ -1931,17 +2143,21 @@ def _deep_stencil(ctx):
           and np.all(np.isfinite(res.x)) and res.x.shape == b.shape)
     if ok:
         bodies = launches["stencil_spmv"] - 6 - ndisp * (l + 2)
-        rep["bodies"] = bodies
+        rep.update(bodies=bodies, loop=res.loop,
+                   graph_captures=res.stats.ncaptures)
         ok = (res.niterations <= bodies <= res.niterations + 2 * ndisp
+              and launches["deep_coeffs"] == bodies
+              and res.loop == "graph" and "open loop" not in note
               and not any(v for k, v in launches.items()
-                          if k != "stencil_spmv"))
+                          if k not in ("stencil_spmv", "deep_coeffs")))
     if not ok:
         raise SystemExit(f"error: deep-stencil solve failed: {rep}")
     ctx.setdefault("us_per_iter", {})["deep-stencil"] = rep["us_per_iter"]
     ctx.setdefault("iterations", {})["deep-stencil"] = res.niterations
     ctx["profile_cases"] = ctx.get("profile_cases", []) + [
         ("deep-stencil-f64", op, b,
-         _with_options(cg_pipelined_deep, pipeline_depth=l))]
+         _with_options(cg_pipelined_deep, pipeline_depth=l,
+                       replace_every=R))]
     return rep
 
 
@@ -3981,7 +4197,8 @@ def _dist_sstep_stencil(ctx, s: int = 4):
     the stencil phase's rtol from its right-hand side: no fallback, the
     count within s + 2 of dist-stencil's, certified in float64 on the
     host within 10 x rtol.  Counted: ONE deep exchange a block (plus b's
-    once) and ONE Gram sum a block (a gram a shard); stencil_spmv
+    once) and ONE Gram sum a block (a gram a shard), in the blocks the
+    loop ran as Python (a replay repeats its capture's); stencil_spmv
     without the dot 2s a block a shard plus the 8 ordinary operator
     applications a shard (the entry residual, six power-iteration
     products, the certificate), ell_spmv on the deep interface and the
@@ -4028,10 +4245,15 @@ def _dist_sstep_stencil(ctx, s: int = 4):
         cgd.gram = gram
     rep = _solve_report(res, launches)
     its, blocks = res.niterations, res.stats.nsstepblocks
+    # the blocks the loop ran as Python (the warm-up, run, and the
+    # capture, which launches nothing); the replays (the first right
+    # after its capture) repeat a captured block's exchange and Gram sums
+    python_blocks = res.stats.nloopopen + res.stats.ncaptures
     classic = ctx["dist"]["stencil_x"][1]
     cert = _poisson7_residual(ctx["dist"]["grid"], res.x, b)
     want = {"stencil_spmv": P * (2 * s * blocks + 8),
-            "ell_spmv": P * (2 * 2 * s * blocks + 8)}
+            "ell_spmv": P * (2 * 2 * s * blocks + 8),
+            "sstep_coeffs": blocks}
     others = {k: v for k, v in launches.items() if k not in want and v}
     # the first block from one (x, p) under both halos
     gen = np.random.default_rng(11)
@@ -4057,18 +4279,23 @@ def _dist_sstep_stencil(ctx, s: int = 4):
                us_per_iter_over_dist_stencil=rep["us_per_iter"]
                / ctx["us_per_iter"]["dist-stencil"],
                deep_exchanges=calls["exchange"], gram_calls=calls["gram"],
+               blocks_run_as_python=python_blocks,
+               replays=res.stats.nreplays,
                deep_ghosts_per_shard=list(dd.nghost),
                deep_rounds=dd.nrounds, deep_host_seconds=deep_s,
                hand_kernels_per_iter=sum(launches.values()) / its,
                first_block_bits_equal_allgather=first_bits,
                **_sstep_block_times(res.stats, blocks,
                                     "dist-sstep-stencil"))
+    rep["loop"] = res.loop
     ok = ((res.operator_format, res.kernel)
           == ("stencil", "cuda-stencil-spmv+ppermute") and res.converged
-          and "fell back" not in res.kernel_note
+          and "fell back" not in res.kernel_note and res.loop == "graph"
+          and "open loop" not in res.kernel_note
           and abs(its - classic) <= s + 2 and cert <= 10 * rtol
-          and calls["exchange"] == blocks + 1
-          and calls["gram"] == P * blocks
+          and res.stats.nloopopen + res.stats.nreplays == blocks
+          and calls["exchange"] == python_blocks + 1
+          and calls["gram"] == P * python_blocks
           and all(launches[k] == v for k, v in want.items()) and not others
           and first_bits and np.all(np.isfinite(res.x))
           and res.x.shape == b.shape)
@@ -4147,13 +4374,17 @@ def _dist_deep_stencil(ctx):
     if ok:
         bodies = (launches["stencil_spmv"] - P * l * ndisp) // P \
             - 6 - 2 * ndisp
-        rep["bodies"] = bodies
+        rep.update(bodies=bodies, loop=res.loop,
+                   graph_captures=res.stats.ncaptures)
         ok = (calls[0] == ndisp
               and launches["ell_spmv"] - launches["stencil_spmv"]
               == P * l * ndisp
               and its <= bodies <= its + 2 * ndisp
+              and launches["deep_coeffs"] == bodies
+              and res.loop == "graph" and "open loop" not in note
               and not any(v for k, v in launches.items()
-                          if k not in ("stencil_spmv", "ell_spmv")))
+                          if k not in ("stencil_spmv", "ell_spmv",
+                                       "deep_coeffs")))
     if not ok:
         raise SystemExit(f"error: dist-deep-stencil failed: {rep}")
     ctx.setdefault("us_per_iter", {})["dist-deep-stencil"] = \
@@ -4173,23 +4404,37 @@ def _graph_phase(ctx):
     pipelined-replace (replace_every=50, to rtol 1e-8), dist-stencil-rdma
     and dist-pipelined-stencil-rdma (the 256^3/4 shards, to rtol 1e-8),
     a segment_iters=7 solve against its unsegmented twin (graph both),
-    and a monitor_every=25 solve whose lines are held to its history.
-    Each case reports both µs/iter, the captures, their host seconds and
-    the replays."""
+    and a monitor_every=25 solve whose lines are held to its history;
+    the s-step and deep families: sstep-stencil (s = 4, to rtol 1e-8),
+    sstep-batched-stencil (B = 8, 60 fixed iterations), deep-stencil
+    (l = 2, replace_every=50, 300 fixed iterations: one runner over six
+    dispatches, its captures the distinct blocks), dist-sstep-stencil and
+    dist-deep-stencil (the 256^3/4 shards under ppermute).  The cases of
+    the s-step and deep families skip the warm-up solve: their own phases
+    ran the same solves just before.  Each case reports both µs/iter, the
+    captures, their host seconds and the replays."""
     import numpy as np
 
     from acg_torch.config import SolverOptions
     from acg_torch.errors import AcgError
     from acg_torch.obs import monitor
-    from acg_torch.solvers.cg import cg, cg_pipelined
-    from acg_torch.solvers.cg_dist import cg_dist, cg_pipelined_dist
+    from acg_torch.solvers.cg import (cg, cg_pipelined, cg_pipelined_deep,
+                                      cg_sstep)
+    from acg_torch.solvers.cg_dist import (cg_dist, cg_pipelined_deep_dist,
+                                           cg_pipelined_dist, cg_sstep_dist)
 
     op, b, _ = ctx["stencil_case"]
     pop, pb = ctx["pipelined_dia_bf16_case"]
     bop, bb, _ = ctx["batched_case"]
     ss = ctx["dist"]["ss"].with_halo("rdma")
+    spp = ctx["dist"]["ss"].with_halo("ppermute")
     fixed = dict(residual_rtol=1e-30)
     full = dict(maxits=20000, residual_rtol=1e-8)
+    # the deep cases: 300 fixed bodies in dispatches of 50, every ring
+    # phase's block captured and replayed (the full solves run in their
+    # own phases)
+    deep = dict(maxits=300, pipeline_depth=_DEEP["depth"],
+                replace_every=_DEEP["replace_every"], **fixed)
     cases = (
         ("stencil", cg, op, b, full),
         ("pipelined-dia-bf16", cg_pipelined, pop, pb,
@@ -4199,6 +4444,12 @@ def _graph_phase(ctx):
          dict(full, replace_every=50)),
         ("dist-stencil-rdma", cg_dist, ss, b, full),
         ("dist-pipelined-stencil-rdma", cg_pipelined_dist, ss, b, full),
+        ("sstep-stencil", cg_sstep, op, b, dict(full, sstep=4)),
+        ("sstep-batched-stencil", cg_sstep, bop, bb,
+         dict(maxits=60, sstep=4, **fixed)),
+        ("deep-stencil", cg_pipelined_deep, op, b, deep),
+        ("dist-sstep-stencil", cg_sstep_dist, spp, b, dict(full, sstep=4)),
+        ("dist-deep-stencil", cg_pipelined_deep_dist, spp, b, deep),
     )
 
     def solve(fn, A, rhs, o, loop):
@@ -4213,7 +4464,8 @@ def _graph_phase(ctx):
 
     out, bad = {}, []
     for name, fn, A, rhs, o in cases:
-        solve(fn, A, rhs, dict(o, maxits=20), "graph")      # warm-up
+        if fn in (cg, cg_pipelined, cg_dist, cg_pipelined_dist):
+            solve(fn, A, rhs, dict(o, maxits=20), "graph")  # warm-up
         ro, co = solve(fn, A, rhs, o, "open")
         rg, cg_ = solve(fn, A, rhs, o, "graph")
         st = rg.stats
@@ -4306,10 +4558,17 @@ def _fixed_solve(solve, op, b, its: int, every: int = 1, loop=None):
         res = getattr(e, "result", None)
         if e.status != Status.ERR_NOT_CONVERGED or res is None:
             raise
-    if res.niterations != its:
+    if res.niterations != its or "fell back" in res.kernel_note:
         raise SystemExit(f"error: a {its}-iteration profile solve ran "
-                         f"{res.niterations}")
+                         f"{res.niterations}: {res.kernel_note}")
     return res
+
+
+# profiled iterations a case: 50, and 150 (three dispatches of 50) for the
+# deep pipeline, whose graph loop captures each of its ring phases' blocks
+# (22 at l = 2) once a solve, after running it once as Python: 50 bodies
+# would be mostly those
+_PROFILE_ITS = {"deep-stencil-f64": 150}
 
 
 def _profile_phase(ctx):
@@ -4318,6 +4577,7 @@ def _profile_phase(ctx):
 
     out = {}
     for name, op, b, solve in ctx.get("profile_cases", []):
+        its_p = _PROFILE_ITS.get(name, 50)
         # b already padded on the card, so the profiled window holds the
         # loop and not the upload of b (a distributed solve scatters its
         # host b to the shards before its clock starts)
@@ -4327,10 +4587,10 @@ def _profile_phase(ctx):
             b_dev = torch.zeros(b.shape[:-1] + (op.nrows_padded,), dtype=vdt)
             b_dev[..., : op.nrows] = torch.from_numpy(b.astype(op.vec_dtype))
             b_dev = b_dev.cuda()
-        _fixed_solve(solve, op, b_dev, 50)
+        _fixed_solve(solve, op, b_dev, its_p)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            res = _fixed_solve(solve, op, b_dev, 50)
+            res = _fixed_solve(solve, op, b_dev, its_p)
         # device-side events only: the CPU ops that launched them carry
         # the same time again; the host's launches are the runtime calls
         # that launch a kernel or a graph
@@ -4357,10 +4617,11 @@ def _profile_phase(ctx):
         loops = ("graph", "open") if _takes_loop(solve) else (None,)
         for loop in loops:
             for every in (1, 16):
-                r = _fixed_solve(solve, op, b_dev, 100, every, loop)
+                its_r = max(100, its_p)
+                r = _fixed_solve(solve, op, b_dev, its_r, every, loop)
                 key = (f"check_every={every}" if loop is None
                        else f"{loop}, check_every={every}")
-                rate[key] = {"us_per_iter": r.stats.tsolve / 100 * 1e6,
+                rate[key] = {"us_per_iter": r.stats.tsolve / its_r * 1e6,
                              "capture_s": r.stats.tcapture}
         out[name] = {
             "iterations": its,
@@ -4405,6 +4666,10 @@ def _kernel_lines(ctx) -> list:
     classic CG, none in the open-coded pipelined body)."""
     meta = {"cg_update": ("acg_torch/csrc/cg_update.cu",
                           "acg_tpu/solvers/loops.py:222", None),
+            "sstep_coeffs": ("acg_torch/csrc/sstep_coeffs.cu",
+                             "acg_tpu/solvers/loops.py:419", None),
+            "deep_coeffs": ("acg_torch/csrc/deep_coeffs.cu",
+                            "acg_tpu/solvers/loops.py:1143", None),
             "dia_spmv": ("acg_torch/csrc/dia_spmv.cu",
                          "acg_tpu/ops/pallas_kernels.py:189",
                          "acg_tpu/ops/pallas_kernels.py:97"),
@@ -4435,7 +4700,14 @@ def _kernel_lines(ctx) -> list:
     # (kernel, phase-2 tier, solve phase, with_dot of the loop's calls;
     # None for the pipelined-iteration and unstructured kernels, which have
     # no such row key)
-    paths = (("cg_update", "f64 256^3", "stencil", None),
+    paths = (("sstep_coeffs", "f64 s=4 B=1", "sstep-stencil", None),
+             ("sstep_coeffs", "f64 s=4 B=8",
+              "sstep-batched-stencil", None),
+             ("sstep_coeffs", "f64 s=4 B=1", "dist-sstep-stencil", None),
+             ("sstep_coeffs", "f32 s=4 B=1", "sstep-dia-bf16", None),
+             ("deep_coeffs", "f64 l=2 B=1", "deep-stencil", None),
+             ("deep_coeffs", "f64 l=2 B=1", "dist-deep-stencil", None),
+             ("cg_update", "f64 256^3", "stencil", None),
              ("cg_update", "f64 256^3 B=8", "batched-stencil", None),
              ("cg_update", "f64 256^3/4 shard", "dist-stencil-rdma", None),
              ("cg_update", "f32 464^3", "dia-100m", None),
@@ -4534,9 +4806,13 @@ def _kernel_lines(ctx) -> list:
         if kernel == "cg_update":
             entry["note"] = ("no Pallas counterpart: XLA fused x + alpha p, "
                              "r - alpha t and dot(r, r) into the JAX loop")
+        elif kernel in ("sstep_coeffs", "deep_coeffs"):
+            entry["note"] = ("no Pallas counterpart: XLA compiled this "
+                             "scalar work into the JAX loop; latency-bound")
         for key in ("composed_ms", "nrhs", "one_system_calls_ms",
                     "per_system_bits_equal_1d", "S", "fill", "width",
                     "bits_equal_plain", "bits_equal_sliced_matvec",
+                    "flags_counts_changed_equal", "bodies_checked",
                     "stored_entries", "layout_fill", "sigma", "unroll",
                     "stream_bytes", "work_bytes", "stream_over_entries",
                     "padded_bytes",

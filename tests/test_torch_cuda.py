@@ -2112,3 +2112,278 @@ def test_graph_capture_failure_raises(card):
     torch.cuda.synchronize()
     with pytest.raises(AcgError):
         BlockRunner("cpu", graph=True)
+
+
+def test_capture_after_a_failed_capture(card):
+    """A failed capture leaves later captures working: a graph solve
+    after one gives the open loop's bits (the device's graph pool is
+    made anew)."""
+    from acg_torch.solvers.graphs import BlockRunner
+
+    v = torch.ones(8, device=card)
+    runner = BlockRunner(card, graph=True)
+    for _ in range(2):
+        try:
+            runner.run("bad", lambda: float(v.sum()))
+        except AcgError:
+            pass
+    A = poisson.poisson3d_7pt(10)
+    b = A.matvec(np.random.default_rng(6).standard_normal(A.nrows))
+    out = _both_loops(cg, A, b, options=SolverOptions(
+        maxits=300, residual_rtol=1e-10))
+    _same_bits(out)
+
+
+# ---------------------------------------------------------------------------
+# the s-step and deep coefficient kernels, and their loops as graphs
+
+
+def _sstep_gram(s, nsys, dtype, seed=0):
+    """Gram matrices of real s-step bases (a 3-D Poisson operator, random
+    right-hand sides, shifts from the Chebyshev seeds), (nsys, m, m)."""
+    from acg_torch.solvers.cg import (_cheb_leja_nodes, _sstep_block_fn,
+                                      build_device_operator)
+
+    A = poisson.poisson3d_7pt(9)
+    op = build_device_operator(A, dtype=dtype, device="cpu")
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(nsys):
+        b = np.zeros(op.nrows_padded, dtype)
+        b[: A.nrows] = rng.standard_normal(A.nrows)
+        bt = torch.from_numpy(b)
+        th = (12.0 * _cheb_leja_nodes(s)).astype(dtype)
+        _, G = _sstep_block_fn(op.matvec, bt, s)(torch.zeros_like(bt),
+                                                 bt.clone(), th)
+        out.append(G)
+    return torch.stack(out), (12.0 * _cheb_leja_nodes(s)).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("s,nsys", [(2, 1), (4, 3), (6, 2)])
+def test_sstep_coeffs_kernel_matches_plain(card, s, nsys, dtype):
+    """One s-step block's coefficient kernel against its plain version
+    on the same inputs on the card (real Gram matrices; a system already
+    converged, one at maxits): flags, counts and ``changed`` equal, xc,
+    pc, rr, the new shifts and the history within 1e-12 (f64) / 1e-4
+    (f32) of their scale (the Leja order's logs are the libraries'), the
+    status rows equal but for the monitor values, within the same
+    tolerance."""
+    from acg_torch.ops import sstep_coeffs as sc
+
+    G, th = _sstep_gram(s, nsys, dtype)
+    m, maxits = 2 * s + 1, 40
+    tdt = G.dtype
+    rr0 = G[:, s + 1, s + 1].clone()
+
+    def state():
+        flag = torch.zeros(nsys, dtype=torch.int32)
+        kiter = torch.zeros(nsys, dtype=torch.int64)
+        if nsys > 1:
+            flag[1] = 1
+            kiter[-1] = maxits - 1
+        hist = torch.full((nsys, maxits + 1), float("nan"), dtype=tdt)
+        return dict(G=G.clone(),
+                    shifts=torch.from_numpy(np.tile(th, (nsys, 1))),
+                    rr=rr0.clone(), rr0=rr0.clone(), thresh2=rr0 * 1e-20,
+                    kiter=kiter, flag=flag, hist=hist,
+                    coef=torch.zeros((nsys, 2, m), dtype=tdt),
+                    changed=torch.zeros(nsys, dtype=torch.bool),
+                    status=torch.zeros((nsys, 3), dtype=torch.float64))
+
+    want = {k: v.to(card) for k, v in state().items()}
+    sc.sstep_coeffs_plain(**want, s=s, maxits=maxits, any_crit=True)
+    want = {k: v.cpu() for k, v in want.items()}
+    got = {k: v.to(card) for k, v in state().items()}
+    n0 = sc.launches
+    sc.sstep_coeffs(**got, s=s, maxits=maxits, any_crit=True)
+    torch.cuda.synchronize()
+    assert sc.launches == n0 + 1
+    got = {k: v.cpu() for k, v in got.items()}
+    for k in ("flag", "kiter", "changed"):
+        assert torch.equal(got[k], want[k]), k
+    assert bool(want["changed"][0])
+    tol = 1e-12 if dtype == np.float64 else 1e-4
+    for k in ("coef", "rr", "shifts", "hist"):
+        scale = float(want[k].nan_to_num().abs().max())
+        err = float((got[k] - want[k]).nan_to_num().abs().max())
+        assert err <= tol * scale, (k, err, scale)
+        assert torch.equal(torch.isnan(got[k]), torch.isnan(want[k]))
+    st, sw = got["status"], want["status"]
+    assert torch.equal(st[:, :2], sw[:, :2])
+    assert float((st[:, 2] - sw[:, 2]).abs().max()) <= (
+        tol * float(sw[:, 2].abs().max()))
+
+
+def _deep_state(l, nsys, dtype, maxits, seed):
+    """A deep body's buffers with random values: G upper triangular with
+    a positive diagonal, the dot block with a positive last entry (a
+    committing body), gamma/delta rings, live systems."""
+    rng = np.random.default_rng(seed)
+    w = 2 * l + 1
+    S = (nsys,) if nsys > 1 else ()
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
+
+    def t(a, dt=tdt):
+        return torch.tensor(np.asarray(a), dtype=dt)
+
+    G = np.triu(rng.standard_normal(S + (w, w)) * 0.1)
+    idx = np.arange(w)
+    G[..., idx, idx] = 1.0 + rng.random(S + (w,))
+    D = rng.standard_normal(S + (w,)) * 0.1
+    D[..., w - 1] = 4.0 + rng.random(S)
+    sc = np.stack([1.0 + rng.random(S), 1.0 + rng.random(S),
+                   rng.standard_normal(S), rng.random(S),
+                   np.full(S, 1e-6)], axis=-1)
+    return dict(
+        D=t(D), G=t(G), shifts=t(2.0 + rng.random(S + (l,))),
+        gring=t(1.0 + rng.random((l,) + S)),
+        dring=t(0.5 + rng.random((l,) + S)), sc=t(sc),
+        flag=torch.zeros(S, dtype=torch.int32),
+        est=torch.zeros(S, dtype=torch.bool),
+        kdev=torch.tensor(3, dtype=torch.int32),
+        ksys=torch.zeros(S, dtype=torch.int32),
+        kit=torch.tensor(3, dtype=torch.int64),
+        hist=torch.full(S + (maxits + 1,), float("nan"), dtype=tdt),
+        co=torch.zeros(S + (w + 5,), dtype=tdt),
+        commit=torch.zeros(S, dtype=torch.bool),
+        act=torch.zeros(S, dtype=torch.bool),
+        live=torch.zeros((), dtype=torch.bool),
+        kmon=torch.zeros((), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("nsys", [1, 3])
+@pytest.mark.parametrize("l", [2, 3])
+def test_deep_coeffs_kernel_bits(card, l, nsys, dtype):
+    """Ten bodies' scalar chains through the kernel and the plain
+    version, both on the card, state carried: every buffer bit-equal
+    after each (NaN where the other has NaN), over t = 0 (lambda = 0),
+    t < l (the shifts), the recurrence, check and non-check bodies, the
+    guard, and a breakdown (a negative dot block's diagonal) in the last
+    body.  (On the CPU torch's sqrt is not always correctly rounded, so
+    the plain version runs on the card's tensors.)"""
+    from acg_torch.ops import deep_coeffs as dc
+
+    maxits = 40
+    want = {k: v.to(card) for k, v in
+            _deep_state(l, nsys, dtype, maxits, seed=l + nsys).items()}
+    got = {k: v.clone() for k, v in want.items()}
+    w = 2 * l + 1
+    for t in range(10):
+        if t == 9:
+            for d in (want, got):
+                d["D"][..., w - 1] = -1.0
+        kw = dict(l=l, t=t, hh=t % l, hv=t % (w - 1), at_check=t % 3 == 2,
+                  guard=True, any_crit=True)
+        dc.deep_coeffs_plain(**want, **kw)
+        n0 = dc.launches
+        dc.deep_coeffs(**got, **kw)
+        torch.cuda.synchronize()
+        assert dc.launches == n0 + 1
+        for k, v in want.items():
+            g, v = got[k].cpu(), v.cpu()
+            assert torch.equal(torch.isnan(g), torch.isnan(v)) if \
+                v.is_floating_point() else True, k
+            same = (torch.equal(g.nan_to_num(), v.nan_to_num())
+                    if v.is_floating_point() else torch.equal(g, v))
+            assert same, (t, k, g, v)
+    assert int(want["flag"].reshape(-1)[0]) == 2       # the breakdown
+
+
+_SSTEP_DEEP_CASES = {
+    # name: (solver, nrhs, options)
+    "sstep-s3": ("cg_sstep", 0, dict(maxits=600, residual_rtol=1e-10,
+                                      sstep=3)),
+    "sstep-batched": ("cg_sstep", 3, dict(maxits=600, residual_rtol=1e-10,
+                                           sstep=4, monitor_every=5)),
+    "deep-l2-check3": ("cg_pipelined_deep", 0, dict(
+        maxits=600, residual_rtol=1e-10, pipeline_depth=2, check_every=3,
+        replace_every=50)),
+    "deep-l3-batched": ("cg_pipelined_deep", 3, dict(
+        maxits=600, residual_rtol=1e-10, pipeline_depth=3,
+        guard_nonfinite=True, monitor_every=4)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SSTEP_DEEP_CASES))
+def test_sstep_deep_graph_equals_open(card, case):
+    """s-step and deep solves on the card: graph against open, bit for
+    bit (x, counts, histories, flags, the launch counters with the
+    coefficient kernels'), the coefficient kernel launched once a block
+    / body; with no ``loop=`` the solve reports the graph loop and no
+    open-loop note."""
+    from acg_torch.ops import deep_coeffs, sstep_coeffs
+    from acg_torch.solvers.cg import cg_pipelined_deep, cg_sstep
+
+    solvers = {"cg_sstep": cg_sstep, "cg_pipelined_deep": cg_pipelined_deep}
+    solver, nrhs, o = _SSTEP_DEEP_CASES[case]
+    A = poisson.poisson3d_7pt(14)
+    rng = np.random.default_rng(3)
+    b = np.stack([A.matvec(v) for v in
+                  rng.standard_normal((max(nrhs, 1), A.nrows))])
+    b = b[0] if not nrhs else b
+    from acg_torch.obs import monitor
+    with monitor.muted():
+        out = _both_loops(solvers[solver], A, b,
+                          options=SolverOptions(**o))
+        n0 = (sstep_coeffs.launches, deep_coeffs.launches)
+        dflt = solvers[solver](A, b, options=SolverOptions(**o))
+    _same_bits(out)
+    assert dflt.loop == "graph" and "open loop" not in dflt.kernel_note
+    assert np.array_equal(dflt.x, out["graph"][0].x)
+    ran = (sstep_coeffs.launches - n0[0], deep_coeffs.launches - n0[1])
+    if solver == "cg_sstep":
+        assert ran[0] == dflt.stats.nsstepblocks and ran[1] == 0
+    else:
+        assert ran[0] == 0 and ran[1] >= dflt.niterations
+
+
+@pytest.mark.parametrize("kind", ["sstep", "deep"])
+def test_sstep_deep_graph_equals_open_on_shards(card, kind):
+    """cg_sstep_dist and cg_pipelined_deep_dist over four shards on the
+    one card: graph against open, bit for bit, and graph by default."""
+    from acg_torch.solvers.cg_dist import (build_sharded,
+                                           cg_pipelined_deep_dist,
+                                           cg_sstep_dist)
+
+    A = poisson.poisson3d_7pt(12)
+    b = A.matvec(np.random.default_rng(4).standard_normal(A.nrows))
+    ss = build_sharded(A, nparts=4, devices=[card] * 4)
+    if kind == "sstep":
+        fn, o = cg_sstep_dist, SolverOptions(maxits=600, residual_rtol=1e-10,
+                                             sstep=3)
+    else:
+        fn, o = cg_pipelined_deep_dist, SolverOptions(
+            maxits=600, residual_rtol=1e-10, pipeline_depth=2,
+            check_every=2, replace_every=40)
+    out = _both_loops(fn, ss, b, options=o)
+    _same_bits(out)
+    dflt = fn(ss, b, options=o)
+    assert dflt.loop == "graph" and "open loop" not in dflt.kernel_note
+    assert np.array_equal(dflt.x, out["graph"][0].x)
+
+
+def test_graph_loop_on_two_devices_raises(card):
+    """A capture is one device's: loop="graph" over shards on two devices
+    raises ERR_NOT_SUPPORTED (through the solver where the box has two
+    cards), and the default there is the open loop."""
+    from acg_torch.errors import Status
+    from acg_torch.solvers.cg import resolve_loop
+    from acg_torch.solvers.cg_dist import build_sharded, cg_sstep_dist
+
+    with pytest.raises(AcgError) as ei:
+        resolve_loop("graph", ["cuda:0", "cuda:1"])
+    assert ei.value.status == Status.ERR_NOT_SUPPORTED
+    assert resolve_loop(None, ["cuda:0", "cuda:1"]) is False
+    if torch.cuda.device_count() < 2:
+        return
+    A = poisson.poisson3d_7pt(10)
+    b = A.matvec(np.random.default_rng(1).standard_normal(A.nrows))
+    ss = build_sharded(A, nparts=2, devices=["cuda:0", "cuda:1"])
+    o = SolverOptions(maxits=400, residual_rtol=1e-10, sstep=3)
+    with pytest.raises(AcgError) as ei:
+        cg_sstep_dist(ss, b, options=o, loop="graph")
+    assert ei.value.status == Status.ERR_NOT_SUPPORTED
+    res = cg_sstep_dist(ss, b, options=o)
+    assert res.loop == "open" and "shards on 2 cards" in res.kernel_note

@@ -2,9 +2,11 @@
 pieces on the CPU against ``acg_tpu.solvers.cg.cg_sstep`` on the same
 systems and inputs (numpy ``default_rng`` seeds).
 
-- The Leja orders (``_cheb_leja_nodes``, ``_leja_order``) choose the same
-  points in the same order, and ``_newton_basis_matrix`` is exact: they
-  are greedy argmaxes and a 0/1 + theta matrix.
+- The Leja orders (``_cheb_leja_nodes``, ``ops/sstep_coeffs.leja_order``)
+  choose the same points in the same order, and the coefficient step's
+  structured Newton product (``newton_apply``) equals the JAX package's
+  change-of-basis matrix applied in full: greedy argmaxes and a 0/1 +
+  theta matrix.
 - ``gram`` / ``block_dot`` / ``combine``, 2-D and batched, to 1e-12
   (f64) and 1e-5 (f32) relative to the largest entry; one basis block
   (V, G) from the same (x, p, shifts) likewise, its padding rows 0.
@@ -34,8 +36,7 @@ from acg_tpu.sparse import csr as jcsr
 from acg_tpu.sparse import poisson as jpoisson
 
 from acg_torch.config import SolverOptions
-from acg_torch.ops import blas1
-from acg_torch.solvers import loops
+from acg_torch.ops import blas1, sstep_coeffs
 from acg_torch.solvers.cg import (_cheb_leja_nodes, _sstep_block_fn,
                                   build_device_operator, cg_sstep)
 from acg_torch.sparse import csr as tcsr
@@ -97,7 +98,8 @@ def test_cheb_leja_nodes_equal(s):
 def test_leja_order_equal(shape, dtype):
     rng = np.random.default_rng(sum(shape))
     v = (rng.random(shape) * 8.0 + 0.01).astype(dtype)
-    got = loops._leja_order(v)
+    got = sstep_coeffs.leja_order(torch.from_numpy(
+        v.reshape(-1, shape[-1]))).numpy().reshape(shape)
     want = np.asarray(jloops._leja_order(jnp.asarray(v)))
     assert got.dtype == dtype
     np.testing.assert_array_equal(got, want)
@@ -106,11 +108,18 @@ def test_leja_order_equal(shape, dtype):
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("s", [2, 3, 4, 6])
 def test_newton_basis_matrix_exact(s, dtype):
+    """The coefficient step's structured Newton product equals the JAX
+    package's change-of-basis matrix applied in full (the structure only
+    drops products with 0 and 1)."""
     rng = np.random.default_rng(s)
-    for shape in ((s,), (3, s)):
-        th = rng.standard_normal(shape).astype(dtype)
-        got = loops._newton_basis_matrix(th, s)
-        want = np.asarray(jloops._newton_basis_matrix(jnp.asarray(th), s))
+    for nsys in (1, 3):
+        th = rng.standard_normal((nsys, s)).astype(dtype)
+        pc = rng.standard_normal((nsys, 2 * s + 1)).astype(dtype)
+        got = sstep_coeffs.newton_apply(
+            sstep_coeffs.newton_theta(torch.from_numpy(th), s),
+            torch.from_numpy(pc), s).numpy()
+        Bmat = np.asarray(jloops._newton_basis_matrix(jnp.asarray(th), s))
+        want = np.einsum("bij,bj->bi", Bmat, pc)
         assert got.dtype == dtype
         np.testing.assert_array_equal(got, want)
 
