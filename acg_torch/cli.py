@@ -39,7 +39,10 @@ solvers take ppermute or allgather) and its messages in the encoding of
 ``--halo-wire`` (f32|bf16|int16-delta; rdma sends f32 only); on CUDA the
 shards take the visible cards, one each (one card and P > 1 exit 1 with
 ERR_MESH, as the JAX program does on one chip), and with ``--device
-cpu`` they share the CPU.
+cpu`` they share the CPU.  ``--serve FILE`` prepares the operator
+once and serves requests from a file of commands through the serve
+stack (``acg_torch/serve/``: resident solves, the coalescing queue, the
+admission layer), one JSON line a request.
 
 Run: ``python -m acg_torch.cli A.mtx --manufactured-solution -v``
 """
@@ -197,6 +200,79 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to solve [cuda]; cpu runs the plain PyTorch "
                         "versions of the kernels")
+    # serving (acg_torch/serve/: a persistent Session, the coalescing
+    # admission queue, the admission-guarded SolverService)
+    p.add_argument("--serve", metavar="FILE", default=None,
+                   help="serve mode: prepare the operator ONCE (Session: "
+                        "read/partition/operator-build paid once, the "
+                        "loop's state kept a signature, its CUDA graphs "
+                        "replayed by later requests) and process requests "
+                        "from FILE ('-' = stdin), one command per line: "
+                        "'solve [B.mtx]' (default: the CLI's b); 'batch K "
+                        "[B.mtx]' submits K requests through the "
+                        "coalescing queue (one batched solve); 'stats', "
+                        "'health', 'metrics [prom]', 'flightrec', "
+                        "'flush', 'quit'.  One JSON line per request on "
+                        "stdout; exit 1 if any request failed")
+    p.add_argument("--serve-max-batch", type=int, default=8, metavar="B",
+                   help="coalescing queue: max requests per batched "
+                        "dispatch [8]")
+    p.add_argument("--serve-max-wait-ms", type=float, default=0.0,
+                   metavar="MS",
+                   help="coalescing queue: max time the oldest pending "
+                        "request waits for batch-mates [0 = dispatch "
+                        "whatever is queued]")
+    p.add_argument("--serve-buckets", default=None, metavar="B1,B2,..",
+                   help="admitted padded batch sizes (bounds the cached "
+                        "signatures) [powers of two up to "
+                        "--serve-max-batch]")
+    p.add_argument("--serve-max-depth", type=int, default=0, metavar="D",
+                   help="load shedding: reject new requests with "
+                        "ERR_OVERLOADED once D are pending [0 = "
+                        "unbounded]")
+    p.add_argument("--deadline-ms", type=float, default=0.0, metavar="MS",
+                   help="per-request deadline: a request still queued at "
+                        "it is shed with ERR_TIMEOUT [0 = none]")
+    p.add_argument("--queue-deadline-ms", type=float, default=0.0,
+                   metavar="MS",
+                   help="the in-queue slice of --deadline-ms [0 = the "
+                        "whole deadline]")
+    p.add_argument("--max-retries", type=int, default=0, metavar="N",
+                   help="retry a request that failed TRANSIENTLY "
+                        "(ERR_NONFINITE / ERR_FAULT_DETECTED) alone up to "
+                        "N times with seeded backoff [0]")
+    p.add_argument("--breaker-threshold", type=int, default=0,
+                   metavar="K",
+                   help="circuit breaker: K consecutive failures on one "
+                        "(solver, bucket, dtype) trip it OPEN [0 = no "
+                        "breaker]")
+    p.add_argument("--breaker-cooldown-ms", type=float, default=1000.0,
+                   metavar="MS",
+                   help="how long an OPEN breaker waits before "
+                        "half-opening for one probe [1000]")
+    p.add_argument("--degrade", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="while a pipelined solver's breaker is open, "
+                        "serve its requests with classic CG "
+                        "(--no-degrade: fast-fail them) [on]")
+    p.add_argument("--metrics", action="store_true",
+                   help="enable the runtime-metrics registry "
+                        "(acg_torch/obs/metrics.py), read by --serve's "
+                        "'metrics' command [off]")
+    # not ported yet: refused with ERR_NOT_SUPPORTED (ROADMAP Queue 1)
+    for flag, kw in (("--replicas", dict(type=int, default=1,
+                                         metavar="R")),
+                     ("--elastic", dict(action="store_true")),
+                     ("--min-replicas", dict(type=int, default=None,
+                                             metavar="R")),
+                     ("--max-replicas", dict(type=int, default=None,
+                                             metavar="R")),
+                     ("--slo-p99-ms", dict(type=float, default=None,
+                                           metavar="MS")),
+                     ("--obs-port", dict(type=int, default=None,
+                                         metavar="PORT")),
+                     ("--resilient", dict(action="store_true"))):
+        p.add_argument(flag, help="not ported: refused", **kw)
     p.add_argument("-v", "--verbose", action="count", default=0)
     p.add_argument("-q", "--quiet", action="store_true",
                    help="suppress solution output")
@@ -227,6 +303,191 @@ def _first_system(x):
     return x[0] if x.ndim == 2 else x
 
 
+def _refuse_unported(args) -> None:
+    """The serve stack's flags whose modules are not ported (the replica
+    fleet, its autoscaler, the observability plane, resilient solving):
+    ERR_NOT_SUPPORTED, in every mode."""
+    given = [f for f, on in (
+        ("--replicas", args.replicas != 1), ("--elastic", args.elastic),
+        ("--min-replicas", args.min_replicas is not None),
+        ("--max-replicas", args.max_replicas is not None),
+        ("--slo-p99-ms", args.slo_p99_ms is not None),
+        ("--obs-port", args.obs_port is not None),
+        ("--resilient", args.resilient)) if on]
+    if given:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"{', '.join(given)}: not ported (the replica "
+                       "fleet, its autoscaler, the observability plane "
+                       "and resilient solving are not in acg_torch)")
+
+
+def _read_partition(args, A):
+    """The part vector of ``--partition FILE``, checked against A and
+    ``--nparts`` (None without the flag)."""
+    if not args.partition:
+        return None
+    # the pinned part vector is honoured exactly: partitioning again
+    # would change the halo and the tiers under the user
+    part = read_mtx(args.partition,
+                    binary=args.binary_partition or None
+                    ).vals.astype(np.int32)
+    if part.shape != (A.nrows,) or part.min(initial=0) < 0 \
+            or int(part.max(initial=0)) + 1 != args.nparts:
+        raise AcgError(
+            Status.ERR_INVALID_VALUE,
+            f"--partition {args.partition}: want a part in [0, "
+            f"{args.nparts}) for each of the {A.nrows} rows, part "
+            f"{args.nparts - 1} among them; got {part.shape[0]} "
+            f"entries in [{part.min(initial=0)}, "
+            f"{part.max(initial=0)}]")
+    return part
+
+
+def _serve_main(args, tracer, A, b, options, device, halo: str,
+                mat_dtype) -> int:
+    """--serve: the solver-as-a-service REPL (``acg_torch/serve/``, the
+    port of ``acg_tpu/cli.py`` ``_serve_main``).  One Session holds the
+    prepared operator; commands submit right-hand sides through the
+    coalescing admission queue; one JSON line per completed request goes
+    to stdout."""
+    import json
+
+    from acg_torch.config import HaloMethod
+    from acg_torch.serve import AdmissionPolicy, Session, SolverService
+
+    if args.solver == "host" or args.solver.startswith("petsc"):
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"--serve drives the device solvers (--solver "
+                       f"{args.solver} prepares no resident operator)")
+    if args.nrhs > 1:
+        raise AcgError(Status.ERR_INVALID_VALUE,
+                       "--serve batches requests through its own queue; "
+                       "--nrhs does not apply (use 'batch K')")
+    try:
+        buckets = (tuple(int(v) for v in args.serve_buckets.split(","))
+                   if args.serve_buckets else ())
+    except ValueError:
+        raise AcgError(Status.ERR_INVALID_VALUE,
+                       f"--serve-buckets {args.serve_buckets!r}: "
+                       "expected a comma-separated list of ints "
+                       "(e.g. 1,4,8)")
+    admission = AdmissionPolicy(
+        deadline_ms=args.deadline_ms,
+        queue_deadline_ms=args.queue_deadline_ms,
+        max_retries=args.max_retries, seed=args.seed,
+        breaker_threshold=args.breaker_threshold,
+        breaker_cooldown_ms=args.breaker_cooldown_ms,
+        max_queue_depth=args.serve_max_depth,
+        degrade=args.degrade)
+    dist = args.nparts > 1
+    session = Session(
+        A, nparts=args.nparts, part=_read_partition(args, A) if dist
+        else None, dtype=np.dtype(args.dtype), fmt=args.format,
+        mat_dtype=mat_dtype, halo=HaloMethod(halo),
+        partition_method=args.partition_method, seed=args.seed,
+        options=options, tracer=tracer,
+        device=None if dist else device,
+        devices=(None if not dist or device.type == "cuda"
+                 else [device] * args.nparts))
+    svc = SolverService(
+        session, solver=args.solver, options=options,
+        max_batch=args.serve_max_batch,
+        max_wait_ms=args.serve_max_wait_ms, buckets=buckets,
+        admission=admission)
+
+    def _read_rhs(path: str):
+        vec = read_mtx(path, binary=args.binary or None).vals.astype(
+            np.dtype(args.dtype))
+        if vec.shape[0] != A.nrows:
+            raise AcgError(Status.ERR_INVALID_VALUE,
+                           f"right-hand side {path!r} has {vec.shape[0]} "
+                           f"entries, matrix has {A.nrows} rows")
+        return vec
+
+    def _emit(resp):
+        print(json.dumps(resp.summary()), flush=True)
+        return resp
+
+    def _emit_rejected(e: Exception, lineno: int) -> int:
+        """A request REFUSED before admission (non-finite RHS, an
+        unreadable/missing RHS file, size mismatch) is a classified
+        per-request outcome: one JSON line, and the session goes on."""
+        if isinstance(e, AcgError):
+            if e.status not in (Status.ERR_INVALID_VALUE,
+                                Status.ERR_INVALID_FORMAT,
+                                Status.ERR_EOF):
+                raise e     # operational errors stay session-fatal
+            status = e.status.name
+        else:               # OSError: the RHS file itself (open/read)
+            status = Status.ERR_INVALID_VALUE.name
+        print(json.dumps({"request": None, "ok": False,
+                          "status": status, "line": lineno,
+                          "error": str(e)}), flush=True)
+        return 1
+
+    nfailed = 0
+    fh = sys.stdin if args.serve == "-" else open(args.serve)
+    try:
+        for lineno, raw in enumerate(fh, 1):
+            line = raw.split("#", 1)[0].strip()
+            if not line:
+                continue
+            tok = line.split()
+            cmd = tok[0].lower()
+            if cmd in ("quit", "exit"):
+                break
+            if cmd == "stats":
+                print(json.dumps(svc.stats(), default=str), flush=True)
+            elif cmd == "health":
+                print(json.dumps(svc.health(), default=str), flush=True)
+            elif cmd == "metrics":
+                from acg_torch.obs.metrics import registry
+                if len(tok) > 1 and tok[1].lower() == "prom":
+                    sys.stdout.write(registry().prometheus_text())
+                    sys.stdout.flush()
+                else:
+                    print(json.dumps(registry().snapshot()), flush=True)
+            elif cmd == "flightrec":
+                print(json.dumps(svc.flightrec.dump()), flush=True)
+            elif cmd == "flush":
+                svc.flush()
+            elif cmd == "solve":
+                try:
+                    rhs = _read_rhs(tok[1]) if len(tok) > 1 else b
+                    resp = _emit(svc.solve(rhs))
+                    nfailed += 0 if resp.ok else 1
+                except (OSError, AcgError) as e:
+                    nfailed += _emit_rejected(e, lineno)
+            elif cmd == "batch":
+                if len(tok) < 2 or not tok[1].isdigit():
+                    raise AcgError(Status.ERR_INVALID_VALUE,
+                                   f"--serve line {lineno}: batch needs "
+                                   "a request count ('batch K [B.mtx]')")
+                try:
+                    rhs = _read_rhs(tok[2]) if len(tok) > 2 else b
+                    reqs = [svc.submit(rhs)
+                            for _ in range(int(tok[1]))]
+                except (OSError, AcgError) as e:
+                    nfailed += _emit_rejected(e, lineno)
+                    continue
+                for req in reqs:
+                    resp = _emit(req.response())
+                    nfailed += 0 if resp.ok else 1
+            else:
+                raise AcgError(Status.ERR_INVALID_VALUE,
+                               f"--serve line {lineno}: unknown command "
+                               f"{cmd!r} (solve|batch|stats|health|"
+                               "metrics|flightrec|flush|quit)")
+    finally:
+        if fh is not sys.stdin:
+            fh.close()
+        svc.close()
+        session.close()
+    _log(args, f"serve: {svc.stats()['queue']['submitted']} request(s), "
+               f"{nfailed} failed")
+    return 1 if nfailed else 0
+
+
 def main(argv=None) -> int:
     from acg_torch.errors import run_main
     return run_main(lambda: _main(argv))
@@ -239,6 +500,12 @@ def _main(argv=None) -> int:
     except (TypeError, ValueError) as e:
         print(f"error: --numfmt: {e}", file=sys.stderr)
         return 2
+    _refuse_unported(args)
+    if args.metrics:
+        from acg_torch.obs.metrics import enable_metrics
+        enable_metrics()
+    from acg_torch.obs.trace import SpanTracer
+    tracer = SpanTracer(log=lambda m: _log(args, m))
     solver = args.solver
     host = solver == "host" or solver.startswith("petsc")
     sstep_mode = "sstep" in solver
@@ -295,8 +562,9 @@ def _main(argv=None) -> int:
     # 1. read A (ref cuda/acg-cuda.c:1296-1331)
     _log(args, f"reading matrix {args.A!r}")
     t0 = time.perf_counter()
-    m = read_mtx(args.A, binary=args.binary or None)
-    A = csr_from_mtx(m, val_dtype=vdt)
+    with tracer.span("read"):
+        m = read_mtx(args.A, binary=args.binary or None)
+        A = csr_from_mtx(m, val_dtype=vdt)
     _log(args, f"matrix: {A.nrows} rows, {A.nnz} nonzeros "
                f"({time.perf_counter() - t0:.3f} s)")
 
@@ -344,6 +612,11 @@ def _main(argv=None) -> int:
         halo_wire=args.halo_wire, monitor_every=args.monitor_every)
     mat_dtype = {"auto": "auto", "same": None}.get(
         args.mat_precision, args.mat_precision)
+    if args.serve is not None:
+        # serve mode: the session REPL takes the prepared inputs; the rest
+        # of this program is the one-shot pipeline
+        return _serve_main(args, tracer, A, b, options, device, halo,
+                           mat_dtype)
 
     # 3. operator build + solve (ref cuda/acg-cuda.c:2209-2261)
     from acg_torch.solvers.cg import (build_device_operator, cg,
@@ -373,22 +646,7 @@ def _main(argv=None) -> int:
         solve = (cg_sstep_dist if sstep_mode
                  else cg_pipelined_deep_dist if deep_mode
                  else cg_pipelined_dist if pipelined else cg_dist)
-        part = None
-        if args.partition:
-            # the pinned part vector is honoured exactly: partitioning
-            # again would change the halo and the tiers under the user
-            part = read_mtx(args.partition,
-                            binary=args.binary_partition or None
-                            ).vals.astype(np.int32)
-            if part.shape != (A.nrows,) or part.min(initial=0) < 0 \
-                    or int(part.max(initial=0)) + 1 != args.nparts:
-                raise AcgError(
-                    Status.ERR_INVALID_VALUE,
-                    f"--partition {args.partition}: want a part in [0, "
-                    f"{args.nparts}) for each of the {A.nrows} rows, part "
-                    f"{args.nparts - 1} among them; got {part.shape[0]} "
-                    f"entries in [{part.min(initial=0)}, "
-                    f"{part.max(initial=0)}]")
+        part = _read_partition(args, A)
         dev = build_sharded(
             A, nparts=args.nparts, part=part,
             devices=None if device.type == "cuda" else [device] * args.nparts,

@@ -1,1 +1,3 @@
-"""Observability: the live residual monitor (``acg_torch.obs.monitor``)."""
+"""Observability: the live residual monitor (``acg_torch.obs.monitor``),
+host phase spans (``trace``), the runtime metrics registry (``metrics``)
+and per-request timelines with the flight recorder (``events``)."""

@@ -121,6 +121,13 @@ class LoopMonitor:
         self.emitted = 0
         self.read_hi = 0
 
+    def reset(self) -> None:
+        """Back to a new solve's state (a loop that runs solve after
+        solve keeps one monitor)."""
+        self.vals.fill_(float("nan"))
+        self.last.zero_()
+        self.emitted = self.read_hi = 0
+
     def put(self, k, value, live=True) -> None:
         k = k.long()
         if live is True:

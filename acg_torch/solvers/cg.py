@@ -33,6 +33,7 @@ import torch
 
 from acg_torch.config import SolverOptions
 from acg_torch.errors import AcgError, Status
+from acg_torch.obs.metrics import observe_solve_result
 from acg_torch.obs.monitor import LoopMonitor
 from acg_torch.ops.blas1 import (batched_dot, block_dot, combine, ddot,
                                  dnrm2, gram)
@@ -46,9 +47,10 @@ from acg_torch.solvers.base import (SolveResult, SolveStats,
                                     cg_flops_per_iter, conform_x0_batch,
                                     kernel_disengagement_note, path_names)
 from acg_torch.solvers.loops import (_BREAKDOWN, _CONVERGED, _FAULT,
-                                     _GRAM_BAD, _OK, cg_pipelined_deep_while,
-                                     cg_pipelined_while, cg_sstep_while,
-                                     cg_while, deep_buffers)
+                                     _GRAM_BAD, _OK, _keep,
+                                     cg_loop, cg_pipelined_deep_while,
+                                     cg_pipelined_loop, cg_sstep_while,
+                                     deep_buffers)
 from acg_torch.sparse.csr import CsrMatrix
 from acg_torch.sparse.ell import EllMatrix
 from acg_torch.sparse.rcm import permute_symmetric, rcm_order
@@ -298,8 +300,9 @@ def _host(a) -> np.ndarray:
 
 def _host_x(op, x, perm) -> np.ndarray:
     """The solution on the host in the caller's ordering (``perm``
-    new_to_old un-permutes it), padding dropped."""
-    x_host = x[..., : op.nrows].cpu().numpy()
+    new_to_old un-permutes it), padding dropped: a copy, never a view of
+    the loop's buffer (a resident solve rewrites it)."""
+    x_host = x[..., : op.nrows].to("cpu", copy=True).numpy()
     if perm is not None:
         xp, x_host = x_host, np.empty_like(x_host)
         x_host[..., perm] = xp
@@ -373,6 +376,16 @@ def _finish(op, x, k, rr, flag, rr0, options: SolverOptions,
         res.rnrm2_per_system = rnrm2s
         res.r0nrm2_per_system = r0nrm2s
         res.converged_per_system = flags == _CONVERGED
+    def _observed(r):
+        # runtime telemetry (acg_torch/obs/metrics.py; a no-op unless
+        # enable_metrics()): every terminal path below, raised or
+        # returned, records once with the final status, on the host
+        observe_solve_result(r, solver=(solver if solver
+                                        else "cg-sstep" if sstep
+                                        else "cg-pipelined" if pipelined
+                                        else "cg"))
+        return r
+
     if flag == _FAULT:
         res.status = Status.ERR_FAULT_DETECTED
         res.fpexcept = (
@@ -383,12 +396,12 @@ def _finish(op, x, k, rr, flag, rr0, options: SolverOptions,
             f"on-device guard at iteration {k} (|r|^2 still finite)")
         err = AcgError(Status.ERR_FAULT_DETECTED,
                        f"solve aborted at iteration {k}: {res.fpexcept}")
-        err.result = res
+        err.result = _observed(res)
         raise err
     if flag == _BREAKDOWN:
         res.status = Status.ERR_NOT_CONVERGED_INDEFINITE_MATRIX
         err = AcgError(Status.ERR_NOT_CONVERGED_INDEFINITE_MATRIX)
-        err.result = res
+        err.result = _observed(res)
         raise err
     no_criteria = (o.diffatol == 0 and o.diffrtol == 0
                    and o.residual_atol == 0 and o.residual_rtol == 0)
@@ -398,7 +411,7 @@ def _finish(op, x, k, rr, flag, rr0, options: SolverOptions,
                        f"{solver or 'CG'} did not converge in {o.maxits} "
                        "iterations "
                        f"(|r|/|r0| = {res.relative_residual:.3e})")
-        err.result = res
+        err.result = _observed(res)
         raise err
     if no_criteria:
         res.converged = True
@@ -406,7 +419,7 @@ def _finish(op, x, k, rr, flag, rr0, options: SolverOptions,
             res.converged_per_system = np.ones(res.nrhs, dtype=bool)
     if res.fpexcept != "none":
         res.status = Status.ERR_NONFINITE
-    return res
+    return _observed(res)
 
 
 def cg(A, b, x0=None, options: SolverOptions = SolverOptions(),
@@ -442,10 +455,44 @@ def cg(A, b, x0=None, options: SolverOptions = SolverOptions(),
     seconds, inside ``tsolve``).  ``options.segment_iters`` ends a block
     every that many iterations (the same bits); ``options.monitor_every``
     streams ``iteration k: rnrm2`` lines (``acg_torch/obs/monitor.py``)."""
-    o = options
     op, b_pad, x0_pad, perm = _prepare(A, b, x0, dtype, fmt, mat_dtype,
                                        device)
     graph = resolve_loop(loop, [op.device])
+    return _classic_solve(_classic_loop(op, b_pad, options, graph), op,
+                          x0_pad, options, stats, fmt, perm, graph,
+                          atol2_floor)
+
+
+def _classic_loop(op, b_pad, o: SolverOptions, graph: bool,
+                  capture_first: bool = False):
+    """The classic loop over ``op`` for right-hand sides shaped like
+    ``b_pad`` (its buffer): the fused beta-first step and the one-pass
+    update (``loops.cg_loop``)."""
+    batch = b_pad.shape[0] if b_pad.dim() == 2 else 0
+    track_diff = o.diffatol > 0 or o.diffrtol > 0
+
+    def coupled(r, p, beta):
+        # p = r + beta p, in place (beta per system in a batch)
+        torch.addcmul(r, p, beta[:, None] if batch else beta, out=p)
+        t, ptap = op.matvec_dot(p)
+        return p, t, ptap
+
+    def update(x, r, p, t, alpha):
+        return cg_update(x, r, p, t, alpha, track_diff)
+
+    return cg_loop(op.matvec, ddot, b_pad, o.maxits, track_diff,
+                   check_every=o.check_every, coupled_step=coupled,
+                   guard=o.guard_nonfinite, update=update,
+                   segment=o.segment_iters, monitor_every=o.monitor_every,
+                   graph=graph, capture_first=capture_first)
+
+
+def _classic_solve(L, op, x0_pad, o: SolverOptions, stats, fmt: str, perm,
+                   graph: bool, atol2_floor=None) -> SolveResult:
+    """One classic solve on the loop ``L`` (:func:`_classic_loop`) from
+    the right-hand side in ``L.b``: the tolerances and the diff threshold
+    of this solve, the loop, the result."""
+    b_pad = L.b
     vdt = b_pad.dtype
     batch = b_pad.shape[0] if b_pad.dim() == 2 else 0
 
@@ -465,25 +512,10 @@ def cg(A, b, x0=None, options: SolverOptions = SolverOptions(),
             x0n = float(dnrm2(x0_pad))
             diffstop = max(diffstop, (o.diffrtol * x0n) ** 2)
     bnrm2 = dnrm2(b_pad).cpu().numpy()
-
-    def coupled(r, p, beta):
-        # p = r + beta p, in place (beta per system in a batch)
-        torch.addcmul(r, p, beta[:, None] if batch else beta, out=p)
-        t, ptap = op.matvec_dot(p)
-        return p, t, ptap
-
-    def update(x, r, p, t, alpha):
-        return cg_update(x, r, p, t, alpha, track_diff)
-
     st = stats if stats is not None else SolveStats()
     _sync(op.device)
     t0 = time.perf_counter()
-    x, k, rr, dxx, flag, rr0, hist = cg_while(
-        op.matvec, ddot, b_pad, x0_pad, stop2, diffstop,
-        maxits=o.maxits, track_diff=track_diff, check_every=o.check_every,
-        coupled_step=coupled, guard=o.guard_nonfinite, update=update,
-        segment=o.segment_iters, monitor_every=o.monitor_every,
-        graph=graph, stats=st)
+    x, k, rr, dxx, flag, rr0, hist = L.run(x0_pad, stop2, diffstop, st)
     _sync(op.device)
     tsolve = time.perf_counter() - t0
     return _finish(op, x, k, rr, flag, rr0, o, tsolve, bnrm2,
@@ -528,31 +560,67 @@ def cg_pipelined(A, b, x0=None, options: SolverOptions = SolverOptions(),
     its SpMVs through the batched kernel (``cuda-*-batched``; the
     single-kernel iteration is not batched, as in the JAX package).
     ``loop``, ``segment_iters`` and ``monitor_every`` as :func:`cg`."""
-    o = options
-    if o.diffatol > 0 or o.diffrtol > 0:
-        raise AcgError(Status.ERR_NOT_SUPPORTED,
-                       "pipelined CG supports residual-based stopping only")
+    _refuse_diff(options)
     op, b_pad, x0_pad, perm = _prepare(A, b, x0, dtype, fmt, mat_dtype,
                                        device)
     graph = resolve_loop(loop, [op.device])
-    vdt = b_pad.dtype
-    batch = b_pad.shape[0] if b_pad.dim() == 2 else 0
-    stop2 = (torch.tensor(o.residual_atol ** 2, dtype=vdt, device=op.device),
-             torch.tensor(o.residual_rtol ** 2, dtype=vdt, device=op.device))
-    bnrm2 = dnrm2(b_pad).cpu().numpy()
-    # exit certification only where an exit can be claimed
-    certify = o.residual_atol > 0 or o.residual_rtol > 0
+    return _pipelined_solve(_pipelined_loop(op, b_pad, options, graph), op,
+                            x0_pad, options, stats, fmt, perm, graph)
+
+
+def _refuse_diff(o: SolverOptions) -> None:
+    if o.diffatol > 0 or o.diffrtol > 0:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       "pipelined CG supports residual-based stopping only")
+
+
+def _certifies(o: SolverOptions) -> bool:
+    """Exit certification runs only where an exit can be claimed."""
+    return o.residual_atol > 0 or o.residual_rtol > 0
+
+
+def _pipelined_loop(op, b_pad, o: SolverOptions, graph: bool,
+                    capture_first: bool = False):
+    """The pipelined loop over ``op`` for right-hand sides shaped like
+    ``b_pad`` (its buffer), with the single-kernel iteration where the
+    tier has one and neither a batch nor ``replace_every`` disengages it
+    (``loops.cg_pipelined_loop``)."""
+    batch = b_pad.dim() == 2
     iter_step = (_pipe_step(op) if hasattr(op, "pipelined_iter")
                  and o.replace_every == 0 and not batch else None)
+    return cg_pipelined_loop(
+        op.matvec, _dot2, b_pad, o.maxits, check_every=o.check_every,
+        replace_every=o.replace_every, certify=_certifies(o),
+        iter_step=iter_step, guard=o.guard_nonfinite,
+        segment=o.segment_iters, monitor_every=o.monitor_every,
+        graph=graph, any_crit=_any_crit(o, b_pad.dtype),
+        capture_first=capture_first)
+
+
+def _any_crit(o: SolverOptions, vdt) -> bool:
+    """Whether the squared tolerances, in the vector dtype, enable a
+    criterion (what the pipelined and deep loops decide statically)."""
+    return any(float(torch.tensor(v ** 2, dtype=vdt)) > 0
+               for v in (o.residual_atol, o.residual_rtol))
+
+
+def _stop2(o: SolverOptions, vdt, device) -> tuple:
+    return (torch.tensor(o.residual_atol ** 2, dtype=vdt, device=device),
+            torch.tensor(o.residual_rtol ** 2, dtype=vdt, device=device))
+
+
+def _pipelined_solve(L, op, x0_pad, o: SolverOptions, stats, fmt: str,
+                     perm, graph: bool) -> SolveResult:
+    """One pipelined solve on the loop ``L`` (:func:`_pipelined_loop`)
+    from the right-hand side in ``L.b``."""
+    b_pad = L.b
+    batch = b_pad.shape[0] if b_pad.dim() == 2 else 0
+    stop2 = _stop2(o, b_pad.dtype, op.device)
+    bnrm2 = dnrm2(b_pad).cpu().numpy()
     st = stats if stats is not None else SolveStats()
     _sync(op.device)
     t0 = time.perf_counter()
-    x, k, rr, flag, rr0, hist = cg_pipelined_while(
-        op.matvec, _dot2, b_pad, x0_pad, stop2, maxits=o.maxits,
-        check_every=o.check_every, replace_every=o.replace_every,
-        certify=certify, iter_step=iter_step, guard=o.guard_nonfinite,
-        segment=o.segment_iters, monitor_every=o.monitor_every,
-        graph=graph, stats=st)
+    x, k, rr, flag, rr0, hist = L.run(x0_pad, stop2, st)
     _sync(op.device)
     tsolve = time.perf_counter() - t0
     return _finish(op, x, k, rr, flag, rr0, o, tsolve, bnrm2, stats=st,
@@ -950,24 +1018,46 @@ def cg_pipelined_deep(A, b, x0=None,
                                        device)
     graph = resolve_loop(loop, [op.device])
     st = stats if stats is not None else SolveStats()
+    return _deep_solve(
+        op, b_pad, x0_pad, o, deep_buffers(b_pad, l, o.maxits, graph),
+        _deep_monitor(o, b_pad.dtype, op.device), shifts0, graph, st, fmt,
+        perm, x0,
+        lambda x_part, o2, floor: cg(
+            A, b, x0=x_part, options=o2, dtype=dtype, fmt=fmt,
+            mat_dtype=mat_dtype, stats=st, device=device, atol2_floor=floor,
+            loop=loop))
+
+
+def _deep_monitor(o: SolverOptions, vdt, device):
+    return (LoopMonitor(o.monitor_every, o.maxits, vdt, device)
+            if o.monitor_every > 0 else None)
+
+
+def _deep_solve(op, b_pad, x0_pad, o: SolverOptions, bufs, mon, shifts0,
+                graph: bool, st, fmt: str, perm, x0_caller,
+                fallback) -> SolveResult:
+    """One deep-pipelined solve on the buffers ``bufs``
+    (``loops.deep_buffers``, their runner and rings; ``mon`` the solve's
+    monitor or None): the shift seeds into ``bufs.shifts``, the host
+    re-dispatches, the result.  ``fallback(x_part, options, atol2_floor)``
+    runs the classic fallback; ``x0_caller`` is the caller's x0 (None:
+    zeros), where a poisoned iterate restarts."""
+    l = o.pipeline_depth
     batched = b_pad.dim() == 2
-    vdt = b_pad.dtype
-    stop2 = (torch.tensor(o.residual_atol ** 2, dtype=vdt, device=op.device),
-             torch.tensor(o.residual_rtol ** 2, dtype=vdt, device=op.device))
+    stop2 = _stop2(o, b_pad.dtype, op.device)
     bnrm2 = dnrm2(b_pad).cpu().numpy()
-    certify = o.residual_atol > 0 or o.residual_rtol > 0
+    certify = _certifies(o)
+    bufs.runner.stats = st
+    if mon is not None:
+        mon.reset()
     _sync(op.device)
     t0 = time.perf_counter()
-    shifts = torch.from_numpy(_seed_shifts(op, b_pad, l, shifts0)).to(
-        op.device)
-    mon = (LoopMonitor(o.monitor_every, o.maxits, vdt, op.device)
-           if o.monitor_every > 0 else None)
-    bufs = deep_buffers(b_pad, l, o.maxits, graph, st)
+    bufs.shifts.copy_(torch.from_numpy(_seed_shifts(op, b_pad, l, shifts0)))
     (x_op, kret, rr, flag, rr0_op, hist_op, k_op, ndisp,
      why) = _deep_dispatches(
         lambda x, *restart: _cg_pipelined_deep_device(
             op, b_pad, x, stop2, l, o.maxits, o.check_every,
-            o.replace_every, certify, shifts, *restart,
+            o.replace_every, certify, bufs.shifts, *restart,
             guard=o.guard_nonfinite, monitor=mon, graph=graph,
             buffers=bufs, stats=st), x0_pad, batched,
         o.maxits)
@@ -975,15 +1065,12 @@ def cg_pipelined_deep(A, b, x0=None,
         # never silently wrong: classic CG re-solves from the last safe
         # iterate
         rr_h, rr0_h = _host(rr), _host(rr0_op)
-        x_part = _sstep_fallback_x0(_host_x(op, x_op, perm), x0, rr_h,
-                                    rr0_h)
+        x_part = _sstep_fallback_x0(_host_x(op, x_op, perm), x0_caller,
+                                    rr_h, rr0_h)
         o2 = dataclasses.replace(o, pipeline_depth=1,
                                  maxits=max(o.maxits - k_op, 0))
         return _sstep_fallback(
-            lambda: cg(A, b, x0=x_part, options=o2, dtype=dtype,
-                       fmt=fmt, mat_dtype=mat_dtype, stats=st,
-                       device=device,
-                       atol2_floor=_sstep_fallback_stop(o, rr0_h), loop=loop),
+            lambda: fallback(x_part, o2, _sstep_fallback_stop(o, rr0_h)),
             k_op, _host(kret) if batched else None, l, why,
             spent_flops=k_op * cg_flops_per_iter(op.nnz, op.nrows,
                                                  pipelined=True),
@@ -1001,6 +1088,187 @@ def cg_pipelined_deep(A, b, x0=None,
                    hist=hist_op, pipelined=True, perm=perm,
                    solver="cg-pipelined-deep",
                    loop="graph" if graph else "open")
+
+
+# ---------------------------------------------------------------------------
+# resident solves (the serve layer's cache entries)
+
+
+class AotSolve:
+    """A resident solve: one prepared operator, one static signature
+    (the solver kind, the padded shape of b with its batch, the vector
+    dtype, the static :class:`SolverOptions` fields), and the loop's
+    state made once for them (the port's counterpart of the JAX
+    package's AOT executable, ``acg_tpu.solvers.cg.AotSolve``).
+
+    :func:`aot_step` builds it; :meth:`solve` copies a new right-hand
+    side (and x0) into the state's buffers, rebinds the tolerance VALUES
+    on the device, and runs the same blocks the ordinary solver runs: on
+    the card their CUDA graphs outlive a solve, so a dispatch that runs
+    the blocks an earlier one ran captures nothing and runs no warm-up
+    block (``SolveStats.ncaptures == nloopopen == 0``).  Its result is
+    bit for bit the ordinary solver's on the same b.  ``path`` is the
+    (operator_format, kernel, note) the ordinary solver reports;
+    ``runners`` the block runners whose captures it keeps."""
+
+    def __init__(self, dispatch, *, kind: str, shape: tuple, vec_dtype,
+                 path: tuple, options: SolverOptions, runners: tuple):
+        self._dispatch = dispatch
+        self.kind = kind
+        self.shape = tuple(shape)       # padded device operand shape
+        self.vec_dtype = vec_dtype
+        self.path = path
+        self.options = options
+        self.runners = runners
+
+    def solve(self, b, x0=None, stats: SolveStats | None = None,
+              options: SolverOptions | None = None) -> SolveResult:
+        """Dispatch one request.  ``options`` may differ from the build's
+        in the tolerance values only (:func:`check_aot_options`)."""
+        if self._dispatch is None:
+            raise AcgError(Status.ERR_INVALID_VALUE,
+                           "this resident solve was closed")
+        oo = (self.options if options is None
+              else check_aot_options(self.options, options))
+        return self._dispatch(b, x0, stats, oo)
+
+    @property
+    def ncaptures(self) -> int:
+        """CUDA graphs captured over the solve's life."""
+        return sum(r.ncaptures for r in self.runners)
+
+    def close(self) -> None:
+        """Drop the state: its buffers and its captures go with the last
+        reference (idempotent)."""
+        self._dispatch = None
+        self.runners = ()
+
+
+def check_aot_options(compiled_o: SolverOptions,
+                      o: SolverOptions) -> SolverOptions:
+    """Reject a per-dispatch options override whose STATIC fields differ
+    from the resident solve's signature (``acg_tpu.solvers.cg``
+    ``check_aot_options``): tolerance VALUES are the only legal per-call
+    variation, and their non-zero-ness, which decides static branches
+    (certification, the diff criteria), must match."""
+    static = ("maxits", "check_every", "replace_every", "monitor_every",
+              "guard_nonfinite", "segment_iters", "sstep",
+              "pipeline_depth", "halo_wire")
+    for f in static:
+        if getattr(o, f) != getattr(compiled_o, f):
+            raise AcgError(Status.ERR_INVALID_VALUE,
+                           f"AOT signature mismatch: options.{f}="
+                           f"{getattr(o, f)} vs the executable's "
+                           f"{getattr(compiled_o, f)} (static field)")
+    for f in ("residual_atol", "residual_rtol", "diffatol", "diffrtol"):
+        if (getattr(o, f) > 0) != (getattr(compiled_o, f) > 0):
+            raise AcgError(Status.ERR_INVALID_VALUE,
+                           f"AOT signature mismatch: options.{f} "
+                           "non-zero-ness differs from the executable's "
+                           "(it gates a static branch; recompile)")
+    return o
+
+
+def _aot_kind(solver, pipelined: bool, o: SolverOptions) -> str:
+    """The loop kind a resident solve runs, with the refusals both the
+    one-device and the distributed :func:`aot_step` make."""
+    if solver == "cg-pipelined-deep" and o.pipeline_depth <= 1:
+        solver = "cg-pipelined"     # depth 1 IS the pipelined program
+    if solver not in (None, "cg", "cg-pipelined", "cg-pipelined-deep"):
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"aot_step builds the classic/pipelined/"
+                       f"deep-pipelined loops (solver {solver!r})")
+    kind = solver or ("cg-pipelined" if pipelined else "cg")
+    if o.segment_iters > 0:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       "segment_iters re-dispatches per segment; use the "
+                       "ordinary solver functions")
+    if kind == "cg-pipelined-deep":
+        _deep_validate(o)
+    if kind != "cg":
+        _refuse_diff(o)
+    return kind
+
+
+def _aot_check(b_new, shape: tuple, vdt, o: SolverOptions, crit: bool,
+               kind: str) -> None:
+    """A dispatch's b against the signature; the pipelined and deep loops
+    also fix whether a criterion is on in the vector dtype."""
+    if tuple(b_new.shape) != shape or b_new.dtype != vdt:
+        raise AcgError(Status.ERR_INVALID_VALUE,
+                       f"AOT signature mismatch: executable was built for "
+                       f"shape {shape} dtype {vdt}, got "
+                       f"{tuple(b_new.shape)} {b_new.dtype}")
+    if kind != "cg" and _any_crit(o, vdt) != crit:
+        raise AcgError(Status.ERR_INVALID_VALUE,
+                       "AOT signature mismatch: the squared tolerances' "
+                       "non-zero-ness in the vector dtype differs from the "
+                       "executable's")
+
+
+def aot_step(A, b, x0=None, options: SolverOptions = SolverOptions(),
+             dtype=None, fmt: str = "auto", mat_dtype="auto",
+             pipelined: bool = False, solver: str | None = None,
+             device=None, loop: str | None = None) -> AotSolve:
+    """Build the resident solve for single-device classic, pipelined or
+    deep-pipelined CG at this static signature (``acg_tpu.solvers.cg``
+    ``aot_step``): the operator (built once, or given built), the loop's
+    state for b's shape (``b`` sets the shape; its values are not
+    solved), on the card its block runner capturing each block at its
+    first run.  Tolerance VALUES stay per dispatch.  ``solver`` is
+    "cg", "cg-pipelined" or "cg-pipelined-deep" (depth 1: pipelined);
+    ``segment_iters`` and every other kind raise ``ERR_NOT_SUPPORTED``:
+    callers route those through the ordinary solver functions.  A deep
+    solve that falls back to classic CG runs the ordinary :func:`cg`, as
+    :func:`cg_pipelined_deep` does.  ``device`` and ``loop`` as
+    :func:`cg`."""
+    o = options
+    kind = _aot_kind(solver, pipelined, o)
+    op, b_pad, _x0, perm = _prepare(A, b, x0, dtype, fmt, mat_dtype, device)
+    # requests re-enter through the ALREADY-BUILT operator
+    A_res = PermutedOperator(op, perm) if perm is not None else op
+    graph = resolve_loop(loop, [op.device])
+    b_own = b_pad.clone()
+    shape, vdt = tuple(b_own.shape), b_own.dtype
+    batch = shape[0] if len(shape) == 2 else 0
+    crit = _any_crit(o, vdt)
+    if kind == "cg":
+        L = _classic_loop(op, b_own, o, graph, capture_first=True)
+        runners = (L.runner,)
+        path = _describe_path(op, fmt, batch=batch, perm=perm)
+    elif kind == "cg-pipelined":
+        L = _pipelined_loop(op, b_own, o, graph, capture_first=True)
+        runners = (L.runner,)
+        path = _describe_path(op, fmt, True, o.replace_every, batch,
+                              perm=perm)
+    else:
+        bufs = deep_buffers(b_own, o.pipeline_depth, o.maxits, graph,
+                            capture_first=True)
+        mon = _deep_monitor(o, vdt, op.device)
+        runners = (bufs.runner,)
+        path = _describe_path(op, fmt, batch=batch, perm=perm,
+                              open_coded=True)
+
+    def dispatch(b, x0, stats, oo):
+        _, b_new, x0_new, _ = _prepare(A_res, b, x0, dtype, fmt, mat_dtype,
+                                       device)
+        _aot_check(b_new, shape, vdt, oo, crit, kind)
+        _keep(b_own, b_new)
+        if kind == "cg":
+            return _classic_solve(L, op, x0_new, oo, stats, fmt, perm, graph)
+        if kind == "cg-pipelined":
+            return _pipelined_solve(L, op, x0_new, oo, stats, fmt, perm,
+                                    graph)
+        st = stats if stats is not None else SolveStats()
+        return _deep_solve(
+            op, b_own, x0_new, oo, bufs, mon, None, graph, st, fmt, perm, x0,
+            lambda x_part, o2, floor: cg(
+                A_res, b, x0=x_part, options=o2, dtype=dtype, fmt=fmt,
+                mat_dtype=mat_dtype, stats=st, device=device,
+                atol2_floor=floor, loop=loop))
+
+    return AotSolve(dispatch, kind=kind, shape=shape, vec_dtype=vdt,
+                    path=path, options=o, runners=runners)
 
 
 # ---------------------------------------------------------------------------

@@ -66,16 +66,18 @@ from acg_torch.partition.partitioner import partition_graph
 from acg_torch.solvers.base import (SolveStats, cg_flops_per_iter,
                                     conform_x0_batch,
                                     kernel_disengagement_note, path_names)
-from acg_torch.solvers.cg import (_cheb_leja_nodes, _deep_dispatches,
-                                  _deep_validate, _deflate_x0, _finish,
-                                  _host, _join_note, _power_lmax,
-                                  _sstep_certify, _sstep_fallback,
-                                  _sstep_fallback_stop, _sstep_fallback_x0,
-                                  _sstep_validate, open_loop_note,
-                                  resolve_loop)
-from acg_torch.solvers.loops import (_GRAM_BAD, cg_pipelined_deep_while,
-                                     cg_pipelined_while, cg_sstep_while,
-                                     cg_while, deep_buffers)
+from acg_torch.solvers.cg import (AotSolve, _aot_kind, _any_crit,
+                                  _certifies, _cheb_leja_nodes,
+                                  _deep_dispatches, _deep_validate,
+                                  _deflate_x0, _finish, _host, _join_note,
+                                  _power_lmax, _sstep_certify,
+                                  _sstep_fallback, _sstep_fallback_stop,
+                                  _sstep_fallback_x0, _sstep_validate,
+                                  open_loop_note, resolve_loop)
+from acg_torch.solvers.loops import (_GRAM_BAD, _keep, cg_loop,
+                                     cg_pipelined_deep_while,
+                                     cg_pipelined_loop, cg_sstep_while,
+                                     deep_buffers)
 from acg_torch.utils.timing import host_step
 
 
@@ -398,6 +400,31 @@ def _deep_fill(ss: ShardedSystem, deep, shifts, wire: str):
     return fill
 
 
+def _refuse_rdma(kind: str, method: HaloMethod, batch: int,
+                 wire: str) -> None:
+    """What the rdma halo (a put+signal kernel moving 1-D distance-1
+    packs of raw vector words) does not carry: the deep ghost exchange,
+    a batch, a compressed wire."""
+    if method != HaloMethod.RDMA:
+        return
+    if kind in ("cg-sstep", "cg-pipelined-deep"):
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"{'s-step' if kind == 'cg-sstep' else 'deep-pipelined'}"
+                       " solves support the ppermute/allgather halo tiers "
+                       "(the rdma halo, a put+signal kernel, moves 1-D "
+                       "distance-1 packs, not the deep ghost exchange)")
+    if batch:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       "multi-RHS solves support the ppermute/allgather "
+                       "halo tiers (the rdma halo, a put+signal kernel, "
+                       "moves 1-D packs)")
+    if wire != "f32":
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       "halo_wire compression applies to the ppermute/"
+                       "allgather halo tiers (the rdma halo, a put+signal "
+                       "kernel, writes raw vector words)")
+
+
 def _solve_dist(kind: str, A, b, x0, options: SolverOptions,
                 stats: SolveStats | None, build_kw: dict,
                 atol2_floor=None, loop: str | None = None):
@@ -430,23 +457,7 @@ def _solve_dist(kind: str, A, b, x0, options: SolverOptions,
     # them before its program is traced
     method = (A.method if isinstance(A, ShardedSystem)
               else HaloMethod(build_kw.get("method", HaloMethod.PPERMUTE)))
-    if kind in ("cg-sstep", "cg-pipelined-deep") \
-            and method == HaloMethod.RDMA:
-        raise AcgError(Status.ERR_NOT_SUPPORTED,
-                       f"{'s-step' if kind == 'cg-sstep' else 'deep-pipelined'}"
-                       " solves support the ppermute/allgather halo tiers "
-                       "(the rdma halo, a put+signal kernel, moves 1-D "
-                       "distance-1 packs, not the deep ghost exchange)")
-    if batch and method == HaloMethod.RDMA:
-        raise AcgError(Status.ERR_NOT_SUPPORTED,
-                       "multi-RHS solves support the ppermute/allgather "
-                       "halo tiers (the rdma halo, a put+signal kernel, "
-                       "moves 1-D packs)")
-    if o.halo_wire != "f32" and method == HaloMethod.RDMA:
-        raise AcgError(Status.ERR_NOT_SUPPORTED,
-                       "halo_wire compression applies to the ppermute/"
-                       "allgather halo tiers (the rdma halo, a put+signal "
-                       "kernel, writes raw vector words)")
+    _refuse_rdma(kind, method, batch, o.halo_wire)
     ss = build_sharded(A, **build_kw)
     if b.shape[-1] != ss.nrows:
         raise AcgError(Status.ERR_INVALID_VALUE,
@@ -483,10 +494,8 @@ def _solve_dist(kind: str, A, b, x0, options: SolverOptions,
     atol2 = (o.residual_atol ** 2 if atol2_floor is None
              else np.maximum(o.residual_atol ** 2, atol2_floor))
     stop2 = (scalar(atol2), scalar(o.residual_rtol ** 2))
-    on_pipe = ss.local_fmt in ("stencil", "dia")
-    track_diff = o.diffatol > 0 or o.diffrtol > 0
     st = stats if stats is not None else SolveStats()
-    certify = o.residual_atol > 0 or o.residual_rtol > 0
+    certify = _certifies(o)
     sstep = 0
     ndisp = why = None
     _sync(ss.devices)
@@ -532,45 +541,12 @@ def _solve_dist(kind: str, A, b, x0, options: SolverOptions,
         if not batch:
             flag = int(flag)
         dxx = None
-    elif pipelined:
-        def dot2(a1, b1, a2, b2):
-            return dot(a1, b1), dot(a2, b2)
-
-        iter_step = (_pipe_step(ss, dev0, wire)
-                     if on_pipe and o.replace_every == 0 and not batch
-                     else None)
-        x, k, rr, flag, rr0, hist = cg_pipelined_while(
-            matvec, dot2, b_sh, x0_sh, stop2, maxits=o.maxits,
-            check_every=o.check_every, replace_every=o.replace_every,
-            certify=certify, iter_step=iter_step, guard=o.guard_nonfinite,
-            segment=o.segment_iters, monitor_every=o.monitor_every,
-            graph=graph, stats=st)
-        dxx = None
     else:
-        diffstop = o.diffatol ** 2
-        if o.diffrtol > 0:
-            # |x0| per system: a per-system threshold for a batch
-            x0n = np.linalg.norm(np.zeros(b.shape) if x0 is None
-                                 else x0.astype(np.float64), axis=-1)
-            diffstop = (torch.clamp((o.diffrtol * scalar(x0n)) ** 2,
-                                    min=diffstop) if batch
-                        else max(diffstop, (o.diffrtol * float(x0n)) ** 2))
-        coupled = (_fused_step(ss, dev0, wire) if on_pipe
-                   else _split_step(ss, dot, wire))
-        x, k, rr, dxx, flag, rr0, hist = cg_while(
-            matvec, dot, b_sh, x0_sh, stop2, diffstop, maxits=o.maxits,
-            track_diff=track_diff, check_every=o.check_every,
-            coupled_step=coupled, guard=o.guard_nonfinite,
-            update=_update_step(dev0, track_diff), segment=o.segment_iters,
-            monitor_every=o.monitor_every, graph=graph, stats=st)
+        return _dist_solve(_dist_loop(kind, ss, b_sh, o, graph), kind, ss,
+                           b, x0, x0_sh, o, st, graph, atol2_floor, t0)
     _sync(ss.devices)
     tsolve = time.perf_counter() - t0
     ss.check_transport()
-
-    class _Meta:  # the flop model's inputs, for _finish
-        nrows = ss.nrows
-        nnz = ss.nnz
-
     x_global = torch.from_numpy(ss.from_sharded(x))
     if why is not None or (kind == "cg-sstep"
                            and np.any(np.atleast_1d(flag) == _GRAM_BAD)):
@@ -596,17 +572,36 @@ def _solve_dist(kind: str, A, b, x0, options: SolverOptions,
                 sstep=sstep),
             label=None if kind == "cg-sstep"
             else f"cg-pipelined-deep(l={l})")
+    return _dist_finish(ss, kind, x_global, k, rr, dxx, flag, rr0, hist, o,
+                        st, tsolve, b, graph, deep=deep, ndisp=ndisp,
+                        sstep=sstep)
+
+
+def _dist_finish(ss, kind: str, x_global, k, rr, dxx, flag, rr0, hist,
+                 o: SolverOptions, st, tsolve: float, b, graph: bool,
+                 deep=None, ndisp=None, sstep: int = 0):
+    """The distributed solve's result: its path report (the local tier's
+    loop kernel and the halo, the deep zones, the dispatches, an open
+    loop) and :func:`acg_torch.solvers.cg._finish` on the gathered x."""
+    pipelined = kind in ("cg-pipelined", "cg-pipelined-deep")
+    batch = b.shape[0] if b.ndim == 2 else 0
     name, kernel, note = _describe_path(
         ss, pipelined and deep is None,
         o.replace_every if pipelined else 0, batch, deep)
     if ndisp is not None:
-        note = (f"deep pipeline depth {l}, {ndisp} dispatch(es), "
-                f"wire={wire}; " + note)
+        note = (f"deep pipeline depth {o.pipeline_depth}, {ndisp} "
+                f"dispatch(es), wire={o.halo_wire}; " + note)
     if not graph:
         ncards = len({d for d in ss.devices if d.type == "cuda"})
         note = _join_note(note, open_loop_note(
             f"shards on {ncards} cards" if ncards > 1 else "asked",
-            dev0.type))
+            ss.devices[0].type))
+
+    class _Meta:  # the flop model's inputs, for _finish
+        nrows = ss.nrows
+        nnz = ss.nnz
+
+    track_diff = o.diffatol > 0 or o.diffrtol > 0
     return _finish(_Meta, x_global, k, rr, flag, rr0, o, tsolve,
                    np.linalg.norm(b, axis=-1),
                    dxx=dxx if track_diff else None, stats=st,
@@ -614,6 +609,155 @@ def _solve_dist(kind: str, A, b, x0, options: SolverOptions,
                    pipelined=pipelined, sstep=sstep,
                    solver=kind if deep is not None else None,
                    loop="graph" if graph else "open")
+
+
+def _dist_loop(kind: str, ss: ShardedSystem, b_sh, o: SolverOptions,
+               graph: bool, capture_first: bool = False):
+    """The classic or pipelined loop over ``ss``'s shards for right-hand
+    sides shaped like ``b_sh`` (its buffer, per-shard vectors): the fused
+    beta-first step and the per-shard one-pass update on stencil and DIA
+    shards (the split step elsewhere); pipelined, the folded per-shard
+    iteration where it runs."""
+    dev0 = ss.devices[0]
+    wire = o.halo_wire
+    dot = _shard_dot(dev0)
+    on_pipe = ss.local_fmt in ("stencil", "dia")
+    batch = b_sh.dim() == 2
+
+    def matvec(v):
+        return ss.matvec(v, wire)
+
+    if kind == "cg-pipelined":
+        def dot2(a1, b1, a2, b2):
+            return dot(a1, b1), dot(a2, b2)
+
+        iter_step = (_pipe_step(ss, dev0, wire)
+                     if on_pipe and o.replace_every == 0 and not batch
+                     else None)
+        return cg_pipelined_loop(
+            matvec, dot2, b_sh, o.maxits, check_every=o.check_every,
+            replace_every=o.replace_every, certify=_certifies(o),
+            iter_step=iter_step, guard=o.guard_nonfinite,
+            segment=o.segment_iters, monitor_every=o.monitor_every,
+            graph=graph, any_crit=_any_crit(o, b_sh.dtype),
+            capture_first=capture_first)
+    track_diff = o.diffatol > 0 or o.diffrtol > 0
+    coupled = (_fused_step(ss, dev0, wire) if on_pipe
+               else _split_step(ss, dot, wire))
+    return cg_loop(matvec, dot, b_sh, o.maxits, track_diff,
+                   check_every=o.check_every, coupled_step=coupled,
+                   guard=o.guard_nonfinite,
+                   update=_update_step(dev0, track_diff),
+                   segment=o.segment_iters, monitor_every=o.monitor_every,
+                   graph=graph, capture_first=capture_first)
+
+
+def _dist_solve(L, kind: str, ss: ShardedSystem, b, x0, x0_sh,
+                o: SolverOptions, st, graph: bool, atol2_floor=None,
+                t0=None):
+    """One classic or pipelined solve on the loop ``L``
+    (:func:`_dist_loop`) from the right-hand side in ``L.b`` (``b`` the
+    global host array it holds, ``x0`` the conformed host x0 or None):
+    the tolerances and the diff threshold of this solve, the loop, the
+    transport check, the result.  ``t0``: when the timed solve began
+    (None: here)."""
+    dev0 = ss.devices[0]
+    vdt = getattr(torch, ss.vec_dtype)
+    batch = b.shape[0] if b.ndim == 2 else 0
+
+    def scalar(v):
+        return torch.tensor(v, dtype=vdt, device=dev0)
+
+    atol2 = (o.residual_atol ** 2 if atol2_floor is None
+             else np.maximum(o.residual_atol ** 2, atol2_floor))
+    stop2 = (scalar(atol2), scalar(o.residual_rtol ** 2))
+    if t0 is None:
+        _sync(ss.devices)
+        t0 = time.perf_counter()
+    if kind == "cg-pipelined":
+        x, k, rr, flag, rr0, hist = L.run(x0_sh, stop2, st)
+        dxx = None
+    else:
+        diffstop = o.diffatol ** 2
+        if o.diffrtol > 0:
+            # |x0| per system: a per-system threshold for a batch
+            x0n = np.linalg.norm(np.zeros(b.shape) if x0 is None
+                                 else x0.astype(np.float64), axis=-1)
+            diffstop = (torch.clamp((o.diffrtol * scalar(x0n)) ** 2,
+                                    min=diffstop) if batch
+                        else max(diffstop, (o.diffrtol * float(x0n)) ** 2))
+        x, k, rr, dxx, flag, rr0, hist = L.run(x0_sh, stop2, diffstop, st)
+    _sync(ss.devices)
+    tsolve = time.perf_counter() - t0
+    ss.check_transport()
+    return _dist_finish(ss, kind, torch.from_numpy(ss.from_sharded(x)), k,
+                        rr, dxx, flag, rr0, hist, o, st, tsolve, b, graph)
+
+
+def aot_step(A, b=None, x0=None, options: SolverOptions = SolverOptions(),
+             pipelined: bool = False, solver: str | None = None,
+             loop: str | None = None, **build_kw) -> AotSolve:
+    """Distributed twin of :func:`acg_torch.solvers.cg.aot_step`
+    (``acg_tpu.solvers.cg_dist.aot_step``): the resident classic or
+    pipelined solve over the shards of ``A`` (a built
+    :class:`ShardedSystem`, or what :func:`build_sharded` takes) for b's
+    shape, its per-shard buffers made once and on one card its block
+    runner capturing each block at its first run; a dispatch copies the
+    new b (and x0) into them, results bit for bit :func:`cg_dist` /
+    :func:`cg_pipelined_dist`'s.  The deep-pipelined kind over shards is
+    not resident in this port (``ERR_NOT_SUPPORTED``: the Session runs
+    it through :func:`cg_pipelined_deep_dist`); other refusals as the
+    one-device ``aot_step`` and :func:`cg_dist`."""
+    o = options
+    kind = _aot_kind(solver, pipelined, o)
+    if kind == "cg-pipelined-deep":
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       "the deep-pipelined loop over shards has no resident "
+                       "solve; use cg_pipelined_deep_dist")
+    check_wire(o.halo_wire)
+    ss = build_sharded(A, **build_kw)
+    b = np.zeros(ss.nrows) if b is None else np.asarray(b)
+    shape = tuple(b.shape)
+    batch = shape[0] if len(shape) == 2 else 0
+    _refuse_rdma(kind, ss.method, batch, o.halo_wire)
+    if shape[-1] != ss.nrows:
+        raise AcgError(Status.ERR_INVALID_VALUE,
+                       f"vectors of shape {shape} for an operator of "
+                       f"{ss.nrows} rows")
+    graph = resolve_loop(loop, ss.devices)
+    b_own = ss.to_sharded(b)
+    L = _dist_loop(kind, ss, b_own, o, graph, capture_first=True)
+    crit = _any_crit(o, b_own.dtype)
+
+    def dispatch(b, x0, stats, oo):
+        b = np.asarray(b)
+        if b.shape != shape:
+            raise AcgError(Status.ERR_INVALID_VALUE,
+                           f"AOT signature mismatch: executable was built "
+                           f"for shape {shape}, got {b.shape}")
+        if kind != "cg" and _any_crit(oo, b_own.dtype) != crit:
+            raise AcgError(Status.ERR_INVALID_VALUE,
+                           "AOT signature mismatch: the squared tolerances' "
+                           "non-zero-ness in the vector dtype differs from "
+                           "the executable's")
+        if x0 is not None:
+            x0 = conform_x0_batch(np.asarray(x0), b.shape,
+                                  lambda v: np.tile(v[None, :], (batch, 1)))
+            if x0.shape != b.shape:
+                raise AcgError(Status.ERR_INVALID_VALUE,
+                               f"initial guess of {x0.shape[-1]} entries "
+                               f"for an operator of {ss.nrows} rows")
+        _keep(b_own, ss.to_sharded(b))
+        x0_sh = (ss.to_sharded(x0) if x0 is not None
+                 else ShardVec(torch.zeros_like(v) for v in b_own))
+        st = stats if stats is not None else SolveStats()
+        return _dist_solve(L, kind, ss, b, x0, x0_sh, oo, st, graph)
+
+    return AotSolve(dispatch, kind=kind, shape=shape,
+                    vec_dtype=b_own.dtype,
+                    path=_describe_path(ss, kind == "cg-pipelined",
+                                        o.replace_every, batch),
+                    options=o, runners=(L.runner,))
 
 
 def cg_dist(A, b, x0=None, options: SolverOptions = SolverOptions(),

@@ -106,15 +106,24 @@ class BlockRunner:
     :meth:`run` takes a block's ``key`` (what fixes its launch sequence:
     its length, whether it ends at a check point or a replacement, the
     pipelined kernels' buffer parity) and the block itself, a function of
-    no arguments that reads and writes the loop's static buffers.  It
-    counts what it does: ``ncaptures``, ``nreplays``, ``nopen`` (blocks
-    run as Python, warm-up blocks included), ``tcapture`` (host seconds
-    of the captures), and adds ``tcapture`` and the counts to ``stats``
-    (a ``SolveStats``) when given."""
+    no arguments that reads and writes the loop's static buffers, and
+    whose Python-level inputs follow from the key alone.  It counts what
+    it does: ``ncaptures``, ``nreplays``, ``nopen`` (blocks run as
+    Python, warm-up blocks included), ``tcapture`` (host seconds of the
+    captures), and adds ``tcapture`` and the counts to ``stats`` (a
+    ``SolveStats``, which may be rebound between solves) when given.
 
-    def __init__(self, device, graph: bool = False, stats=None):
+    ``capture_first``: capture a key right after its warm-up run, the
+    first time it comes, instead of the second time.  A runner that
+    outlives its solve (a resident solve, ``solvers/cg.py``
+    ``aot_step``) then replays every key its first solve ran and
+    captures nothing in a later solve that runs the same keys."""
+
+    def __init__(self, device, graph: bool = False, stats=None,
+                 capture_first: bool = False):
         self.device = torch.device(device)
         self.graph = bool(graph)
+        self.capture_first = bool(capture_first)
         if self.graph and self.device.type != "cuda":
             raise AcgError(Status.ERR_INVALID_VALUE,
                            "the graph loop captures CUDA graphs: it needs "
@@ -154,6 +163,10 @@ class BlockRunner:
                 self._warm.add(key)
                 self.nopen += 1
                 self._count("nloopopen", 1)
+                if self.capture_first:
+                    # recorded, not run: the state the warm-up left is
+                    # what the next replay of the key starts from
+                    self._graphs[key] = self._capture(block)
                 return
             got = self._capture(block)
             self._graphs[key] = got

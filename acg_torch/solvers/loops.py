@@ -26,6 +26,13 @@ loops run in blocks the same way: their coefficient work is one kernel a
 block (``ops/sstep_coeffs.py``) or a body (``ops/deep_coeffs.py``) over
 buffers updated in place.
 
+A loop's state (:func:`cg_loop`, :func:`cg_pipelined_loop`,
+:func:`deep_buffers`) is made once, buffers, thresholds and block runner,
+and runs solve after solve: :func:`cg_while` and
+:func:`cg_pipelined_while` are one solve on a state of their own, and
+the serve layer's resident solves (``solvers/cg.py`` ``aot_step``) keep
+theirs, with its captures.
+
 Between two checks the loop cannot stop, so an iteration that breaks
 down FREEZES the state instead: the flag is sticky, alpha becomes 0 (x
 and r stop moving) and the device iteration count stops advancing.  What
@@ -114,6 +121,12 @@ class _Buffers:
                 _keep(buf, v)
                 setattr(self.carry, n, buf)
 
+    def reset(self) -> None:
+        """Every name back on its buffer: a loop that runs solve after
+        solve starts each from its buffers."""
+        for n in self.names:
+            setattr(self.carry, n, self.bufs[n])
+
     def block(self, body):
         """``body`` as a block: run, then commit."""
         def run():
@@ -135,11 +148,22 @@ def _monitor(every: int, maxits: int, dt, dev):
     return LoopMonitor(every, maxits, dt, dev) if every > 0 else None
 
 
+def _sys_shape(b) -> tuple:
+    """The per-system shape of the loop's scalars: () for one system,
+    (B,) for a (B, n) batch (``b`` a tensor or per-shard vectors)."""
+    return tuple((b if isinstance(b, torch.Tensor) else b[0]).shape[:-1])
+
+
+def _fill(shape, v, dtype, dev):
+    return torch.full(shape, v, dtype=dtype, device=dev)
+
+
 def cg_while(matvec, dot, b, x0, stop2, diffstop, maxits: int,
              track_diff: bool, check_every: int = 1, coupled_step=None,
              guard: bool = False, update=None, segment: int = 0,
              monitor_every: int = 0, graph: bool = False, stats=None):
-    """Classic CG (ref acg/cg.c:534-637 / acg/cgcuda.c:845-1020).
+    """Classic CG (ref acg/cg.c:534-637 / acg/cgcuda.c:845-1020): one
+    solve on a loop of its own (:func:`cg_loop`, then its ``run``).
 
     Returns ``(x, k, rr, dxx, flag, rr0, hist)``: ``x`` the iterate,
     ``k`` the iteration count (int), ``rr``/``dxx``/``rr0`` 0-d tensors
@@ -151,18 +175,45 @@ def cg_while(matvec, dot, b, x0, stop2, diffstop, maxits: int,
 
     ``stop2`` is the (atol², rtol²) pair of 0-d tensors; the threshold
     max(atol², rtol²·|r0|²) is formed on the device.  ``diffstop`` is a
-    float or, batched, a per-system (B,) tensor.  The loop is the
-    BETA-FIRST rotation: p = r + βp opens the iteration and is followed at
-    once by t = Ap and p'Ap, so ``coupled_step(r, p, beta) -> (p, t,
-    p'Ap)`` can run them as one fused kernel pass.  ``coupled_step=None``
-    derives the default from ``matvec``/``dot``.  ``update(x, r, p, t,
-    alpha) -> (rr, pp)`` moves x and r in place and returns the new |r|²
-    (and |p|² when ``track_diff``, else None): one kernel pass
-    (``acg_torch/ops/cg_update.py``); None runs ``addcmul_`` twice and
-    ``dot``.  ``guard`` tests |r|² and p'Ap for finiteness at the check
-    points.  ``segment``, ``monitor_every``, ``graph``: see the module
-    docstring; ``stats`` (a ``SolveStats``) gets the block counts and
-    the capture seconds."""
+    float or, batched, a per-system (B,) tensor.  The other arguments
+    are :func:`cg_loop`'s; ``stats`` (a ``SolveStats``) gets the block
+    counts and the capture seconds."""
+    return cg_loop(matvec, dot, b, maxits, track_diff,
+                   check_every=check_every, coupled_step=coupled_step,
+                   guard=guard, update=update, segment=segment,
+                   monitor_every=monitor_every, graph=graph).run(
+        x0, stop2, diffstop, stats)
+
+
+def cg_loop(matvec, dot, b, maxits: int, track_diff: bool,
+            check_every: int = 1, coupled_step=None, guard: bool = False,
+            update=None, segment: int = 0, monitor_every: int = 0,
+            graph: bool = False, capture_first: bool = False):
+    """The classic loop's state: every buffer a solve reads and writes
+    (x, r, p, the scalars, the flags and counts, the history, the
+    threshold, the diff threshold and which systems have a criterion),
+    the 0-d constants, the monitor and the block runner, made once for
+    right-hand sides shaped like ``b``.  Its ``run(x0, stop2, diffstop,
+    stats)`` runs one solve of :func:`cg_while` on them and returns what
+    :func:`cg_while` returns (the iterate and the history are the loop's
+    buffers, rewritten by the next ``run``).  ``b`` is the loop's
+    right-hand side buffer: a solve reads it where ``run`` starts, so a
+    caller that keeps the loop copies each new right-hand side into
+    ``.b`` first.  With ``graph`` the blocks' captures outlive a solve,
+    and a later solve that runs the same blocks replays them
+    (``capture_first`` captures each at its first run; see
+    ``solvers/graphs.py``).
+
+    The loop is the BETA-FIRST rotation: p = r + βp opens the iteration
+    and is followed at once by t = Ap and p'Ap, so ``coupled_step(r, p,
+    beta) -> (p, t, p'Ap)`` can run them as one fused kernel pass.
+    ``coupled_step=None`` derives the default from ``matvec``/``dot``.
+    ``update(x, r, p, t, alpha) -> (rr, pp)`` moves x and r in place and
+    returns the new |r|² (and |p|² when ``track_diff``, else None): one
+    kernel pass (``acg_torch/ops/cg_update.py``); None runs ``addcmul_``
+    twice and ``dot``.  ``guard`` tests |r|² and p'Ap for finiteness at
+    the check points.  ``segment``, ``monitor_every``, ``graph``: see the
+    module docstring."""
     batched = b.dim() == 2
     # a (B,) per-system scalar against (B, n) vectors; identity in 1-D
     bc = (lambda v: v[:, None]) if batched else (lambda v: v)
@@ -180,51 +231,41 @@ def cg_while(matvec, dot, b, x0, stop2, diffstop, maxits: int,
             return dot(r, r), pp
 
     dev, dt = b.device, b.dtype
-    zero = torch.zeros((), dtype=dt, device=dev)
-    one = torch.ones((), dtype=dt, device=dev)
-    nan = torch.full((), float("nan"), dtype=dt, device=dev)
-    r = b - matvec(x0)
-    rr0 = dot(r, r)
-    atol2, rtol2 = stop2
-    thresh2 = torch.maximum(atol2, rtol2 * rr0)
-    ds = torch.as_tensor(diffstop, dtype=dt, device=dev)
-    # an exactly-zero residual is convergence under ANY enabled criterion
-    # (per system when diffrtol gives each its own threshold); with every
-    # criterion off (fixed-iteration timing) the loop runs on
-    crit = (atol2 > 0) | (rtol2 > 0) | (ds > 0)
-    if not bool(crit.any()):
-        crit = None
-    elif bool(crit.all()):
-        crit = True
-
-    def met(rr):
-        m = rr < thresh2
-        if crit is None:
-            return m
-        return m | ((rr == 0) if crit is True else crit & (rr == 0))
+    S = _sys_shape(b)
+    zero = _fill((), 0, dt, dev)
+    one = _fill((), 1, dt, dev)
+    nan = _fill((), float("nan"), dt, dev)
 
     def code(c):
         return torch.tensor(c, dtype=torch.int32, device=dev)
 
     ok, conv_c, brk, fault = (code(c) for c in
                               (_OK, _CONVERGED, _BREAKDOWN, _FAULT))
-    x = x0.clone()
-    hist = torch.full(rr0.shape + (maxits + 1,), float("nan"), dtype=dt,
-                      device=dev)
-    hist[..., 0] = rr0
+    x, r = torch.zeros_like(b), torch.zeros_like(b)
+    hist = _fill(S + (maxits + 1,), float("nan"), dt, dev)
     hdim = hist.dim() - 1
+    # the solve's thresholds, rewritten by every run: max(atol², rtol²
+    # |r0|²), the diff threshold (per system for a batched diffrtol) and
+    # whether a system has any criterion, under which an exactly-zero
+    # residual is convergence (with none, fixed-iteration timing, the
+    # loop runs on)
+    thresh2, ds = _fill(S, 0, dt, dev), _fill(S, 0, dt, dev)
+    crit = _fill(S, False, torch.bool, dev)
     # the carried state: x and r move in place; the rest is rebound by a
     # block and (graph) copied back into these buffers at its end
     c = types.SimpleNamespace(
-        p=torch.zeros_like(r), rr=rr0.clone(), beta=torch.zeros_like(rr0),
-        dxx=torch.full_like(rr0, float("inf")),
-        flag=torch.where(met(rr0), conv_c, ok),
-        kdev=torch.zeros(rr0.shape, dtype=torch.int32, device=dev),
-        kit=torch.zeros((), dtype=torch.int64, device=dev))
+        p=torch.zeros_like(b), rr=_fill(S, 0, dt, dev),
+        beta=_fill(S, 0, dt, dev), dxx=_fill(S, float("inf"), dt, dev),
+        flag=_fill(S, _OK, torch.int32, dev),
+        kdev=_fill(S, 0, torch.int32, dev),
+        kit=_fill((), 0, torch.int64, dev))
     bufs = _Buffers(c, ("p", "rr", "beta", "dxx", "flag"), graph)
     mon = _monitor(monitor_every, maxits, dt, dev)
     read = _reader(mon)
-    runner = BlockRunner(dev, graph, stats)
+    runner = BlockRunner(dev, graph, capture_first=capture_first)
+
+    def met(rr):
+        return (rr < thresh2) | (crit & (rr == 0))
 
     def body(check: bool):
         active = c.flag == ok
@@ -268,26 +309,50 @@ def cg_while(matvec, dot, b, x0, stop2, diffstop, maxits: int,
             mon.put(c.kit, c.rr.amax() if batched else c.rr,
                     active.any() if batched else active)
 
-    k = 0
-    running = maxits > 0 and bool((c.flag == ok).any())
-    while running:
-        n, check, _ = block_plan(k, maxits, check_every, segment)
+    def run(x0, stop2, diffstop, stats=None):
+        runner.stats = stats
+        bufs.reset()
+        torch.sub(b, matvec(x0), out=r)
+        rr0 = dot(r, r)
+        atol2, rtol2 = stop2
+        torch.maximum(atol2, rtol2 * rr0, out=thresh2)
+        ds.copy_(torch.as_tensor(diffstop, dtype=dt, device=dev))
+        crit.copy_((atol2 > 0) | (rtol2 > 0) | (ds > 0))
+        _keep(x, x0)
+        hist.fill_(float("nan"))
+        hist[..., 0] = rr0
+        _zero(c.p)
+        c.rr.copy_(rr0)
+        c.beta.zero_()
+        c.dxx.fill_(float("inf"))
+        c.flag.copy_(torch.where(met(rr0), conv_c, ok))
+        c.kdev.zero_()
+        c.kit.zero_()
+        if mon is not None:
+            mon.reset()
+        k = 0
+        running = maxits > 0 and bool((c.flag == ok).any())
+        while running:
+            n, check, _ = block_plan(k, maxits, check_every, segment)
 
-        def block(n=n, check=check):
-            for i in range(n):
-                body(check and i == n - 1)
+            def block(n=n, check=check):
+                for i in range(n):
+                    body(check and i == n - 1)
 
-        runner.run((n, check), bufs.block(block))
-        k += n
-        running = k < maxits and read((c.flag == ok).any(), k)
-    if mon is not None:
-        mon.flush(k)
-    # tolerance met at exit IS convergence, whatever the flag: with
-    # check_every > 1 the loop may pass the unobserved convergence point
-    flag = torch.where(met(c.rr), conv_c, c.flag)
-    if batched:
-        return x, c.kdev, c.rr, c.dxx, flag, rr0, hist
-    return x, int(c.kdev), c.rr, c.dxx, int(flag), rr0, hist
+            runner.run((n, check), bufs.block(block))
+            k += n
+            running = k < maxits and read((c.flag == ok).any(), k)
+        if mon is not None:
+            mon.flush(k)
+        # tolerance met at exit IS convergence, whatever the flag: with
+        # check_every > 1 the loop may pass the unobserved convergence
+        # point
+        flag = torch.where(met(c.rr), conv_c, c.flag)
+        if batched:
+            return x, c.kdev, c.rr, c.dxx, flag, rr0, hist
+        return x, int(c.kdev), c.rr, c.dxx, int(flag), rr0, hist
+
+    return types.SimpleNamespace(b=b, run=run, runner=runner)
 
 
 def cg_pipelined_while(matvec, dot2, b, x0, stop2, maxits: int,
@@ -299,13 +364,37 @@ def cg_pipelined_while(matvec, dot2, b, x0, stop2, maxits: int,
     """Pipelined CG (Ghysels/Vanroose; ref acg/cgcuda.c:1676-1788) with
     ONE fused reduction point per iteration: ``dot2(a1, b1, a2, b2)``
     returns (a1·b1, a2·b2).  The port of
-    ``acg_tpu.solvers.loops.cg_pipelined_while`` for one right-hand side.
+    ``acg_tpu.solvers.loops.cg_pipelined_while``: one solve on a loop of
+    its own (:func:`cg_pipelined_loop`, then its ``run``).
 
     Returns ``(x, k, gamma, flag, gamma0, hist)``: ``k`` and ``flag``
     ints (flag 0 running, 1 converged, 3 non-finite caught by the guard),
     ``gamma``/``gamma0`` 0-d tensors (|r|² at exit and at x0), ``hist``
     the ``(maxits+1,)`` history of the recurred gamma, NaN past ``k``,
-    holding the true residual at certification points.
+    holding the true residual at certification points.  A (B, n) ``b``
+    runs the batched loop (:func:`_cg_pipelined_batched`): ``k`` and
+    ``flag`` (B,) int32 tensors, ``gamma``/``gamma0`` (B,), ``hist``
+    (B, maxits+1).  ``stop2`` is the (atol², rtol²) pair of 0-d tensors;
+    the other arguments are :func:`cg_pipelined_loop`'s."""
+    any_crit = bool(stop2[0] > 0) or bool(stop2[1] > 0)
+    return cg_pipelined_loop(
+        matvec, dot2, b, maxits, check_every=check_every,
+        replace_every=replace_every, certify=certify, iter_step=iter_step,
+        guard=guard, segment=segment, monitor_every=monitor_every,
+        graph=graph, any_crit=any_crit).run(x0, stop2, stats)
+
+
+def cg_pipelined_loop(matvec, dot2, b, maxits: int, check_every: int = 1,
+                      replace_every: int = 0, certify: bool = True,
+                      iter_step=None, guard: bool = False, segment: int = 0,
+                      monitor_every: int = 0, graph: bool = False,
+                      any_crit: bool = True, capture_first: bool = False):
+    """The pipelined loop's state, as :func:`cg_loop` makes the classic
+    one's: its ``run(x0, stop2, stats)`` runs one solve of
+    :func:`cg_pipelined_while`, ``.b`` is its right-hand side buffer.
+    ``any_crit`` (a criterion is enabled: an exactly-zero gamma then
+    counts as met) is fixed with the loop; a caller that keeps the loop
+    runs it only at tolerances of the same non-zero-ness.
 
     ``iter_step(z, r, p, w, s, x, alpha, beta, w_out) -> (z', p', s',
     x', r', w', gamma, delta)``, when given, runs the WHOLE body (q = A
@@ -337,8 +426,8 @@ def cg_pipelined_while(matvec, dot2, b, x0, stop2, maxits: int,
     returns (a sticky flag; x, gamma, the history and the count stop
     advancing), and the count is JAX's.
 
-    ``segment``, ``monitor_every``, ``graph``, ``stats``: as
-    :func:`cg_while`.  A (B, n) ``b`` runs the batched loop
+    ``segment``, ``monitor_every``, ``graph``, ``capture_first``: as
+    :func:`cg_loop`.  A (B, n) ``b`` makes the batched loop
     (:func:`_cg_pipelined_batched`), which takes the open-coded body
     only: ``iter_step`` is not batched."""
     if iter_step is not None and replace_every > 0:
@@ -348,20 +437,17 @@ def cg_pipelined_while(matvec, dot2, b, x0, stop2, maxits: int,
             raise ValueError("iter_step (the single-kernel pipelined "
                              "iteration) is not batched; callers gate it "
                              "off for multi-RHS solves")
-        return _cg_pipelined_batched(matvec, dot2, b, x0, stop2, maxits,
-                                     check_every, replace_every, certify,
-                                     guard, segment, monitor_every, graph,
-                                     stats)
+        return _cg_pipelined_batched(matvec, dot2, b, maxits, check_every,
+                                     replace_every, certify, guard, segment,
+                                     monitor_every, graph, any_crit,
+                                     capture_first)
     dev, dt = b.device, b.dtype
-    zero = torch.zeros((), dtype=dt, device=dev)
-    one = torch.ones((), dtype=dt, device=dev)
-    r = b - matvec(x0)
-    w = matvec(r)
-    gamma0, delta0 = dot2(r, r, w, r)
-    atol2, rtol2 = stop2
-    thresh2 = torch.maximum(atol2, rtol2 * gamma0)
-    # an exactly-zero residual is convergence when a criterion is enabled
-    any_crit = bool(atol2 > 0) or bool(rtol2 > 0)
+    zero = _fill((), 0, dt, dev)
+    one = _fill((), 1, dt, dev)
+    nan = _fill((), float("nan"), dt, dev)
+    fresh = _fill((), True, torch.bool, dev)
+    cert_c = (fresh, ~fresh)               # certified: True, False
+    thresh2 = _fill((), 0, dt, dev)
 
     def met(g):
         m = g < thresh2
@@ -396,39 +482,35 @@ def cg_pipelined_while(matvec, dot2, b, x0, stop2, maxits: int,
         hist.index_copy_(0, c.kit.reshape(1), gamma_new.reshape(1))
         return coefficients(gamma_new, delta_new, gamma, alpha, bad)
 
-    fresh = torch.ones((), dtype=torch.bool, device=dev)
-    alpha0, beta0, bad0 = coefficients(gamma0, delta0, gamma0, zero, fresh)
-    hist = torch.full((maxits + 1,), float("nan"), dtype=dt, device=dev)
-    hist[0] = gamma0
+    def scalar(dtype=dt, v=0):
+        return _fill((), v, dtype, dev)
+
+    hist = _fill((maxits + 1,), float("nan"), dt, dev)
     # the carried state: the vectors move in their buffers (w between two
     # under iter_step); the scalars are rebound by a block and (graph)
     # copied back at its end.  a_i, bad_i, g_i: the coefficients and
     # gamma a step started from (a redo after certification needs them)
     c = types.SimpleNamespace(
-        x=x0.clone(), p=torch.zeros_like(b), s=torch.zeros_like(b),
-        z=torch.zeros_like(b), r=r, w=w, gamma=gamma0.clone(),
-        delta=delta0.clone(), alpha=alpha0, beta=beta0, bad=bad0,
-        a_i=zero.clone(), bad_i=fresh.clone(), g_i=gamma0.clone(),
-        gn=gamma0.clone(), dn=delta0.clone(), cand=~fresh,
-        kit=torch.zeros((), dtype=torch.int64, device=dev))
+        x=torch.zeros_like(b), p=torch.zeros_like(b), s=torch.zeros_like(b),
+        z=torch.zeros_like(b), r=torch.zeros_like(b), w=torch.zeros_like(b),
+        gamma=scalar(), delta=scalar(), alpha=scalar(), beta=scalar(),
+        bad=scalar(torch.bool), a_i=scalar(), bad_i=scalar(torch.bool),
+        g_i=scalar(), gn=scalar(), dn=scalar(), cand=scalar(torch.bool),
+        kit=scalar(torch.int64))
     names = ("a_i", "bad_i", "g_i", "gn", "dn", "cand", "alpha", "beta",
              "bad", "gamma", "delta")
-    wbuf = [w, torch.zeros_like(b)] if iter_step is not None else None
-    running = ~met(gamma0)
+    wbuf = [c.w, torch.zeros_like(b)] if iter_step is not None else None
     if guard:
         # what the loop returns, frozen at the first non-finite pair
-        nan = torch.full((), float("nan"), dtype=dt, device=dev)
-        cert_c = (fresh.clone(), ~fresh)    # certified: True, False
-        c.alive = finite(gamma0, delta0)
-        c.x_keep = c.x.clone()
-        c.kdev = torch.zeros((), dtype=torch.int32, device=dev)
-        c.cert_t = fresh.clone()
+        c.alive = scalar(torch.bool)
+        c.x_keep = torch.zeros_like(b)
+        c.kdev = scalar(torch.int32)
+        c.cert_t = scalar(torch.bool)
         names += ("cert_t", "alive")
-        running = running & c.alive
     bufs = _Buffers(c, names, graph)
     mon = _monitor(monitor_every, maxits, dt, dev)
     read = _reader(mon)
-    runner = BlockRunner(dev, graph, stats)
+    runner = BlockRunner(dev, graph, capture_first=capture_first)
 
     def head(check: bool, rep: bool, w_out):
         """A step up to its exit test: the update, a scheduled
@@ -479,90 +561,127 @@ def cg_pipelined_while(matvec, dot2, b, x0, stop2, maxits: int,
         if mon is not None:
             mon.put(c.kit, gamma_new, live)
 
-    k = 0
-    parity = 0
-    certified = True                       # gamma0 is a true residual
-    running = maxits > 0 and bool(running)
-    while running:
-        n, check, rep = block_plan(k, maxits, check_every, segment,
-                                   replace_every)
-        cert = certify and check
-        # with the guard, the step that waits on the certification read
-        # ends after that read
-        late = guard and cert
-
-        def block(n=n, check=check, rep=rep, parity=parity, late=late):
-            for i in range(n):
-                last = i == n - 1
-                head(check and last, rep and last,
-                     wbuf[(parity + i + 1) % 2] if wbuf else None)
-                if guard and not (late and last):
-                    tail(rep and last)
-
-        bufs.commit()
-        runner.run((n, check, rep, parity), bufs.block(block))
-        k += n
+    def run(x0, stop2, stats=None):
+        runner.stats = stats
+        bufs.reset()
         if wbuf:
-            parity = (parity + n) % 2
-        cand = False
-        if cert:
-            # this step's monitor value waits for the redo below
-            cand = read((c.cand & c.alive) if guard else c.cand, k - 1)
-            if cand and not rep:
-                replace_state()
-                gamma_new, delta_new = dot2(c.r, c.r, c.w, c.r)
-                c.gn, c.dn = gamma_new, delta_new
-                if not guard:
-                    c.alpha, c.beta, c.bad = advance(
-                        gamma_new, delta_new, c.g_i, c.a_i, c.bad_i)
-                    c.gamma, c.delta = gamma_new, delta_new
-                    if mon is not None:
-                        mon.put(c.kit, gamma_new)
-        certified = cand or rep
-        if late:
-            tail(certified)
-        if k >= maxits:
-            break
-        if check:
-            # a certified candidate exits on its true gamma
-            stop = cand and (rep or read(met(c.gamma), k))
-            running = not stop and (not guard or read(c.alive, k))
-    if mon is not None:
-        mon.flush(k)
-    x, gamma, delta = c.x, c.gamma, c.delta
-    if guard:
-        x, k = c.x_keep, int(c.kdev)
-    if certify:
-        # the maxits door, off the check schedule, can leave an
-        # uncertified gamma below the threshold: certify that one too
-        # (|b - A x|^2; JAX also forms w = A r, which gamma does not use)
-        need = ((met(gamma) & ~c.cert_t) if guard
-                else not certified and bool(met(gamma)))
-        if bool(need):
-            rt = b - matvec(x)
-            gamma, _ = dot2(rt, rt, rt, rt)
-        hist[k] = gamma
-        flag = _CONVERGED if bool(met(gamma)) else _OK
-    else:
-        flag = _OK                   # no criterion: nothing can be claimed
-    if guard and not bool(finite(gamma, delta)):
-        flag = _FAULT
-    return x, k, gamma, flag, gamma0, hist
+            c.w = wbuf[0]
+        torch.sub(b, matvec(x0), out=c.r)
+        _keep(c.w, matvec(c.r))
+        gamma0, delta0 = dot2(c.r, c.r, c.w, c.r)
+        atol2, rtol2 = stop2
+        torch.maximum(atol2, rtol2 * gamma0, out=thresh2)
+        alpha0, beta0, bad0 = coefficients(gamma0, delta0, gamma0, zero,
+                                           fresh)
+        hist.fill_(float("nan"))
+        hist[0] = gamma0
+        _keep(c.x, x0)
+        for v in (c.p, c.s, c.z):
+            _zero(v)
+        for name, v in (("gamma", gamma0), ("delta", delta0),
+                        ("alpha", alpha0), ("beta", beta0), ("bad", bad0),
+                        ("a_i", zero), ("bad_i", fresh), ("g_i", gamma0),
+                        ("gn", gamma0), ("dn", delta0), ("cand", ~fresh)):
+            getattr(c, name).copy_(v)
+        c.kit.zero_()
+        running = ~met(gamma0)
+        if guard:
+            c.alive.copy_(finite(gamma0, delta0))
+            _keep(c.x_keep, c.x)
+            c.kdev.zero_()
+            c.cert_t.fill_(True)
+            running = running & c.alive
+        if mon is not None:
+            mon.reset()
+        k = 0
+        parity = 0
+        certified = True                   # gamma0 is a true residual
+        running = maxits > 0 and bool(running)
+        while running:
+            n, check, rep = block_plan(k, maxits, check_every, segment,
+                                       replace_every)
+            cert = certify and check
+            # with the guard, the step that waits on the certification
+            # read ends after that read
+            late = guard and cert
+
+            def block(n=n, check=check, rep=rep, parity=parity, late=late):
+                if wbuf:
+                    c.w = wbuf[parity]
+                for i in range(n):
+                    last = i == n - 1
+                    head(check and last, rep and last,
+                         wbuf[(parity + i + 1) % 2] if wbuf else None)
+                    if guard and not (late and last):
+                        tail(rep and last)
+
+            bufs.commit()
+            runner.run((n, check, rep, parity), bufs.block(block))
+            k += n
+            if wbuf:
+                parity = (parity + n) % 2
+            cand = False
+            if cert:
+                # this step's monitor value waits for the redo below
+                cand = read((c.cand & c.alive) if guard else c.cand, k - 1)
+                if cand and not rep:
+                    replace_state()
+                    gamma_new, delta_new = dot2(c.r, c.r, c.w, c.r)
+                    c.gn, c.dn = gamma_new, delta_new
+                    if not guard:
+                        c.alpha, c.beta, c.bad = advance(
+                            gamma_new, delta_new, c.g_i, c.a_i, c.bad_i)
+                        c.gamma, c.delta = gamma_new, delta_new
+                        if mon is not None:
+                            mon.put(c.kit, gamma_new)
+            certified = cand or rep
+            if late:
+                tail(certified)
+            if k >= maxits:
+                break
+            if check:
+                # a certified candidate exits on its true gamma
+                stop = cand and (rep or read(met(c.gamma), k))
+                running = not stop and (not guard or read(c.alive, k))
+        if mon is not None:
+            mon.flush(k)
+        x, gamma, delta = c.x, c.gamma, c.delta
+        if guard:
+            x, k = c.x_keep, int(c.kdev)
+        if certify:
+            # the maxits door, off the check schedule, can leave an
+            # uncertified gamma below the threshold: certify that one
+            # too (|b - A x|^2; JAX also forms w = A r, which gamma does
+            # not use)
+            need = ((met(gamma) & ~c.cert_t) if guard
+                    else not certified and bool(met(gamma)))
+            if bool(need):
+                rt = b - matvec(x)
+                gamma, _ = dot2(rt, rt, rt, rt)
+            hist[k] = gamma
+            flag = _CONVERGED if bool(met(gamma)) else _OK
+        else:
+            flag = _OK               # no criterion: nothing can be claimed
+        if guard and not bool(finite(gamma, delta)):
+            flag = _FAULT
+        return x, k, gamma, flag, gamma0, hist
+
+    return types.SimpleNamespace(b=b, run=run, runner=runner)
 
 
-def _cg_pipelined_batched(matvec, dot2, b, x0, stop2, maxits: int,
-                          check_every: int, replace_every: int,
-                          certify: bool, guard: bool, segment: int = 0,
-                          monitor_every: int = 0, graph: bool = False,
-                          stats=None):
-    """Pipelined CG for B systems against one operator (``b`` and ``x0``
-    of shape (B, n)), the port of ``acg_tpu.solvers.loops``
+def _cg_pipelined_batched(matvec, dot2, b, maxits: int, check_every: int,
+                          replace_every: int, certify: bool, guard: bool,
+                          segment: int = 0, monitor_every: int = 0,
+                          graph: bool = False, any_crit: bool = True,
+                          capture_first: bool = False):
+    """The pipelined loop for B systems against one operator (``b`` of
+    shape (B, n)), the port of ``acg_tpu.solvers.loops``
     ``cg_pipelined_while`` in batched mode (``:669-922``) through the
-    open-coded body.  ``matvec`` and ``dot2`` act per system.
-
-    Returns ``(x, ksys, gamma, flag, gamma0, hist)``: ``ksys`` and
-    ``flag`` (B,) int32 tensors, ``gamma``/``gamma0`` (B,), ``hist`` the
-    (B, maxits+1) history, NaN past each system's exit.
+    open-coded body; ``matvec`` and ``dot2`` act per system.  Its
+    ``run(x0, stop2, stats)`` returns ``(x, ksys, gamma, flag, gamma0,
+    hist)``: ``ksys`` and ``flag`` (B,) int32 tensors, ``gamma``/
+    ``gamma0`` (B,), ``hist`` the (B, maxits+1) history, NaN past each
+    system's exit.
 
     Per system: its own restarts; its ``done`` mask, set by the exit test
     on its certified gamma at the ``check_every`` points (and by a
@@ -576,18 +695,14 @@ def _cg_pipelined_batched(matvec, dot2, b, x0, stop2, maxits: int,
     under ``guard`` x is also selected per system, since a faulted
     system's non-finite p would reach x through 0·p.  The host reads at
     the check points: whether any system is a candidate, then whether
-    all are done.  Blocks as in :func:`cg_while`; the step that waits on
+    all are done.  Blocks as in :func:`cg_loop`; the step that waits on
     a certification read ends after it."""
     dev, dt = b.device, b.dtype
-    zero = torch.zeros((), dtype=dt, device=dev)
-    one = torch.ones((), dtype=dt, device=dev)
-    nan = torch.full((), float("nan"), dtype=dt, device=dev)
-    r = b - matvec(x0)
-    w = matvec(r)
-    gamma0, delta0 = dot2(r, r, w, r)
-    atol2, rtol2 = stop2
-    thresh2 = torch.maximum(atol2, rtol2 * gamma0)
-    any_crit = bool(atol2 > 0) or bool(rtol2 > 0)
+    S = _sys_shape(b)
+    zero = _fill((), 0, dt, dev)
+    one = _fill((), 1, dt, dev)
+    nan = _fill((), float("nan"), dt, dev)
+    thresh2 = _fill(S, 0, dt, dev)
 
     def met(g):
         m = g < thresh2
@@ -600,31 +715,31 @@ def _cg_pipelined_batched(matvec, dot2, b, x0, stop2, maxits: int,
         s = matvec(p)
         return r, w, s, matvec(s)
 
-    fresh = torch.ones_like(gamma0, dtype=torch.bool)
-    hist = torch.full(gamma0.shape + (maxits + 1,), float("nan"), dtype=dt,
-                      device=dev)
-    hist[:, 0] = gamma0
-    # systems converged at x0 are done before the first iteration
+    def vec():
+        return torch.zeros_like(b)
+
+    def per_sys(dtype=dt):
+        return _fill(S, 0, dtype, dev)
+
+    hist = _fill(S + (maxits + 1,), float("nan"), dt, dev)
     c = types.SimpleNamespace(
-        x=x0.clone(), p=torch.zeros_like(b), s=torch.zeros_like(b),
-        z=torch.zeros_like(b), r=r, w=w, gamma=gamma0.clone(),
-        delta=delta0.clone(), gamma_prev=gamma0.clone(),
-        alpha_prev=torch.zeros_like(gamma0), fresh=fresh,
-        certified=fresh.clone(),             # gamma0 is a true residual
-        done=met(gamma0),
-        ksys=torch.zeros(gamma0.shape, dtype=torch.int32, device=dev),
-        kit=torch.zeros((), dtype=torch.int64, device=dev),
-        gn=gamma0.clone(), dn=delta0.clone(), active=~fresh, cand=~fresh,
-        alpha_i=torch.zeros_like(gamma0), bad_i=fresh.clone())
+        x=vec(), p=vec(), s=vec(), z=vec(), r=vec(), w=vec(),
+        gamma=per_sys(), delta=per_sys(), gamma_prev=per_sys(),
+        alpha_prev=per_sys(), fresh=per_sys(torch.bool),
+        certified=per_sys(torch.bool), done=per_sys(torch.bool),
+        ksys=per_sys(torch.int32), kit=_fill((), 0, torch.int64, dev),
+        gn=per_sys(), dn=per_sys(), active=per_sys(torch.bool),
+        cand=per_sys(torch.bool), alpha_i=per_sys(),
+        bad_i=per_sys(torch.bool))
     names = ("gn", "dn", "active", "cand", "alpha_i", "bad_i", "gamma",
              "delta", "gamma_prev", "alpha_prev", "fresh", "certified",
              "done", "ksys")
     if guard:
-        c.x_old = torch.zeros_like(b)
+        c.x_old = vec()
     bufs = _Buffers(c, names, graph)
     mon = _monitor(monitor_every, maxits, dt, dev)
     read = _reader(mon)
-    runner = BlockRunner(dev, graph, stats)
+    runner = BlockRunner(dev, graph, capture_first=capture_first)
 
     def head(check: bool, rep: bool):
         """A step up to its exit candidates."""
@@ -688,51 +803,79 @@ def _cg_pipelined_batched(matvec, dot2, b, x0, stop2, maxits: int,
         if mon is not None:
             mon.put(c.kit, gamma_new.amax(), active.any())
 
-    k = 0
-    running = maxits > 0 and not bool(c.done.all())
-    while running:
-        n, check, rep = block_plan(k, maxits, check_every, segment,
-                                   replace_every)
-        cert = certify and check
+    def run(x0, stop2, stats=None):
+        runner.stats = stats
+        bufs.reset()
+        torch.sub(b, matvec(x0), out=c.r)
+        _keep(c.w, matvec(c.r))
+        gamma0, delta0 = dot2(c.r, c.r, c.w, c.r)
+        atol2, rtol2 = stop2
+        torch.maximum(atol2, rtol2 * gamma0, out=thresh2)
+        hist.fill_(float("nan"))
+        hist[:, 0] = gamma0
+        _keep(c.x, x0)
+        for v in (c.p, c.s, c.z):
+            _zero(v)
+        for name, v in (("gamma", gamma0), ("delta", delta0),
+                        ("gamma_prev", gamma0), ("gn", gamma0),
+                        ("dn", delta0)):
+            getattr(c, name).copy_(v)
+        for v in (c.alpha_prev, c.alpha_i, c.ksys, c.active, c.cand):
+            v.zero_()
+        for v in (c.fresh, c.certified, c.bad_i):   # gamma0 is true
+            v.fill_(True)
+        # systems converged at x0 are done before the first iteration
+        c.done.copy_(met(gamma0))
+        c.kit.zero_()
+        if mon is not None:
+            mon.reset()
+        k = 0
+        running = maxits > 0 and not bool(c.done.all())
+        while running:
+            n, check, rep = block_plan(k, maxits, check_every, segment,
+                                       replace_every)
+            cert = certify and check
 
-        def block(n=n, check=check, rep=rep, cert=cert):
-            for i in range(n):
-                last = i == n - 1
-                head(check and last, rep and last)
-                if not (cert and last):
-                    tail(check and last, rep and last)
+            def block(n=n, check=check, rep=rep, cert=cert):
+                for i in range(n):
+                    last = i == n - 1
+                    head(check and last, rep and last)
+                    if not (cert and last):
+                        tail(check and last, rep and last)
 
-        bufs.commit()
-        runner.run((n, check, rep), bufs.block(block))
-        k += n
-        if cert:
-            if not rep and read(c.cand.any(), k - 1):
-                certify_candidates()
-            tail(True, rep)
-        if k >= maxits:
-            break
-        if check:
-            running = not read(c.done.all(), k)
-    if mon is not None:
-        mon.flush(k)
-    gamma, ksys = c.gamma, c.ksys
-    if certify:
-        # the maxits door, off the check schedule, can leave an
-        # uncertified gamma below the threshold: certify those too
-        need = met(gamma) & ~c.certified
-        if bool(need.any()):
-            rt = b - matvec(c.x)
-            g, _ = dot2(rt, rt, rt, rt)
-            gamma = torch.where(need, g, gamma)
-        # each system's last sample is its certified exit value
-        hist[torch.arange(gamma.shape[0], device=dev), ksys.long()] = gamma
-        flag = torch.where(met(gamma), _CONVERGED, _OK).to(torch.int32)
-    else:
-        flag = torch.full(gamma.shape, _OK, dtype=torch.int32, device=dev)
-    if guard:
-        flag = torch.where(torch.isfinite(gamma) & torch.isfinite(c.delta),
-                           flag, _FAULT).to(torch.int32)
-    return c.x, ksys, gamma, flag, gamma0, hist
+            bufs.commit()
+            runner.run((n, check, rep), bufs.block(block))
+            k += n
+            if cert:
+                if not rep and read(c.cand.any(), k - 1):
+                    certify_candidates()
+                tail(True, rep)
+            if k >= maxits:
+                break
+            if check:
+                running = not read(c.done.all(), k)
+        if mon is not None:
+            mon.flush(k)
+        gamma, ksys = c.gamma, c.ksys
+        if certify:
+            # the maxits door, off the check schedule, can leave an
+            # uncertified gamma below the threshold: certify those too
+            need = met(gamma) & ~c.certified
+            if bool(need.any()):
+                rt = b - matvec(c.x)
+                g, _ = dot2(rt, rt, rt, rt)
+                gamma = torch.where(need, g, gamma)
+            # each system's last sample is its certified exit value
+            hist[torch.arange(gamma.shape[0], device=dev), ksys.long()] = gamma
+            flag = torch.where(met(gamma), _CONVERGED, _OK).to(torch.int32)
+        else:
+            flag = torch.full(gamma.shape, _OK, dtype=torch.int32, device=dev)
+        if guard:
+            flag = torch.where(torch.isfinite(gamma) & torch.isfinite(c.delta),
+                               flag, _FAULT).to(torch.int32)
+        return c.x, ksys, gamma, flag, gamma0, hist
+
+    return types.SimpleNamespace(b=b, run=run, runner=runner)
 
 
 # ---------------------------------------------------------------------------
@@ -877,13 +1020,18 @@ def _zero(v) -> None:
         t.zero_()
 
 
-def deep_buffers(b, l: int, maxits: int, graph: bool = False, stats=None):
+def deep_buffers(b, l: int, maxits: int, graph: bool = False, stats=None,
+                 capture_first: bool = False):
     """The buffers one deep-pipelined solve's dispatches share: the rings
-    of vectors (z: 2l+1, v: 2l), x and q, the scalar state of
-    :func:`acg_torch.ops.deep_coeffs.deep_coeffs` and the solve's
-    ``BlockRunner``, so every dispatch's blocks launch on the same
-    addresses and one set of captures serves the whole solve.  ``b``:
-    the right-hand side, (n,) or (B, n), or per-shard vectors."""
+    of vectors (z: 2l+1, v: 2l), x and q, the fill chain's shifts
+    (``shifts``, ([B,] l): a solve writes its own there and passes this
+    tensor as the loop's ``shifts``), the scalar state of
+    :func:`acg_torch.ops.deep_coeffs.deep_coeffs`, the pinned word of the
+    one-body-late read and the solve's ``BlockRunner``, so every
+    dispatch's blocks launch on the same addresses and one set of
+    captures serves the whole solve (and, kept, later solves:
+    ``capture_first`` as :class:`BlockRunner`).  ``b``: the right-hand
+    side, (n,) or (B, n), or per-shard vectors."""
     w = 2 * l + 1
     dev, dt = b.device, b.dtype
     S = tuple((b if isinstance(b, torch.Tensor) else b[0]).shape[:-1])
@@ -901,8 +1049,8 @@ def deep_buffers(b, l: int, maxits: int, graph: bool = False, stats=None):
                                               v=float("nan")),
         co=full(S + (w + NCO,)), commit=full(S, torch.bool),
         act=full(S, torch.bool), live=full((), torch.bool),
-        kmon=full((), torch.int32),
-        runner=BlockRunner(dev, graph, stats),
+        kmon=full((), torch.int32), shifts=full(S + (l,)),
+        runner=BlockRunner(dev, graph, stats, capture_first),
         lag=(torch.empty((), dtype=torch.bool, pin_memory=True)
              if dev.type == "cuda" else None))
 

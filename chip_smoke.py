@@ -440,6 +440,8 @@ def main(argv=None) -> int:
         ("graph-loop", lambda: _graph_phase(ctx),
          ("stencil", "pipelined-dia-bf16", "batched-stencil",
           "dist-setup")),
+        ("serve", lambda: _serve_phase(ctx), ("dist-setup", "stencil")),
+        ("cli-serve", lambda: _cli_serve_phase(cli_grid), ()),
         ("profile", lambda: _profile_phase(ctx), ()),
     ]
     run = _selected(phases, args.only)
@@ -1877,6 +1879,20 @@ def _replace_solve(G: int, ctx):
 # phase 6
 
 
+def _cli_main(argv):
+    """``acg_torch.cli.main(argv)`` in this process (no interpreter start
+    is timed): (exit code, stdout, stderr)."""
+    import contextlib
+    import io
+
+    from acg_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
 def _cli_phase(G: int, solver: str = "acg", nrhs: int = 1):
     from acg_torch.io.mtxfile import MtxFile, write_mtx
     from acg_torch.sparse.poisson import poisson3d_7pt
@@ -1888,15 +1904,12 @@ def _cli_phase(G: int, solver: str = "acg", nrhs: int = 1):
         path = os.path.join(tmp, "A.mtx")
         write_mtx(path, MtxFile(nrows=A.nrows, ncols=A.ncols, nnz=A.nnz,
                                 rowidx=r, colidx=c, vals=v))
-        env = dict(os.environ, PYTHONPATH=str(REPO))
-        out = subprocess.run(
-            [sys.executable, "-m", "acg_torch.cli", path, "--solver", solver,
-             "--nrhs", str(nrhs), "--manufactured-solution",
-             "--max-iterations", "2000", "-v", "-q"],
-            capture_output=True, text=True, env=env, cwd=REPO, timeout=600)
-    stats = out.stdout
+        rc, stats, log = _cli_main(
+            [path, "--solver", solver, "--nrhs", str(nrhs),
+             "--manufactured-solution", "--max-iterations", "2000", "-v",
+             "-q"])
     # -v logs the wrapper counts of the timed solve, zeroed just before it
-    launches = _cli_launches(out.stderr)
+    launches = _cli_launches(log)
     pipelined = solver == "acg-pipelined"
     if nrhs > 1:
         kernel, loop_kernel = "cuda-stencil-batched", "stencil_spmv_batched"
@@ -1904,18 +1917,18 @@ def _cli_phase(G: int, solver: str = "acg", nrhs: int = 1):
         kernel, loop_kernel = "cuda-stencil-pipe", "cg_pipelined_iter_stencil"
     else:
         kernel, loop_kernel = "cuda-stencil-fused", "stencil_spmv"
-    ok = (out.returncode == 0 and f"kernel: {kernel}\n" in stats
+    ok = (rc == 0 and f"kernel: {kernel}\n" in stats
           and "floating-point exceptions: none" in stats
           and launches is not None and launches[loop_kernel] > 0)
     if nrhs > 1:
         ok = ok and f"right-hand sides (batched): {nrhs}" in stats
     if not ok:
-        raise SystemExit(f"error: CLI run failed (exit {out.returncode}):\n"
-                         f"{out.stdout}\n{out.stderr}")
+        raise SystemExit(f"error: CLI run failed (exit {rc}):\n"
+                         f"{stats}\n{log}")
     its = [ln.split(":")[1].strip() for ln in stats.splitlines()
            if ln.strip().startswith("iterations:")]
     return {"grid": [G, G, G], "solver": solver, "nrhs": nrhs,
-            "exit": out.returncode,
+            "exit": rc,
             "iterations": int(its[0]) if its else None,
             "launches": launches,
             "kernel_line": [ln.strip() for ln in stats.splitlines()
@@ -2729,7 +2742,7 @@ def _batched_fem(nrhs: int, ctx):
 
 
 def _cli_fem_phase(points: int):
-    """``python -m acg_torch.cli`` on a shuffled 3-D mesh .mtx of
+    """The CLI's ``main`` (in this process) on a shuffled 3-D mesh .mtx of
     ``points`` points, at f32 (auto: RCM + sgell) and at f64 (auto: ELL):
     exit 0, the stats block names the tier and kernel, and the -v launch
     line shows the kernel ran."""
@@ -2744,34 +2757,29 @@ def _cli_fem_phase(points: int):
         path = os.path.join(tmp, "mesh.mtx")
         write_mtx(path, MtxFile(nrows=A.nrows, ncols=A.ncols, nnz=A.nnz,
                                 rowidx=r, colidx=c, vals=v))
-        env = dict(os.environ, PYTHONPATH=str(REPO))
         for dtype, rtol, fmt, kernel in (
                 ("float32", "1e-6", "rcm+sgell", "sgell_spmv"),
                 ("float64", "1e-9", "ell", "ell_spmv")):
-            run = subprocess.run(
-                [sys.executable, "-m", "acg_torch.cli", path, "--dtype",
-                 dtype, "--residual-rtol", rtol, "--manufactured-solution",
-                 "--max-iterations", "2000", "-v", "-q"],
-                capture_output=True, text=True, env=env, cwd=REPO,
-                timeout=600)
-            stats = run.stdout
-            launches = _cli_launches(run.stderr)
+            rc, stats, log = _cli_main(
+                [path, "--dtype", dtype, "--residual-rtol", rtol,
+                 "--manufactured-solution", "--max-iterations", "2000",
+                 "-v", "-q"])
+            launches = _cli_launches(log)
             tier = fmt.split("+")[-1]
-            ok = (run.returncode == 0
+            ok = (rc == 0
                   and f"operator format: {fmt}\n" in stats
                   and f"kernel: cuda-{tier}-spmv\n" in stats
                   and "floating-point exceptions: none" in stats
                   and launches is not None and launches[kernel] > 0)
             if not ok:
-                raise SystemExit(f"error: CLI run failed (exit "
-                                 f"{run.returncode}):\n{run.stdout}\n"
-                                 f"{run.stderr}")
+                raise SystemExit(f"error: CLI run failed (exit {rc}):\n"
+                                 f"{stats}\n{log}")
             its = [ln.split(":")[1].strip() for ln in stats.splitlines()
                    if ln.strip().startswith("iterations:")]
-            out[dtype] = {"exit": run.returncode,
+            out[dtype] = {"exit": rc,
                           "iterations": int(its[0]) if its else None,
                           "operator_line": [
-                              ln.strip() for ln in run.stderr.splitlines()
+                              ln.strip() for ln in log.splitlines()
                               if ln.startswith("operator:")],
                           "launches": launches}
     return out
@@ -4524,6 +4532,264 @@ def _graph_phase(ctx):
         raise SystemExit(f"error: graph loop differs from the open loop "
                          f"in {bad}: {json.dumps(out, default=str)}")
     return out
+
+
+def _serve_phase(ctx):
+    """The serve path (``acg_torch/serve/``) on the stencil phase's 256^3
+    f64 operator: one ``Session`` (the operator as built there) and
+    ``SolverService``s with ``max_batch=8, buckets=(1, 4, 8)``, each
+    request's response required ``ok``.  Classic 1-D: a request cold (the
+    signature's state built, its blocks captured), the same request warm
+    (no capture, no warm-up block: ``ncaptures == nloopopen == 0``), bit
+    for bit the ordinary ``cg`` on the card, µs/iter of all three.
+    Coalescing: 8 requests submitted from 8 threads (a service that waits
+    for batch-mates) run as ONE bucket-8 dispatch (the bucket's first, so
+    its captures happen while seven threads wait), each demuxed result bit
+    for bit the same request served alone through bucket 8 (padded with
+    its replicas; no capture there) and certified on the card within 10 x
+    rtol.  Pipelined (``replace_every=50``) and deep (depth 2,
+    ``replace_every=50``): cold then warm, the same checks, the deep solve
+    making no capture in any of its warm dispatches.  Shards: the
+    dist-stencil-rdma system (4 on one card) through its own session,
+    classic, cold then warm, bits against ``cg_dist``.  Each signature's
+    device memory (``torch.cuda.memory_allocated`` around its cold
+    dispatch) and what ``Session.close`` gives back are printed; the
+    ordinary solves run first, so the workspaces the libraries keep a
+    stream are made before the first reading.  The 8 right-hand sides are A x_i, x_i
+    normal from seeds 190-197."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from acg_torch.config import SolverOptions
+    from acg_torch.serve import Session, SolverService
+    from acg_torch.serve.queue import demux_result
+    from acg_torch.solvers.cg import cg, cg_pipelined, cg_pipelined_deep
+    from acg_torch.solvers.cg_dist import cg_dist
+
+    op, b, _ = ctx["stencil_case"]
+    rtol = 1e-8
+    o_cg = SolverOptions(maxits=20000, residual_rtol=rtol)
+    o_pipe = SolverOptions(maxits=20000, residual_rtol=rtol, replace_every=50)
+    o_deep = SolverOptions(maxits=20000, residual_rtol=rtol,
+                           pipeline_depth=_DEEP["depth"],
+                           replace_every=_DEEP["replace_every"])
+    ss = ctx["dist"]["ss"].with_halo("rdma")
+
+    def mem() -> int:
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    def bits(r1, r2) -> bool:
+        return (r1.niterations == r2.niterations
+                and bool(np.array_equal(r1.x, r2.x))
+                and bool(np.array_equal(r1.residual_history,
+                                        r2.residual_history,
+                                        equal_nan=True)))
+
+    def timing(res) -> dict:
+        st = res.stats
+        return {"wall_s": st.tsolve,
+                "us_per_iter": st.tsolve / max(res.niterations, 1) * 1e6,
+                "captures": st.ncaptures, "replays": st.nreplays,
+                "blocks_from_the_host": st.nloopopen,
+                "capture_seconds": st.tcapture}
+
+    out, bad = {}, []
+    # the ordinary solves first: they also make what the card's libraries
+    # allocate once a stream (cuBLAS workspaces), so the memory the
+    # sessions hold and free is measured from after them
+    refs = {"classic": cg(op, b, options=o_cg),
+            "pipelined": cg_pipelined(op, b, options=o_pipe),
+            "deep": cg_pipelined_deep(op, b, options=o_deep),
+            "dist": cg_dist(ss, b, options=o_cg)}
+
+    def cold_warm(name, svc, rhs):
+        m0 = mem()
+        _reset_counts()
+        cold = svc.solve(rhs)
+        m1 = mem()
+        warm = svc.solve(rhs)
+        launches = _read_counts(ctx, f"serve-{name}")
+        ref = refs[name]
+        ok = cold.ok and warm.ok
+        rep = {"iterations": warm.result.niterations if ok else None,
+               "kernel": warm.result.kernel if ok else None,
+               "kernel_note": warm.result.kernel_note if ok else None,
+               "cache_hit": [cold.cache_hit, warm.cache_hit],
+               "resident_bytes": m1 - m0, "launches_cold_and_warm": launches,
+               "status": [cold.status, warm.status]}
+        if ok:
+            rep.update(cold=timing(cold.result), warm=timing(warm.result),
+                       ordinary=timing(ref),
+                       bits_equal=bits(warm.result, ref)
+                       and bits(cold.result, ref),
+                       # the shards' x in the global ordering: the same
+                       # matrix as the one-card operator's
+                       true_relative_residual=_true_residual(
+                           op, warm.result.x, rhs))
+        if not (ok and rep["bits_equal"] and not cold.cache_hit
+                and warm.cache_hit and rep["warm"]["captures"] == 0
+                and rep["warm"]["blocks_from_the_host"] == 0
+                and rep["cold"]["captures"] >= 1
+                and warm.result.loop == "graph"):
+            bad.append(name)
+        out[name] = rep
+
+    mem0 = mem()
+    sess = Session(op, options=o_cg, device="cuda", share_prepared=False)
+    kw = dict(max_batch=8, buckets=(1, 4, 8))
+    svc = SolverService(sess, solver="cg", options=o_cg, **kw)
+    cold_warm("classic", svc, b)
+
+    # 8 threads, one bucket-8 dispatch: a service that waits for
+    # batch-mates (the 8th submit dispatches on its thread); b_i = A x_i
+    svc8 = SolverService(sess, solver="cg", options=o_cg,
+                         max_wait_ms=120_000.0, **kw)
+    vdt = getattr(torch, op.vec_dtype)
+    rhs = []
+    for i in range(8):
+        xi = torch.zeros(op.nrows_padded, dtype=vdt, device="cuda")
+        xi[: op.nrows] = torch.from_numpy(
+            np.random.default_rng(190 + i).standard_normal(op.nrows))
+        rhs.append(op.matvec(xi)[: op.nrows].cpu().numpy())
+    resps = [None] * 8
+    gate = threading.Barrier(8)
+
+    def client(i):
+        gate.wait()
+        resps[i] = svc8.submit(rhs[i]).response()
+
+    batches0 = svc8.queue.counters["batches"]
+    m0 = mem()
+    _reset_counts()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    launches8 = _read_counts(ctx, "serve-coalesced")
+    m8 = mem()
+    nbatches = svc8.queue.counters["batches"] - batches0
+    entry = sess.executable(solver="cg", nrhs=8)
+    coal = {"batches": nbatches, "resident_bytes": m8 - m0,
+            "batch_sizes": [r.batch_size for r in resps],
+            "buckets": [r.bucket for r in resps],
+            "statuses": [r.status for r in resps],
+            "captures_of_the_dispatch": entry.ncaptures,
+            "launches": launches8}
+    ok8 = (nbatches == 1 and all(r.ok for r in resps)
+           and all(r.bucket == 8 and r.batch_size == 8 for r in resps))
+    if ok8:
+        coal["dispatch_wall_s"] = resps[0].wall
+        coal["us_per_iter"] = (resps[0].result.stats.tsolve
+                               / max(r.result.niterations for r in resps)
+                               * 1e6)
+        alone, same, certified, warm_caps = [], [], [], []
+        for i, (r, bi) in enumerate(zip(resps, rhs)):
+            res = sess.solve(np.stack([bi] * 8), solver="cg", options=o_cg)
+            warm_caps.append(res.stats.ncaptures)
+            alone.append(res.stats.tsolve)
+            same.append(bits(r.result, demux_result(
+                res, 0, float(np.linalg.norm(bi)))))
+            certified.append(_true_residual(op, r.result.x, bi))
+        coal.update(bits_equal=same, true_relative_residual=certified,
+                    alone_captures=warm_caps, alone_wall_s=alone,
+                    iterations=[r.result.niterations for r in resps])
+        ok8 = (all(same) and max(certified) <= 10 * rtol
+               and not any(warm_caps) and entry.ncaptures >= 1)
+    if not ok8:
+        bad.append("coalesced")
+    out["coalesced"] = coal
+
+    cold_warm("pipelined", SolverService(sess, solver="cg-pipelined",
+                                         options=o_pipe, **kw), b)
+    cold_warm("deep", SolverService(sess, solver="cg-pipelined-deep",
+                                    options=o_deep, **kw), b)
+    sess_d = Session(ss, options=o_cg, share_prepared=False)
+    cold_warm("dist", SolverService(sess_d, solver="cg", options=o_cg, **kw),
+              b)
+    held = mem()
+    stats = svc.stats()["session"]
+    sess_d.close()
+    sess.close()
+    left = mem() - mem0
+    out["session"] = {"cache": stats["cache"], "signatures":
+                      stats["signatures"], "walls": stats["walls"],
+                      "solves": stats["solves"]}
+    out["memory"] = {"held_before_close": held - mem0,
+                     "left_after_close": left}
+    # every signature's state comes back with close(): what stays is
+    # under half the smallest state, the libraries' workspaces that the
+    # client thread's handle made for the streams it met (the coalesced
+    # dispatch runs on a client thread; the card tests hold close() to
+    # 1 MiB in one thread)
+    smallest = min(out[k]["resident_bytes"]
+                   for k in ("classic", "pipelined", "deep", "dist"))
+    if left >= smallest // 2:
+        bad.append("memory")
+    out["bits_equal"] = not bad
+    if bad:
+        raise SystemExit(f"error: serve phase failed in {bad}: "
+                         f"{json.dumps(out, default=str)}")
+    return out
+
+
+def _cli_serve_phase(G: int):
+    """``acg_torch.cli.main`` with ``--serve`` on the 48^3 Poisson .mtx,
+    in this process: a command file with ``solve``, ``batch 4``,
+    ``stats``, a right-hand side of the wrong length (refused at
+    admission, its own JSON line) and ``quit``.  One JSON line a request
+    (5 solved, 1 refused), the stats line, exit code 1 (a request
+    failed, the refused one)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from acg_torch import cli
+    from acg_torch.io.mtxfile import MtxFile, vector_to_mtx, write_mtx
+    from acg_torch.obs.metrics import disable_metrics
+    from acg_torch.sparse.poisson import poisson3d_7pt
+
+    A = poisson3d_7pt(G)
+    r, c, v = A.to_coo()
+    (REPO / "build").mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    out, err = io.StringIO(), io.StringIO()
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        path = os.path.join(tmp, "A.mtx")
+        write_mtx(path, MtxFile(nrows=A.nrows, ncols=A.ncols, nnz=A.nnz,
+                                rowidx=r, colidx=c, vals=v))
+        short = os.path.join(tmp, "short.mtx")
+        write_mtx(short, vector_to_mtx(np.ones(7)))
+        cmds = os.path.join(tmp, "requests.txt")
+        with open(cmds, "w") as f:
+            f.write(f"solve\nbatch 4\nstats\nsolve {short}\nquit\n")
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main([path, "--serve", cmds, "--manufactured-solution",
+                           "--max-iterations", "2000", "--metrics", "-v"])
+    # --metrics turned the process registry on; the later phases run
+    # without it, as before
+    disable_metrics()
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines()
+             if ln.startswith("{")]
+    reqs = [d for d in lines if "request" in d]
+    stats = [d for d in lines if "session" in d]
+    solved = [d for d in reqs if d["ok"]]
+    refused = [d for d in reqs if not d["ok"]]
+    ok = (rc == 1 and len(solved) == 5 and len(refused) == 1
+          and refused[0]["status"] == "ERR_INVALID_VALUE"
+          and [d["bucket"] for d in solved] == [1, 4, 4, 4, 4]
+          and len(stats) == 1
+          and stats[0]["queue"]["batches"] == 2)
+    if not ok:
+        raise SystemExit(f"error: CLI serve run failed (exit {rc}):\n"
+                         f"{out.getvalue()}\n{err.getvalue()}")
+    return {"grid": [G] * 3, "exit": rc, "requests": reqs,
+            "cache": stats[0]["session"]["cache"],
+            "wall_s": time.perf_counter() - t0}
 
 
 def _device_us(evt) -> float:

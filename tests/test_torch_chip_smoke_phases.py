@@ -35,7 +35,7 @@ def test_no_arguments_runs_every_phase(monkeypatch):
     assert rc == 2
     assert run == every and len(every) == len(set(every))
     for name in ("kernels", "sstep-stencil", "deep-stencil", "cli-petsc",
-                 "dist-wire", "profile"):
+                 "dist-wire", "serve", "cli-serve", "profile"):
         assert name in every
 
 
@@ -58,6 +58,9 @@ def test_no_arguments_runs_every_phase(monkeypatch):
       "graph-loop"]),
     ("kernels",
      ["p3d-464", "p2d-10k", "dist-setup", "fem3d-1m", "kernels"]),
+    ("serve", ["dist-setup", "stencil", "serve"]),
+    ("serve,cli-serve", ["dist-setup", "stencil", "serve", "cli-serve"]),
+    ("cli-serve", ["cli-serve"]),
 ])
 def test_only_adds_what_a_phase_is_held_against(monkeypatch, only, want):
     rc, run, _every = _run(monkeypatch, ["--only", only])

@@ -2387,3 +2387,170 @@ def test_graph_loop_on_two_devices_raises(card):
     assert ei.value.status == Status.ERR_NOT_SUPPORTED
     res = cg_sstep_dist(ss, b, options=o)
     assert res.loop == "open" and "shards on 2 cards" in res.kernel_note
+
+
+# ---------------------------------------------------------------------------
+# the serve path: resident solves kept across dispatches
+
+
+def _bits(r1, r2) -> None:
+    assert r1.niterations == r2.niterations
+    np.testing.assert_array_equal(r1.x, r2.x)
+    np.testing.assert_array_equal(r1.residual_history, r2.residual_history)
+
+
+_SERVE_CASES = {
+    "classic": ("cg", 0, dict(maxits=600, residual_rtol=1e-10)),
+    "classic-check3-b4": ("cg", 4, dict(maxits=600, residual_rtol=1e-10,
+                                        check_every=3)),
+    "pipelined": ("cg-pipelined", 0, dict(maxits=600, residual_rtol=1e-10)),
+    "pipelined-replace-b4": ("cg-pipelined", 4,
+                             dict(maxits=600, residual_rtol=1e-10,
+                                  replace_every=10, check_every=2)),
+    "deep": ("cg-pipelined-deep", 0,
+             dict(maxits=600, residual_rtol=1e-10, pipeline_depth=2,
+                  replace_every=25)),
+    "deep-b3": ("cg-pipelined-deep", 3,
+                dict(maxits=600, residual_rtol=1e-10, pipeline_depth=3,
+                     replace_every=30, check_every=2)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SERVE_CASES))
+def test_serve_warm_dispatch_replays_with_the_ordinary_bits(card, case):
+    """A warm dispatch of a resident solve captures nothing and runs no
+    warm-up block; cold and warm give the ordinary solver's bits on the
+    card, for a new b too."""
+    from acg_torch.serve import Session
+    from acg_torch.solvers.cg import cg_pipelined_deep
+
+    solver, nrhs, o = _SERVE_CASES[case]
+    o = SolverOptions(**o)
+    plain = {"cg": cg, "cg-pipelined": cg_pipelined,
+             "cg-pipelined-deep": cg_pipelined_deep}[solver]
+    A = poisson.poisson3d_7pt(16)
+    rng = np.random.default_rng(19)
+    shape = (nrhs, A.nrows) if nrhs else (A.nrows,)
+    b1, b2 = rng.standard_normal(shape), rng.standard_normal(shape)
+    s = Session(A, options=o, device=card, share_prepared=False)
+    cold = s.solve(b1, solver=solver)
+    warm = s.solve(b1, solver=solver)
+    assert cold.stats.ncaptures >= 1 and cold.loop == "graph"
+    assert warm.stats.ncaptures == 0 and warm.stats.nloopopen == 0
+    assert warm.stats.nreplays >= 1
+    ref = plain(A, b1, options=o)
+    _bits(cold, ref)
+    _bits(warm, ref)
+    _bits(s.solve(b2, solver=solver), plain(A, b2, options=o))
+    s.close()
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_serve_warm_dispatch_on_shards(card, pipelined):
+    """Four shards on the one card under rdma: the resident solve's warm
+    dispatch captures nothing and gives cg_dist's bits."""
+    from acg_torch.serve import Session
+    from acg_torch.solvers.cg_dist import (build_sharded, cg_dist,
+                                           cg_pipelined_dist)
+
+    A = poisson.poisson3d_7pt(12)
+    b = A.matvec(np.random.default_rng(5).standard_normal(A.nrows))
+    ss = build_sharded(A, nparts=4, devices=[card] * 4, method="rdma")
+    o = SolverOptions(maxits=600, residual_rtol=1e-10, check_every=4)
+    kind = "cg-pipelined" if pipelined else "cg"
+    s = Session(ss, options=o, share_prepared=False)
+    s.solve(b, solver=kind)
+    warm = s.solve(b, solver=kind)
+    assert warm.stats.ncaptures == 0 and warm.stats.nloopopen == 0
+    _bits(warm, (cg_pipelined_dist if pipelined else cg_dist)(ss, b,
+                                                               options=o))
+
+
+def test_serve_two_signatures_share_one_pool(card):
+    """Two resident signatures (1-D and bucket 8) held warm at once on
+    the device's one graph pool, their dispatches interleaved: neither's
+    replays disturb the other's intermediates, each gives the ordinary
+    bits, and neither captures after its first dispatch."""
+    from acg_torch.serve import Session
+
+    A = poisson.poisson3d_7pt(16)
+    rng = np.random.default_rng(23)
+    o = SolverOptions(maxits=600, residual_rtol=1e-10, check_every=2)
+    s = Session(A, options=o, device=card, share_prepared=False)
+    for turn in range(3):
+        b1 = rng.standard_normal(A.nrows)
+        b8 = rng.standard_normal((8, A.nrows))
+        r1, r8 = s.solve(b1), s.solve(b8)
+        if turn:
+            assert r1.stats.ncaptures == 0 and r8.stats.ncaptures == 0
+        _bits(r1, cg(A, b1, options=o))
+        _bits(r8, cg(A, b8, options=o))
+    assert s.stats()["signatures"] == 2
+    s.close()
+
+
+def test_serve_threads_submit_during_captures(card):
+    """16 threads submit through one service: the first 8 coalesce into
+    the cold bucket-8 dispatch, whose blocks are captured on the
+    dispatching thread while the other threads wait or submit the next
+    batch; every response is ok and bit for bit the request served alone
+    through bucket 8."""
+    import threading
+
+    from acg_torch.serve import Session, SolverService
+
+    A = poisson.poisson3d_7pt(16)
+    o = SolverOptions(maxits=600, residual_rtol=1e-10)
+    s = Session(A, options=o, device=card, share_prepared=False)
+    svc = SolverService(s, options=o, max_batch=8, max_wait_ms=60_000.0,
+                        buckets=(1, 4, 8))
+    rhs = [np.random.default_rng(40 + i).standard_normal(A.nrows)
+           for i in range(16)]
+    resps = [None] * 16
+    gate = threading.Barrier(16)
+
+    def client(i):
+        gate.wait()
+        resps[i] = svc.submit(rhs[i]).response()
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(16)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert svc.queue.counters["batches"] == 2
+    assert all(r.ok and r.bucket == 8 for r in resps)
+    for r, bi in zip(resps, rhs):
+        alone = s.solve(np.stack([bi] * 8))
+        assert alone.stats.ncaptures == 0
+        assert r.result.niterations == int(alone.iterations_per_system[0])
+        np.testing.assert_array_equal(r.result.x, alone.x[0])
+    svc.close()
+    s.close()
+
+
+def test_serve_close_returns_the_resident_memory(card):
+    """close() frees what the resident solves held: their buffers and
+    their captures."""
+    import gc
+
+    from acg_torch.serve import Session
+
+    A = poisson.poisson3d_7pt(24)
+    o = SolverOptions(maxits=600, residual_rtol=1e-10)
+    s = Session(A, options=o, device=card, share_prepared=False)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    b = np.random.default_rng(3).standard_normal((8, A.nrows))
+    for solver in ("cg", "cg-pipelined"):
+        s.solve(b, solver=solver)
+        s.solve(b[0], solver=solver)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    # the buckets' vectors at least: b, x, r, p of the (8, n) classic
+    assert held >= 4 * b.size * 8
+    s.close()
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - before <= 1 << 20
