@@ -43,6 +43,14 @@ cpu`` they share the CPU.  ``--serve FILE`` prepares the operator
 once and serves requests from a file of commands through the serve
 stack (``acg_torch/serve/``: resident solves, the coalescing queue, the
 admission layer), one JSON line a request.
+Introspection: ``--explain`` prints the counted CommAudit and the
+roofline before the solve (``acg_torch/obs/audit.py``,
+``obs/roofline.py``, ``--hbm-gbps``), ``--per-op-stats`` fills the per-op
+table (``utils/profile.py``), ``--output-stats-json`` writes the stats
+document (``obs/export.py``, also for a failed solve), ``--trace-json``
+the host phase spans as a Chrome trace and ``--profile DIR`` a
+``torch.profiler`` trace of the solve; ``--version`` prints the
+capability matrix.
 
 Run: ``python -m acg_torch.cli A.mtx --manufactured-solution -v``
 """
@@ -50,12 +58,12 @@ Run: ``python -m acg_torch.cli A.mtx --manufactured-solution -v``
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
 import numpy as np
 
-from acg_torch import __version__
 from acg_torch.config import SolverOptions
 from acg_torch.errors import AcgError, Status
 from acg_torch.io.mtxfile import read_mtx, vector_to_mtx, write_mtx
@@ -79,6 +87,13 @@ def make_parser() -> argparse.ArgumentParser:
                    help="optional Matrix Market file for right-hand side b")
     p.add_argument("x0", nargs="?", default=None,
                    help="optional Matrix Market file for initial guess x0")
+    # -z is accepted so reference command lines run unchanged (ref
+    # cuda/acg-cuda.c usage "-z, --gzip ... filter files through gzip"); a
+    # no-op: gzip input is recognized by its magic bytes
+    p.add_argument("-z", "--gzip", "--gunzip", "--ungzip",
+                   action="store_true", dest="gzip",
+                   help="accepted for reference compatibility; gzip input "
+                        "is recognized, so this is a no-op")
     p.add_argument("--binary", action="store_true",
                    help="read Matrix Market files in binary format")
     p.add_argument("--seed", type=int, default=0, help="random seed [0]")
@@ -116,6 +131,8 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--residual-atol", type=float, default=0.0, metavar="TOL")
     p.add_argument("--residual-rtol", type=float, default=1e-9,
                    metavar="TOL")
+    p.add_argument("--epsilon", type=float, default=0.0, metavar="TOL",
+                   help="add TOL to the diagonal of A [0]")
     p.add_argument("--warmup", type=int, default=1, metavar="N",
                    help="perform N warmup solves before the timed solve, so "
                         "tsolve excludes kernel builds and first-touch "
@@ -181,9 +198,18 @@ def make_parser() -> argparse.ArgumentParser:
                         "stencil errors unless the matrix is a verified "
                         "constant-coefficient grid stencil; sgell needs "
                         "--dtype float32")
+    p.add_argument("--cusparse-spmv-alg", default=None, metavar="ALG",
+                   type=str.lower, choices=["default", "csr-1", "csr-2"],
+                   help="reference compatibility (ref cuda/acg-cuda.c:714, "
+                        "the cuSPARSE algorithm selector, the same choices, "
+                        "any case): accepted with a note; the port's SpMV "
+                        "kernels are its own, chosen by --format")
     p.add_argument("--dtype", default="float64",
                    choices=["float32", "float64"],
                    help="value precision [float64]")
+    p.add_argument("--idx-size", type=int, default=32, choices=[32, 64],
+                   help="column-index width of the host matrix, the "
+                        "acgidx_t analog (ref acg/config.h) [32]")
     p.add_argument("--mat-precision", default="auto",
                    choices=["auto", "same", "bfloat16", "float32", "int8"],
                    help="operator STORAGE precision (compute stays at "
@@ -193,10 +219,44 @@ def make_parser() -> argparse.ArgumentParser:
                         "into mixed-precision CG [auto]")
     p.add_argument("--manufactured-solution", action="store_true",
                    help="use a manufactured solution and right-hand side")
+    p.add_argument("--no-manufactured-solution", action="store_false",
+                   dest="manufactured_solution",
+                   help="disable the manufactured solution (ref "
+                        "cuda/acg-cuda.c:753)")
     p.add_argument("--numfmt", default="%.17g", metavar="FMT",
                    help="printf-style format for numeric output")
     p.add_argument("--output-solution", metavar="FILE", default=None,
                    help="write solution vector to Matrix Market FILE")
+    # introspection (acg_torch/obs/, acg_torch/utils/profile.py)
+    p.add_argument("--per-op-stats", action="store_true",
+                   help="time each op class alone on the loop's kernels "
+                        "(CUDA events on the card) and fill the per-op "
+                        "breakdown table (ref ACG_ENABLE_PROFILING)")
+    p.add_argument("--explain", action="store_true",
+                   help="before solving, print the counted CommAudit (halo "
+                        "exchanges, reductions, kernel launches and host "
+                        "reads an iteration, from two short fixed-"
+                        "iteration solves) and the roofline model (bytes "
+                        "an iteration and the iteration-rate ceiling); "
+                        "both go into --output-stats-json")
+    p.add_argument("--hbm-gbps", type=float, default=None, metavar="GBPS",
+                   help="memory rate of the roofline model, GB/s [the "
+                        "table in acg_torch/obs/roofline.py, keyed by the "
+                        "card's name]")
+    p.add_argument("--output-stats-json", metavar="FILE", default=None,
+                   help="write the stats block (per-op counters, norms, "
+                        "convergence history, phase spans, capability "
+                        "matrix, introspection) as one JSON document, "
+                        "schema acg-torch-stats/1, for failed solves too; "
+                        "with --serve, the last request's audit document")
+    p.add_argument("--trace-json", metavar="FILE", default=None,
+                   help="write the host phase spans (and with --serve the "
+                        "request timelines) as a Chrome trace-event file "
+                        "(Perfetto, chrome://tracing)")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="trace the solve with torch.profiler (CPU and CUDA "
+                        "activity) into a Chrome trace in DIR; no warmup "
+                        "solve runs")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to solve [cuda]; cpu runs the plain PyTorch "
                         "versions of the kernels")
@@ -276,9 +336,33 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("-v", "--verbose", action="count", default=0)
     p.add_argument("-q", "--quiet", action="store_true",
                    help="suppress solution output")
-    p.add_argument("--version", action="version",
-                   version=f"acg-torch {__version__}")
+    p.add_argument("--version", action=_VersionAction, nargs=0,
+                   help="print version and capability matrix, then exit")
     return p
+
+
+class _VersionAction(argparse.Action):
+    """Version and capability matrix (the reference's --version report,
+    cuda/acg-cuda.c:382-440), from ``obs/export.capability_info``: the
+    dict the stats document embeds."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        from acg_torch.obs.export import capability_info
+
+        info = capability_info()
+        print(f"acg-torch {info['version']}")
+        print(f"  torch: {info['torch']}  cuda: {info['cuda']}")
+        print(f"  platform: {', '.join(info['platforms'])} "
+              f"({info['ndevices']} CUDA device(s))")
+        if info["device_kinds"]:
+            print(f"  device kind: {', '.join(info['device_kinds'])}")
+        print(f"  processes: {info['processes']}")
+        print("  native host library: no (NumPy host code)")
+        if info.get("scipy"):
+            print(f"  scipy baseline (--solver petsc): {info['scipy']}")
+        else:
+            print("  scipy baseline: unavailable")
+        parser.exit()
 
 
 def _log(args, msg):
@@ -404,8 +488,11 @@ def _serve_main(args, tracer, A, b, options, device, halo: str,
                            f"entries, matrix has {A.nrows} rows")
         return vec
 
+    last = {"audit": None}
+
     def _emit(resp):
         print(json.dumps(resp.summary()), flush=True)
+        last["audit"] = resp.audit
         return resp
 
     def _emit_rejected(e: Exception, lineno: int) -> int:
@@ -483,8 +570,21 @@ def _serve_main(args, tracer, A, b, options, device, halo: str,
             fh.close()
         svc.close()
         session.close()
+    if args.trace_json:
+        # host phase spans and every recorded request timeline, one
+        # timebase
+        from acg_torch.obs.events import write_chrome_trace
+        write_chrome_trace(args.trace_json, tracer=tracer,
+                           recorder=svc.flightrec)
+        _log(args, f"chrome trace written to {args.trace_json!r}")
     _log(args, f"serve: {svc.stats()['queue']['submitted']} request(s), "
                f"{nfailed} failed")
+    if args.output_stats_json and last["audit"] is not None:
+        # the audit document of the last completed request
+        from acg_torch.obs.export import write_stats_json
+        write_stats_json(args.output_stats_json, last["audit"])
+        _log(args, f"stats document written to "
+                   f"{args.output_stats_json!r}")
     return 1 if nfailed else 0
 
 
@@ -555,6 +655,25 @@ def _main(argv=None) -> int:
         print("warning: --check-every has no effect on the s-step loop "
               "(convergence is decided at every block boundary); ignored",
               file=sys.stderr)
+    if args.per_op_stats and host:
+        print("warning: --per-op-stats times the device op classes and "
+              f"applies to the acg* solvers only (--solver {solver} builds "
+              "no device operator); ignored", file=sys.stderr)
+        args.per_op_stats = False
+    if args.explain and host:
+        print("warning: --explain audits the device loop and applies to "
+              f"the acg* solvers only (--solver {solver} runs on the "
+              "host); ignored", file=sys.stderr)
+        args.explain = False
+    if args.per_op_stats and sstep_mode:
+        print("warning: --per-op-stats has no per-op model for the s-step "
+              "block structure yet; ignored", file=sys.stderr)
+        args.per_op_stats = False
+    if args.cusparse_spmv_alg is not None:
+        print(f"note: --cusparse-spmv-alg {args.cusparse_spmv_alg} is a "
+              "cuSPARSE selector; the port's SpMV kernels are its own, "
+              f"chosen by --format (currently '{args.format}')",
+              file=sys.stderr)
     from acg_torch.utils.backend import resolve_device
     device = None if host else resolve_device(args.device)
     vdt = np.dtype(args.dtype)
@@ -564,7 +683,11 @@ def _main(argv=None) -> int:
     t0 = time.perf_counter()
     with tracer.span("read"):
         m = read_mtx(args.A, binary=args.binary or None)
-        A = csr_from_mtx(m, val_dtype=vdt)
+        A = csr_from_mtx(m, val_dtype=vdt,
+                         idx_dtype=np.int64 if args.idx_size == 64
+                         else np.int32)
+        if args.epsilon:
+            A = A.shift_diagonal(args.epsilon)
     _log(args, f"matrix: {A.nrows} rows, {A.nnz} nonzeros "
                f"({time.perf_counter() - t0:.3f} s)")
 
@@ -600,11 +723,15 @@ def _main(argv=None) -> int:
         # the (K, n) batch; K = 1 stays on the 1-D path, and x0 stays 1-D
         # (the solvers share one guess across the batch)
         b = np.tile(np.asarray(b)[None, :], (args.nrhs, 1))
+    # with --profile no warmup solve runs (as in the JAX program): a
+    # warmup that failed would end the run before the trace opened, and
+    # the options block must say how many ran
+    nwarmup = 0 if host or args.profile else args.warmup
     options = SolverOptions(
         maxits=args.max_iterations, diffatol=args.diff_atol,
         diffrtol=args.diff_rtol, residual_atol=args.residual_atol,
         residual_rtol=args.residual_rtol,
-        warmup=0 if host else args.warmup, check_every=args.check_every,
+        warmup=nwarmup, check_every=args.check_every,
         replace_every=(args.residual_replacement
                        if pipelined or deep_mode else 0),
         sstep=args.sstep if sstep_mode else 0,
@@ -624,6 +751,8 @@ def _main(argv=None) -> int:
                                       cg_sstep)
     solve = (cg_sstep if sstep_mode else cg_pipelined_deep if deep_mode
              else cg_pipelined if pipelined else cg)
+    skind = ("cg-sstep" if sstep_mode else "cg-pipelined-deep" if deep_mode
+             else "cg-pipelined" if pipelined else "cg")
     t0 = time.perf_counter()
     steps = {}
     if host:
@@ -637,7 +766,10 @@ def _main(argv=None) -> int:
                 return cg_host(A, b, x0=x0, options=options)
         else:
             def solve(A, b, x0=None, options=None, fmt=None):
-                return cg_scipy(A, b, x0=x0, options=options)
+                # --output-stats-json exports the trajectory: record it
+                return cg_scipy(A, b, x0=x0, options=options,
+                                record_history=(True if args.output_stats_json
+                                                else None))
     elif dist:
         from acg_torch.solvers.cg_dist import (build_sharded, cg_dist,
                                                cg_pipelined_deep_dist,
@@ -647,19 +779,22 @@ def _main(argv=None) -> int:
                  else cg_pipelined_deep_dist if deep_mode
                  else cg_pipelined_dist if pipelined else cg_dist)
         part = _read_partition(args, A)
-        dev = build_sharded(
-            A, nparts=args.nparts, part=part,
-            devices=None if device.type == "cuda" else [device] * args.nparts,
-            dtype=vdt, method=halo,
-            partition_method=args.partition_method, seed=args.seed,
-            mat_dtype=mat_dtype, fmt=args.format, timings=steps)
+        with tracer.span("operator-build"):
+            dev = build_sharded(
+                A, nparts=args.nparts, part=part,
+                devices=(None if device.type == "cuda"
+                         else [device] * args.nparts),
+                dtype=vdt, method=halo,
+                partition_method=args.partition_method, seed=args.seed,
+                mat_dtype=mat_dtype, fmt=args.format, timings=steps)
         what = (f"{args.nparts} shards ({dev.local_fmt}, halo "
                 f"{dev.method.value}, {dev.halo.nrounds} rounds, wire "
                 f"{args.halo_wire})")
     else:
-        dev = build_device_operator(A, dtype=vdt, fmt=args.format,
-                                    mat_dtype=mat_dtype, device=device,
-                                    timings=steps)
+        with tracer.span("operator-build"):
+            dev = build_device_operator(A, dtype=vdt, fmt=args.format,
+                                        mat_dtype=mat_dtype, device=device,
+                                        timings=steps)
         inner = getattr(dev, "dev", dev)
         what = (type(inner).__name__
                 + (" in an RCM ordering" if inner is not dev else ""))
@@ -667,17 +802,43 @@ def _main(argv=None) -> int:
                f"({time.perf_counter() - t0:.3f} s"
                + "".join(f"; {k} {v:.3f} s" for k, v in steps.items())
                + ")")
+    intro = _explain(args, tracer, dev, skind, options, dist) \
+        if args.explain else {}
+
+    def _report(res):
+        """What follows a solve, converged or not: the per-op table, the
+        stats document, the trace, the printed stats block."""
+        if args.per_op_stats and res.stats is not None:
+            from acg_torch.utils.profile import profile_dist_ops, profile_ops
+            prof = profile_dist_ops if dist else profile_ops
+            prof(dev, res.stats, res.niterations,
+                 pipelined=pipelined or deep_mode,
+                 replace_every=options.replace_every)
+        if args.output_stats_json:
+            _export_stats(args, tracer, solver, options, res, A.nrows,
+                          intro)
+        if args.trace_json:
+            from acg_torch.obs.events import write_chrome_trace
+            write_chrome_trace(args.trace_json, tracer=tracer)
+            _log(args, f"chrome trace written to {args.trace_json!r}")
+        print(format_solver_stats(res.stats, res, options,
+                                  nunknowns=A.nrows, nprocs=args.nparts))
+
     try:
         from acg_torch.obs.monitor import muted
-        for _ in range(options.warmup):
-            # a warmup that does not converge still warmed everything;
-            # its monitor lines reach the sinks but not the printer
-            try:
-                with muted():
-                    solve(dev, b, x0=x0, options=options, fmt=args.format)
-            except AcgError as e:
-                if getattr(e, "result", None) is None:
-                    raise
+        if options.warmup:
+            with tracer.span("compile/warmup"):
+                for _ in range(options.warmup):
+                    # a warmup that does not converge still warmed
+                    # everything; its monitor lines reach the sinks but
+                    # not the printer
+                    try:
+                        with muted():
+                            solve(dev, b, x0=x0, options=options,
+                                  fmt=args.format)
+                    except AcgError as e:
+                        if getattr(e, "result", None) is None:
+                            raise
         from acg_torch.ops import (cg_update, deep_coeffs, dia_kernels,
                                    sgell, spmv, sstep_coeffs, stencil)
         from acg_torch.parallel import rdma_halo
@@ -688,7 +849,8 @@ def _main(argv=None) -> int:
         dia_kernels.batched_launches = stencil.batched_launches = 0
         dia_kernels.ring_launches = dia_kernels.windows_launches = 0
         spmv.launches = sgell.launches = 0
-        res = solve(dev, b, x0=x0, options=options, fmt=args.format)
+        with tracer.span("solve"), _profiled(args, device):
+            res = solve(dev, b, x0=x0, options=options, fmt=args.format)
         _log(args, f"kernel launches in the timed solve: dia_spmv "
                    f"{dia_kernels.launches}, stencil_spmv "
                    f"{stencil.launches}, cg_pipelined_iter "
@@ -713,14 +875,11 @@ def _main(argv=None) -> int:
         if res is None:
             return 1
         # stats for the failed solve, as the reference prints them
-        print(format_solver_stats(res.stats, res, options,
-                                  nunknowns=A.nrows,
-                                  nprocs=args.nparts))
+        _report(res)
         return 1
 
     # 4. stats block (ref acgsolver_fwrite, acg/cg.c:665-828)
-    print(format_solver_stats(res.stats, res, options, nunknowns=A.nrows,
-                                  nprocs=args.nparts))
+    _report(res)
 
     # 5. manufactured-solution error report (ref cuda/acg-cuda.c:2376-2385)
     x_out = _first_system(res.x)
@@ -742,6 +901,98 @@ def _main(argv=None) -> int:
         for v in x_out:
             sys.stdout.write((args.numfmt % v) + "\n")
     return 0
+
+
+def _explain(args, tracer, dev, skind: str, options, dist: bool) -> dict:
+    """--explain: the counted CommAudit and the roofline model, printed
+    before the solve, and the halo-wire block; the payload the stats
+    document embeds ("model" keeps the roofline to price the measured
+    rate).  A stage that cannot run warns and leaves its member null."""
+    from acg_torch.obs.audit import audit_solver, format_comm_audit
+    from acg_torch.obs.roofline import (roofline_for_operator,
+                                        roofline_for_sharded)
+    from acg_torch.parallel.halo import wire_itemsize
+
+    intro = {"comm_audit": None, "roofline": None, "halo_wire": None,
+             "model": None}
+    with tracer.span("explain"):
+        try:
+            audit = audit_solver(dev, solver=skind, nrhs=args.nrhs,
+                                 options=options)
+            print(format_comm_audit(
+                audit, title=f"{args.solver}, nparts={args.nparts}, "
+                             f"nrhs={args.nrhs}"))
+            intro["comm_audit"] = audit.as_dict()
+        except AcgError as e:
+            print(f"warning: --explain: the counted audit is unavailable: "
+                  f"{e}", file=sys.stderr)
+        kw = dict(solver=skind, nrhs=args.nrhs, hbm_gbps=args.hbm_gbps,
+                  sstep=options.sstep)
+        model = (roofline_for_sharded(dev, halo_wire=options.halo_wire,
+                                      **kw) if dist
+                 else roofline_for_operator(dev, **kw))
+        print(model.report())
+        intro["roofline"], intro["model"] = model.as_dict(), model
+    vdt = np.dtype(args.dtype)
+    wi = wire_itemsize(options.halo_wire, vdt)
+    intro["halo_wire"] = {
+        "wire": options.halo_wire,
+        "dtype": {"bf16": "bfloat16", "int16-delta": "int16"}.get(
+            options.halo_wire, vdt.name),
+        "itemsize": int(wi),
+        "bytes_saved_ratio": 1.0 - wi / vdt.itemsize if dist else None}
+    if dist:
+        print(f"halo wire: {options.halo_wire} ({wi} B a value, "
+              f"{intro['halo_wire']['bytes_saved_ratio']:.0%} off the "
+              "identity wire)")
+    return intro
+
+
+def _export_stats(args, tracer, solver, options, res, nunknowns,
+                  intro) -> None:
+    """--output-stats-json: the stats document of this solve, the
+    measured rate priced against the roofline when --explain made one."""
+    from acg_torch.obs.export import build_stats_document, write_stats_json
+    from acg_torch.obs.metrics import metrics_enabled, registry
+
+    roofline = intro.get("roofline")
+    if roofline is not None and res.stats is not None:
+        measured = res.stats.iterations_per_sec()
+        roofline = dict(roofline, measured_iters_per_sec=measured,
+                        roofline_frac=intro["model"].frac(measured))
+    doc = build_stats_document(
+        solver=solver, options=options, res=res, stats=res.stats,
+        nunknowns=nunknowns, nparts=args.nparts, phases=tracer.as_dicts(),
+        introspection=dict(intro, roofline=roofline),
+        metrics=registry().snapshot() if metrics_enabled() else None)
+    write_stats_json(args.output_stats_json, doc)
+    _log(args, f"stats document written to {args.output_stats_json!r}")
+
+
+@contextlib.contextmanager
+def _profiled(args, device):
+    """--profile DIR: the solve under ``torch.profiler`` (CPU activity,
+    and CUDA on the card), its Chrome trace written into DIR.  A CUPTI
+    record can be dropped, so the trace gives times and kernel names,
+    not counts: the launches are the wrappers' counters."""
+    if not args.profile:
+        yield
+        return
+    import os
+
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device is not None and device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(args.profile, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+        if device is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
+    path = os.path.join(args.profile, "acg_torch_solve.trace.json")
+    prof.export_chrome_trace(path)
+    _log(args, f"profiler trace written to {path!r}")
 
 
 if __name__ == "__main__":

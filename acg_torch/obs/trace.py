@@ -77,6 +77,24 @@ class SpanTracer:
         return [s.as_dict() for s in sorted(self.spans,
                                             key=lambda s: s.start)]
 
+    @property
+    def epoch(self) -> float:
+        """The clock reading the spans' starts count from."""
+        return self._epoch
+
+    def as_chrome_trace(self, pid: int = 0, tid: int = 0) -> list[dict]:
+        """Completed spans as Chrome trace-event "X" (complete) events,
+        microseconds from the epoch (``acg_torch.obs.events``
+        ``chrome_trace`` assembles the document)."""
+        out = []
+        for s in sorted(self.spans, key=lambda s: s.start):
+            dur = 0.0 if s.duration != s.duration else s.duration
+            out.append({"name": s.name, "ph": "X", "pid": pid,
+                        "tid": tid, "ts": s.start * 1e6,
+                        "dur": dur * 1e6, "cat": "phase",
+                        "args": {"depth": s.depth}})
+        return out
+
     def total(self, name: str) -> float:
         """Summed duration of completed spans with this name — the
         aggregate the serve layer's ``session.stats()`` reports (e.g.

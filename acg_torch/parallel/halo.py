@@ -142,6 +142,17 @@ def build_halo_tables(ps: PartitionedSystem,
                       total_send_values=total)
 
 
+# exchanges so far, for the counted CommAudit (``acg_torch/obs/audit.py``):
+# the ppermute transport's rounds (one a round with a partner, as the JAX
+# package compiles one collective-permute a round) and allgathers, and the
+# bytes their messages carry at the wire's itemsize.  The loops' graph
+# runner replays them with the launch counters (``solvers/graphs.py``).
+ppermute_rounds = 0
+ppermute_bytes = 0
+allgathers = 0
+allgather_bytes = 0
+
+
 #: Wire encodings of a halo message: "f32" sends the values at the vector
 #: dtype; the compressed formats send two bytes a value and decode to the
 #: vector dtype before any arithmetic (``acg_tpu/parallel/halo.py``).
@@ -315,8 +326,10 @@ def halo_ppermute(xs, st: ShardTables, wire: str = "f32") -> list:
     (``send_full``, pads and all, as the JAX package's clipped gather
     forms it) once a round, moves the encoding, and decodes it on q's
     device."""
+    global ppermute_rounds, ppermute_bytes
     check_wire(wire)
     R, S = st.partner.shape[1], st.max_msg
+    ppermute_rounds += int((st.partner >= 0).any(axis=0).sum())
     ghosts = [torch.zeros(x.shape[:-1] + (g,), dtype=x.dtype,
                           device=x.device)
               for x, g in zip(xs, st.nghost)]
@@ -328,12 +341,13 @@ def halo_ppermute(xs, st: ShardTables, wire: str = "f32") -> list:
             rows = st.recv_rows[q][r]
             if wire == "f32":
                 msg = xs[a][..., st.send_rows[a][r]]
+                ppermute_bytes += msg.nbytes
             else:
                 full = st.send_full[a][r * S: (r + 1) * S]
-                msg = wire_decode(
-                    on_device(wire_encode(xs[a][..., full], wire),
-                              gq.device),
-                    wire, gq.dtype)[..., : rows.shape[0]]
+                enc = wire_encode(xs[a][..., full], wire)
+                ppermute_bytes += enc.nbytes
+                msg = wire_decode(on_device(enc, gq.device), wire,
+                                  gq.dtype)[..., : rows.shape[0]]
             gq[..., rows] = on_device(msg, gq.device)
     return ghosts
 
@@ -345,12 +359,15 @@ def halo_allgather(xs, st: ShardTables, wire: str = "f32") -> list:
     compressed ``wire`` encodes each part's whole pack row
     (``pack_full``) once and decodes it once on every device that holds
     shards."""
+    global allgathers, allgather_bytes
     check_wire(wire)
     if wire == "f32":
         packs = [x[..., rows] for x, rows in zip(xs, st.pack_rows)]
     else:
         packs = [wire_encode(x[..., rows], wire)
                  for x, rows in zip(xs, st.pack_full)]
+    allgathers += 1
+    allgather_bytes += sum(pk.nbytes for pk in packs)
     stacks = {}
     for x in xs:
         if x.device in stacks:

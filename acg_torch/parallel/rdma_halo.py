@@ -38,6 +38,11 @@ from acg_torch.utils.backend import kernel_device
 
 # kernel launches so far (the wrapper adds one per launch, nowhere else)
 launches = 0
+# halo exchanges so far (one a ``halo_rdma`` call, whatever the launches
+# per card) and the bytes their send words carry, for the counted
+# CommAudit (``acg_torch/obs/audit.py``)
+exchanges = 0
+exchange_bytes = 0
 
 # words a block moves at least: a slot is cut into chunks of this size,
 # one block each, as far as the grid stays co-resident (a sweep of 256 to
@@ -358,6 +363,10 @@ def halo_rdma(xs, st, state: RdmaState | None = None) -> list:
     :func:`halo_rdma_plain`; CUDA tensors need the :class:`RdmaState`
     made with these tables, and return ``state.ghosts``, valid until the
     next exchange."""
+    global exchanges, exchange_bytes
+    exchanges += 1
+    exchange_bytes += sum(int(f.numel()) * x.element_size()
+                          for f, x in zip(st.send_full, xs))
     if all(x.device.type == "cpu" for x in xs):
         return halo_rdma_plain(xs, st)
     if state is None or state.tables is not st:

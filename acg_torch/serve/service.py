@@ -8,11 +8,10 @@ returns a :class:`Request`; ``request.response()`` yields a
 
 - the demuxed per-request :class:`~acg_torch.solvers.base.SolveResult`
   (or the failure classification),
-- the **audit record**: one JSON-ready document a request with the JAX
-  package's top-level keys (``schema`` ``acg-torch-serve/1``; the blocks
-  this port cannot fill, ``capabilities``, ``introspection``,
-  ``resilience``, ``contract`` and ``fleet``, are null), with the
-  per-request ``session`` block (cache hit/miss counters, queue wait,
+- the **audit record**: one stats document a request, the port's one
+  schema (``acg_torch/obs/export.py``, ``acg-torch-stats/1``, checked by
+  its validator; the ``introspection`` members, ``resilience``,
+  ``contract`` and ``fleet`` null), with the per-request ``session`` block (cache hit/miss counters, queue wait,
   batch occupancy, request and trace id) and the ``admission`` block
   (deadline budget, retries used, breaker state, shed/degraded flags):
   failed, shed and timed-out requests get one too;
@@ -50,6 +49,7 @@ from acg_torch.config import SolverOptions
 from acg_torch.errors import AcgError, Status
 from acg_torch.obs import metrics as _metrics
 from acg_torch.obs.events import FlightRecorder, new_trace_id
+from acg_torch.obs.export import build_stats_document, capability_info
 from acg_torch.serve.admission import (HALF_OPEN, OPEN, AdmissionPolicy,
                                        AdmissionRecord, BreakerBoard,
                                        RollingWindow, classify_failure)
@@ -99,7 +99,6 @@ def _metrics_block() -> dict | None:
     return _snapshot_cache["snap"]
 
 
-AUDIT_SCHEMA = "acg-torch-serve/1"
 
 
 @dataclasses.dataclass
@@ -243,6 +242,8 @@ class SolverService:
         # trace IDs are minted here at submit and cross-linked into the
         # audit documents (session/admission trace_id)
         self.flightrec = FlightRecorder(capacity=flightrec_capacity)
+        # the capability matrix of the audit documents, probed once
+        self._capabilities = None
         self.solver = _normalize_solver(solver)
         self.options = (options if options is not None
                         else session.default_options)
@@ -695,28 +696,16 @@ class SolverService:
 
     def _document(self, solver: str, res, session: dict, admission: dict,
                   warmstart: dict | None = None) -> dict:
-        """One audit document: the JAX package's top-level keys, the
-        blocks this port cannot fill null."""
-        return {
-            "schema": AUDIT_SCHEMA,
-            "solver": str(solver),
-            "nunknowns": int(self.session.nrows),
-            "nparts": int(self.session.nparts),
-            "options": {k: _finite(v) for k, v in
-                        dataclasses.asdict(self.options).items()},
-            "result": _result_block(res),
-            "stats": _stats_block(res.stats),
-            "phases": self.session.tracer.as_dicts(),
-            "capabilities": None,
-            "introspection": None,
-            "resilience": None,
-            "session": session,
-            "contract": None,
-            "admission": admission,
-            "metrics": _metrics_block(),
-            "fleet": None,
-            "warmstart": warmstart,
-        }
+        """One audit document (``obs/export.build_stats_document``)."""
+        if self._capabilities is None:
+            self._capabilities = capability_info()
+        return build_stats_document(
+            solver=solver, options=self.options, res=res, stats=res.stats,
+            nunknowns=self.session.nrows, nparts=self.session.nparts,
+            phases=self.session.tracer.as_dicts(),
+            capabilities=self._capabilities, session=session,
+            admission=admission, metrics=_metrics_block(),
+            warmstart=warmstart)
 
     def session_block(self, ticket, exec_hit: bool) -> dict:
         """The audit's ``session`` block for one request (with the
@@ -811,47 +800,6 @@ class SolverService:
             "timeouts": int(self._ntimeouts),
             "recovered": 0,
         }
-
-
-def _finite(v):
-    """Non-finite floats as None (strict JSON)."""
-    if isinstance(v, float) and not np.isfinite(v):
-        return None
-    return v
-
-
-def _result_block(res) -> dict:
-    """A SolveResult without its solution vector."""
-    hist = getattr(res, "residual_history", None)
-    d = {"converged": bool(res.converged),
-         "niterations": int(res.niterations),
-         "bnrm2": _finite(float(res.bnrm2)),
-         "r0nrm2": _finite(float(res.r0nrm2)),
-         "rnrm2": _finite(float(res.rnrm2)),
-         "relative_residual": _finite(float(res.relative_residual)),
-         "fpexcept": str(res.fpexcept),
-         "status": getattr(getattr(res, "status", None), "name", None)
-         or ("SUCCESS" if res.converged else "ERR_NOT_CONVERGED"),
-         "operator_format": str(res.operator_format),
-         "kernel": str(res.kernel), "loop": str(res.loop),
-         "nrhs": int(getattr(res, "nrhs", 1) or 1)}
-    if res.kernel_note:
-        d["kernel_note"] = str(res.kernel_note)
-    d["residual_history"] = (None if hist is None else
-                             [_finite(float(v)) for v in
-                              np.asarray(hist, np.float64).ravel()])
-    return d
-
-
-def _stats_block(st) -> dict:
-    return {"nsolves": int(st.nsolves),
-            "ntotaliterations": int(st.ntotaliterations),
-            "niterations": int(st.niterations),
-            "nflops": int(st.nflops),
-            "tsolve": _finite(float(st.tsolve)),
-            "ncaptures": int(st.ncaptures), "nreplays": int(st.nreplays),
-            "nloopopen": int(st.nloopopen),
-            "tcapture": _finite(float(st.tcapture))}
 
 
 class _StubTicket:

@@ -33,10 +33,11 @@ a lock, and every device call of a dispatch (the upload of b, the loop,
 its captures, the copies back) runs on the dispatching thread inside it:
 a capture in progress sees no other thread's CUDA call.
 
-Refused here, with ``ERR_NOT_SUPPORTED``: ``recycle=True`` and the
-recycle state (spectral recycling and warm-start donors), ``audit``
-(the CommAudit needs ``obs/hlo.py``), ``fault=`` (``robust/faults.py``),
-a prep-cache directory, ``epsilon``.
+:meth:`Session.audit` is the counted CommAudit (``obs/audit.py``) of a
+configuration on the prepared operator.  Refused here, with
+``ERR_NOT_SUPPORTED``: ``recycle=True`` and the recycle state (spectral
+recycling and warm-start donors), ``fault=`` (``robust/faults.py``), a
+prep-cache directory.
 """
 
 from __future__ import annotations
@@ -158,9 +159,6 @@ class Session:
                            "recycle=True (RecycleState: warm-start donors, "
                            "refined s-step shifts, the deflation basis) is "
                            "not ported")
-        if epsilon:
-            raise AcgError(Status.ERR_NOT_SUPPORTED,
-                           "epsilon (a shifted diagonal) is not ported")
         self.prep_cache = resolve_prep_cache(prep_cache)
         self.tracer = tracer if tracer is not None else SpanTracer(log=log)
         self.nparts = int(nparts)
@@ -196,6 +194,14 @@ class Session:
             with self.tracer.span("read"):
                 m = read_mtx(path, binary=binary)
                 A = csr_from_mtx(m, val_dtype=self.dtype)
+        if epsilon:
+            from acg_torch.sparse.csr import CsrMatrix
+
+            if not isinstance(A, CsrMatrix):
+                raise AcgError(Status.ERR_NOT_SUPPORTED,
+                               "epsilon shifts the diagonal of a host CSR "
+                               f"matrix, not of a built {type(A).__name__}")
+            A = A.shift_diagonal(epsilon)
         self.A = A
 
         # counters surfaced by stats() and the audit's session block:
@@ -399,11 +405,18 @@ class Session:
 
     def audit(self, *, solver: str = "cg", nrhs: int = 1,
               options: SolverOptions | None = None):
-        """The CommAudit of a cached executable: not ported (it needs
-        ``obs/hlo.py``)."""
-        raise AcgError(Status.ERR_NOT_SUPPORTED,
-                       "Session.audit (the CommAudit, obs/hlo.py) is not "
-                       "ported")
+        """The counted CommAudit (``acg_torch/obs/audit.py``) of
+        ``solver`` with ``options`` on the prepared operator: halo
+        exchanges, reduction points, kernel launches and host reads an
+        iteration, counted over two short fixed-iteration solves of the
+        ordinary solver functions (the resident-solve cache is keyed by
+        ``maxits``, so the audit leaves it alone)."""
+        from acg_torch.obs.audit import audit_solver
+
+        o = options if options is not None else self.default_options
+        with self._lock:
+            return audit_solver(self.operator, solver=_normalize_solver(
+                solver), nrhs=nrhs, options=o)
 
     # -- solving --------------------------------------------------------
 

@@ -78,6 +78,24 @@ from acg_torch.solvers.loops import (_GRAM_BAD, _keep, cg_loop,
                                      cg_pipelined_deep_while,
                                      cg_pipelined_loop, cg_sstep_while,
                                      deep_buffers)
+
+# reduction points so far, for the counted CommAudit
+# (``acg_torch/obs/audit.py``): one a :func:`_reduce`, however many
+# scalars it adds (the JAX package's one psum of a stacked payload), and
+# the bytes of one shard's partials.  The loops' graph runner replays them
+# with the launch counters (``solvers/graphs.py``).
+reductions = 0
+reduction_bytes = 0
+
+
+def _reduce(dev0: torch.device, *partials):
+    """One reduction point: each list of per-shard partials added in
+    shard order on ``dev0`` (one sum a list; a tuple for several)."""
+    global reductions, reduction_bytes
+    reductions += 1
+    reduction_bytes += sum(int(p[0].nbytes) for p in partials)
+    out = tuple(sum_in_order(p, dev0) for p in partials)
+    return out if len(out) > 1 else out[0]
 from acg_torch.utils.timing import host_step
 
 
@@ -217,7 +235,7 @@ def _fused_step(ss: ShardedSystem, dev0: torch.device, wire: str):
                                     ti_iface)
             t.append(ti)
             parts.append(d)
-        return p, t, sum_in_order(parts, dev0)
+        return p, t, _reduce(dev0, parts)
 
     return coupled
 
@@ -246,8 +264,9 @@ def _update_step(dev0: torch.device, want_pp: bool):
                                want_pp)
             rrs.append(rr)
             pps.append(pp)
-        return (sum_in_order(rrs, dev0),
-                sum_in_order(pps, dev0) if want_pp else None)
+        if want_pp:
+            return _reduce(dev0, rrs, pps)
+        return _reduce(dev0, rrs), None
 
     return update
 
@@ -286,8 +305,7 @@ def _pipe_step(ss: ShardedSystem, dev0: torch.device, wire: str):
                 o.append(v)
             gammas.append(g)
             deltas.append(d)
-        return outs + (sum_in_order(gammas, dev0),
-                       sum_in_order(deltas, dev0))
+        return outs + _reduce(dev0, gammas, deltas)
 
     return step
 
@@ -302,7 +320,7 @@ def _shard_dot(dev0: torch.device):
     """The distributed dot: per-shard partials (per system for a batch)
     added in shard order on ``dev0``."""
     def dot(a, c):
-        return sum_in_order([batched_dot(u, v) for u, v in zip(a, c)], dev0)
+        return _reduce(dev0, [batched_dot(u, v) for u, v in zip(a, c)])
 
     return dot
 
@@ -356,7 +374,7 @@ def _sstep_block_dist(ss: ShardedSystem, deep, b, s: int, wire: str,
             for j in range(s - 1):
                 deep.ext_shifted(ss, i, v[s + 1 + j], v[s + 2 + j],
                                  th[..., j])
-        return V, sum_in_order([gram(t) for t in V.shards], dev0)
+        return V, _reduce(dev0, [gram(t) for t in V.shards])
 
     return block_fn
 
@@ -371,8 +389,7 @@ def _block_dot_shards(dev0: torch.device):
     of its ring against its vector, added in shard order (the body's
     ONE reduction)."""
     def dots(Z: ShardStack, v):
-        return sum_in_order([block_dot(t, u) for t, u in zip(Z.shards, v)],
-                            dev0)
+        return _reduce(dev0, [block_dot(t, u) for t, u in zip(Z.shards, v)])
 
     return dots
 
@@ -629,7 +646,10 @@ def _dist_loop(kind: str, ss: ShardedSystem, b_sh, o: SolverOptions,
 
     if kind == "cg-pipelined":
         def dot2(a1, b1, a2, b2):
-            return dot(a1, b1), dot(a2, b2)
+            # the pipelined loop's one reduction point: both dots' sums
+            return _reduce(dev0,
+                           [batched_dot(u, v) for u, v in zip(a1, b1)],
+                           [batched_dot(u, v) for u, v in zip(a2, b2)])
 
         iter_step = (_pipe_step(ss, dev0, wire)
                      if on_pipe and o.replace_every == 0 and not batch

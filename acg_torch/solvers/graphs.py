@@ -37,7 +37,8 @@ import torch
 
 from acg_torch.errors import AcgError, Status
 
-# every kernel wrapper's launch counter, (module, attribute)
+# every kernel wrapper's launch counter, then the halo and reduction
+# counters, (module, attribute): what a block moves, so a replay adds it
 COUNTERS = (
     ("acg_torch.ops.dia_kernels", "launches"),
     ("acg_torch.ops.dia_kernels", "pipe_launches"),
@@ -53,6 +54,16 @@ COUNTERS = (
     ("acg_torch.ops.cg_update", "launches"),
     ("acg_torch.ops.sstep_coeffs", "launches"),
     ("acg_torch.ops.deep_coeffs", "launches"),
+    # what the counted CommAudit reads besides the launches
+    # (``acg_torch/obs/audit.py``): halo exchanges and reduction points
+    ("acg_torch.parallel.halo", "ppermute_rounds"),
+    ("acg_torch.parallel.halo", "ppermute_bytes"),
+    ("acg_torch.parallel.halo", "allgathers"),
+    ("acg_torch.parallel.halo", "allgather_bytes"),
+    ("acg_torch.parallel.rdma_halo", "exchanges"),
+    ("acg_torch.parallel.rdma_halo", "exchange_bytes"),
+    ("acg_torch.solvers.cg_dist", "reductions"),
+    ("acg_torch.solvers.cg_dist", "reduction_bytes"),
 )
 
 # one capture stream a device, shared by every solve on it, so the
@@ -82,7 +93,7 @@ def _pool(idx: int, stream):
 
 
 def counts() -> list:
-    """Every launch counter's value, in ``COUNTERS`` order."""
+    """Every counter's value, in ``COUNTERS`` order."""
     return [getattr(importlib.import_module(m), a) for m, a in COUNTERS]
 
 

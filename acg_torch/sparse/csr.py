@@ -63,6 +63,23 @@ class CsrMatrix:
     def to_coo(self):
         return self._rowids(), self.colidx.copy(), self.vals.copy()
 
+    def shift_diagonal(self, eps: float) -> "CsrMatrix":
+        """A + eps I (the reference's optional diagonal shift in
+        ``_dsymv_init``, acg/symcsrmatrix.c:760-845, ``--epsilon``);
+        ``ERR_INVALID_VALUE`` when a row stores no diagonal entry."""
+        if eps == 0.0:
+            return self
+        r = self._rowids()
+        on_diag = r == self.colidx
+        if not np.all(np.isin(np.arange(self.nrows), self.colidx[on_diag])):
+            raise AcgError(Status.ERR_INVALID_VALUE,
+                           "diagonal shift requires explicit diagonal "
+                           "entries")
+        vals = self.vals.copy()
+        vals[on_diag] += eps
+        return CsrMatrix(self.nrows, self.ncols, self.rowptr.copy(),
+                         self.colidx.copy(), vals)
+
 
 def coo_to_csr(rowidx, colidx, vals, nrows: int, ncols: int,
                symmetrize: bool = False, sum_duplicates: bool = True,

@@ -3,15 +3,79 @@
 Renders the same stats block as ``acg_tpu.utils.stats`` (the reference's
 ``acgsolver_fwrite``, acg/cg.c:665-828): unknowns, solves, iterations,
 Gflop, Gflop/s, the per-op table, the stopping criteria and the norms of
-the last solve, then the operator format and kernel that ran.  Per-op
-timing and the cross-process reduction are not ported yet, so the per-op
-table prints zeros, as the JAX CLI does without ``--per-op-stats``.
+the last solve, then the operator format and kernel that ran.  The
+per-op table holds what ``--per-op-stats`` fills (``utils/profile.py``,
+each op class timed alone by :func:`time_op`), zeros otherwise, as in
+the JAX CLI.  The cross-process reduction is not ported (one process
+drives every shard).
 """
 
 from __future__ import annotations
 
+import time
+
 from acg_torch.config import SolverOptions
+from acg_torch.errors import AcgError, Status
 from acg_torch.solvers.base import OpCounters, SolveResult, SolveStats
+
+
+def _first_tensor(obj):
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj
+    if isinstance(obj, (list, tuple)):
+        for v in obj:
+            t = _first_tensor(v)
+            if t is not None:
+                return t
+    return None
+
+
+def time_op(fn, *args, warmup: int = 3, reps: int = 10,
+            device=None) -> float:
+    """Median seconds of ``fn(*args)`` after ``warmup`` calls (the
+    reference's per-op warm-up loops, acg/cgcuda.c:607-705).
+
+    On a CUDA device (``device``, else the first tensor in ``args``):
+    each call between two CUDA events, the median of their elapsed times.
+    On the CPU, only when that is where the tensors lie or the caller
+    names it: ``perf_counter`` around each call.  Neither falls back to
+    the other; with no device to go by it raises ``ERR_INVALID_VALUE``."""
+    import torch
+
+    if device is None:
+        t = _first_tensor(args)
+        if t is None:
+            raise AcgError(Status.ERR_INVALID_VALUE,
+                           "time_op: no tensor among the arguments and no "
+                           "device given: nothing says where to time")
+        device = t.device
+    device = torch.device(device)
+    for _ in range(max(warmup, 0)):
+        fn(*args)
+    times = []
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        with torch.cuda.device(device):
+            for _ in range(max(reps, 1)):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                fn(*args)
+                b.record()
+                b.synchronize()
+                times.append(a.elapsed_time(b) * 1e-3)
+    elif device.type == "cpu":
+        for _ in range(max(reps, 1)):
+            t0 = time.perf_counter()
+            fn(*args)
+            times.append(time.perf_counter() - t0)
+    else:
+        raise AcgError(Status.ERR_NOT_SUPPORTED,
+                       f"time_op: cannot time on {device}")
+    times.sort()
+    return times[len(times) // 2]
 
 
 def _opline(name: str, c: OpCounters, per_proc: bool = False) -> str:

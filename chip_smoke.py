@@ -218,6 +218,27 @@ raises and the script exits non-zero:
               against their plain versions on the card): sstep-stencil,
               sstep-batched-stencil (60 fixed iterations), deep-stencil,
               dist-sstep-stencil and dist-deep-stencil at full size;
+    introspection
+              the measuring surface (acg_torch/obs/, utils/profile.py) on
+              the earlier phases' operators and results: each of stencil,
+              pipelined-stencil, dia-bf16, dia-100m, batched-stencil,
+              fem-sgell, fem-ell, sstep-stencil and dist-stencil-rdma
+              priced by the roofline model (0 < roofline_frac <= 1); the
+              model's memory rate beside the card's measured copy_ of
+              1 GiB; profile_ops on the 256^3 f64 stencil operator (its
+              gemv within 25% of the kernels phase's stencil_spmv row)
+              and profile_dist_ops on the rdma shards; the counted
+              CommAudit of classic stencil (0 halos, 0 reductions, one
+              stencil_spmv and one cg_update an iteration) and of the
+              rdma shards (1 exchange and 2 reduction points an
+              iteration, one stencil_spmv and cg_update a shard); the
+              CLI in-process on the 48^3 .mtx with --explain,
+              --per-op-stats, --hbm-gbps, --output-stats-json,
+              --trace-json and --profile (the document valid, the trace's
+              read / operator-build / solve spans, the profiler trace
+              naming the stencil kernel); the latency bound of a launch:
+              an empty kernel captured in a CUDA graph, replayed queued,
+              beside sstep_coeffs and deep_coeffs;
 15. profile   for the operators of phases 3, 4, 6, batched-stencil,
               sstep-stencil, deep-stencil, fem-sgell, fem-ell, dia-100m,
               dist-stencil-rdma, dist-pipelined-stencil-rdma and
@@ -242,7 +263,6 @@ or of the JAX package.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
 import math
@@ -442,6 +462,10 @@ def main(argv=None) -> int:
           "dist-setup")),
         ("serve", lambda: _serve_phase(ctx), ("dist-setup", "stencil")),
         ("cli-serve", lambda: _cli_serve_phase(cli_grid), ()),
+        ("introspection", lambda: _introspection_phase(cli_grid, ctx),
+         ("kernels", "stencil", "pipelined-stencil", "dia-bf16",
+          "dia-100m", "batched-stencil", "fem-sgell", "fem-ell",
+          "sstep-stencil", "dist-stencil-rdma")),
         ("profile", lambda: _profile_phase(ctx), ()),
     ]
     run = _selected(phases, args.only)
@@ -1820,6 +1844,7 @@ def _batched_stencil(G: int, nrhs: int, ctx, pipelined: bool = False):
     counts = np.asarray(res.iterations_per_system)
     ctx.setdefault("us_per_system_iter", {})[phase] = rep[
         "us_per_system_iter"]
+    ctx.setdefault("us_per_iter", {})[phase] = rep["us_per_iter"]
     if pipelined:
         ref = np.asarray(ctx["batched_counts"])
         rep["classic_batched_iterations"] = ref.tolist()
@@ -3835,39 +3860,6 @@ def _dist_fem_phase(nparts: int, ctx):
 # the distributed pipelined, multi-RHS and compressed-wire paths
 
 
-# halo exchanges through _counted_exchange's wrapper
-_HALO_CALLS = 0
-
-
-@contextlib.contextmanager
-def _counted_exchange(ss):
-    """Wrap ``ss.exchange`` (on this instance, while the block runs) with
-    a call counter, ``_HALO_CALLS`` from 0: the halo is not a kernel, so
-    it has no launch count of its own.  The counter joins the launch
-    counters the graph loop's runner replays
-    (``acg_torch.solvers.graphs.COUNTERS``), so a replayed block counts
-    its exchanges as it counts its kernels."""
-    global _HALO_CALLS
-    from acg_torch.solvers import graphs
-
-    exchange = ss.exchange
-
-    def counted(xs, wire="f32"):
-        global _HALO_CALLS
-        _HALO_CALLS += 1
-        return exchange(xs, wire)
-
-    saved = graphs.COUNTERS
-    ss.exchange = counted
-    graphs.COUNTERS = saved + ((__name__, "_HALO_CALLS"),)
-    _HALO_CALLS = 0
-    try:
-        yield
-    finally:
-        graphs.COUNTERS = saved
-        del ss.exchange
-
-
 def _dist_pipelined_stencil(ctx, method: str):
     """cg_pipelined_dist on the 256^3/4 stencil shards through one halo,
     to the stencil phase's rtol from its right-hand side: the per-shard
@@ -4043,10 +4035,11 @@ def _dist_batched_stencil(nrhs: int, ctx, pipelined: bool = False):
     stencil_spmv_batched once a shard per distributed SpMV, the interface
     ell_spmv once a shard and system per SpMV, no one-system stencil
     kernel; the halo called once per SpMV for all B systems (classic:
-    iterations + 1 times), counted by a wrapper."""
+    iterations + 1 times), by the halo's counters."""
     import numpy as np
 
     from acg_torch.config import SolverOptions
+    from acg_torch.parallel import halo
     from acg_torch.solvers.cg_dist import cg_dist, cg_pipelined_dist
 
     phase = ("dist-batched-pipelined-stencil" if pipelined
@@ -4058,12 +4051,15 @@ def _dist_batched_stencil(nrhs: int, ctx, pipelined: bool = False):
     b, xstar = b[:nrhs], xstar[:nrhs]
     rtol = 1e-8
     solve(ss, b, options=SolverOptions(maxits=20, residual_rtol=0.0))
-    with _counted_exchange(ss):
-        _reset_counts()
-        res = solve(ss, b, options=SolverOptions(maxits=20000,
-                                                 residual_rtol=rtol))
-        launches = _read_counts(ctx, phase)
-        halos = _HALO_CALLS
+    # the halo's own counters (acg_torch/parallel/halo.py): allgathers,
+    # and ppermute rounds, R an exchange
+    rounds, gathers = halo.ppermute_rounds, halo.allgathers
+    _reset_counts()
+    res = solve(ss, b, options=SolverOptions(maxits=20000,
+                                             residual_rtol=rtol))
+    launches = _read_counts(ctx, phase)
+    halos = (halo.allgathers - gathers if pipelined
+             else (halo.ppermute_rounds - rounds) // ss.halo.nrounds)
     G = ctx["dist"]["grid"]
     cert = [_poisson7_residual(G, res.x[s], b[s]) for s in range(nrhs)]
     rep = _solve_report(res, launches)
@@ -4790,6 +4786,225 @@ def _cli_serve_phase(G: int):
     return {"grid": [G] * 3, "exit": rc, "requests": reqs,
             "cache": stats[0]["session"]["cache"],
             "wall_s": time.perf_counter() - t0}
+
+
+# the introspection phase: the solves it prices (phase, profile case,
+# solver, s), and an empty kernel whose replay in a CUDA graph is the
+# least a launch takes
+_PRICED = (("stencil", "stencil-f64", "cg", 0),
+           ("pipelined-stencil", "pipelined-stencil-f64", "cg-pipelined", 0),
+           ("dia-bf16", "dia-bf16-f32", "cg", 0),
+           ("dia-100m", "dia-100m-f32", "cg", 0),
+           ("batched-stencil", "batched-stencil-f64", "cg", 0),
+           ("fem-sgell", "fem-sgell-float32", "cg", 0),
+           ("fem-ell", "fem-ell-float64", "cg", 0),
+           ("sstep-stencil", "sstep-stencil-f64", "cg-sstep", 4),
+           ("dist-stencil-rdma", "dist-stencil-rdma-f64", "cg", 0))
+_EMPTY_KERNEL = """
+#include <cuda_runtime.h>
+__global__ void acg_empty_kernel() {}
+extern "C" int acg_empty_launch(void *stream) {
+    acg_empty_kernel<<<1, 1, 0, (cudaStream_t)stream>>>();
+    return (int)cudaGetLastError();
+}
+"""
+
+
+def _empty_kernel_build():
+    """Start nvcc on the empty kernel: (the library's path, the process)."""
+    from acg_torch import _build
+
+    out = REPO / "build" / "empty_kernel"
+    out.mkdir(parents=True, exist_ok=True)
+    src = out / "empty.cu"
+    src.write_text(_EMPTY_KERNEL)
+    lib = out / "libempty.so"
+    proc = subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return lib, proc
+
+
+def _latency_bound(lib_path, proc, ctx) -> dict:
+    """ms of one launch of an empty kernel captured in a CUDA graph,
+    replayed 25 times queued (and one replay between events): the least a
+    launch of a dependent scalar chain can take on this card."""
+    import ctypes
+
+    import torch
+
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise SystemExit(f"error: the empty kernel did not build:\n{log}")
+    lib = ctypes.CDLL(str(lib_path))
+    lib.acg_empty_launch.argtypes = [ctypes.c_void_p]
+    lib.acg_empty_launch.restype = ctypes.c_int
+    stream = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        rc = lib.acg_empty_launch(ctypes.c_void_p(stream.cuda_stream))
+        graph.capture_begin()
+        rc |= lib.acg_empty_launch(ctypes.c_void_p(stream.cuda_stream))
+        graph.capture_end()
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise SystemExit(f"error: the empty kernel did not launch: {rc}")
+    rows = {}
+    for r in ctx["rows"]:
+        if r["name"] in ("sstep_coeffs", "deep_coeffs"):
+            rows.setdefault(r["name"], r)     # the f64, one-system rows
+    out = {"graph_replay_ms_queued": _queued_ms(graph.replay),
+           "graph_replay_ms": _time_ms(graph.replay, ctx["reps"])}
+    for name, row in rows.items():
+        out[name] = {"ms": row["ms"], "ms_queued": row.get("ms_queued"),
+                     "over_latency_bound": (row.get("ms_queued")
+                                            or row["ms"])
+                     / out["graph_replay_ms_queued"]}
+    return out
+
+
+def _copy_rate(ctx) -> dict:
+    """The card's device-to-device ``copy_`` of 1 GiB (bytes read and
+    written over CUDA-event time) beside the roofline table's rate."""
+    import torch
+
+    from acg_torch.obs.roofline import hbm_gbps_for
+
+    n = (1 << 30) // 4
+    src = torch.ones(n, dtype=torch.float32, device="cuda")
+    dst = torch.empty_like(src)
+    ms = _time_ms(lambda: dst.copy_(src), 10)
+    del src, dst
+    torch.cuda.empty_cache()
+    name = torch.cuda.get_device_name(0)
+    return {"copy_bytes": 2 << 30, "copy_ms": ms,
+            "copy_gbps": (2 << 30) / ms / 1e6,
+            "table_gbps": hbm_gbps_for(name), "data_sheet_bytes_per_s":
+            ctx["mem_bw"]}
+
+
+def _per_op_table(st) -> dict:
+    return {nm: {"seconds_each": (c.t / c.n if c.n else 0.0), "n": c.n,
+                 "bytes": c.bytes, "flops": c.flops,
+                 "gbps": 1e-9 * c.bytes / c.t if c.t > 0 else 0.0}
+            for nm in ("gemv", "dot", "nrm2", "axpy", "copy", "allreduce",
+                       "halo")
+            for c in (getattr(st, nm),)}
+
+
+def _introspection_phase(G: int, ctx):
+    """The port's own measuring surface on the earlier phases' operators
+    and results (see the module's text)."""
+    import numpy as np
+
+    from acg_torch.config import SolverOptions
+    from acg_torch.io.mtxfile import MtxFile, write_mtx
+    from acg_torch.obs.audit import audit_solver
+    from acg_torch.obs.export import load_stats_document
+    from acg_torch.obs.roofline import (roofline_for_operator,
+                                        roofline_for_sharded)
+    from acg_torch.parallel.sharded import ShardedSystem
+    from acg_torch.solvers.base import SolveStats
+    from acg_torch.sparse.poisson import poisson3d_7pt
+    from acg_torch.utils.profile import profile_dist_ops, profile_ops
+
+    lib, proc = _empty_kernel_build()
+    cases = {c[0]: c for c in ctx["profile_cases"]}
+    rep, bad = {"roofline": {}}, []
+    for phase, case, solver, s in _PRICED:
+        _, op, b, _solve = cases[case]
+        nrhs = b.shape[0] if np.ndim(b) == 2 else 1
+        if isinstance(op, ShardedSystem):
+            model = roofline_for_sharded(op, solver=solver, nrhs=nrhs)
+        else:
+            model = roofline_for_operator(op, solver=solver, nrhs=nrhs,
+                                          sstep=s)
+        us = ctx["us_per_iter"][phase]
+        frac = model.frac(1e6 / us)
+        rep["roofline"][phase] = {
+            "us_per_iter": us, "bound_us_per_iter": model.bound_us_per_iter,
+            "roofline_frac": frac, "bytes_per_iter": model.bytes_per_iter,
+            "operator_bytes": model.operator_bytes,
+            "vector_bytes": model.vector_bytes, "nrhs": nrhs,
+            "ncards": model.ncards}
+        if not 0 < frac <= 1.0:
+            bad.append(f"{phase}: roofline_frac {frac}")
+    rep["bandwidth"] = _copy_rate(ctx)
+
+    # per-op times on the stencil operator and the rdma shards
+    _, op, _, _ = cases["stencil-f64"]
+    _, ss, _, _ = cases["dist-stencil-rdma-f64"]
+    its = ctx["classic_iterations"]
+    st = profile_ops(op, SolveStats(), its)
+    st_dist = profile_dist_ops(ss, SolveStats(), its)
+    rep["per_op"] = {"stencil": _per_op_table(st),
+                     "dist-stencil-rdma": _per_op_table(st_dist)}
+    row = [r for r in ctx["rows"] if r["name"] == "stencil_spmv"
+           and r["tier"] == "matrix-free/float64" and not r["with_dot"]
+           and r["grid"] == [256, 256, 256]][0]
+    gemv_ms = st.gemv.t / st.gemv.n * 1e3
+    rep["per_op"]["gemv_ms_over_kernels_row"] = gemv_ms / row["ms"]
+    if abs(gemv_ms / row["ms"] - 1) > 0.25:
+        bad.append(f"gemv {gemv_ms} ms against stencil_spmv {row['ms']}")
+
+    # the counted audit: one card, then the rdma shards
+    o = SolverOptions(residual_rtol=1e-8)
+    one = audit_solver(op, options=o)
+    dist = audit_solver(ss, options=o)
+    rep["audit"] = {"stencil": one.as_dict(),
+                    "dist-stencil-rdma": dist.as_dict()}
+    comm = ("ppermute", "allgather", "rdma", "allreduce")
+    want_one = {c: 0 for c in comm}
+    want_dist = dict(ppermute=0, allgather=0, rdma=1, allreduce=2)
+    for a, want, per in ((one, want_one, 1), (dist, want_dist, 4)):
+        got = {c: a.count(c) for c in comm}
+        launches = {k: a.launches[k] for k in ("stencil_spmv", "cg_update")}
+        if got != want or launches != {"stencil_spmv": per,
+                                       "cg_update": per} \
+                or a.host_reads != 1:
+            bad.append(f"audit: {got} {launches} reads {a.host_reads}")
+
+    # the CLI with all six flags on the 48^3 .mtx
+    A = poisson3d_7pt(G)
+    r, c, v = A.to_coo()
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        path = os.path.join(tmp, "A.mtx")
+        write_mtx(path, MtxFile(nrows=A.nrows, ncols=A.ncols, nnz=A.nnz,
+                                rowidx=r, colidx=c, vals=v))
+        doc, trace = os.path.join(tmp, "s.json"), os.path.join(tmp, "t.json")
+        prof = os.path.join(tmp, "prof")
+        rc, out, err = _cli_main(
+            [path, "--manufactured-solution", "--max-iterations", "2000",
+             "-q", "--explain", "--per-op-stats", "--hbm-gbps", "3350",
+             "--output-stats-json", doc, "--trace-json", trace,
+             "--profile", prof])
+        cli = {"exit": rc}
+        try:
+            d = load_stats_document(doc)
+            cli["roofline_frac"] = d["introspection"]["roofline"][
+                "roofline_frac"]
+            cli["comm_audit_launches"] = d["introspection"]["comm_audit"][
+                "launches"]["per_iteration"]
+            spans = {e["name"] for e in json.load(open(trace))["traceEvents"]
+                     if e["ph"] == "X"}
+            cli["spans"] = sorted(spans)
+            texts = [open(os.path.join(prof, f)).read()
+                     for f in os.listdir(prof)]
+            cli["profile_names_stencil_kernel"] = any(
+                "stencil" in t for t in texts)
+        except (OSError, ValueError, KeyError, TypeError) as e:
+            cli["error"] = repr(e)
+        if (rc != 0 or "error" in cli
+                or not {"read", "operator-build", "solve"} <= set(
+                    cli.get("spans", ()))
+                or not cli.get("profile_names_stencil_kernel")):
+            bad.append(f"CLI: {cli}\n{out[-2000:]}\n{err[-2000:]}")
+    rep["cli"] = cli
+    rep["latency_bound"] = _latency_bound(lib, proc, ctx)
+    if bad:
+        raise SystemExit("error: introspection: " + "; ".join(bad)
+                         + f"\n{json.dumps(rep, default=str)[:4000]}")
+    return rep
 
 
 def _device_us(evt) -> float:

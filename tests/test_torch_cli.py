@@ -244,3 +244,208 @@ def test_cli_sstep_deep_nparts_match_jax_cli(matrix_file, solver, extra,
               if ln.strip().startswith("kernel:")][0]
     assert kernel.startswith(f"kernel: torch-plain+{halo} (")
     assert "deep ghost zones depth" in kernel
+
+
+# ---------------------------------------------------------------------------
+# introspection: --explain, --per-op-stats, --output-stats-json,
+# --trace-json, --profile, --version; the reference-compatibility flags
+
+
+def _gemv_times(out):
+    line = [ln for ln in out.splitlines() if ln.strip().startswith("gemv:")]
+    return int(line[0].split()[3])
+
+
+def test_cli_introspection_flags(matrix_file, tmp_path, capsys):
+    """All six flags at once: the audit and roofline before the solve,
+    the per-op table filled with the JAX program's cadence, a stats
+    document both validators accept, a Chrome trace with the pipeline's
+    spans, a profiler trace in the directory."""
+    import json
+
+    from acg_torch import cli
+    from acg_torch.obs.export import load_stats_document
+    from acg_tpu import cli as jcli
+    from acg_tpu.obs.export import SCHEMA as JSCHEMA
+    from acg_tpu.obs.export import validate_stats_document as jvalidate
+
+    doc, trace, prof = (str(tmp_path / "s.json"), str(tmp_path / "t.json"),
+                        str(tmp_path / "prof"))
+    flags = ["--manufactured-solution", "--max-iterations", "500", "-q",
+             "--per-op-stats", "--explain"]
+    rc, its, out, err = _main_iterations(
+        cli.main, [matrix_file, "--device", "cpu", *flags,
+                   "--hbm-gbps", "1000", "--output-stats-json", doc,
+                   "--trace-json", trace, "--profile", prof], capsys)
+    assert rc == 0, out + err
+    rcj, itsj, outj, errj = _main_iterations(jcli.main,
+                                             [matrix_file, *flags], capsys)
+    assert rcj == 0, outj + errj
+    for o in (out, outj):
+        assert "CommAudit (" in o and "roofline model (" in o
+        assert "predicted ceiling" in o
+    # the cadence of the JAX program: one SpMV an iteration and the prelude's
+    assert _gemv_times(out) == its + 1 and _gemv_times(outj) == itsj + 1
+    d = load_stats_document(doc)
+    assert jvalidate(dict(d, schema=JSCHEMA)) == []
+    roof = d["introspection"]["roofline"]
+    assert roof["hbm_gbps"] == 1000.0 and roof["measured_iters_per_sec"] > 0
+    assert roof["roofline_frac"] > 0
+    assert d["introspection"]["comm_audit"]["per_iteration"]["ppermute"][
+        "count"] == 0
+    assert d["stats"]["per_op"]["gemv"]["n"] == its + 1
+    assert d["options"]["warmup"] == 0          # --profile: no warmup
+    spans = {e["name"] for e in json.load(open(trace))["traceEvents"]
+             if e["ph"] == "X"}
+    assert {"read", "operator-build", "explain", "solve"} <= spans
+    files = os.listdir(prof)
+    assert files and all(f.endswith(".json") for f in files)
+    json.load(open(os.path.join(prof, files[0])))
+
+
+def test_cli_stats_document_of_a_failed_solve(matrix_file, tmp_path,
+                                              capsys):
+    from acg_torch import cli
+    from acg_torch.obs.export import load_stats_document
+
+    doc = str(tmp_path / "s.json")
+    rc, its, out, err = _main_iterations(
+        cli.main, [matrix_file, "--device", "cpu", "--max-iterations", "3",
+                   "--per-op-stats", "--output-stats-json", doc, "-q"],
+        capsys)
+    assert rc == 1 and its == 3 and "did not converge" in err
+    d = load_stats_document(doc)
+    assert d["result"]["status"] == "ERR_NOT_CONVERGED"
+    assert d["result"]["niterations"] == 3
+    assert d["stats"]["per_op"]["gemv"]["n"] == 4
+    assert d["introspection"]["roofline"] is None
+
+
+@pytest.mark.parametrize("args,warned", [
+    (["--solver", "host", "--explain"], "--explain"),
+    (["--solver", "petsc", "--per-op-stats"], "--per-op-stats"),
+    (["--solver", "acg-sstep", "--per-op-stats"], "--per-op-stats")])
+def test_cli_introspection_warnings_match_jax_cli(matrix_file, args, warned,
+                                                  capsys):
+    from acg_torch import cli
+    from acg_tpu import cli as jcli
+
+    flags = [matrix_file, *args, "--max-iterations", "500", "-q"]
+    for main, extra in ((cli.main, ["--device", "cpu"]), (jcli.main, [])):
+        rc, _, out, err = _main_iterations(main, flags + extra, capsys)
+        assert rc == 0, out + err
+        assert f"warning: {warned}" in err and "ignored" in err
+        assert "CommAudit (" not in out
+
+
+@pytest.mark.parametrize("extra", [
+    ["-z"], ["--gunzip"], ["--no-manufactured-solution"],
+    ["--idx-size", "64"], ["--epsilon", "0.5"],
+    ["--cusparse-spmv-alg", "CSR-1"]])
+def test_cli_compat_flags_match_jax_cli(matrix_file, extra, capsys):
+    """The reference-compatibility flags: accepted by both programs, the
+    same iteration count (±1), the same note or output."""
+    from acg_torch import cli
+    from acg_tpu import cli as jcli
+
+    flags = [matrix_file, "--manufactured-solution", *extra,
+             "--max-iterations", "500", "-q"]
+    rc, its, out, err = _main_iterations(cli.main,
+                                         flags + ["--device", "cpu"], capsys)
+    rcj, itsj, outj, errj = _main_iterations(jcli.main, flags, capsys)
+    assert rc == rcj == 0, out + err + outj + errj
+    assert abs(its - itsj) <= 1
+    for o in (out, outj):
+        assert ("manufactured solution error" in o) == (
+            "--no-manufactured-solution" not in extra)
+    if "--cusparse-spmv-alg" in extra:
+        assert "note: --cusparse-spmv-alg csr-1" in err
+        assert "note: --cusparse-spmv-alg csr-1" in errj
+    if "--epsilon" in extra:
+        rc0, its0, _, _ = _main_iterations(
+            cli.main, [matrix_file, "--manufactured-solution",
+                       "--max-iterations", "500", "-q", "--device", "cpu"],
+            capsys)
+        assert its < its0          # A + 0.5 I is better conditioned
+
+
+@pytest.mark.parametrize("bad", [["--idx-size", "16"],
+                                 ["--cusparse-spmv-alg", "csr-3"]])
+def test_cli_compat_flags_refuse_like_jax_cli(matrix_file, bad, capsys):
+    from acg_torch import cli
+    from acg_tpu import cli as jcli
+
+    for main in (cli.main, jcli.main):
+        with pytest.raises(SystemExit) as ei:
+            main([matrix_file, *bad])
+        assert ei.value.code == 2
+    capsys.readouterr()
+
+
+def test_cli_version_prints_capabilities(capsys):
+    from acg_torch import cli
+    from acg_torch.obs.export import capability_info
+
+    with pytest.raises(SystemExit) as ei:
+        cli.main(["--version"])
+    assert ei.value.code == 0
+    out = capsys.readouterr().out
+    info = capability_info()
+    assert out.startswith(f"acg-torch {info['version']}")
+    assert f"torch: {info['torch']}" in out
+    assert "native host library: no" in out
+
+
+def test_cli_serve_writes_stats_and_trace(matrix_file, tmp_path, capsys):
+    import json
+
+    from acg_torch import cli
+    from acg_torch.obs.export import load_stats_document
+
+    cmds = tmp_path / "cmds.txt"
+    cmds.write_text("solve\nbatch 2\n")
+    doc, trace = str(tmp_path / "s.json"), str(tmp_path / "t.json")
+    rc, _, out, err = _main_iterations(
+        cli.main, [matrix_file, "--device", "cpu", "--serve", str(cmds),
+                   "--output-stats-json", doc, "--trace-json", trace],
+        capsys)
+    assert rc == 0, out + err
+    d = load_stats_document(doc)
+    assert d["session"] is not None and d["admission"] is not None
+    lines = [json.loads(ln) for ln in out.splitlines()]
+    assert d["session"]["request_id"] == lines[-1]["request"]
+    events = json.load(open(trace))["traceEvents"]
+    assert {e["args"]["name"] for e in events if e["ph"] == "M"} == {
+        "host phases", "requests"}
+    assert sum(e["ph"] == "X" and e["cat"] == "request"
+               for e in events) == 3
+
+
+def test_chrome_trace_has_the_jax_structure():
+    """The same spans and request timelines through both packages'
+    ``chrome_trace``: the same events, kinds, names, lanes and keys."""
+    from acg_torch.obs import events as tev
+    from acg_torch.obs.trace import SpanTracer
+    from acg_tpu.obs import events as jev
+    from acg_tpu.obs.trace import SpanTracer as JTracer
+
+    docs = []
+    for ev, tracer in ((tev, SpanTracer()), (jev, JTracer())):
+        rec = ev.FlightRecorder(capacity=4)
+        with tracer.span("read"):
+            with tracer.span("inner"):
+                pass
+        with tracer.span("solve"):
+            tl = rec.begin(request_id="r1", trace_id="ab" * 8)
+            tl.event("dispatch", bucket=4)
+        docs.append(ev.chrome_trace(tracer=tracer, recorder=rec))
+
+    def shape(doc):
+        return [(e["name"], e["ph"], e["pid"], e["tid"], sorted(e),
+                 sorted(e.get("args", {})))
+                for e in doc["traceEvents"]]
+
+    assert shape(docs[0]) == shape(docs[1])
+    assert docs[0]["displayTimeUnit"] == docs[1]["displayTimeUnit"]
+    merged = tev.merge_recorder_dumps([tev.FlightRecorder(), None])
+    assert merged == []

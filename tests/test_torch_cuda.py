@@ -456,8 +456,10 @@ def test_dia_pipe_fixed_is_refused_off_its_band_counts(card):
 
 def test_dia_pipe_one_launch_a_call(card):
     """Each call of cg_pipelined_iter, with either kernel, is one kernel
-    on the card and no memset (torch.profiler), once its library and its
-    stream's scratch exist."""
+    on the card and no memset, once its library and its stream's scratch
+    exist: the launches are the wrapper's counter, and torch.profiler
+    names what ran on the card (a CUPTI record can be dropped, so the
+    profiler gives names and times, not counts)."""
     from torch.profiler import ProfilerActivity, profile
 
     n = 70_001
@@ -470,15 +472,17 @@ def test_dia_pipe_one_launch_a_call(card):
         run = _pipe_forced(dev, fixed)
         run(*vecs, *ab, w_out=w_out)
         torch.cuda.synchronize()
+        before = dia_kernels.pipe_launches
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(2):
                 run(*vecs, *ab, w_out=w_out)
             torch.cuda.synchronize()
+        assert dia_kernels.pipe_launches - before == 2
         on_card = [(e.key, e.count) for e in prof.key_averages()
                    if str(getattr(e, "device_type", "")).endswith("CUDA")]
-        assert sum(c for _, c in on_card) == 2, on_card
-        assert all("dia_pipe" in k for k, _ in on_card), on_card
+        assert on_card and all("dia_pipe" in k for k, _ in on_card), \
+            on_card
 
 
 def test_dia_pipe_counter_back_at_zero_on_two_streams(card):
@@ -2554,3 +2558,36 @@ def test_serve_close_returns_the_resident_memory(card):
     gc.collect()
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated() - before <= 1 << 20
+
+
+# ---------------------------------------------------------------------------
+# the introspection layer on the card
+
+
+def test_time_op_times_with_cuda_events(card):
+    from acg_torch.utils.stats import time_op
+
+    x = torch.ones(1 << 24, dtype=torch.float64, device=card)
+    t = time_op(torch.dot, x, x)
+    # 128 MiB read once: well above a launch, well below a second
+    assert 1e-6 < t < 1.0
+
+
+def test_audit_counts_the_graph_loop_on_the_card(card):
+    """The counted audit of classic CG on one card and on 4 shards of it
+    under the rdma halo: the replayed blocks count as launched ones."""
+    from acg_torch.obs.audit import audit_solver
+    from acg_torch.solvers.cg import build_device_operator
+    from acg_torch.solvers.cg_dist import build_sharded
+
+    A = poisson.poisson3d_7pt(24)
+    o = SolverOptions(residual_rtol=1e-8)
+    one = audit_solver(build_device_operator(A, device=card), options=o)
+    assert one.launches["stencil_spmv"] == one.launches["cg_update"] == 1
+    assert all(one.count(c) == 0 for c in ("ppermute", "rdma", "allreduce"))
+    ss = build_sharded(A, nparts=4, devices=[card] * 4, method="rdma")
+    dist = audit_solver(ss, options=o)
+    assert dist.count("rdma") == 1 and dist.count("allreduce") == 2
+    assert dist.launches["stencil_spmv"] == 4
+    assert dist.launches["rdma_exchange"] == 1
+    assert dist.host_reads == 1

@@ -31,8 +31,8 @@ from acg_tpu.sparse import poisson as jpoisson
 from acg_torch.config import SolverOptions
 from acg_torch.errors import AcgError, Status
 from acg_torch.serve import Session, SolverService
-from acg_torch.solvers.cg import (aot_step, cg, cg_pipelined,
-                                  cg_pipelined_deep)
+from acg_torch.solvers.cg import (aot_step, build_device_operator, cg,
+                                  cg_pipelined, cg_pipelined_deep)
 from acg_torch.solvers.cg_dist import aot_step as dist_aot_step
 from acg_torch.solvers.cg_dist import (build_sharded, cg_dist,
                                        cg_pipelined_dist)
@@ -126,10 +126,16 @@ def test_summary_stats_and_health_keys_match_acg_tpu():
     assert set(tr.audit) == set(jr.audit)
     assert set(tr.audit["session"]) == set(jr.audit["session"])
     assert set(tr.audit["admission"]) == set(jr.audit["admission"])
-    # the blocks this port cannot fill are null
-    for block in ("capabilities", "introspection", "resilience",
-                  "contract", "fleet"):
+    # the blocks this port cannot fill are null; the document is the
+    # port's one stats schema, capabilities filled
+    for block in ("resilience", "contract", "fleet"):
         assert tr.audit[block] is None
+    assert tr.audit["introspection"] == {
+        "comm_audit": None, "roofline": None, "halo_wire": None}
+    assert tr.audit["capabilities"]["version"]
+    from acg_torch.obs.export import SCHEMA, validate_stats_document
+    assert tr.audit["schema"] == SCHEMA
+    assert validate_stats_document(tr.audit) == []
     json.dumps(tr.audit, allow_nan=False)
 
 
@@ -432,8 +438,13 @@ def _refusals():
         "recycle": lambda: session(recycle=True),
         "recycle-state": lambda: session().recycle_state,
         "prep-cache-dir": lambda: session(prep_cache="/nonexistent"),
-        "epsilon": lambda: session(epsilon=1e-3),
-        "audit": lambda: session().audit(),
+        # epsilon shifts a host CSR matrix: a built operator takes none
+        "epsilon": lambda: Session(
+            build_device_operator(A, device="cpu"), device="cpu",
+            share_prepared=False, epsilon=1e-3),
+        # the counted audit covers the loops, not the recycled solver's
+        # host deflation
+        "audit": lambda: session().audit(solver="cg-recycled"),
         "fault": lambda: session().solve(np.ones(64), fault=object()),
         "resilient": lambda: service(resilient=True),
         "warm-start": lambda: service(warm_start=True),
