@@ -595,9 +595,12 @@ def main(argv=None) -> int:
 
 def _main(argv=None) -> int:
     args = make_parser().parse_args(argv)
+    # validate --numfmt up front (ref fmtspec_parse, acg/fmtspec.c, called
+    # during option parsing cuda/acg-cuda.c:363-366)
+    from acg_torch.utils.fmtspec import parse_fmtspec
     try:
-        args.numfmt % 1.0
-    except (TypeError, ValueError) as e:
+        args.numfmt = str(parse_fmtspec(args.numfmt))
+    except AcgError as e:
         print(f"error: --numfmt: {e}", file=sys.stderr)
         return 2
     _refuse_unported(args)
@@ -623,9 +626,9 @@ def _main(argv=None) -> int:
                        f"--pipeline-depth {args.pipeline_depth}: the "
                        "pipeline depth must be in [1, 8] (depth 1 is the "
                        "ordinary pipelined solver)")
-    # -vv turns on the live residual stream of the device solvers
-    # (reference verbose mode); an explicit --monitor-every K sets it
-    if args.verbose >= 2 and args.monitor_every == 0 and not host:
+    # -vv turns on the live residual stream (reference verbose mode); an
+    # explicit --monitor-every K sets the throttle
+    if args.verbose >= 2 and args.monitor_every == 0:
         args.monitor_every = 1
     # the host solvers take A as it is read, on one process
     dist = args.nparts > 1 and not host

@@ -2,16 +2,16 @@
 // Cornelis/Cools/Vanroose arXiv:1801.04728), for B systems, one thread
 // a system, in one launch:
 //
-//   the banded basis change G shifted one place along its band, in
-//   place; column c = t+1 by forward substitution from the l-old dot
-//   block and its Cholesky diagonal with the SPD test; gamma_t and
-//   delta_t through the shifts while t < l and the gamma/delta rings
-//   after; the D-Lanczos lambda, zeta and dd, the commit, the breakdown
-//   and guard flags and the exit estimate at check points; the residual
-//   estimate, the committed-body count, the per-system counts and the
-//   history sample at a device index; and the coefficients the body's
-//   vector operations read (the column rolled onto the v ring, lambda,
-//   zeta/dd, 1/g_cc, gamma_t, delta_{t-1}, 1/c).
+//   the banded basis change G shifted one place along its band; column
+//   c = t+1 by forward substitution from the l-old dot block and its
+//   Cholesky diagonal with the SPD test; gamma_t and delta_t through the
+//   shifts while t < l and the gamma/delta rings after; the D-Lanczos
+//   lambda, zeta and dd, the commit, the breakdown and guard flags and
+//   the exit estimate at check points; the residual estimate, the
+//   committed-body count, the per-system counts and the history sample
+//   at a device index; and the coefficients the body's vector operations
+//   read (the column rolled onto the v ring, lambda, zeta/dd, 1/g_cc,
+//   gamma_t, delta_{t-1}, 1/c).
 //
 // Replaces no TPU kernel: in the JAX package XLA compiles this chain
 // into the deep pipeline's lax.while_loop (acg_tpu/solvers/loops.py:
@@ -21,11 +21,27 @@
 // sequence that a CUDA graph can hold.
 //
 // Bound on this card: latency.  The chain is O(w^2) dependent scalar
-// operations on w = 2l+1 values (a few dozen at l = 2); every system
-// runs its chain on one thread of one block, and the counts shared by
-// the systems (the committed bodies, the body index, the live bit) come
-// from block-wide votes.  Every operation is written with the
-// round-to-nearest intrinsics in the order of the plain version
+// operations on w = 2l+1 values (a few dozen at l = 2), and inside a
+// graph a launch costs its node's gap plus the chain's own latency.  So
+// the design keeps memory out of the chain:
+//   - the depth is a template parameter (l = 2..8, chosen on the host),
+//     so every loop unrolls and G's (w-1)^2 entries that survive the
+//     shift, the dot block and the column live in registers: at f64
+//     through l = 6 in the 128-thread instance (72-253 registers), with
+//     a 768-byte spill at l = 7 and the chain in thread-local memory,
+//     which the L1 holds, at l = 8; at f32 through l = 8 (shared memory
+//     would have to hold it for up to 1024 systems);
+//   - every load a system needs is issued at entry, before any store, as
+//     independent loads (no load waits behind a store through the same
+//     pointer, which the in-place shift made the old kernel do: a chain
+//     of dependent L2 round trips);
+//   - the shifted block of G is stored as soon as it is loaded (each
+//     entry once; its lower triangle then holds no register), every
+//     other output once at the end.
+// Every system runs its chain on one thread of one block, and the
+// counts shared by the systems (the committed bodies, the body index,
+// the live bit) come from block-wide votes.  Every operation is written
+// with the round-to-nearest intrinsics in the order of the plain version
 // (ops/deep_coeffs.py, the torch chain), so nothing contracts into an
 // FMA and the kernel gives the plain version's bits.
 #include <cuda_runtime.h>
@@ -35,7 +51,10 @@
 namespace {
 
 constexpr int kMaxDepth = 8;
-constexpr int kMaxW = 2 * kMaxDepth + 1;
+constexpr int kMaxSystems = 1024;
+// a block of at most this many threads gets the whole register file's
+// share (255 a thread); larger batches take the 1024-thread instance
+constexpr int kSmallBlock = 128;
 constexpr int kNco = 5;
 constexpr int kOK = 0, kBreakdown = 2, kFault = 3;
 
@@ -50,8 +69,8 @@ __device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(
 __device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
 __device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
 
-template <typename V>
-__global__ void __launch_bounds__(1024)
+template <typename V, int L, int kThreads>
+__global__ void __launch_bounds__(kThreads)
 deep_coeffs_kernel(const V* __restrict__ D, V* __restrict__ G,
                    const V* __restrict__ shifts, V* __restrict__ gring,
                    V* __restrict__ dring, V* __restrict__ sc,
@@ -61,57 +80,75 @@ deep_coeffs_kernel(const V* __restrict__ D, V* __restrict__ G,
                    int64_t hstride, V* __restrict__ co,
                    bool* __restrict__ commit_out, bool* __restrict__ act_out,
                    bool* __restrict__ live, int* __restrict__ kmon, int nsys,
-                   int l, int t, int hh, int hv, int at_check, int guard,
+                   int t, int hh, int hv, int at_check, int guard,
                    int any_crit, int batched) {
+  constexpr int W = 2 * L + 1;
+  constexpr int N = W - 1;        // G's entries that survive the shift
   const int b = threadIdx.x;
-  const int w = 2 * l + 1;
-  const long long k1 = *kit + 1;
-  const int kd = *kdev;
   bool commit = false, lv = false;
+  // the counts: thread 0 writes them back after the votes
+  int kd = 0;
+  long long k1 = 0;
+  if (b == 0) kd = *kdev;
   if (b < nsys) {
-    const V* Db = D + b * w;
-    V* Gb = G + static_cast<int64_t>(b) * w * w;
-    // the ring shift: G[i][j] <- G[i+1][j+1] (ascending, so every read
-    // precedes the write over it), the last row 0
-    for (int i = 0; i < w - 1; ++i)
-      for (int j = 0; j < w - 1; ++j) Gb[i * w + j] = Gb[(i + 1) * w + j + 1];
-    for (int j = 0; j < w; ++j) Gb[(w - 1) * w + j] = V(0);
-    // column c by forward substitution
-    V col[kMaxW];
-    for (int a = 0; a < w - 1; ++a) {
-      V acc = Db[a];
-      for (int k = 0; k < a; ++k)
-        acc = sub_rn(acc, mul_rn(col[k], Gb[k * w + a]));
-      const V gaa = Gb[a * w + a];
-      col[a] = gaa != V(0) ? div_rn(acc, gaa) : V(0);
-    }
-    V gcc2 = Db[w - 1];
-    for (int k = 0; k < w - 1; ++k) gcc2 = sub_rn(gcc2, mul_rn(col[k], col[k]));
-    const bool good_g = gcc2 > V(0);
-    const V gcc = sqrt_rn(gcc2 < V(0) ? V(0) : gcc2);
-    for (int a = 0; a < w - 1; ++a) Gb[a * w + w - 1] = col[a];
-    Gb[(w - 1) * w + w - 1] = gcc;
-    // gamma_t, delta_t
+    // ---- every load, at entry
+    k1 = *kit + 1;
+    const V* Db = D + b * W;
+    V* Gb = G + static_cast<int64_t>(b) * W * W;
+    V d[W];
+#pragma unroll
+    for (int a = 0; a < W; ++a) d[a] = Db[a];
+    // g[i][j] = G[i+1][j+1]: the shifted block (the old row and column
+    // 0 drop out)
+    V g[N][N];
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) g[i][j] = Gb[(i + 1) * W + j + 1];
     V base, mult;
-    if (t < l) {
-      base = shifts[b * l + t];
+    if (t < L) {
+      base = shifts[b * L + t];
       mult = V(1);
     } else {
       base = gring[hh * nsys + b];
       mult = dring[hh * nsys + b];
     }
-    const V d_tm1 = dring[((hh + l - 1) % l) * nsys + b];
-    const V gii = Gb[(w - 2) * w + w - 2];
+    const V d_tm1 = dring[((hh + L - 1) % L) * nsys + b];
+    V* s5 = sc + b * 5;
+    const V eta = s5[0], d_prev = s5[1], zeta_prev = s5[2], thr = s5[4];
+    int fl = flag[b];
+    bool es = est[b];
+
+    // ---- the shifted block, stored once (all of G is loaded above)
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) Gb[i * W + j] = g[i][j];
+
+    // ---- the chain, in registers: column c by forward substitution
+    V col[N];
+#pragma unroll
+    for (int a = 0; a < N; ++a) {
+      V acc = d[a];
+#pragma unroll
+      for (int k = 0; k < a; ++k) acc = sub_rn(acc, mul_rn(col[k], g[k][a]));
+      const V gaa = g[a][a];
+      col[a] = gaa != V(0) ? div_rn(acc, gaa) : V(0);
+    }
+    V gcc2 = d[W - 1];
+#pragma unroll
+    for (int k = 0; k < N; ++k) gcc2 = sub_rn(gcc2, mul_rn(col[k], col[k]));
+    const bool good_g = gcc2 > V(0);
+    const V gcc = sqrt_rn(gcc2 < V(0) ? V(0) : gcc2);
+    // gamma_t, delta_t (G's (w-2, w-2) and (w-3, w-2) after the shift)
+    const V gii = g[N - 1][N - 1];
     const V gii_s = gii != V(0) ? gii : V(1);
-    const V gam = add_rn(base, div_rn(sub_rn(mul_rn(col[w - 2], mult),
-                                             mul_rn(d_tm1,
-                                                    Gb[(w - 3) * w + w - 2])),
+    const V gam = add_rn(base, div_rn(sub_rn(mul_rn(col[N - 1], mult),
+                                             mul_rn(d_tm1, g[N - 2][N - 1])),
                                       gii_s));
     const V del = div_rn(mul_rn(gcc, mult), gii_s);
     const V gcc_s = gcc != V(0) ? gcc : V(1);
     // the D-Lanczos coefficients
-    V* s5 = sc + b * 5;
-    const V eta = s5[0], d_prev = s5[1], zeta_prev = s5[2], thr = s5[4];
     V lam, zeta;
     if (t == 0) {
       lam = V(0);
@@ -126,8 +163,6 @@ deep_coeffs_kernel(const V* __restrict__ D, V* __restrict__ G,
     const V rq = div_rn(mul_rn(del, zeta), dd_s);
     const V rr_new = mul_rn(rq, rq);
     const bool bad = dd <= V(0) || !good_g;
-    int fl = flag[b];
-    bool es = est[b];
     const bool active = fl == kOK && !es;
     commit = active && !bad;
     if (active && bad) fl = kBreakdown;
@@ -136,6 +171,16 @@ deep_coeffs_kernel(const V* __restrict__ D, V* __restrict__ G,
       fl = kFault;
     if (at_check)
       es = es || (commit && (rr_new < thr || (any_crit && rr_new == V(0))));
+    const V c_s = del != V(0) ? del : V(1);
+    const V inv_gcc = div_rn(V(1), gcc_s);
+    const V inv_c = div_rn(V(1), c_s);
+
+    // ---- every other output, once
+#pragma unroll
+    for (int a = 0; a < N; ++a) Gb[a * W + N] = col[a];
+#pragma unroll
+    for (int j = 0; j < N; ++j) Gb[N * W + j] = V(0);
+    Gb[N * W + N] = gcc;
     V* hb = hist + static_cast<int64_t>(b) * hstride;
     if (batched) {
       hb[k1] = commit ? rr_new : V(NAN);
@@ -143,15 +188,15 @@ deep_coeffs_kernel(const V* __restrict__ D, V* __restrict__ G,
     } else if (commit) {
       hb[k1] = rr_new;
     }
-    const V c_s = del != V(0) ? del : V(1);
-    V* cb = co + b * (w + kNco);
-    for (int a = 0; a < w - 1; ++a) cb[(a + hv) % (w - 1)] = col[a];
-    cb[w - 1] = lam;
-    cb[w] = zdd;
-    cb[w + 1] = div_rn(V(1), gcc_s);
-    cb[w + 2] = gam;
-    cb[w + 3] = d_tm1;
-    cb[w + 4] = div_rn(V(1), c_s);
+    V* cb = co + b * (W + kNco);
+#pragma unroll
+    for (int a = 0; a < N; ++a) cb[(a + hv) % N] = col[a];
+    cb[W - 1] = lam;
+    cb[W] = zdd;
+    cb[W + 1] = inv_gcc;
+    cb[W + 2] = gam;
+    cb[W + 3] = d_tm1;
+    cb[W + 4] = inv_c;
     if (commit) {
       s5[1] = dd;
       s5[2] = zeta;
@@ -175,26 +220,59 @@ deep_coeffs_kernel(const V* __restrict__ D, V* __restrict__ G,
   }
 }
 
-template <typename V>
+template <typename V, int L>
 int launch(const void* D, void* G, const void* shifts, void* gring,
            void* dring, void* sc, void* flag, void* est, void* kdev,
            void* ksys, void* kit, void* hist, void* co, int64_t hstride,
-           void* commit, void* act, void* live, void* kmon, int nsys, int l,
-           int t, int hh, int hv, int at_check, int guard, int any_crit,
+           void* commit, void* act, void* live, void* kmon, int nsys, int t,
+           int hh, int hv, int at_check, int guard, int any_crit,
            int batched, cudaStream_t st) {
   const int threads = (nsys + 31) / 32 * 32;
-  deep_coeffs_kernel<V><<<1, threads, 0, st>>>(
-      static_cast<const V*>(D), static_cast<V*>(G),
-      static_cast<const V*>(shifts), static_cast<V*>(gring),
-      static_cast<V*>(dring), static_cast<V*>(sc), static_cast<int*>(flag),
-      static_cast<bool*>(est), static_cast<int*>(kdev),
-      static_cast<int*>(ksys), static_cast<long long*>(kit),
-      static_cast<V*>(hist), hstride, static_cast<V*>(co),
-      static_cast<bool*>(commit), static_cast<bool*>(act),
-      static_cast<bool*>(live), static_cast<int*>(kmon), nsys, l, t, hh, hv,
-      at_check, guard, any_crit, batched);
+#define ACG_DEEP_LAUNCH(BOUND)                                               \
+  deep_coeffs_kernel<V, L, BOUND><<<1, threads, 0, st>>>(                    \
+      static_cast<const V*>(D), static_cast<V*>(G),                          \
+      static_cast<const V*>(shifts), static_cast<V*>(gring),                 \
+      static_cast<V*>(dring), static_cast<V*>(sc), static_cast<int*>(flag),  \
+      static_cast<bool*>(est), static_cast<int*>(kdev),                      \
+      static_cast<int*>(ksys), static_cast<long long*>(kit),                 \
+      static_cast<V*>(hist), hstride, static_cast<V*>(co),                   \
+      static_cast<bool*>(commit), static_cast<bool*>(act),                   \
+      static_cast<bool*>(live), static_cast<int*>(kmon), nsys, t, hh, hv,    \
+      at_check, guard, any_crit, batched)
+  if (threads <= kSmallBlock)
+    ACG_DEEP_LAUNCH(kSmallBlock);
+  else
+    ACG_DEEP_LAUNCH(kMaxSystems);
+#undef ACG_DEEP_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
+
+template <typename V>
+int launch_depth(int l, const void* D, void* G, const void* shifts,
+                 void* gring, void* dring, void* sc, void* flag, void* est,
+                 void* kdev, void* ksys, void* kit, void* hist, void* co,
+                 int64_t hstride, void* commit, void* act, void* live,
+                 void* kmon, int nsys, int t, int hh, int hv, int at_check,
+                 int guard, int any_crit, int batched, cudaStream_t st) {
+#define ACG_DEEP_DEPTH(LL)                                                  \
+  case LL:                                                                  \
+    return launch<V, LL>(D, G, shifts, gring, dring, sc, flag, est, kdev,   \
+                         ksys, kit, hist, co, hstride, commit, act, live,   \
+                         kmon, nsys, t, hh, hv, at_check, guard, any_crit,  \
+                         batched, st);
+  switch (l) {
+    ACG_DEEP_DEPTH(2)
+    ACG_DEEP_DEPTH(3)
+    ACG_DEEP_DEPTH(4)
+    ACG_DEEP_DEPTH(5)
+    ACG_DEEP_DEPTH(6)
+    ACG_DEEP_DEPTH(7)
+    ACG_DEEP_DEPTH(8)
+  }
+#undef ACG_DEEP_DEPTH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+static_assert(kMaxDepth == 8, "launch_depth instantiates l = 2..8");
 
 }  // namespace
 
@@ -215,19 +293,19 @@ extern "C" int acg_deep_coeffs(const void* D, void* G, const void* shifts,
                                void* kmon, int vec_type, int nsys, int l,
                                int t, int hh, int hv, int at_check, int guard,
                                int any_crit, int batched, void* stream) {
-  if (nsys < 1 || nsys > 1024 || l < 2 || l > kMaxDepth || hh < 0 ||
+  if (nsys < 1 || nsys > kMaxSystems || l < 2 || l > kMaxDepth || hh < 0 ||
       hh >= l || hv < 0 || hv >= 2 * l || (batched && ksys == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec_type == 2)
-    return launch<float>(D, G, shifts, gring, dring, sc, flag, est, kdev,
-                         ksys, kit, hist, co, hstride, commit, act, live,
-                         kmon, nsys, l, t, hh, hv, at_check, guard, any_crit,
-                         batched, st);
+    return launch_depth<float>(l, D, G, shifts, gring, dring, sc, flag, est,
+                               kdev, ksys, kit, hist, co, hstride, commit,
+                               act, live, kmon, nsys, t, hh, hv, at_check,
+                               guard, any_crit, batched, st);
   if (vec_type == 3)
-    return launch<double>(D, G, shifts, gring, dring, sc, flag, est, kdev,
-                          ksys, kit, hist, co, hstride, commit, act, live,
-                          kmon, nsys, l, t, hh, hv, at_check, guard,
-                          any_crit, batched, st);
+    return launch_depth<double>(l, D, G, shifts, gring, dring, sc, flag, est,
+                                kdev, ksys, kit, hist, co, hstride, commit,
+                                act, live, kmon, nsys, t, hh, hv, at_check,
+                                guard, any_crit, batched, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

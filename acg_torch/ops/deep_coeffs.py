@@ -156,18 +156,21 @@ def deep_coeffs_plain(D, G, shifts, gring, dring, hh: int, sc, flag, est,
     live.copy_(((fl == _OK) & ~es).any())
 
 
+def _lib_of(lib):
+    """``lib`` (a built ``deep_coeffs.cu``) with its entry point typed."""
+    lib.acg_deep_coeffs.restype = ctypes.c_int
+    lib.acg_deep_coeffs.argtypes = (
+        [ctypes.c_void_p] * 13 + [ctypes.c_int64]
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
         from acg_torch import _build
 
-        lib = _build.load("deep_coeffs")
-        lib.acg_deep_coeffs.restype = ctypes.c_int
-        lib.acg_deep_coeffs.argtypes = (
-            [ctypes.c_void_p] * 13 + [ctypes.c_int64]
-            + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-            + [ctypes.c_void_p])
-        _lib = lib
+        _lib = _lib_of(_build.load("deep_coeffs"))
     return _lib
 
 

@@ -24,8 +24,10 @@ differs (the Leja order's sums of logs).
 The s x s tridiagonal's eigenvalues come from Sturm-sequence bisection
 with a fixed number of halvings (:func:`tridiag_eigvalsh`):
 ``torch.linalg.eigvalsh`` on CUDA reads its ``info`` on the host, which
-a CUDA graph capture cannot hold.  There is no fallback between the
-two versions: a CUDA call that cannot launch raises.
+a CUDA graph capture cannot hold.  The kernel walks five levels of those
+halvings a round, one tree node a lane, and keeps their bits.  There is
+no fallback between the two versions: a CUDA call that cannot launch
+raises.
 """
 
 from __future__ import annotations
@@ -47,7 +49,6 @@ _OK, _CONVERGED, _GRAM_BAD = 0, 1, 4     # the loop flags (solvers/loops.py)
 # dtype's resolution for Ritz values within 2^-11 (f64) / 2^-16 (f32) of
 # the interval's width
 HALVINGS = {torch.float64: 64, torch.float32: 40}
-THREADS = 64                   # threads of the kernel's block (a system)
 SMEM_LIMIT = 48 * 1024         # shared memory a block takes without opt-in
 
 _VEC_CODES = {torch.float32: 2, torch.float64: 3}
@@ -57,11 +58,12 @@ _lib = None
 
 
 def smem_bytes(s: int, dtype) -> int:
-    """Shared memory the kernel's block takes at block size ``s``: G, 8
-    coefficient vectors of m = 2s+1 and 7 of s."""
+    """Shared memory the kernel's block (a system: min(s, 8) warps)
+    takes at block size ``s``: G, 8 coefficient vectors of m = 2s+1 and
+    5 of s."""
     m = 2 * s + 1
     size = torch.empty((), dtype=dtype).element_size()
-    return (m * m + 8 * m + 7 * s) * size
+    return (m * m + 8 * m + 5 * s) * size
 
 
 def _seq_dot(a, b):
@@ -302,20 +304,23 @@ def read_status(status) -> tuple:
     return bool(st[:, 0].any()), int(st[:, 1].max()), float(st[:, 2].max())
 
 
+def _lib_of(lib):
+    """``lib`` (a built ``sstep_coeffs.cu``) with its entry point typed."""
+    lib.acg_sstep_coeffs.restype = ctypes.c_int
+    lib.acg_sstep_coeffs.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int64] + [ctypes.c_void_p] * 3
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+           ctypes.c_int, ctypes.c_double, ctypes.c_int, ctypes.c_int,
+           ctypes.c_void_p])
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
         from acg_torch import _build
 
-        lib = _build.load("sstep_coeffs")
-        lib.acg_sstep_coeffs.restype = ctypes.c_int
-        lib.acg_sstep_coeffs.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int64]
-            + [ctypes.c_void_p] * 3
-            + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-               ctypes.c_int, ctypes.c_double, ctypes.c_int, ctypes.c_int,
-               ctypes.c_void_p])
-        _lib = lib
+        _lib = _lib_of(_build.load("sstep_coeffs"))
     return _lib
 
 

@@ -23,6 +23,7 @@ import numpy as np
 
 from acg_torch.config import SolverOptions
 from acg_torch.errors import AcgError, Status
+from acg_torch.obs.monitor import emit_residual_line
 from acg_torch.solvers.base import SolveResult, SolveStats, cg_flops_per_iter
 
 
@@ -40,17 +41,15 @@ def cg_scipy(A, b, x0=None, options: SolverOptions = SolverOptions(),
     ``record_history`` opts into a per-iteration TRUE-residual
     ``residual_history`` (scipy exposes only the iterate, so each sample
     costs one extra SpMV inside the timed window — this baseline's
-    tsolve is a differential comparison number, so it records only when
-    asked; the live monitor, ``options.monitor_every``, is not yet
-    ported).
+    tsolve is a differential comparison number, so the default None
+    records only when the live monitor, ``options.monitor_every > 0``,
+    already pays for those products; a caller that wants the history
+    passes True).
     """
     import scipy.sparse as sp
     import scipy.sparse.linalg as spla
 
     o = options
-    if o.monitor_every:
-        raise AcgError(Status.ERR_NOT_SUPPORTED,
-                       "monitor_every: not yet ported")
     t0 = time.perf_counter()
     b = np.asarray(b)
     if b.ndim != 1:
@@ -77,14 +76,20 @@ def cg_scipy(A, b, x0=None, options: SolverOptions = SolverOptions(),
     niters = 0
     # true-residual trajectory, same contract as the native solvers'
     # residual_history (entry k = |r_k|²); opt-in — see docstring
-    record = bool(record_history)
+    record = (o.monitor_every > 0 if record_history is None
+              else record_history)
     hist = [r0nrm2 ** 2]
 
     def _count(xk):
         nonlocal niters
         niters += 1
+        if not (record or o.monitor_every > 0):
+            return
+        rr = float(np.linalg.norm(b - S @ xk) ** 2)
         if record:
-            hist.append(float(np.linalg.norm(b - S @ xk) ** 2))
+            hist.append(rr)
+        if o.monitor_every > 0 and niters % o.monitor_every == 0:
+            emit_residual_line(niters, rr)
 
     x, info = spla.cg(S, b, x0=x0, rtol=rtol, atol=atol,
                       maxiter=o.maxits or None, callback=_count)

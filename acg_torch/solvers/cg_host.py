@@ -21,6 +21,7 @@ import numpy as np
 
 from acg_torch.config import SolverOptions
 from acg_torch.errors import AcgError, Status
+from acg_torch.obs.monitor import emit_residual_line
 from acg_torch.solvers.base import SolveResult, SolveStats
 
 
@@ -38,9 +39,6 @@ def cg_host(A, b: np.ndarray, x0: np.ndarray | None = None,
     which here counts as exact convergence instead).
     """
     o = options
-    if o.monitor_every:
-        raise AcgError(Status.ERR_NOT_SUPPORTED,
-                       "monitor_every: not yet ported")
     matvec = A.matvec if hasattr(A, "matvec") else (lambda v: A @ v)
     b = np.asarray(b)
     if b.ndim != 1:
@@ -127,6 +125,8 @@ def cg_host(A, b: np.ndarray, x0: np.ndarray | None = None,
         rnrm2sqr = float(r @ r)
         rnrm2 = float(np.sqrt(rnrm2sqr))
         hist.append(rnrm2sqr)
+        if o.monitor_every > 0 and (k + 1) % o.monitor_every == 0:
+            emit_residual_line(k + 1, rnrm2sqr)
         st.ntotaliterations += 1
         if ((o.diffatol > 0 and dxnrm2 < o.diffatol)
                 or (o.diffrtol > 0 and dxnrm2 < diffrtol)

@@ -399,6 +399,7 @@ def main(argv=None) -> int:
         ("sstep-dia-bf16", lambda: _sstep_dia_bf16(grid, ctx), ()),
         ("deep-stencil", lambda: _deep_stencil(ctx),
          ("stencil", "pipelined-stencil")),
+        ("coeffs-small", lambda: _coeffs_small(ctx), ()),
         ("recycled-stencil", lambda: _recycled_stencil(ctx), ("stencil",)),
         ("cli-sstep", lambda: _cli_solver_phase(cli_grid, "acg-sstep",
                                                 "--sstep", "4"), ()),
@@ -591,10 +592,39 @@ def _build_phase():
     batched = {name: sorted({int(v) for v in
                              re.findall(r"Used (\d+) registers", log)})
                for name, log in logs.items() if name.endswith("_batched")}
+    # every depth of the deep body's chain, and the s-step block
+    coeffs = {name: _ptxas_report(logs[name])
+              for name in ("deep_coeffs", "sstep_coeffs") if name in logs}
     return {"built": sorted(logs), "max_registers": regs,
             "spill_bytes": spills, "batched_kernel_registers": batched,
+            "coefficient_kernels": coeffs,
             "libraries": [str(_build.library_path(n).relative_to(REPO))
                           for n in _build.SOURCES]}
+
+
+def _ptxas_report(log: str) -> list:
+    """Per kernel instantiation of an ``nvcc -Xptxas -v`` log: its
+    mangled name from ``kernel`` on (``kernelIdLi2ELi128E``: double, 2,
+    128), registers, stack frame and spill-store bytes."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            # from the kernel's name on: the template arguments follow it
+            name = m.group(1)
+            cur = {"function": name[max(name.find("kernel"), 0):][:48]}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      ln)
+        if m:
+            cur["stack"], cur["spill_stores"] = int(m[1]), int(m[2])
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m[1])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -641,6 +671,25 @@ def _queued_ms(fn, calls: int = 25, reps: int = 5) -> float:
         b.synchronize()
         out.append(a.elapsed_time(b) / calls)
     return sorted(out)[reps // 2]
+
+
+def _graph_ms(fn, launches: int = 32, reps: int = 25) -> float:
+    """ms a launch as a loop's CUDA graph runs it: ``launches`` calls of
+    ``fn()`` captured back to back in one graph, replayed between CUDA
+    events, over ``launches``; the median of ``reps`` replays after a
+    warm-up one.  (One launch from Python holds the host's time in its
+    events; a graph node costs only its gap on the card.)"""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    ms = _time_ms(graph.replay, reps, warmup=1) / launches
+    del graph
+    return ms
 
 
 def _bound(nbytes: int, flops: int, dtype, ctx) -> tuple[float, str]:
@@ -1122,7 +1171,9 @@ def _coeff_rows(nrhs: int, ctx, s: int = 4, l: int = 2):
     card on the same inputs (sstep_coeffs: flags, counts and ``changed``
     equal, the rest within 1e-12 (f64) / 1e-5 (f32) of its scale;
     deep_coeffs: every buffer bit for bit over ten bodies), then timed
-    one call and queued beside the plain version.  Both are latency-bound: the bound (their few
+    one call, queued and as the loops run them, 32 launches in one CUDA
+    graph (``ms_graph``), beside the plain version.  Both are
+    latency-bound: the bound (their few
     hundred bytes over the memory rate, their operations over the f64
     peak) is nanoseconds; no single PyTorch call computes either
     (library_ms null)."""
@@ -1160,6 +1211,8 @@ def _coeff_rows(nrhs: int, ctx, s: int = 4, l: int = 2):
         row["ms"] = _time_ms(lambda: sc.sstep_coeffs(
             **st1, s=s, maxits=maxits, any_crit=False), ctx["reps"])
         row["ms_queued"] = _queued_ms(lambda: sc.sstep_coeffs(
+            **st1, s=s, maxits=maxits, any_crit=False))
+        row["ms_graph"] = _graph_ms(lambda: sc.sstep_coeffs(
             **st1, s=s, maxits=maxits, any_crit=False))
         row["plain_ms"] = _time_ms(lambda: sc.sstep_coeffs_plain(
             **st2, s=s, maxits=maxits, any_crit=False), 5, warmup=1)
@@ -1202,6 +1255,7 @@ def _coeff_rows(nrhs: int, ctx, s: int = 4, l: int = 2):
               any_crit=True)
     row["ms"] = _time_ms(lambda: dc.deep_coeffs(**st1, **kw), ctx["reps"])
     row["ms_queued"] = _queued_ms(lambda: dc.deep_coeffs(**st1, **kw))
+    row["ms_graph"] = _graph_ms(lambda: dc.deep_coeffs(**st1, **kw))
     row["plain_ms"] = _time_ms(lambda: dc.deep_coeffs_plain(**st2, **kw),
                                ctx["reps"])
     row["library_ms"] = None
@@ -2197,6 +2251,105 @@ def _deep_stencil(ctx):
          _with_options(cg_pipelined_deep, pipeline_depth=l,
                        replace_every=R))]
     return rep
+
+
+def _small_case(edge: int = 64):
+    """The 7-point Poisson system of the coeffs-small phase on the card:
+    (operator, b, edge), b manufactured from seed 1, f64, fmt "auto"
+    (the matrix-free stencil)."""
+    import numpy as np
+
+    from acg_torch.solvers.cg import build_device_operator
+    from acg_torch.sparse.csr import manufactured_rhs
+    from acg_torch.sparse.poisson import poisson3d_7pt_dia
+
+    D = poisson3d_7pt_dia(edge)
+    _, b = manufactured_rhs(D, seed=1)
+    return build_device_operator(D, dtype=np.float64, fmt="auto"), b, edge
+
+
+def _small_solves(op, b, edge: int, repeats: int = 3) -> dict:
+    """deep-stencil's and sstep-stencil's solvers (depth 2 with
+    ``replace_every=50``; s = 4) on ``op``, b to rtol 1e-8 in the graph
+    loop: per solver the iterations, the host's µs an iteration of each
+    of ``repeats`` timed solves (all of it, and without the captures'
+    host seconds), one more solve under ``torch.profiler`` (the
+    coefficient kernel's and all kernels' device µs an iteration), the
+    coefficient kernel's launches, x's hash and its true residual in
+    float64 on the host.  Raises when a solve fails."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from acg_torch.config import SolverOptions
+    from acg_torch.ops import deep_coeffs, sstep_coeffs
+    from acg_torch.solvers.cg import cg_pipelined_deep, cg_sstep
+
+    rtol = 1e-8
+    cases = (("deep", cg_pipelined_deep, deep_coeffs, "deep_coeffs_kernel",
+              dict(pipeline_depth=_DEEP["depth"],
+                   replace_every=_DEEP["replace_every"])),
+             ("sstep", cg_sstep, sstep_coeffs, "sstep_coeffs_kernel",
+              dict(sstep=4)))
+    out = {}
+    for name, solve, mod, kname, extra in cases:
+        solve(op, b, options=SolverOptions(maxits=8, residual_rtol=0.0,
+                                           **extra))
+        opts = SolverOptions(maxits=20000, residual_rtol=rtol, **extra)
+        us, us_loop = [], []
+        for _ in range(repeats):
+            n0 = mod.launches
+            res = solve(op, b, options=opts)
+            launches = mod.launches - n0
+            us.append(res.stats.tsolve / res.niterations * 1e6)
+            us_loop.append((res.stats.tsolve - res.stats.tcapture)
+                           / res.niterations * 1e6)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prof_res = solve(op, b, options=opts)
+        coeff, busy = 0.0, 0.0
+        for e in prof.key_averages():
+            if not (str(getattr(e, "device_type", "")).endswith("CUDA")
+                    and _device_us(e) > 0):
+                continue
+            if not e.key.startswith(("Memcpy", "Memset")):
+                busy += _device_us(e)
+            if kname in e.key:
+                coeff += _device_us(e)
+        torch.cuda.synchronize()
+        rel = _poisson7_residual(edge, res.x, b)
+        rep = {"iterations": res.niterations, "loop": res.loop,
+               "us_per_iter": us, "us_per_iter_without_captures": us_loop,
+               "captures": res.stats.ncaptures,
+               "coefficient_kernel_launches": launches,
+               "coefficient_kernel_device_us_per_iter":
+                   coeff / prof_res.niterations,
+               "kernel_busy_us_per_iter": busy / prof_res.niterations,
+               "host_true_relative_residual": rel,
+               "x_sha": hashlib.sha256(np.ascontiguousarray(
+                   res.x).tobytes()).hexdigest()[:16]}
+        if not (res.converged and res.loop == "graph" and launches > 0
+                and coeff > 0 and rel <= 10 * rtol
+                and prof_res.niterations == res.niterations
+                and "fell back" not in res.kernel_note
+                and np.all(np.isfinite(res.x))):
+            raise SystemExit(f"error: the {edge}^3 {name} solve failed: "
+                             f"{rep}")
+        out[name] = rep
+    return out
+
+
+def _coeffs_small(ctx):
+    """The coefficient kernels where the vector work is small: deep and
+    s-step CG (deep-stencil's and sstep-stencil's configurations) on a
+    64^3 f64 Poisson system, whose SpMV and vector passes are about 64x
+    shorter than at 256^3 while the coefficient kernels' time is not
+    (``_small_solves``)."""
+    op, b, edge = _small_case()
+    return {"edge": edge, "unknowns": op.nrows, "rtol": 1e-8,
+            **_small_solves(op, b, edge)}
 
 
 def _laplacian_modes(G: int, k: int):
@@ -4826,9 +4979,11 @@ def _empty_kernel_build():
 
 
 def _latency_bound(lib_path, proc, ctx) -> dict:
-    """ms of one launch of an empty kernel captured in a CUDA graph,
-    replayed 25 times queued (and one replay between events): the least a
-    launch of a dependent scalar chain can take on this card."""
+    """The least a launch of a dependent scalar chain can take on this
+    card: an empty kernel as the coefficient rows' ``ms_graph`` times
+    them, 32 launches captured in one CUDA graph (``graph_node_ms``, the
+    bound the coefficient kernels are held to), and one launch in a graph
+    replayed 25 times queued (and one replay between events)."""
     import ctypes
 
     import torch
@@ -4853,13 +5008,15 @@ def _latency_bound(lib_path, proc, ctx) -> dict:
     for r in ctx["rows"]:
         if r["name"] in ("sstep_coeffs", "deep_coeffs"):
             rows.setdefault(r["name"], r)     # the f64, one-system rows
-    out = {"graph_replay_ms_queued": _queued_ms(graph.replay),
+    out = {"graph_node_ms": _graph_ms(lambda: lib.acg_empty_launch(
+               ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))),
+           "graph_replay_ms_queued": _queued_ms(graph.replay),
            "graph_replay_ms": _time_ms(graph.replay, ctx["reps"])}
     for name, row in rows.items():
-        out[name] = {"ms": row["ms"], "ms_queued": row.get("ms_queued"),
-                     "over_latency_bound": (row.get("ms_queued")
-                                            or row["ms"])
-                     / out["graph_replay_ms_queued"]}
+        out[name] = {"ms": row["ms"], "ms_queued": row["ms_queued"],
+                     "ms_graph": row["ms_graph"],
+                     "over_latency_bound": row["ms_graph"]
+                     / out["graph_node_ms"]}
     return out
 
 
@@ -5299,7 +5456,7 @@ def _kernel_lines(ctx) -> list:
                     "padded_bytes",
                     "dia_spmv_ms", "bits_equal_dia_spmv",
                     "plan", "P", "R", "S", "chunks_per_slot",
-                    "chunk_words", "scope", "ms_queued",
+                    "chunk_words", "scope", "ms_queued", "ms_graph",
                     "ghosts_bit_equal_plain_ppermute_allgather", "halo_ms",
                     "halo_ms_queued", "halo_bound_ms",
                     "library", "grid", "rows", "ghosts", "route",

@@ -35,7 +35,8 @@ def test_no_arguments_runs_every_phase(monkeypatch):
     assert rc == 2
     assert run == every and len(every) == len(set(every))
     for name in ("kernels", "sstep-stencil", "deep-stencil", "cli-petsc",
-                 "dist-wire", "serve", "cli-serve", "profile"):
+                 "dist-wire", "serve", "cli-serve", "coeffs-small",
+                 "profile"):
         assert name in every
 
 
@@ -61,6 +62,7 @@ def test_no_arguments_runs_every_phase(monkeypatch):
     ("serve", ["dist-setup", "stencil", "serve"]),
     ("serve,cli-serve", ["dist-setup", "stencil", "serve", "cli-serve"]),
     ("cli-serve", ["cli-serve"]),
+    ("coeffs-small", ["coeffs-small"]),
 ])
 def test_only_adds_what_a_phase_is_held_against(monkeypatch, only, want):
     rc, run, _every = _run(monkeypatch, ["--only", only])

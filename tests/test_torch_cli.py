@@ -449,3 +449,75 @@ def test_chrome_trace_has_the_jax_structure():
     assert docs[0]["displayTimeUnit"] == docs[1]["displayTimeUnit"]
     merged = tev.merge_recorder_dumps([tev.FlightRecorder(), None])
     assert merged == []
+
+
+@pytest.fixture(scope="module")
+def p2d_file(tmp_path_factory):
+    from acg_torch.sparse.poisson import poisson2d_5pt
+
+    A = poisson2d_5pt(12)
+    r, c, v = A.to_coo()
+    path = str(tmp_path_factory.mktemp("p2d") / "A.mtx")
+    write_mtx(path, MtxFile(nrows=A.nrows, ncols=A.ncols, nnz=A.nnz,
+                            rowidx=r, colidx=c, vals=v))
+    return path
+
+
+def _stream(stderr):
+    """The ``iteration k: rnrm2 v`` lines of a run as (k, v)."""
+    return [(int(ln.split()[1].rstrip(":")), float(ln.split()[-1]))
+            for ln in stderr.splitlines() if ln.startswith("iteration ")]
+
+
+@pytest.mark.parametrize("solver,flags", [
+    ("host", ["--monitor-every", "10"]),
+    ("petsc", ["--monitor-every", "10"]),
+    ("host", ["-vv"])])
+def test_cli_host_solvers_monitor_like_jax_cli(p2d_file, solver, flags,
+                                               capsys):
+    """The host solvers' live monitor through the CLI: ``--monitor-every
+    10`` and ``-vv`` stream the JAX program's ``iteration k:`` lines
+    (``-vv`` one a step)."""
+    from acg_torch import cli
+    from acg_tpu import cli as jcli
+
+    argv = [p2d_file, "--solver", solver, "--manufactured-solution",
+            "--max-iterations", "500", "-q", *flags]
+    rc, its, out, err = _main_iterations(cli.main, argv, capsys)
+    rcj, itsj, outj, errj = _main_iterations(jcli.main, argv, capsys)
+    assert rc == rcj == 0, out + err + outj + errj
+    assert its == itsj
+    got, want = _stream(err), _stream(errj)
+    every = 10 if "--monitor-every" in flags else 1
+    assert [k for k, _ in got] == [k for k, _ in want] == list(
+        range(every, its + 1, every))
+    np.testing.assert_allclose([v for _, v in got], [v for _, v in want],
+                               rtol=1e-8)
+
+
+@pytest.mark.parametrize("fmt", ["%s", "%r", "%5s", "%x", "abc", "%.17g",
+                                 "%12.4e", "%d"])
+def test_cli_numfmt_like_jax_cli(p2d_file, tmp_path, fmt, capsys):
+    """``--numfmt`` is parsed as the JAX program parses it (a single
+    numeric ``%[flags][width][.precision](d|i|u|e|E|f|F|g|G)``): the same
+    exit code and message, and where a format is accepted the same
+    solution file, byte for byte."""
+    from acg_torch import cli
+    from acg_tpu import cli as jcli
+
+    outs = []
+    for main, name in ((cli.main, "port"), (jcli.main, "jax")):
+        path = str(tmp_path / f"{name}.mtx")
+        rc = main([p2d_file, "--solver", "host", "--manufactured-solution",
+                   "--max-iterations", "500", "-q", "--numfmt", fmt,
+                   "--output-solution", path])
+        err = capsys.readouterr().err
+        outs.append((rc, err, open(path, "rb").read() if rc == 0 else None))
+    (rc, err, x), (rcj, errj, xj) = outs
+    assert rc == rcj, err + errj
+    assert err == errj
+    if fmt in ("%.17g", "%12.4e", "%d"):
+        assert rc == 0 and x == xj and len(x.splitlines()) > 144
+    else:
+        assert rc == 2
+        assert err.startswith("error: --numfmt: invalid numeric format")

@@ -2142,13 +2142,23 @@ def test_capture_after_a_failed_capture(card):
 # the s-step and deep coefficient kernels, and their loops as graphs
 
 
-def _sstep_gram(s, nsys, dtype, seed=0):
-    """Gram matrices of real s-step bases (a 3-D Poisson operator, random
-    right-hand sides, shifts from the Chebyshev seeds), (nsys, m, m)."""
+def _sstep_gram(s, nsys, dtype, seed=0, spectrum="poisson"):
+    """Gram matrices of real s-step bases, (nsys, m, m): a 3-D Poisson
+    operator, or ("clustered") a diagonal one whose 240 eigenvalues sit
+    in three clusters 1e-7 wide, random right-hand sides, shifts from the
+    Chebyshev seeds."""
     from acg_torch.solvers.cg import (_cheb_leja_nodes, _sstep_block_fn,
                                       build_device_operator)
+    from acg_torch.sparse.csr import coo_to_csr
 
-    A = poisson.poisson3d_7pt(9)
+    if spectrum == "clustered":
+        n = 240
+        i = np.arange(n)
+        A = coo_to_csr(i, i, np.repeat([1.0, 3.0, 9.0], n // 3)
+                       + 1e-7 * np.tile(np.arange(n // 3) / (n // 3), 3),
+                       n, n)
+    else:
+        A = poisson.poisson3d_7pt(9)
     op = build_device_operator(A, dtype=dtype, device="cpu")
     rng = np.random.default_rng(seed)
     out = []
@@ -2164,19 +2174,28 @@ def _sstep_gram(s, nsys, dtype, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("s,nsys", [(2, 1), (4, 3), (6, 2)])
-def test_sstep_coeffs_kernel_matches_plain(card, s, nsys, dtype):
+@pytest.mark.parametrize("gram", ["poisson", "clustered", "nan"])
+@pytest.mark.parametrize("nsys", [1, 8])
+@pytest.mark.parametrize("s", [1, 2, 4, 8, 16])
+def test_sstep_coeffs_kernel_matches_plain(card, s, nsys, gram, dtype):
     """One s-step block's coefficient kernel against its plain version
-    on the same inputs on the card (real Gram matrices; a system already
-    converged, one at maxits): flags, counts and ``changed`` equal, xc,
-    pc, rr, the new shifts and the history within 1e-12 (f64) / 1e-4
-    (f32) of their scale (the Leja order's logs are the libraries'), the
-    status rows equal but for the monitor values, within the same
-    tolerance."""
+    on the same inputs on the card (real Gram matrices, of a Poisson
+    operator or of a clustered spectrum, or with a NaN in the first
+    system's (the status path); with several systems one already
+    converged and one at maxits): flags, counts and ``changed`` equal,
+    the new shifts equal bit for bit as a set (the eigenvalues are the
+    sequential bisection's, which the plain version runs on the card's
+    tensors), xc, pc, rr, the shifts in their Leja order and the history
+    within 1e-12 (f64) / 1e-4 (f32) of their scale (the Leja order's
+    logs are the libraries'), the status rows equal but for the monitor
+    values, within the same tolerance."""
     from acg_torch.ops import sstep_coeffs as sc
 
-    G, th = _sstep_gram(s, nsys, dtype)
+    G, th = _sstep_gram(s, nsys, dtype, spectrum=(
+        "clustered" if gram == "clustered" else "poisson"))
     m, maxits = 2 * s + 1, 40
+    if gram == "nan":
+        G[0, 0, m - 1] = float("nan")
     tdt = G.dtype
     rr0 = G[:, s + 1, s + 1].clone()
 
@@ -2206,7 +2225,11 @@ def test_sstep_coeffs_kernel_matches_plain(card, s, nsys, dtype):
     got = {k: v.cpu() for k, v in got.items()}
     for k in ("flag", "kiter", "changed"):
         assert torch.equal(got[k], want[k]), k
-    assert bool(want["changed"][0])
+    assert bool(want["changed"][0]) == (gram != "nan")
+    if gram == "nan":
+        assert int(got["flag"][0]) == 4
+    assert torch.equal(torch.sort(got["shifts"], dim=1).values,
+                       torch.sort(want["shifts"], dim=1).values)
     tol = 1e-12 if dtype == np.float64 else 1e-4
     for k in ("coef", "rr", "shifts", "hist"):
         scale = float(want[k].nan_to_num().abs().max())
@@ -2215,8 +2238,9 @@ def test_sstep_coeffs_kernel_matches_plain(card, s, nsys, dtype):
         assert torch.equal(torch.isnan(got[k]), torch.isnan(want[k]))
     st, sw = got["status"], want["status"]
     assert torch.equal(st[:, :2], sw[:, :2])
-    assert float((st[:, 2] - sw[:, 2]).abs().max()) <= (
-        tol * float(sw[:, 2].abs().max()))
+    assert torch.equal(torch.isnan(st[:, 2]), torch.isnan(sw[:, 2]))
+    assert float((st[:, 2] - sw[:, 2]).nan_to_num().abs().max()) <= (
+        tol * float(sw[:, 2].nan_to_num().abs().max()))
 
 
 def _deep_state(l, nsys, dtype, maxits, seed):
@@ -2257,15 +2281,16 @@ def _deep_state(l, nsys, dtype, maxits, seed):
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("nsys", [1, 3])
-@pytest.mark.parametrize("l", [2, 3])
+@pytest.mark.parametrize("nsys", [1, 3, 8, 33, 130])
+@pytest.mark.parametrize("l", [2, 3, 4, 5, 6, 7, 8])
 def test_deep_coeffs_kernel_bits(card, l, nsys, dtype):
     """Ten bodies' scalar chains through the kernel and the plain
     version, both on the card, state carried: every buffer bit-equal
     after each (NaN where the other has NaN), over t = 0 (lambda = 0),
     t < l (the shifts), the recurrence, check and non-check bodies, the
     guard, and a breakdown (a negative dot block's diagonal) in the last
-    body.  (On the CPU torch's sqrt is not always correctly rounded, so
+    body; every depth the kernel instantiates, one system, batches in
+    one and several warps, and past the small block's 128 threads.  (On the CPU torch's sqrt is not always correctly rounded, so
     the plain version runs on the card's tensors.)"""
     from acg_torch.ops import deep_coeffs as dc
 

@@ -14,6 +14,7 @@ import pytest
 
 from acg_tpu.config import SolverOptions as JOptions
 from acg_tpu.errors import AcgError as JAcgError
+from acg_tpu.obs import monitor as jmon
 from acg_tpu.solvers.baseline import cg_scipy as jcg_scipy
 from acg_tpu.solvers.cg_host import cg_host as jcg_host
 from acg_tpu.sparse import csr as jcsr
@@ -22,6 +23,7 @@ from acg_tpu.sparse import poisson as jpoisson
 from acg_torch.config import SolverOptions
 from acg_torch.errors import AcgError, Status
 from acg_torch.io.mtxfile import MtxFile, write_mtx
+from acg_torch.obs import monitor as tmon
 from acg_torch.solvers.baseline import cg_scipy
 from acg_torch.solvers.cg_host import cg_host
 from acg_torch.sparse import csr as tcsr
@@ -113,17 +115,60 @@ def test_host_solver_errors_match_jax():
         cg_host(_indefinite(tcsr), bi, options=SolverOptions(maxits=200))
     assert et.value.status == Status.ERR_NOT_CONVERGED_INDEFINITE_MATRIX
     assert et.value.result.niterations == ej.value.result.niterations
-    # the SciPy baseline takes residual criteria only; the live monitor
-    # is not yet ported
+    # the SciPy baseline takes residual criteria only
     with pytest.raises(AcgError) as et:
         cg_scipy(At, b, options=SolverOptions(diffatol=1e-8))
     assert et.value.status == Status.ERR_NOT_SUPPORTED
-    for tf in (cg_host, cg_scipy):
-        with pytest.raises(AcgError, match="not yet ported"):
-            tf(At, b, options=SolverOptions(monitor_every=5))
     # no criteria: maxits iterations, reported converged
     r = cg_host(At, b, options=SolverOptions(maxits=7, residual_rtol=0.0))
     assert r.converged and r.niterations == 7
+
+
+def _monitor_lines(mon, run):
+    """The ``(k, rr)`` pairs a solve emits through ``mon``'s sinks (the
+    stderr printer muted)."""
+    got = []
+
+    def sink(k, rr):
+        got.append((int(k), float(rr)))
+
+    mon.add_monitor_sink(sink)
+    try:
+        with mon.muted():
+            res = run()
+    finally:
+        mon.remove_monitor_sink(sink)
+    return got, res
+
+
+@pytest.mark.parametrize("every", [1, 5])
+@pytest.mark.parametrize("which", ["cg_host", "cg_scipy"])
+def test_host_monitor_lines_match_jax(which, every):
+    """``monitor_every`` on the host solvers: the same ``(k, rr)`` lines
+    as the JAX package's (cg_host: the recurred |r_k|^2 after each
+    update; cg_scipy: the true |b - S x_k|^2 from SciPy's callback), to
+    the last rounding of the CSR products, on a 12^2 Poisson system."""
+    Aj, At = jpoisson.poisson2d_5pt(12), tpoisson.poisson2d_5pt(12)
+    _, b = tcsr.manufactured_rhs(At, seed=4)
+    jf, tf = {"cg_host": (jcg_host, cg_host),
+              "cg_scipy": (jcg_scipy, cg_scipy)}[which]
+    o = dict(maxits=500, residual_rtol=1e-10, monitor_every=every)
+    want, _ = _monitor_lines(jmon, lambda: jf(Aj, b, options=JOptions(**o)))
+    got, res = _monitor_lines(tmon,
+                              lambda: tf(At, b, options=SolverOptions(**o)))
+    assert want, "the JAX solve emitted nothing"
+    assert [k for k, _ in got] == [k for k, _ in want]
+    assert [k for k, _ in got] == list(range(every, res.niterations + 1,
+                                             every))
+    np.testing.assert_allclose([rr for _, rr in got],
+                               [rr for _, rr in want], rtol=1e-12)
+    # the lines are the history's samples (SciPy records it when the
+    # monitor is on), and monitoring changes nothing the solve returns
+    for k, rr in got:
+        assert rr == res.residual_history[k]
+    quiet = tf(At, b, options=SolverOptions(**dict(o, monitor_every=0)))
+    np.testing.assert_array_equal(res.x, quiet.x)
+    assert res.niterations == quiet.niterations
 
 
 def test_cg_host_guard_nonfinite():

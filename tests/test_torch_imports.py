@@ -50,7 +50,8 @@ def test_import_leaves_jax_out_of_sys_modules():
             "acg_torch.parallel.deep, acg_torch.tools.mtxpartition, "
             "acg_torch.obs.audit, acg_torch.obs.export, "
             "acg_torch.obs.roofline, acg_torch.obs.events, "
-            "acg_torch.utils.profile, acg_torch.utils.stats; "
+            "acg_torch.utils.profile, acg_torch.utils.stats, "
+            "acg_torch.utils.fmtspec; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO))

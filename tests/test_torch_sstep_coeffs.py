@@ -22,6 +22,8 @@ eps |T|), and against ``acg_tpu``'s Leja order of LAPACK's eigenvalues.
 
 import importlib
 
+import hypothesis as hyp
+import hypothesis.strategies as st
 import numpy as np
 import pytest
 import torch
@@ -356,6 +358,109 @@ def test_bisection_degenerate_spectra(dtype):
     assert float((got - want).abs().max()) <= tol
     assert torch.equal(sc.leja_order(torch.ones((2, s), dtype=d.dtype)),
                        torch.ones((2, s), dtype=d.dtype))
+
+
+# ---------------------------------------------------------------------------
+# the kernel's speculative bisection tree, modelled in NumPy
+
+
+def _tree_sturm(d, ee, x, pivmin):
+    """The LDLᵀ pivots' count at or below ``x`` (``sturm`` in
+    csrc/sstep_coeffs.cu), one scalar at a time."""
+    q = d[0] - x
+    if abs(q) < pivmin:
+        q = -pivmin
+    cnt = int(q <= 0)
+    for i in range(1, len(d)):
+        q = (d[i] - x) - ee[i - 1] / q
+        if abs(q) < pivmin:
+            q = -pivmin
+        cnt += int(q <= 0)
+    return cnt
+
+
+def tree_eigenvalue(d, ee, k, a, c, pivmin, halvings, levels=5):
+    """Eigenvalue k as the kernel's warp finds it: each round, lane n of
+    31 takes node n (heap order) of the next ``levels`` levels of the
+    halvings, its interval from its ancestors' midpoints; the lanes'
+    counts at their midpoints pick the path."""
+    half = d.dtype.type(0.5)
+    h = 0
+    while h < halvings:
+        lev = min(levels, halvings - h)
+        nodes = []
+        for lane in range((1 << lev) - 1):
+            p = lane + 1
+            na, nc = a, c
+            for bit in range(p.bit_length() - 2, -1, -1):
+                mid = (na + nc) * half
+                if p >> bit & 1:
+                    na = mid
+                else:
+                    nc = mid
+            up = _tree_sturm(d, ee, (na + nc) * half, pivmin) > k
+            nodes.append((na, nc, up))
+        node = 0
+        for _ in range(1, lev):
+            node = 2 * node + (1 if nodes[node][2] else 2)
+        na, nc, up = nodes[node]
+        mid = (na + nc) * half
+        a, c = (na, mid) if up else (mid, nc)
+        h += lev
+    return (a + c) * half
+
+
+def _tridiagonals(dtype):
+    """Random and degenerate symmetric tridiagonals (d, e) of s = 1..12:
+    any diagonal, off-diagonals with zeros (split blocks, repeated
+    eigenvalues), a constant diagonal, tiny off-diagonals (clusters)."""
+    fin = st.floats(-1e3, 1e3, allow_nan=False, width=32)
+
+    @st.composite
+    def pairs(draw):
+        s = draw(st.integers(1, 12))
+        kind = draw(st.sampled_from(["random", "split", "constant",
+                                     "cluster"]))
+        d = np.array(draw(st.lists(fin, min_size=s, max_size=s)), dtype)
+        e = np.array(draw(st.lists(fin, min_size=s - 1, max_size=s - 1)),
+                     dtype)
+        if kind == "split":
+            e[::2] = 0
+        elif kind == "constant":
+            d[:] = d[0]
+        elif kind == "cluster":
+            d[:] = d[0]
+            e *= dtype(1e-9)
+        return d, e
+
+    return pairs()
+
+
+@pytest.mark.parametrize("halvings", [40, 64])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_speculative_tree_is_the_sequential_bisection(dtype, halvings):
+    """The kernel's five-level speculative bisection tree (modelled in
+    NumPy above) gives ``tridiag_eigvalsh``'s sequential halvings bit
+    for bit, from the same Gershgorin interval and pivot floor, on
+    random and degenerate tridiagonals at f32 and f64."""
+
+    @hyp.settings(max_examples=40, deadline=None, derandomize=True,
+                  database=None)
+    @hyp.given(_tridiagonals(dtype))
+    def check(de):
+        d, e = de
+        td, te = torch.from_numpy(d)[None], torch.from_numpy(e)[None]
+        want = sc.tridiag_eigvalsh(td, te, halvings)[0].numpy()
+        lo, hi, pivmin = (v[0, 0].numpy()[()] for v in
+                          sc._gershgorin(td, te))
+        ee = (te * te)[0].numpy()
+        got = np.array([tree_eigenvalue(d, ee, k, lo, hi, pivmin, halvings)
+                        for k in range(len(d))], dtype)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got.view(np.uint8),
+                                      want.view(np.uint8))
+
+    check()
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
